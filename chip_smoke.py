@@ -12,13 +12,25 @@ Phases (each failure exits non-zero before the final line):
                bf16 96^3 forward): error vs tolerance; at the main sites
                also kernel / plain / library time (CUDA events, median) and
                the bound;
-  3. model   — the full-width model (128 ch, (1,1,2,3,4), 2 res blocks) in
+  3. backward — at every distinct conv and GroupNorm shape of one bf16 96^3
+               training step (read by hooks): the conv dx kernel, the
+               library filter gradient and the GroupNorm Function's backward
+               against their plain versions; each timed, and summed per step;
+               at the main sites also the plain and library (cuDNN) times;
+  4. model   — the full-width model (128 ch, (1,1,2,3,4), 2 res blocks) in
                f32 at a small spatial size, kernel path on the card against
-               the plain path on the CPU;
-  4. denoise — ``denoise_volume`` at 128 ch / 96^3 patches / bf16 on a
+               the plain path on the CPU: the forward, then one training
+               loss and every parameter gradient;
+  5. denoise — ``denoise_volume`` at 128 ch / 96^3 patches / bf16 on a
                synthetic volume with a short respaced chain; the launch
                counters are zeroed just before and read just after; then a
-               torch.profiler breakdown of one forward by kernel family.
+               torch.profiler breakdown of one forward by kernel family;
+  6. train   — the training CLI (``ddpm3d_tpu_torch.scripts.train``) at the
+               production flags on a synthetic (2, 96, 200, 200) low/high
+               pair: 6 bf16 steps at batch 1 with the launch counters zeroed
+               just before; step time, peak memory, losses, launches per
+               step, save time; the saved ``model*.pt`` loaded into a serving
+               model with ``strict=True``; then a profile of one step.
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
 
@@ -28,10 +40,15 @@ Weights are random, made from ``--seed``. Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import collections
+import copy
+import csv
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -46,6 +63,9 @@ KERNELS = {
     "conv3d": dict(
         route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d.cu",
         replaces="ddpm3d_tpu/ops/conv3d_mxu.py:203"),
+    "conv3d_dx": dict(
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d.cu",
+        replaces="ddpm3d_tpu/ops/conv3d_mxu.py:267"),
     "gn_stats": dict(
         route="cuda", source="ddpm3d_tpu_torch/csrc/groupnorm.cu",
         replaces="ddpm3d_tpu/ops/groupnorm.py:116"),
@@ -59,6 +79,18 @@ KERNELS = {
 # f32 outputs only by summation order.
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 MODEL_TOL = 1e-4  # f32 forward, ~70 layers of reordered f32 sums
+GRAD_TOL = 1e-3   # f32 loss and gradients, per tensor: forward and backward
+FORWARD_KERNELS = ("conv3d", "gn_stats", "gn_apply")
+# the production training flags (test_DDPM_3d_tpu.sh model flags with the
+# training CLI's defaults: batch 1, lr 1e-4, EMA 0.9999, AdamW)
+TRAIN_FLAGS = [
+    "--large_size", "96", "--num_channels", "128", "--learn_sigma", "True",
+    "--use_fp16", "True", "--use_scale_shift_norm", "True",
+    "--resblock_updown", "True", "--attention_resolutions", "1000",
+    "--num_head_channels", "64", "--diffusion_steps", "1000",
+    "--noise_schedule", "linear",
+]
+TRAIN_STEPS = 6
 
 
 def emit(obj) -> None:
@@ -283,6 +315,9 @@ def _model(use_fp16: bool, seed: int):
 
 
 def phase_model(seed: int) -> None:
+    from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
+    from ddpm3d_tpu_torch.training import train_loop as tl
+
     model, _, _ = _model(use_fp16=False, seed=seed)
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((1, 8, 32, 32, 1), np.float32))
@@ -290,14 +325,45 @@ def phase_model(seed: int) -> None:
     t = torch.tensor([517])
     with torch.no_grad():
         ref = model(x, t, low_res=low)
-        model.cuda()
-        out = model(x.cuda(), t.cuda(), low_res=low.cuda()).cpu()
+        out = copy.deepcopy(model).cuda()(
+            x.cuda(), t.cuda(), low_res=low.cuda()).cpu()
     err, rel = rel_err(out, ref)
     emit({"phase": "model", "shape": list(x.shape), "channels": 128,
           "dtype": "float32", "max_abs_err": err, "rel_err": rel,
           "tol": MODEL_TOL, "ref_abs_max": ref.abs().max().item()})
     check(ref.abs().max().item() > 1e-3, "model output is non-trivial")
     check(rel <= MODEL_TOL, f"full-width model kernel path rel err {rel}")
+
+    # one training loss and every parameter gradient, same t and noise
+    sched, cfg = create_gaussian_diffusion(
+        steps=1000, learn_sigma=True, noise_schedule="linear")
+    x0 = torch.from_numpy(np.clip(x.numpy(), -1, 1))
+    noise = torch.from_numpy(rng.standard_normal(x.shape, np.float32))
+    grads, losses = [], []
+    for dev in ("cpu", "cuda"):
+        m = model if dev == "cpu" else copy.deepcopy(model).cuda()
+        m.train()
+        terms = tl.compute_grads(
+            m, sched.to(dev), cfg, x0.to(dev), {"low_res": low.to(dev)},
+            t.to(dev), torch.ones(1, device=dev), noise=noise.to(dev))
+        losses.append(terms["loss"].cpu())
+        grads.append({n: p.grad.cpu() for n, p in m.named_parameters()})
+        del m
+    loss_rel = rel_err(losses[1], losses[0])[1]
+    worst, worst_name = 0.0, None
+    for name, g_ref in grads[0].items():
+        r = rel_err(grads[1][name], g_ref)[1]
+        if r > worst:
+            worst, worst_name = r, name
+    emit({"phase": "model_grads", "shape": list(x.shape), "dtype": "float32",
+          "t": t.tolist(), "loss_cpu": losses[0].tolist(),
+          "loss_card": losses[1].tolist(), "loss_rel_err": loss_rel,
+          "tensors": len(grads[0]), "worst_grad_rel_err": worst,
+          "worst_grad_tensor": worst_name, "tol": GRAD_TOL})
+    check(all(bool(torch.isfinite(g).all()) for g in grads[1].values()),
+          "card gradients finite")
+    check(loss_rel <= GRAD_TOL, f"training loss rel err {loss_rel}")
+    check(worst <= GRAD_TOL, f"gradient {worst_name} rel err {worst}")
 
 
 def phase_denoise(model, sched, cfg, seed: int) -> dict:
@@ -344,11 +410,44 @@ def phase_denoise(model, sched, cfg, seed: int) -> dict:
     check(line["finite"], "denoised volume is finite")
     check(tuple(result.shape) == (144, 144, 96), "result is (H, W, Z)")
     check(float(np.abs(result).max()) > 0, "result is non-trivial")
-    for name in KERNELS:
-        check(counts[name] > 0, f"kernel {name} launched on the main path")
+    for name in FORWARD_KERNELS:
+        check(counts[name] > 0, f"kernel {name} launched on the denoise path")
+    check(counts["conv3d_dx"] == 0, "no backward on the denoise path")
     check(counts["conv3d"] == 72 * forwards, "72 convs per forward")
     check(counts["gn_stats"] == 71 * forwards, "71 GroupNorms per forward")
     return counts
+
+
+# kernel families of a profile, by substrings of the device kernels' names
+FORWARD_FAMILIES = {
+    "conv3d_bf16": ("conv3d_bf16_kernel",),
+    "conv3d_f32": ("conv3d_f32_kernel",),
+    "gn_stats": ("gn_partial_kernel", "gn_finish_kernel"),
+    "gn_apply": ("gn_apply_kernel",),
+}
+TRAIN_FAMILIES = dict(
+    FORWARD_FAMILIES,
+    dw_library=("wgrad", "Wgrad", "convolution_backward"),
+    optimizer=("multi_tensor_apply", "foreach"),
+)
+
+
+def device_breakdown(prof, families) -> tuple:
+    """Device ms of a torch.profiler run by kernel family, and the rest by
+    kernel name (cut to 70 characters)."""
+    by_family = {k: 0.0 for k in families}
+    other = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0.0)
+        if not us:
+            continue
+        fam = next((k for k, pats in families.items()
+                    if any(p in ev.key for p in pats)), None)
+        if fam:
+            by_family[fam] += us / 1e3
+        else:
+            other[ev.key[:70]] = other.get(ev.key[:70], 0.0) + us / 1e3
+    return by_family, other
 
 
 def phase_profile(model) -> None:
@@ -363,29 +462,395 @@ def phase_profile(model) -> None:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             model(x, t, low_res=x)
             torch.cuda.synchronize()
-    families = {"conv3d_bf16": "conv3d_bf16_kernel",
-                "conv3d_f32": "conv3d_f32_kernel",
-                "gn_stats": ("gn_partial_kernel", "gn_finish_kernel"),
-                "gn_apply": "gn_apply_kernel"}
-    by_family = {k: 0.0 for k in families}
-    other = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", 0.0)
-        if not us:
-            continue
-        fam = next((k for k, pat in families.items()
-                    if any(p in ev.key for p in
-                           ((pat,) if isinstance(pat, str) else pat))), None)
-        if fam:
-            by_family[fam] += us / 1e3
-        else:
-            other[ev.key[:60]] = other.get(ev.key[:60], 0.0) + us / 1e3
+    by_family, other = device_breakdown(prof, FORWARD_FAMILIES)
     top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])
     device_ms = sum(by_family.values()) + sum(other.values())
     emit({"phase": "profile", "forward_ms": fwd_ms, "batch": 1,
           "device_ms": device_ms, "kernel_ms": by_family,
           "other_ms": sum(other.values()), "top_other_ms": top,
           "idle_share": max(0.0, 1 - device_ms / fwd_ms)})
+
+
+def training_shapes(model, sched, cfg) -> tuple:
+    """Every conv and GroupNorm call of one bf16 96^3 batch-1 training step
+    (forward and backward through ``compute_grads``), read by forward
+    pre-hooks, with the number of calls of each: conv (D, H, W, Cin, Cout,
+    dtype, dx needed) and GN (N, C, dtype, film, silu)."""
+    from ddpm3d_tpu_torch.models.nn import Conv3x3x3, GroupNorm32
+    from ddpm3d_tpu_torch.training import train_loop as tl
+
+    convs, gns = collections.Counter(), collections.Counter()
+
+    def conv_hook(mod, args):
+        x = args[0]
+        _, D, H, W, cin = x.shape
+        convs[(D, H, W, cin, mod.weight.shape[0], x.dtype,
+               bool(x.requires_grad))] += 1
+
+    def gn_hook(mod, args, kwargs):
+        x = args[0]
+        gns[(int(np.prod(x.shape[1:-1])), x.shape[-1], x.dtype,
+             kwargs.get("film_scale") is not None,
+             bool(kwargs.get("apply_silu", False)))] += 1
+
+    handles = []
+    for m in model.modules():
+        if isinstance(m, Conv3x3x3):
+            handles.append(m.register_forward_pre_hook(conv_hook))
+        elif isinstance(m, GroupNorm32):
+            handles.append(m.register_forward_pre_hook(gn_hook,
+                                                       with_kwargs=True))
+    x = torch.randn((1, 96, 96, 96, 1), device="cuda").clamp(-1, 1)
+    tl.compute_grads(model.train(), sched.to("cuda"), cfg, x,
+                     {"low_res": x}, torch.tensor([500], device="cuda"),
+                     torch.ones(1, device="cuda"))
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    model.zero_grad(set_to_none=True)
+    model.eval()
+    return convs, gns
+
+
+# backward sites that are timed beside their plain and library versions:
+# forward conv (D, H, W, Cin, Cout, dtype); the dx conv maps Cout -> Cin
+DX_TIMED = [
+    (96, 96, 96, 128, 128, torch.bfloat16),   # level-0 ResBlock conv
+    (96, 96, 96, 256, 128, torch.bfloat16),   # level-0 decoder in_conv
+    (96, 48, 48, 256, 128, torch.bfloat16),   # level-1 decoder in_conv
+    (96, 6, 6, 1024, 512, torch.bfloat16),    # level-4 decoder in_conv
+    (96, 96, 96, 128, 2, torch.float32),      # head conv: dx is f32 2 -> 128
+]
+
+
+def _library_dx(dy, x, w):
+    """cuDNN's data-gradient conv on NCDHW views (the yardstick; TF32 is
+    off for the whole script)."""
+    return torch.ops.aten.convolution_backward(
+        dy.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3), w, None,
+        [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1,
+        [True, False, False])[0]
+
+
+def _gn_plain(x, scale, bias, fs, fh, silu):
+    """The plain GroupNorm composition (differentiable torch ops)."""
+    from ddpm3d_tpu_torch.ops import groupnorm as gn
+
+    g, b = gn.fold_gn_affine(gn.channel_stats_plain(x), x.shape[1], scale,
+                             bias, film_scale=fs, film_shift=fh)
+    return gn.gn_apply_plain(x, g, b, silu)
+
+
+def phase_backward(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
+    """At every distinct backward shape of a training step: the conv dx
+    kernel and the library filter gradient against their plain versions,
+    and the GroupNorm Function's backward against autograd through the
+    plain GroupNorm. Each is timed; per-step sums weight the times by the
+    calls per step."""
+    from ddpm3d_tpu_torch.ops import conv3d as cv
+    from ddpm3d_tpu_torch.ops import groupnorm as gn
+
+    dev = torch.device("cuda")
+    dx_keys = {k[:6] for k in conv_shapes if k[6]}
+    for case in DX_TIMED:
+        check(case in dx_keys, f"timed dx {case} is on the training path")
+    per_step = {"conv3d_dx_ms": 0.0, "dw_library_ms": 0.0,
+                "gn_backward_ms": 0.0}
+    summary, worst = {}, collections.defaultdict(float)
+    checked = collections.Counter()
+    order = DX_TIMED + sorted((k[:6] for k in conv_shapes
+                               if k[:6] not in DX_TIMED), key=str)
+    calls = collections.Counter()
+    needs_dx = collections.defaultdict(bool)
+    for k, n in conv_shapes.items():
+        calls[k[:6]] += n
+        needs_dx[k[:6]] |= k[6]
+    for case in dict.fromkeys(order):
+        D, H, W, cin, cout, dt = case
+        x = torch.randn((1, D, H, W, cin), generator=gen, device=dev).to(dt)
+        dy = torch.randn((1, D, H, W, cout), generator=gen, device=dev).to(dt)
+        w = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev)
+             * (27 * cin) ** -0.5)
+        vox, isz = D * H * W, x.element_size()
+        flops = 2.0 * 27 * cin * cout * vox
+        base = dict(shape=[1, D, H, W], cin=cin, cout=cout,
+                    dtype=str(dt).split(".")[-1], calls_per_step=calls[case])
+        lines = []
+        if needs_dx[case]:
+            wpd = cv.pack_weight_dx(w, dt)
+            dx = cv.conv3d_dx_kernel(dy, wpd)
+            dx_ref = cv.conv3d_dx_plain(dy, w)
+            torch.cuda.synchronize()
+            err, rel = rel_err(dx, dx_ref)
+            check(bool(torch.isfinite(dx.float()).all()), "conv3d_dx finite")
+            line = dict(kernel="conv3d_dx", **base, max_abs_err=err,
+                        rel_err=rel, tol=TOL[dt],
+                        kernel_ms=time_ms(lambda: cv.conv3d_dx_kernel(dy, wpd)))
+            per_step["conv3d_dx_ms"] += line["kernel_ms"] * calls[case]
+            if case in DX_TIMED:
+                wd = w.to(dt)
+                line["plain_ms"] = time_ms(lambda: cv.conv3d_dx_plain(dy, w),
+                                           reps=3, warmup=1)
+                line["library_ms"] = time_ms(lambda: _library_dx(dy, x, wd))
+                nbytes = vox * (cin + cout) * isz + 27 * cin * cout * isz
+                line["bound_ms"], line["bound_by"] = bound(flops, nbytes, dt)
+            lines.append(line)
+            del dx, dx_ref
+        dw = cv.conv3d_dw_library(x, dy)
+        dw_ref = cv.conv3d_dw_plain(x, dy)
+        torch.cuda.synchronize()
+        err, rel = rel_err(dw, dw_ref)
+        line = dict(kernel="dw_library", **base, max_abs_err=err, rel_err=rel,
+                    tol=TOL[dt],
+                    library_ms=time_ms(lambda: cv.conv3d_dw_library(x, dy)))
+        per_step["dw_library_ms"] += line["library_ms"] * calls[case]
+        if case in DX_TIMED:
+            line["plain_ms"] = time_ms(lambda: cv.conv3d_dw_plain(x, dy),
+                                       reps=3, warmup=1)
+            nbytes = vox * (cin + cout) * isz + 27 * cin * cout * isz
+            line["bound_ms"], line["bound_by"] = bound(flops, nbytes, dt)
+        lines.append(line)
+        for line in lines:
+            emit(line)
+            name = line["kernel"]
+            check(line["rel_err"] <= line["tol"],
+                  f"{name} {line['shape']} {cin}->{cout} rel err "
+                  f"{line['rel_err']}")
+            checked[name] += 1
+            worst[name] = max(worst[name], line["rel_err"])
+            summary.setdefault(name, line)
+        del x, dy, dw, dw_ref
+
+    gn_calls = collections.Counter()
+    for k, n in gn_shapes.items():
+        gn_calls[k] += n
+    for case in sorted(gn_calls, key=lambda k: (-k[0] * k[1], str(k))):
+        N, C, dt, film, silu = case
+        x = (torch.randn((1, N, C), generator=gen, device=dev) * 2 + 0.5).to(dt)
+        do = torch.randn((1, N, C), generator=gen, device=dev).to(dt)
+        scale = 1 + 0.1 * torch.randn((C,), generator=gen, device=dev)
+        shift = 0.1 * torch.randn((C,), generator=gen, device=dev)
+        fs = fh = None
+        if film:
+            fs = 0.1 * torch.randn((1, C), generator=gen, device=dev)
+            fh = 0.1 * torch.randn((1, C), generator=gen, device=dev)
+        got, ref = [], []
+        for fn, out in ((lambda *a: gn.group_norm(
+                            *a[:3], film_scale=a[3], film_shift=a[4],
+                            apply_silu=silu), got),
+                        (lambda *a: _gn_plain(*a, silu), ref)):
+            ins = [None if v is None else v.detach().clone().requires_grad_()
+                   for v in (x, scale, shift, fs, fh)]
+            fn(*ins).backward(do)
+            out.extend(v.grad for v in ins if v is not None)
+        torch.cuda.synchronize()
+        mean_c, rstd_c = gn.gn_moments(gn.channel_stats(x), N)
+        bwd = lambda: gn.group_norm_backward(  # noqa: E731
+            do, x, scale, shift, fs, fh, mean_c, rstd_c, gn.NORM_GROUPS, silu)
+        names = ["dx", "d_scale", "d_bias", "d_film_scale", "d_film_shift"]
+        errs = {}
+        for nm, g_, r_ in zip(names, got, ref):
+            check(bool(torch.isfinite(g_.float()).all()), f"GN {nm} finite")
+            errs[nm] = rel_err(g_, r_)[1]
+        tol = {nm: TOL[dt] if nm == "dx" else TOL[torch.float32]
+               for nm in errs}
+        isz = x.element_size()
+        nbytes = 3 * N * C * isz  # x and dy read, dx written
+        bms, by = bound(12.0 * N * C, nbytes, torch.float32)
+        line = dict(kernel="gn_backward", shape=[1, N, C],
+                    dtype=str(dt).split(".")[-1], film=film, silu=silu,
+                    calls_per_step=gn_calls[case], rel_err=errs, tol=tol,
+                    max_abs_err=rel_err(got[0], ref[0])[0],
+                    plain_ms=time_ms(bwd), bound_ms=bms, bound_by=by,
+                    library_ms=None)
+        per_step["gn_backward_ms"] += line["plain_ms"] * gn_calls[case]
+        emit(line)
+        for nm, r in errs.items():
+            check(r <= tol[nm], f"GN backward {nm} {[1, N, C]} rel err {r}")
+        checked["gn_backward"] += 1
+        worst["gn_backward"] = max(worst["gn_backward"], max(errs.values()))
+        summary.setdefault("gn_backward", line)
+        del x, do, got, ref
+    emit({"phase": "backward", "shapes_checked": dict(checked),
+          "worst_rel_err": dict(worst), "per_step_ms": per_step})
+    for name, n in checked.items():
+        summary[name] = dict(summary[name], shapes_checked=n)
+    return summary
+
+
+def _read_progress(path: str) -> list:
+    with open(path) as f:
+        return [{k: float(v) for k, v in row.items() if v not in ("", None)}
+                for row in csv.DictReader(f)]
+
+
+def phase_train(seed: int) -> dict:
+    """The training CLI at the production flags on a synthetic volume pair:
+    6 steps at batch 1, saved at steps 0 and 5 (``DIFFUSION_TRAINING_TEST``
+    stops after the first save past step 0). Steps and saves are timed by
+    wrapping ``TrainLoop.run_step`` / ``TrainLoop.save``."""
+    from ddpm3d_tpu_torch import ops
+    from ddpm3d_tpu_torch.data import tiff_io
+    from ddpm3d_tpu_torch.models.factory import sr_create_model_and_diffusion
+    from ddpm3d_tpu_torch.models.nn import init_params
+    from ddpm3d_tpu_torch.scripts import train as train_cli
+    from ddpm3d_tpu_torch.training import TrainLoop
+    from ddpm3d_tpu_torch.utils.config import (
+        args_to_dict, sr_model_and_diffusion_defaults)
+    from ddpm3d_tpu_torch.utils.convert import load_checkpoint
+
+    step_ms, save_s, loops = [], [], []
+    run_step, save = TrainLoop.run_step, TrainLoop.save
+
+    def timed_step(self, *a, **k):
+        if not loops:
+            loops.append(self)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run_step(self, *a, **k)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        return out
+
+    def timed_save(self):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = save(self)
+        save_s.append(time.monotonic() - t0)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir, run_dir = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+        os.makedirs(data_dir)
+        rng = np.random.default_rng(seed)
+        high = rng.gamma(2.0, 0.5, (96, 200, 200)).astype(np.float32)
+        low = high + rng.normal(0.0, 0.3, high.shape).astype(np.float32)
+        tiff_io.imwrite(os.path.join(data_dir, "pair.tif"),
+                        np.stack([low, high]))  # (2, 96, 200, 200): 9 patches
+        argv = TRAIN_FLAGS + [
+            "--data_dir", data_dir, "--result_folder", run_dir,
+            "--save_interval", str(TRAIN_STEPS - 1), "--log_interval", "1",
+            "--seed", str(seed)]
+        TrainLoop.run_step, TrainLoop.save = timed_step, timed_save
+        os.environ["DIFFUSION_TRAINING_TEST"] = "1"
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.monotonic()
+            train_cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            counts = ops.launch_counts()
+        finally:
+            TrainLoop.run_step, TrainLoop.save = run_step, save
+            del os.environ["DIFFUSION_TRAINING_TEST"]
+        peak = torch.cuda.max_memory_allocated()
+        rows = _read_progress(os.path.join(run_dir, "progress.csv"))
+        files = sorted(os.listdir(run_dir))
+        last = f"model{TRAIN_STEPS - 1:06d}.pt"
+        check(last in files and f"ema_0.9999_{TRAIN_STEPS - 1:06d}.pt" in files
+              and f"opt{TRAIN_STEPS - 1:06d}.pt" in files,
+              f"checkpoint files at step {TRAIN_STEPS - 1}: {files}")
+        sd = load_checkpoint(os.path.join(run_dir, last))
+
+    steps = len(step_ms)
+    per_step = {k: v / steps for k, v in counts.items()}
+    line = {
+        "phase": "train", "flags": " ".join(TRAIN_FLAGS), "batch": 1,
+        "steps": steps, "step_ms": step_ms,
+        "ms_per_step": statistics.median(step_ms[1:]),
+        "max_memory_allocated_gb": peak / 2 ** 30,
+        "loss": [r.get("loss") for r in rows],
+        "mse": [r.get("mse") for r in rows],
+        "vb": [r.get("vb") for r in rows],
+        "grad_norm": [r.get("grad_norm") for r in rows],
+        "launches": counts, "launches_per_step": per_step,
+        "save_s": save_s, "wall_s": wall, "files": files,
+    }
+    emit(line)
+    check(steps == TRAIN_STEPS and len(rows) == TRAIN_STEPS,
+          f"{TRAIN_STEPS} steps logged")
+    for key in ("loss", "mse", "vb", "grad_norm"):
+        check(all(v is not None and np.isfinite(v) for v in line[key]),
+              f"{key} finite at every step")
+    check(all(v > 0 for v in line["grad_norm"]), "grad_norm > 0")
+    for name in KERNELS:
+        check(counts[name] > 0, f"kernel {name} launched on the train path")
+    check(per_step == {"conv3d": 72, "conv3d_dx": 71, "gn_stats": 71,
+                       "gn_apply": 71}, f"launches per step {per_step}")
+
+    # the saved weights serve: a serving model loads them strictly, they
+    # moved from the initial ones, and a bf16 96^3 forward is finite
+    args = sr_model_and_diffusion_defaults()
+    args.update(args_to_dict(train_cli.create_argparser().parse_args(
+        TRAIN_FLAGS + ["--data_dir", "unused"]), args.keys()))
+    serving, _, _ = sr_create_model_and_diffusion(**args)
+    init_params(serving, seed=seed)
+    initial = {k: v.clone() for k, v in serving.state_dict().items()}
+    serving.load_state_dict(sd, strict=True)
+    moved = sum(not torch.equal(initial[k], v)
+                for k, v in serving.state_dict().items())
+    serving.cuda().eval()
+    x = torch.randn((1, 96, 96, 96, 1), device="cuda")
+    with torch.no_grad():
+        y = serving(x, torch.tensor([500], device="cuda"), low_res=x)
+    torch.cuda.synchronize()
+    emit({"phase": "train_checkpoint", "file": last, "tensors": len(sd),
+          "tensors_moved": moved, "forward_finite":
+          bool(torch.isfinite(y).all())})
+    check(moved > 0, "trained weights differ from the initial ones")
+    check(bool(torch.isfinite(y).all()), "served forward is finite")
+    del serving, y
+    line["loop"] = loops[0]
+    return line
+
+
+def phase_train_profile(loop) -> None:
+    """One more batch-1 training step of the CLI's loop: its parts by CUDA
+    events (loss forward, backward, update), then a torch.profiler
+    breakdown of a whole step by kernel family, and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddpm3d_tpu_torch.diffusion.losses import training_losses
+    from ddpm3d_tpu_torch.training import train_loop as tl
+
+    batch, cond = next(loop.data)
+    x = torch.as_tensor(batch).cuda()
+    c = {k: torch.as_tensor(v).cuda() for k, v in cond.items()}
+    parts = collections.defaultdict(list)
+    for _ in range(3):
+        t, w = loop.sample_t(1)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        loop.model.zero_grad(set_to_none=True)
+        ev[0].record()
+        terms = training_losses(loop.model, loop.sched, loop.cfg, x, t,
+                                model_kwargs=c, generator=loop.noise_gen)
+        loss = torch.mean(terms["loss"] * w)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        tl.apply_update(loop.state, t, {k: v.detach() for k, v in terms.items()},
+                        w, loop.lr, loop.lr_anneal_steps, loop.ema_rate)
+        ev[3].record()
+        ev[3].synchronize()
+        for name, a, b in (("forward_loss", 0, 1), ("backward", 1, 2),
+                           ("update", 2, 3)):
+            parts[name].append(ev[a].elapsed_time(ev[b]))
+    step_ms = time_ms(lambda: loop.run_step(batch, cond), reps=3, warmup=1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loop.run_step(batch, cond)
+        torch.cuda.synchronize()
+    by_family, other = device_breakdown(prof, TRAIN_FAMILIES)
+    device_ms = sum(by_family.values()) + sum(other.values())
+    emit({"phase": "train_profile", "batch": 1, "step_ms": step_ms,
+          "parts_ms": {k: statistics.median(v) for k, v in parts.items()},
+          "device_ms": device_ms, "kernel_ms": by_family,
+          "other_ms": sum(other.values()),
+          "top_other_ms": dict(sorted(other.items(), key=lambda kv: -kv[1])[:12]),
+          "idle_share": max(0.0, 1 - device_ms / step_ms)})
 
 
 def main() -> None:
@@ -406,15 +871,26 @@ def main() -> None:
     model, sched, cfg = _model(use_fp16=True, seed=args.seed)
     model.cuda()
     summary = phase_kernels(gen, *main_path_shapes(model))
+    from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
+    train_sched, train_cfg = create_gaussian_diffusion(
+        steps=1000, learn_sigma=True, noise_schedule="linear")
+    bwd = phase_backward(gen, *training_shapes(model, train_sched, train_cfg))
     phase_model(args.seed)
-    counts = phase_denoise(model, sched, cfg, args.seed)
+    denoise_counts = phase_denoise(model, sched, cfg, args.seed)
     phase_profile(model)
+    del model
+    torch.cuda.empty_cache()
+    train = phase_train(args.seed)
+    phase_train_profile(train.pop("loop"))
 
+    summary["conv3d_dx"] = bwd["conv3d_dx"]
     kernels = []
     for name, meta in KERNELS.items():
         s = summary[name]
         kernels.append(dict(
-            name=name, **meta, launches=counts[name],
+            name=name, **meta, launches=train["launches"][name],
+            launches_by_path={"denoise": denoise_counts[name],
+                              "train": train["launches"][name]},
             max_abs_err=s["max_abs_err"], ms=s["kernel_ms"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],

@@ -1,1 +1,3 @@
-"""Patch grids, Hann blending and TIFF volume IO."""
+"""Patch grids, Hann blending, TIFF volume IO and the training data."""
+
+from .dataset import PatchDataset, load_data, load_volume_pair, prefetch

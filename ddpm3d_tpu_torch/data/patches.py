@@ -1,9 +1,12 @@
-"""Inference patch grid and whole-volume reconstruction (Hann blending).
+"""Patch grids and whole-volume reconstruction (Hann blending).
 
-Own numpy copy of the inference half of ``ddpm3d_tpu/data/patches.py``:
-fixed XY starts ([0, 52, 104] for 200/96/3), Z = {0, D-96}, zero-padded
-patch extraction and 3-D Hann-window overlap blending. (The JAX package's
-C++ host tier, ``native/``, is not ported yet.)
+Own numpy copy of ``ddpm3d_tpu/data/patches.py``:
+  * training grid: XY stride 76 (20-voxel overlap) with an 80 % overlap
+    guard, Z = {0, D-96};
+  * inference grid: fixed XY starts ([0, 52, 104] for 200/96/3),
+    Z = {0, D-96};
+  * zero-padded patch extraction and 3-D Hann-window overlap blending.
+(The JAX package's C++ host tier, ``native/``, is not ported yet.)
 """
 
 from __future__ import annotations
@@ -11,6 +14,40 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+
+def train_xy_starts(dim_size: int, patch_size: int, overlap: int = 20) -> List[int]:
+    """Training-time XY starts (reference image_datasets.py:200-242)."""
+    stride = patch_size - overlap
+    max_overlap = int(patch_size * 0.8)
+    starts = [0]
+    pos = stride
+    while pos + patch_size <= dim_size:
+        prev_end = starts[-1] + patch_size
+        if max(0, prev_end - pos) > max_overlap:
+            pos += stride
+            continue
+        starts.append(pos)
+        pos += stride
+    last_end = starts[-1] + patch_size
+    if last_end < dim_size:
+        last_start = dim_size - patch_size
+        if last_start > starts[-1]:
+            prev_end = starts[-1] + patch_size
+            if max(0, prev_end - last_start) <= max_overlap:
+                starts.append(last_start)
+    return starts
+
+
+def train_z_starts(dim_size: int, patch_size: int) -> List[int]:
+    """Training-time Z starts (reference image_datasets.py:244-262)."""
+    max_overlap = int(patch_size * 0.8)
+    starts = [0]
+    if dim_size > patch_size:
+        second = dim_size - patch_size
+        if max(0, patch_size - second) <= max_overlap:
+            starts.append(second)
+    return starts
 
 
 def test_xy_starts(dim_size: int, patch_size: int, num_patches: int = 3) -> List[int]:

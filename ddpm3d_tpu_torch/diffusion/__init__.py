@@ -1,5 +1,7 @@
-"""Diffusion schedules, process math and the DDPM ancestral sampler."""
+"""Diffusion schedules, process math, training losses and the DDPM
+ancestral sampler."""
 
+from .losses import calc_bpd_loop, training_losses, vb_terms_bpd
 from .process import (
     DiffusionConfig,
     LossType,

@@ -36,7 +36,7 @@ class VarType(enum.Enum):
 
 
 class LossType(enum.Enum):
-    """Training loss selection (training waits for a later slice)."""
+    """Training loss selection (:func:`.losses.training_losses`)."""
 
     MSE = "mse"
     RESCALED_MSE = "rescaled_mse"
@@ -69,6 +69,27 @@ def model_timesteps(
     if cfg.rescale_timesteps:
         return new_t.float() * (1000.0 / cfg.original_num_steps)
     return new_t
+
+
+def q_mean_variance(sched: Schedule, x_start, t):
+    """Moments of q(x_t | x_0)."""
+    nd = x_start.dim()
+    mean = extract(sched.sqrt_alphas_cumprod, t, nd) * x_start
+    variance = extract(1.0 - sched.alphas_cumprod, t, nd)
+    log_variance = extract(sched.log_one_minus_alphas_cumprod, t, nd)
+    return mean, variance, log_variance
+
+
+def q_sample(sched: Schedule, x_start, t, noise):
+    """Sample x_t ~ q(x_t | x_0) with caller-supplied noise."""
+    if noise.shape != x_start.shape:
+        raise ValueError(
+            f"noise {tuple(noise.shape)} != x_start {tuple(x_start.shape)}")
+    nd = x_start.dim()
+    return (
+        extract(sched.sqrt_alphas_cumprod, t, nd) * x_start
+        + extract(sched.sqrt_one_minus_alphas_cumprod, t, nd) * noise
+    )
 
 
 def q_posterior_mean_variance(sched: Schedule, x_start, x_t, t):
@@ -105,6 +126,23 @@ def predict_xstart_from_v(sched: Schedule, x_t, t, v):
         extract(sched.sqrt_alphas_cumprod, t, nd) * x_t
         - extract(sched.sqrt_one_minus_alphas_cumprod, t, nd) * v
     )
+
+
+def predict_v(sched: Schedule, x_start, t, noise):
+    """Velocity training target v = sqrt(acp) * eps - sqrt(1 - acp) * x0."""
+    nd = x_start.dim()
+    return (
+        extract(sched.sqrt_alphas_cumprod, t, nd) * noise
+        - extract(sched.sqrt_one_minus_alphas_cumprod, t, nd) * x_start
+    )
+
+
+def predict_eps_from_xstart(sched: Schedule, x_t, t, pred_xstart):
+    """The eps implied by x0-hat."""
+    nd = x_t.dim()
+    return (
+        extract(sched.sqrt_recip_alphas_cumprod, t, nd) * x_t - pred_xstart
+    ) / extract(sched.sqrt_recipm1_alphas_cumprod, t, nd)
 
 
 ModelFn = Callable[..., torch.Tensor]

@@ -44,9 +44,10 @@ def sr_create_model(
     use_fp16,
 ) -> SuperResModel:
     """SuperResModel_noatt with in_channels=1 doubled by the conditioner;
-    ``use_fp16`` means a bf16 torso with f32 params. ``small_size`` and
-    ``use_checkpoint`` (training) are accepted for CLI parity."""
-    _ = small_size, use_checkpoint
+    ``use_fp16`` means a bf16 torso with f32 params; ``use_checkpoint``
+    recomputes the high-resolution ResBlocks in the backward. ``small_size``
+    is accepted for CLI parity."""
+    _ = small_size
     if large_size in (512, 256):
         channel_mult = (1, 1, 2, 2, 4, 4)
     elif large_size == 64:
@@ -70,6 +71,7 @@ def sr_create_model(
         use_scale_shift_norm=use_scale_shift_norm,
         resblock_updown=resblock_updown,
         middle_attention=False,
+        use_checkpoint=use_checkpoint,
         dtype=torch.bfloat16 if use_fp16 else torch.float32,
     )
 

@@ -1,10 +1,12 @@
 """NN primitives of the 3-D UNet, channels-last ``[B, D, H, W, C]``.
 
-Port of the parts of ``ddpm3d_tpu/models/nn.py`` the denoising path uses.
+Port of the parts of ``ddpm3d_tpu/models/nn.py`` the denoising and training
+paths use.
 Parameter names and shapes follow the reference torch modules (convs
 ``(out, in, kd, kh, kw)``, GroupNorm ``weight``/``bias``), so reference
 state dicts load with ``strict=True``. The 3x3x3 convs and the GroupNorms
-run the hand-written kernels of :mod:`ddpm3d_tpu_torch.ops` on the card.
+run the hand-written kernels of :mod:`ddpm3d_tpu_torch.ops` on the card,
+through autograd Functions whose backward is the same on both devices.
 """
 
 from __future__ import annotations
@@ -66,8 +68,9 @@ class GroupNorm32(nn.Module):
 
 class Conv3x3x3(nn.Module):
     """Stride-1 SAME 3x3x3 conv over the conv kernel, computed in the input's
-    dtype (params stay f32). On the card the weight is kept packed in the
-    kernel's layout and repacked when the parameter changes."""
+    dtype (params stay f32). Without autograd (inference) the weight is kept
+    packed in the kernel's layout on the card and repacked when the
+    parameter changes; a forward that records gradients packs afresh."""
 
     def __init__(self, in_ch: int, out_ch: int, zero_init: bool = False):
         super().__init__()
@@ -79,7 +82,8 @@ class Conv3x3x3(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         packed = None
-        if x.device.type == "cuda":
+        if x.device.type == "cuda" and not (
+                torch.is_grad_enabled() and self.weight.requires_grad):
             key = (x.dtype, x.device, self.weight.data_ptr(),
                    self.weight._version)
             if key != self._packed_key:

@@ -1,8 +1,9 @@
 """3-D diffusion UNet in PyTorch, channels-last ``[B, D, H, W, C]``.
 
-Port of ``ddpm3d_tpu/models/unet.py`` for the denoising path: the unfused
-``ResBlock`` (in-block up/down, FiLM scale-shift norm), ``UNetModel`` without
-attention and ``SuperResModel`` (concat conditioner). The wiring comes from
+Port of ``ddpm3d_tpu/models/unet.py`` for the denoising and training paths:
+the unfused ``ResBlock`` (in-block up/down, FiLM scale-shift norm, dropout in
+``train()`` mode), ``UNetModel`` without attention and ``SuperResModel``
+(concat conditioner). The wiring comes from
 :func:`.plan.plan_unet` (the reference's pair-pop decoder); module names
 follow the reference torch state dict (``input_blocks.i.j.in_layers.2``,
 ``out.2`` ...).
@@ -21,12 +22,17 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from . import nn as prim
 from .plan import AttnSpec, ConvSpec, DownSpec, ResSpec, UpSpec, plan_unet
 
 NUM_CLASSES = 1000
+# with use_checkpoint, only ResBlocks at downsample rate <= this recompute
+# their forward in the backward (the JAX package's default rule,
+# models/unet.py:_remat_max_ds); deeper blocks keep their activations
+REMAT_MAX_DS = 2
 
 
 class ResBlock(nn.Module):
@@ -140,6 +146,7 @@ class UNetModel(nn.Module):
         use_scale_shift_norm: bool = False,
         resblock_updown: bool = False,
         middle_attention: bool = True,
+        use_checkpoint: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -163,7 +170,22 @@ class UNetModel(nn.Module):
             )
         self.model_channels = model_channels
         self.num_classes = num_classes
+        self.use_checkpoint = use_checkpoint
         self.dtype = dtype
+        # downsample rate of each stage (the JAX forward's ds bookkeeping)
+        self._stage_ds = []
+        ds = 1
+        for stage in plan.input_blocks:
+            self._stage_ds.append(ds)
+            if any(isinstance(s, DownSpec) or (isinstance(s, ResSpec) and s.down)
+                   for s in stage):
+                ds *= 2
+        self._stage_ds.append(ds)  # middle block
+        for stage in plan.output_blocks:
+            self._stage_ds.append(ds)
+            if any(isinstance(s, UpSpec) or (isinstance(s, ResSpec) and s.up)
+                   for s in stage):
+                ds //= 2
         emb_ch = 4 * model_channels
         self.time_embed = nn.Sequential(
             nn.Linear(model_channels, emb_ch), nn.SiLU(),
@@ -202,12 +224,21 @@ class UNetModel(nn.Module):
         ])
         prim.init_params(self, seed=0)
 
-    @staticmethod
-    def _run_stage(stage: nn.ModuleList, h: torch.Tensor,
+    def _run_stage(self, i: int, stage: nn.ModuleList, h: torch.Tensor,
                    emb: torch.Tensor) -> torch.Tensor:
-        # only ResBlocks take the timestep embedding
+        """Run stage ``i`` (input, middle, output stages in order). Only
+        ResBlocks take the timestep embedding; with ``use_checkpoint`` those
+        at downsample rate <= REMAT_MAX_DS recompute in the backward."""
+        remat = (self.use_checkpoint and torch.is_grad_enabled()
+                 and self._stage_ds[i] <= REMAT_MAX_DS)
         for m in stage:
-            h = m(h, emb) if isinstance(m, ResBlock) else m(h)
+            if not isinstance(m, ResBlock):
+                h = m(h)
+            elif remat:
+                h = torch.utils.checkpoint.checkpoint(
+                    m, h, emb, use_reentrant=False)
+            else:
+                h = m(h, emb)
         return h
 
     def forward(
@@ -224,13 +255,15 @@ class UNetModel(nn.Module):
             emb = emb + self.label_emb(y)
         h = x.to(self.dtype)
         hs = []
-        for stage in self.input_blocks:
-            h = self._run_stage(stage, h, emb)
-            hs.append(h)
-        h = self._run_stage(self.middle_block, h, emb)
-        for stage in self.output_blocks:
-            h = torch.cat([h, hs.pop()], dim=-1)
-            h = self._run_stage(stage, h, emb)
+        stages = (list(self.input_blocks) + [self.middle_block]
+                  + list(self.output_blocks))
+        n_in = len(self.input_blocks)
+        for i, stage in enumerate(stages):
+            if i > n_in:
+                h = torch.cat([h, hs.pop()], dim=-1)
+            h = self._run_stage(i, stage, h, emb)
+            if i < n_in:
+                hs.append(h)
         h = self.out[0](h.to(x.dtype), apply_silu=True)
         return self.out[2](h)
 

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-* :mod:`.conv3d` — stride-1 SAME 3x3x3 conv (``csrc/conv3d.cu``);
+* :mod:`.conv3d` — stride-1 SAME 3x3x3 conv (``csrc/conv3d.cu``), forward
+  and the dx of its backward;
 * :mod:`.groupnorm` — GroupNorm stats and fused normalize/FiLM/SiLU
   (``csrc/groupnorm.cu``).
 """
@@ -14,6 +15,7 @@ def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {
         "conv3d": conv3d.launches,
+        "conv3d_dx": conv3d.dx_launches,
         "gn_stats": groupnorm.stats_launches,
         "gn_apply": groupnorm.apply_launches,
     }
@@ -21,5 +23,6 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     conv3d.launches = 0
+    conv3d.dx_launches = 0
     groupnorm.stats_launches = 0
     groupnorm.apply_launches = 0

@@ -7,13 +7,25 @@ chunk and runs all 27 taps out of it on bf16 tensor cores (``mma.sync``), or
 on CUDA cores for f32. It is bound by operations at every shape of the
 model; its source note says what the design does about that.
 
-:func:`conv3d` dispatches on the tensor's device: a CPU tensor takes
-:func:`conv3d_plain` (the same arithmetic as 27 shifted-slice matmuls with
-f32 accumulation); a CUDA tensor launches the kernel or raises.
+:func:`conv3d` is differentiable (:class:`Conv3dFunction`, the counterpart of
+the custom VJP ``_conv3d_mxu_fwd``/``_conv3d_mxu_bwd``):
+  * dx is the SAME kernel run on dy with the spatially flipped, in/out-swapped
+    weight (:func:`pack_weight_dx`), exact for SAME padding at stride 1;
+  * dw is the filter-gradient conv, which the JAX package leaves to XLA: on
+    the card PyTorch's library call (:func:`conv3d_dw_library`), on the CPU
+    the same call in f32 (:func:`conv3d_dw_plain`). It is not the port of a
+    TPU kernel;
+  * db is the f32 sum of dy over batch and space.
+
+Every public function dispatches on the tensor's device: a CPU tensor takes
+the plain version (:func:`conv3d_plain`: PyTorch's convolution in f32 with
+TF32 off, rounded once to x's dtype, the kernel's arithmetic); a CUDA
+tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional, Tuple
 
@@ -22,8 +34,10 @@ import torch.nn.functional as F
 
 from . import _build
 
-# kernel launches on the main path (see ops.launch_counts)
+# kernel launches on the main path (see ops.launch_counts): forward convs
+# and the dx convs of the backward
 launches = 0
+dx_launches = 0
 
 MAX_ROWS = 128   # output voxels per block (csrc/conv3d.cu kMaxRows)
 MAX_HALO = 640   # staged halo voxels per block (kMaxHalo)
@@ -37,6 +51,18 @@ def pack_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         weight.detach().to(dtype).permute(2, 3, 4, 0, 1)
         .reshape(27, cout, cin).contiguous()
     )
+
+
+def flip_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The dx conv's weight: ``wt[ci, co, a, b, c] = w[co, ci, 2-a, 2-b,
+    2-c]`` (``conv3d_mxu.py:_conv3d_mxu_bwd``)."""
+    return weight.flip(2, 3, 4).transpose(0, 1)
+
+
+def pack_weight_dx(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(Cout, Cin, 3, 3, 3) -> the kernel's [27, Cin, Cout] layout of the
+    flipped, in/out-swapped weight: the dx conv maps Cout -> Cin."""
+    return pack_weight(flip_weight(weight), dtype)
 
 
 @functools.lru_cache(maxsize=64)
@@ -58,34 +84,41 @@ def pick_tile(D: int, H: int, W: int) -> Tuple[int, int, int]:
     return best[1]
 
 
+@contextlib.contextmanager
+def _full_f32():
+    """cuDNN without TF32 (a no-op on the CPU), so f32 convs stay f32."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _ncdhw(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 4, 1, 2, 3)
+
+
 def conv3d_plain(
     x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """Plain PyTorch version: x [B, D, H, W, Cin], weight (Cout, Cin, 3, 3,
-    3), bias [Cout]; zero padding, f32 accumulation over the 27 taps, bias
-    in f32, result in x's dtype."""
-    B, D, H, W, _ = x.shape
-    w = weight.float().permute(2, 3, 4, 1, 0)  # kd, kh, kw, Cin, Cout
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
-    acc = None
-    for kd in range(3):
-        for kh in range(3):
-            for kw in range(3):
-                term = xp[:, kd:kd + D, kh:kh + H, kw:kw + W, :] @ w[kd, kh, kw]
-                acc = term if acc is None else acc + term
-    if bias is not None:
-        acc = acc + bias.float()
-    return acc.to(x.dtype)
+    3), bias [Cout]; zero padding, products and sums in f32, bias in f32,
+    result rounded once to x's dtype (channels-last, contiguous)."""
+    with _full_f32():
+        y = F.conv3d(_ncdhw(x.float()), weight.float(),
+                     None if bias is None else bias.float(), padding=1)
+    return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
 
 
-def conv3d_kernel(
+def _launch(
     x: torch.Tensor,
     w_packed: torch.Tensor,
-    bias: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor],
 ) -> torch.Tensor:
-    """Launch ``csrc/conv3d.cu`` on CUDA tensors. ``w_packed`` comes from
-    :func:`pack_weight` in x's dtype; bias is cast to f32."""
-    global launches
+    """Run ``csrc/conv3d.cu`` once on CUDA tensors (callers count it)."""
+    if x.device.type != "cuda":
+        raise RuntimeError(f"conv3d kernel takes CUDA tensors, got {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"conv3d kernel takes bf16 or f32, got {x.dtype}")
     if x.dim() != 5:
@@ -111,8 +144,114 @@ def conv3d_kernel(
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "conv3d_ndhwc_launch")
+    return y
+
+
+def conv3d_kernel(
+    x: torch.Tensor,
+    w_packed: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch ``csrc/conv3d.cu`` on CUDA tensors. ``w_packed`` comes from
+    :func:`pack_weight` in x's dtype; bias is cast to f32."""
+    global launches
+    y = _launch(x, w_packed, bias)
     launches += 1
     return y
+
+
+def conv3d_dx_kernel(dy: torch.Tensor, w_packed_dx: torch.Tensor) -> torch.Tensor:
+    """dx of the conv: ``csrc/conv3d.cu`` on dy [B, D, H, W, Cout] with
+    :func:`pack_weight_dx` in dy's dtype (no bias); the result has Cin
+    channels."""
+    global dx_launches
+    dx = _launch(dy, w_packed_dx, None)
+    dx_launches += 1
+    return dx
+
+
+def conv3d_dx_plain(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Plain version of the dx conv: :func:`conv3d_plain` of dy with the
+    flipped, in/out-swapped weight in dy's dtype."""
+    return conv3d_plain(dy, flip_weight(weight).to(dy.dtype))
+
+
+def conv3d_dx(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """dx of :func:`conv3d` for a torch-layout ``weight`` (Cout, Cin, 3, 3,
+    3), computed in dy's dtype."""
+    if dy.device.type == "cpu":
+        return conv3d_dx_plain(dy, weight)
+    if dy.device.type != "cuda":
+        raise RuntimeError(f"conv3d_dx: unsupported device {dy.device}")
+    return conv3d_dx_kernel(dy, pack_weight_dx(weight, dy.dtype))
+
+
+def _filter_grad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """PyTorch's filter-gradient conv on NCDHW views of the channels-last
+    tensors (both in one dtype), TF32 off."""
+    cin, cout = x.shape[-1], dy.shape[-1]
+    w_shape = torch.empty((cout, cin, 3, 3, 3), dtype=x.dtype, device=x.device)
+    with _full_f32():
+        _, dw, _ = torch.ops.aten.convolution_backward(
+            _ncdhw(dy), _ncdhw(x), w_shape, None, [1, 1, 1], [1, 1, 1],
+            [1, 1, 1], False, [0, 0, 0], 1, [False, True, False],
+        )
+    return dw
+
+
+def conv3d_dw_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Plain filter gradient ``dw[co, ci, kd, kh, kw] = sum over (b, d, h,
+    w) of x_pad[b, d+kd, h+kh, w+kw, ci] * dy[b, d, h, w, co]``, computed in
+    f32 and rounded once to x's dtype."""
+    return _filter_grad(x.float(), dy.float()).to(x.dtype)
+
+
+def conv3d_dw_library(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The filter gradient in x's dtype by PyTorch's filter-gradient conv
+    (the JAX package's "XLA filter-gradient conv",
+    ``conv3d_mxu.py:_conv3d_mxu_bwd``): what the card runs for dw."""
+    return _filter_grad(x, dy.to(x.dtype))
+
+
+def conv3d_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Filter gradient (Cout, Cin, 3, 3, 3) in x's dtype."""
+    if x.device.type == "cpu":
+        return conv3d_dw_plain(x, dy)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"conv3d_dw: unsupported device {x.device}")
+    return conv3d_dw_library(x, dy)
+
+
+class Conv3dFunction(torch.autograd.Function):
+    """Differentiable stride-1 SAME 3x3x3 conv over the kernel. The weight
+    is the f32 parameter; forward and dx run in x's dtype; dw comes back in
+    x's dtype cast to the parameter's dtype, db in f32 (as
+    ``_conv3d_mxu_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, w_packed):
+        ctx.save_for_backward(x, weight)
+        ctx.has_bias = bias is not None
+        if x.device.type == "cpu":
+            return conv3d_plain(x, weight.to(x.dtype), bias)
+        if x.device.type != "cuda":
+            raise RuntimeError(f"conv3d: unsupported device {x.device}")
+        if w_packed is None:
+            w_packed = pack_weight(weight, x.dtype)
+        return conv3d_kernel(x, w_packed, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3d_dx(dy, weight)
+        if ctx.needs_input_grad[1]:
+            dw = conv3d_dw(x, dy).to(weight.dtype)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = dy.float().sum(dim=(0, 1, 2, 3))
+        return dx, dw, db, None
 
 
 def conv3d(
@@ -124,13 +263,7 @@ def conv3d(
     """Stride-1 SAME 3x3x3 conv of channels-last ``x`` [B, D, H, W, Cin] with
     a torch-layout ``weight`` (Cout, Cin, 3, 3, 3). The weight is used in x's
     dtype; ``w_packed`` may carry the kernel's layout prepared ahead
-    (:func:`pack_weight`)."""
+    (:func:`pack_weight`). Differentiable in x, weight and bias."""
     if tuple(weight.shape[2:]) != (3, 3, 3):
         raise ValueError(f"3x3x3 kernels only, got {tuple(weight.shape)}")
-    if x.device.type == "cpu":
-        return conv3d_plain(x, weight.to(x.dtype), bias)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"conv3d: unsupported device {x.device}")
-    if w_packed is None:
-        w_packed = pack_weight(weight, x.dtype)
-    return conv3d_kernel(x, w_packed, bias)
+    return Conv3dFunction.apply(x, weight, bias, w_packed)

@@ -57,6 +57,31 @@ def sr_model_and_diffusion_defaults() -> Dict[str, Any]:
     return {k: v for k, v in res.items() if k in arg_names}
 
 
+def train_defaults() -> Dict[str, Any]:
+    """The training CLI's own flags (the JAX package's scripts/train.py),
+    plus the port's ``seed`` and ``device``."""
+    return dict(
+        data_dir="",
+        schedule_sampler="uniform",
+        lr=1e-4,
+        weight_decay=0.0,
+        lr_anneal_steps=0,
+        batch_size=1,
+        microbatch=-1,
+        ema_rate="0.9999",
+        log_interval=10,
+        save_interval=10000,
+        resume_checkpoint="",
+        fp16_scale_growth=1e-3,
+        # opt-in dynamic loss scaling; the bf16 torso needs none
+        use_fp16_scaling=False,
+        result_folder="",
+        auto_resume=False,  # pick up the newest checkpoint in result_folder
+        seed=0,
+        device="cuda",
+    )
+
+
 def str2bool(v) -> bool:
     if isinstance(v, bool):
         return v

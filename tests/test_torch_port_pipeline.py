@@ -25,6 +25,8 @@ from ddpm3d_tpu_torch.inference import denoise_volume
 from ddpm3d_tpu_torch.models import SuperResModel, factory as tfactory
 from ddpm3d_tpu_torch.models.nn import init_params
 from ddpm3d_tpu_torch.scripts import test as cli
+from ddpm3d_tpu_torch.scripts import train as train_cli
+from ddpm3d_tpu_torch.training import TrainLoop
 from ddpm3d_tpu_torch.utils.config import (
     args_to_dict,
     sr_model_and_diffusion_defaults,
@@ -192,9 +194,9 @@ def test_cli_refuses_timesteps_file():
 
 
 def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny):
-    """With no card, the CLI, the sampler and the pipeline raise unless the
-    caller asks for the CPU; a model on another device than the chain's
-    is refused, not moved."""
+    """With no card, the CLIs, the sampler, the pipeline and the trainer
+    raise unless the caller asks for the CPU; a model on another device
+    than the chain's is refused, not moved."""
     _, _, model = tiny
     ts, tcfg = tfactory.create_gaussian_diffusion(
         steps=1000, learn_sigma=True, timestep_respacing="2")
@@ -209,6 +211,13 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny):
         p_sample_loop(lambda x, t, **kw: x, ts, tcfg, shape=(1, 4, 4, 4, 1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         denoise_volume(model, ts, tcfg, vol, **grid)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--data_dir", "unused"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrainLoop(model=model, sched=ts, cfg=tcfg, data=iter(()), batch_size=1,
+                  microbatch=-1, lr=1e-4, ema_rate="0.9999", log_interval=1,
+                  save_interval=1)
+    assert next(model.parameters()).device.type == "cpu"
     assert resolve_device("cpu").type == "cpu"
     elsewhere = SuperResModel(in_channels=1, **TINY).to("meta")
     with pytest.raises(RuntimeError, match="parameters are on meta"):
