@@ -25,13 +25,23 @@ Phases (each failure exits non-zero before the final line):
                synthetic volume with a short respaced chain; the launch
                counters are zeroed just before and read just after; then a
                torch.profiler breakdown of one forward by kernel family;
-  6. train   — the training CLI (``ddpm3d_tpu_torch.scripts.train``) at the
+  6. fused   — the fused serving path (``fused=True``, the same weights):
+               ``conv3d_fused`` against its plain version at every distinct
+               fused-conv shape of one bf16 96^3 forward (read by hooks),
+               with its stats checked as the next GroupNorm folds them and
+               five sites timed beside the unfused sequence they replace;
+               the full-width f32 fused model on the card against the CPU
+               and the unfused card forward (in the model phase);
+               ``denoise_fused``, the denoise phase again on the fused
+               model, against the unfused volume and with exact launch
+               counts; ``profile_fused``, its one-forward breakdown;
+  7. train   — the training CLI (``ddpm3d_tpu_torch.scripts.train``) at the
                production flags on a synthetic (2, 96, 200, 200) low/high
                pair: 6 bf16 steps at batch 1 with the launch counters zeroed
                just before; step time, peak memory, losses, launches per
                step, save time; the saved ``model*.pt`` loaded into a serving
                model with ``strict=True``; then a profile of one step.
-Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
+Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``.
 
 Weights are random, made from ``--seed``. Imports no JAX.
@@ -72,7 +82,11 @@ KERNELS = {
     "gn_apply": dict(
         route="cuda", source="ddpm3d_tpu_torch/csrc/groupnorm.cu",
         replaces="ddpm3d_tpu/ops/groupnorm.py:149"),
+    "conv3d_fused": dict(
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d.cu",
+        replaces="ddpm3d_tpu/ops/conv3d_fused.py:230"),
 }
+TRAIN_KERNELS = ("conv3d", "conv3d_dx", "gn_stats", "gn_apply")
 
 # relative tolerance = max|kernel - plain| / max|plain|: bf16 outputs may
 # differ by one bf16 rounding (2^-8) where the f32 sums differ in order;
@@ -80,7 +94,40 @@ KERNELS = {
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 MODEL_TOL = 1e-4  # f32 forward, ~70 layers of reordered f32 sums
 GRAD_TOL = 1e-3   # f32 loss and gradients, per tensor: forward and backward
-FORWARD_KERNELS = ("conv3d", "gn_stats", "gn_apply")
+# the fused conv's stats as the next GroupNorm uses them: (g, b) folded from
+# the kernel's sums against (g, b) from the plain sums, relative to the
+# largest entry; and the sum of squares alone, per entry (no cancellation).
+# Summation order alone would give ~1e-6. The kernel's f32 outputs carry a
+# one-sided error against the plain f32 conv that grows with the depth of
+# the sum (measured on an H100: s2 about 6e-8 x Cin, 6e-5 at Cin = 1024,
+# the model's widest fused conv; the fold about 2.3e-5 there), as the
+# tensor cores' f32 accumulation does not round each partial sum to
+# nearest. 1e-4 holds up to Cin ~ 1600 and stops a wrong sum, a wrong tile
+# or a missed voxel, which move the stats by far more.
+STATS_FOLD_TOL = 1e-4
+STATS_S2_TOL = 1e-4
+# the bf16 model served fused against unfused on the same input (the first
+# forward of the denoise chain), max |diff| / max |unfused|: the fused path
+# folds each GroupNorm from the f32 conv sums and adds the residual before
+# rounding, the unfused one from the bf16-rounded output and after it, so
+# each of the ~70 layers rounds slightly different values to bf16 (2^-8);
+# the differences compound over the depth
+FUSED_FORWARD_TOL = 5e-2
+# the denoised volumes, mean |fused - unfused| / mean |unfused|. Not the max:
+# at t = 999 the x0 recovery multiplies the model's difference by
+# sqrt(1/acp - 1) ~ 158 before clipping to [-1, 1], so single voxels may
+# move across the whole clip range while the volume agrees
+DENOISE_FUSED_TOL = 5e-2
+# launches per forward of the production model on each serving path
+FORWARD_LAUNCHES = {
+    "denoise": {"conv3d": 72, "conv3d_dx": 0, "conv3d_fused": 0,
+                "gn_stats": 71, "gn_apply": 71},
+    # 27 fusable ResBlocks x 2; input conv, head conv, 8 up/down blocks x 2;
+    # 16 + the head's GN applied; 17 unfused GNs + 14 fused blocks that
+    # enter without stats (5 in the encoder, 9 in the decoder)
+    "denoise_fused": {"conv3d": 18, "conv3d_dx": 0, "conv3d_fused": 54,
+                      "gn_stats": 31, "gn_apply": 17},
+}
 # the production training flags (test_DDPM_3d_tpu.sh model flags with the
 # training CLI's defaults: batch 1, lr 1e-4, EMA 0.9999, AdamW)
 TRAIN_FLAGS = [
@@ -296,7 +343,150 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
     return summary
 
 
-def _model(use_fp16: bool, seed: int):
+def fused_path_shapes(model) -> list:
+    """Every distinct fused conv of one bf16 96^3 batch-1 forward of the
+    fused model, read by forward pre-hooks: (D, H, W, Cin, Cout, dtype,
+    prologue, silu, skip, stats)."""
+    from ddpm3d_tpu_torch.models.nn import Conv3x3x3
+
+    convs = set()
+
+    def hook(mod, args, kwargs):
+        if not kwargs.get("fused"):
+            return
+        _, D, H, W, cin = args[0].shape
+        convs.add((D, H, W, cin, mod.weight.shape[0], args[0].dtype,
+                   kwargs.get("prologue_g") is not None,
+                   bool(kwargs.get("prologue_silu", True)),
+                   kwargs.get("skip") is not None,
+                   bool(kwargs.get("want_stats", False))))
+
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
+               for m in model.modules() if isinstance(m, Conv3x3x3)]
+    x = torch.randn((1, 96, 96, 96, 1), device="cuda")
+    with torch.no_grad():
+        model(x, torch.tensor([500], device="cuda"), low_res=x)
+    for h in handles:
+        h.remove()
+    return sorted(convs, key=str)
+
+
+# fused sites that are timed (the rest are only checked): (D, H, W, Cin,
+# Cout, dtype, prologue, silu, skip, stats)
+FUSED_TIMED = [
+    # level-0 ResBlock out_conv: FiLM'd GN prologue, identity skip, stats
+    (96, 96, 96, 128, 128, torch.bfloat16, True, True, True, True),
+    # level-0 ResBlock in_conv
+    (96, 96, 96, 128, 128, torch.bfloat16, True, True, False, True),
+    # level-0 decoder in_conv (the block's out_conv is the 128 -> 128 site
+    # above, with the 1x1 conv of this 256-channel input as its skip)
+    (96, 96, 96, 256, 128, torch.bfloat16, True, True, False, True),
+    (96, 48, 48, 256, 128, torch.bfloat16, True, True, False, True),
+    (96, 6, 6, 1024, 512, torch.bfloat16, True, True, False, True),
+]
+
+
+def phase_fused_kernels(gen: torch.Generator, shapes) -> dict:
+    """``conv3d_fused`` against its plain version at every distinct fused
+    shape with the flags the model uses there: the output at TOL, the stats
+    as the next GroupNorm folds them. At the FUSED_TIMED sites also the
+    kernel, plain and bound times and the unfused sequence the kernel
+    replaces (K2 gn_apply + K3 conv + skip add + K1 channel_stats): no
+    single PyTorch call computes this function."""
+    from ddpm3d_tpu_torch.ops import conv3d as cv
+    from ddpm3d_tpu_torch.ops import conv3d_fused as fo
+    from ddpm3d_tpu_torch.ops import groupnorm as gn
+
+    dev = torch.device("cuda")
+    for case in FUSED_TIMED:
+        check(case in shapes, f"timed fused conv {case} is on the fused path")
+    summary, checked, worst = None, 0, collections.defaultdict(float)
+    for case in FUSED_TIMED + [c for c in shapes if c not in FUSED_TIMED]:
+        D, H, W, cin, cout, dt, pro, silu, use_skip, stats = case
+        B, N = 1, D * H * W
+        x = (torch.randn((B, D, H, W, cin), generator=gen, device=dev) * 2
+             + 0.5).to(dt)
+        w = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev)
+             * (27 * cin) ** -0.5)
+        b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+        kw = dict(prologue_silu=silu, want_stats=stats)
+        if pro:  # a folded GroupNorm's affine: x is ~N(0.5, 2)
+            kw["prologue_g"] = 0.5 * (1 + 0.1 * torch.randn(
+                (B, cin), generator=gen, device=dev))
+            kw["prologue_b"] = -0.25 + 0.1 * torch.randn(
+                (B, cin), generator=gen, device=dev)
+        if use_skip:
+            kw["skip"] = torch.randn((B, D, H, W, cout), generator=gen,
+                                     device=dev).to(dt)
+        wp, wd = cv.pack_weight(w, dt), w.to(dt)
+        got = fo.conv3d_fused_kernel(x, wp, b, **kw)
+        ref = fo.conv3d_fused_plain(x, wd, b, **kw)
+        torch.cuda.synchronize()
+        out, ref_out = (got[0], ref[0]) if stats else (got, ref)
+        check(bool(torch.isfinite(out.float()).all()), "conv3d_fused finite")
+        err, rel = rel_err(out, ref_out)
+        line = dict(kernel="conv3d_fused", shape=[B, D, H, W, cin], cout=cout,
+                    dtype=str(dt).split(".")[-1], prologue=pro, silu=silu,
+                    skip=use_skip, stats=stats, tile=list(cv.pick_tile(D, H, W)),
+                    max_abs_err=err, rel_err=rel, tol=TOL[dt])
+        if stats:
+            ones = torch.ones(cout, device=dev)
+            zeros = torch.zeros(cout, device=dev)
+            gk, bk = gn.fold_gn_affine(got[1], N, ones, zeros)
+            gp, bp = gn.fold_gn_affine(ref[1], N, ones, zeros)
+            s2_rel = ((got[1][:, 1] - ref[1][:, 1]).abs()
+                      / ref[1][:, 1]).max().item()
+            line.update(stats_fold_rel_err=max(rel_err(gk, gp)[1],
+                                               rel_err(bk, bp)[1]),
+                        stats_fold_tol=STATS_FOLD_TOL, stats_s2_rel_err=s2_rel,
+                        stats_s2_tol=STATS_S2_TOL)
+        if case in FUSED_TIMED:
+            def unfused():
+                h = x
+                if pro:
+                    h = gn.gn_apply(x.reshape(B, N, cin), kw["prologue_g"],
+                                    kw["prologue_b"], silu).reshape(x.shape)
+                y = cv.conv3d_kernel(h, wp, b)
+                if use_skip:
+                    y = y + kw["skip"]
+                if stats:
+                    gn.channel_stats(y.reshape(B, N, cout))
+                return y
+
+            ms = time_ms(lambda: fo.conv3d_fused_kernel(x, wp, b, **kw))
+            plain_ms = time_ms(lambda: fo.conv3d_fused_plain(x, wd, b, **kw),
+                               reps=3, warmup=1)
+            seq_ms = time_ms(unfused)
+            isz = x.element_size()
+            flops = 2.0 * 27 * cin * cout * B * N
+            nbytes = (B * N * (cin + cout * (1 + use_skip)) * isz
+                      + wp.numel() * isz + (2 * B * cin + cout) * 4
+                      + (2 * B * cout * 4 if stats else 0))
+            bms, by = bound(flops, nbytes, dt)
+            line.update(kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                        bound_by=by, unfused_sequence_ms=seq_ms,
+                        library_ms=None, tflops=flops / ms / 1e9)
+        emit(line)
+        check(rel <= TOL[dt], f"conv3d_fused {line['shape']}->{cout} "
+              f"{case[6:]} rel err {rel}")
+        if stats:
+            check(line["stats_fold_rel_err"] <= STATS_FOLD_TOL,
+                  f"conv3d_fused stats fold rel err {line['stats_fold_rel_err']}")
+            check(s2_rel <= STATS_S2_TOL, f"conv3d_fused s2 rel err {s2_rel}")
+            worst["stats_fold"] = max(worst["stats_fold"],
+                                      line["stats_fold_rel_err"])
+            worst["stats_s2"] = max(worst["stats_s2"], s2_rel)
+        worst["out"] = max(worst["out"], rel)
+        checked += 1
+        if summary is None:
+            summary = line
+        del x, got, ref, out, ref_out
+    emit({"phase": "fused_kernels", "shapes_checked": checked,
+          "worst_rel_err": dict(worst)})
+    return dict(summary, shapes_checked=checked)
+
+
+def _model(use_fp16: bool, seed: int, fused: bool = False):
     from ddpm3d_tpu_torch.models.factory import sr_create_model_and_diffusion
     from ddpm3d_tpu_torch.models.nn import init_params
     from ddpm3d_tpu_torch.utils.config import sr_model_and_diffusion_defaults
@@ -309,12 +499,13 @@ def _model(use_fp16: bool, seed: int):
         diffusion_steps=1000, noise_schedule="linear",
     )
     args["timestep_respacing"] = "3"
-    model, sched, cfg = sr_create_model_and_diffusion(**args)
+    model, sched, cfg = sr_create_model_and_diffusion(**args, fused=fused)
     init_params(model, seed=seed, zero_heads=False)
     return model.eval(), sched, cfg
 
 
 def phase_model(seed: int) -> None:
+    from ddpm3d_tpu_torch import ops
     from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
     from ddpm3d_tpu_torch.training import train_loop as tl
 
@@ -333,6 +524,28 @@ def phase_model(seed: int) -> None:
           "tol": MODEL_TOL, "ref_abs_max": ref.abs().max().item()})
     check(ref.abs().max().item() > 1e-3, "model output is non-trivial")
     check(rel <= MODEL_TOL, f"full-width model kernel path rel err {rel}")
+
+    # the same weights served fused: the card's kernels against the plain
+    # fused path on the CPU, and against the unfused card forward
+    fused, _, _ = _model(use_fp16=False, seed=seed, fused=True)
+    fused.load_state_dict(model.state_dict(), strict=True)
+    with torch.no_grad():
+        ref_fused = fused(x, t, low_res=low)
+        ops.reset_launch_counts()
+        out_fused = fused.cuda()(x.cuda(), t.cuda(), low_res=low.cuda()).cpu()
+    n_fused = ops.launch_counts()["conv3d_fused"]
+    rel_cpu = rel_err(out_fused, ref_fused)[1]
+    rel_unfused = rel_err(out_fused, out)[1]
+    emit({"phase": "model_fused", "shape": list(x.shape), "channels": 128,
+          "dtype": "float32", "rel_err_vs_cpu": rel_cpu,
+          "rel_err_vs_unfused_card": rel_unfused, "tol": MODEL_TOL,
+          "conv3d_fused_launches": n_fused})
+    check(n_fused == FORWARD_LAUNCHES["denoise_fused"]["conv3d_fused"],
+          f"fused model launched conv3d_fused {n_fused} times")
+    check(rel_cpu <= MODEL_TOL, f"fused model card vs CPU rel err {rel_cpu}")
+    check(rel_unfused <= MODEL_TOL,
+          f"fused vs unfused card forward rel err {rel_unfused}")
+    del fused
 
     # one training loss and every parameter gradient, same t and noise
     sched, cfg = create_gaussian_diffusion(
@@ -366,7 +579,10 @@ def phase_model(seed: int) -> None:
     check(worst <= GRAD_TOL, f"gradient {worst_name} rel err {worst}")
 
 
-def phase_denoise(model, sched, cfg, seed: int) -> dict:
+def phase_denoise(model, sched, cfg, seed: int, phase: str = "denoise"):
+    """``denoise_volume`` on the synthetic volume; launches per forward must
+    equal FORWARD_LAUNCHES[phase]. Returns (launch counts, volume, the
+    chain's first model output)."""
     from ddpm3d_tpu_torch import ops
     from ddpm3d_tpu_torch.inference.pipeline import denoise_volume
 
@@ -377,6 +593,10 @@ def phase_denoise(model, sched, cfg, seed: int) -> dict:
         z = torch.zeros((batch, 96, 96, 96, 1), device="cuda")
         model(z, torch.zeros((batch,), dtype=torch.long, device="cuda"),
               low_res=z)
+    first = []
+    hook = model.register_forward_hook(
+        lambda mod, args, out: first.append(out.float().cpu())
+        if not first else None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -388,11 +608,13 @@ def phase_denoise(model, sched, cfg, seed: int) -> dict:
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = ops.launch_counts()
+    hook.remove()
     steps = sched.num_timesteps
     n_patches = 4
     forwards = steps * -(-n_patches // batch)
+    per_forward = {k: v / forwards for k, v in counts.items()}
     line = {
-        "phase": "denoise", "volume_zhw": list(shape), "patches": n_patches,
+        "phase": phase, "volume_zhw": list(shape), "patches": n_patches,
         "patch": 96, "channels": 128, "dtype": "bfloat16", "steps": steps,
         "batch": batch, "wall_s": wall, "sample_wall_s": stats["sample_wall_s"],
         "ms_per_step": stats["sample_wall_s"] * 1e3 / steps,
@@ -401,7 +623,7 @@ def phase_denoise(model, sched, cfg, seed: int) -> dict:
         "patch_voxel_steps_per_s":
             n_patches * 96 ** 3 * steps / stats["sample_wall_s"],
         "launches": counts,
-        "launches_per_forward": {k: v / forwards for k, v in counts.items()},
+        "launches_per_forward": per_forward,
         "finite": bool(np.isfinite(result).all()),
         "result_shape": list(result.shape),
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -410,16 +632,42 @@ def phase_denoise(model, sched, cfg, seed: int) -> dict:
     check(line["finite"], "denoised volume is finite")
     check(tuple(result.shape) == (144, 144, 96), "result is (H, W, Z)")
     check(float(np.abs(result).max()) > 0, "result is non-trivial")
-    for name in FORWARD_KERNELS:
-        check(counts[name] > 0, f"kernel {name} launched on the denoise path")
-    check(counts["conv3d_dx"] == 0, "no backward on the denoise path")
-    check(counts["conv3d"] == 72 * forwards, "72 convs per forward")
-    check(counts["gn_stats"] == 71 * forwards, "71 GroupNorms per forward")
-    return counts
+    check(per_forward == FORWARD_LAUNCHES[phase],
+          f"{phase} launches per forward {per_forward}")
+    return counts, result, first[0]
+
+
+def check_fused_volume(volume, fused_volume, eps, fused_eps) -> None:
+    """The fused chain against the unfused one: the first forward (the same
+    input on both paths) within FUSED_FORWARD_TOL, the volume within
+    DENOISE_FUSED_TOL (mean-based; the max is reported)."""
+    d = np.abs(fused_volume - volume)
+    fwd_rel = rel_err(fused_eps, eps)[1]
+    mean_rel = float(d.mean() / np.abs(volume).mean())
+    emit({"phase": "denoise_fused_vs_unfused",
+          "first_forward_rel_diff": fwd_rel, "forward_tol": FUSED_FORWARD_TOL,
+          "volume_mean_rel_diff": mean_rel, "volume_tol": DENOISE_FUSED_TOL,
+          "volume_max_abs_diff": float(d.max()),
+          "volume_max_rel_diff": float(d.max() / np.abs(volume).max()),
+          "volume_share_within": {str(a): float((d <= a).mean())
+                                  for a in (1e-3, 1e-2, 1e-1)},
+          "volume_quantiles": {str(q): float(np.quantile(d, q))
+                               for q in (0.5, 0.9, 0.99, 0.999)}})
+    check(fwd_rel <= FUSED_FORWARD_TOL,
+          f"fused vs unfused first forward rel {fwd_rel}")
+    check(mean_rel <= DENOISE_FUSED_TOL,
+          f"fused vs unfused volume mean rel {mean_rel}")
 
 
 # kernel families of a profile, by substrings of the device kernels' names
 FORWARD_FAMILIES = {
+    # the fused instances of the bf16 conv template (kFused = true; names
+    # demangled or mangled) and their stats finish; listed first, so that
+    # the conv families below take only the plain conv
+    "conv3d_fused": ("conv3d_bf16_kernel<true, true>",
+                     "conv3d_bf16_kernel<false, true>",
+                     "conv3d_bf16_kernelILb1ELb1E", "conv3d_bf16_kernelILb0ELb1E",
+                     "stats_sum_kernel"),
     "conv3d_bf16": ("conv3d_bf16_kernel",),
     "conv3d_f32": ("conv3d_f32_kernel",),
     "gn_stats": ("gn_partial_kernel", "gn_finish_kernel"),
@@ -450,7 +698,7 @@ def device_breakdown(prof, families) -> tuple:
     return by_family, other
 
 
-def phase_profile(model) -> None:
+def phase_profile(model, phase: str = "profile") -> None:
     """Device time of one bf16 96^3 forward at batch 1, by kernel family
     (torch.profiler), against the forward's CUDA-event time."""
     from torch.profiler import ProfilerActivity, profile
@@ -465,7 +713,7 @@ def phase_profile(model) -> None:
     by_family, other = device_breakdown(prof, FORWARD_FAMILIES)
     top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])
     device_ms = sum(by_family.values()) + sum(other.values())
-    emit({"phase": "profile", "forward_ms": fwd_ms, "batch": 1,
+    emit({"phase": phase, "forward_ms": fwd_ms, "batch": 1,
           "device_ms": device_ms, "kernel_ms": by_family,
           "other_ms": sum(other.values()), "top_other_ms": top,
           "idle_share": max(0.0, 1 - device_ms / fwd_ms)})
@@ -777,10 +1025,11 @@ def phase_train(seed: int) -> dict:
         check(all(v is not None and np.isfinite(v) for v in line[key]),
               f"{key} finite at every step")
     check(all(v > 0 for v in line["grad_norm"]), "grad_norm > 0")
-    for name in KERNELS:
+    for name in TRAIN_KERNELS:
         check(counts[name] > 0, f"kernel {name} launched on the train path")
-    check(per_step == {"conv3d": 72, "conv3d_dx": 71, "gn_stats": 71,
-                       "gn_apply": 71}, f"launches per step {per_step}")
+    check(per_step == {"conv3d": 72, "conv3d_dx": 71, "conv3d_fused": 0,
+                       "gn_stats": 71, "gn_apply": 71},
+          f"launches per step {per_step}")
 
     # the saved weights serve: a serving model loads them strictly, they
     # moved from the initial ones, and a bf16 96^3 forward is finite
@@ -870,15 +1119,23 @@ def main() -> None:
     phase_build()
     model, sched, cfg = _model(use_fp16=True, seed=args.seed)
     model.cuda()
+    fused = _model(use_fp16=True, seed=args.seed, fused=True)[0]
+    fused.load_state_dict(model.state_dict(), strict=True)
+    fused.cuda()
     summary = phase_kernels(gen, *main_path_shapes(model))
+    summary["conv3d_fused"] = phase_fused_kernels(gen, fused_path_shapes(fused))
     from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
     train_sched, train_cfg = create_gaussian_diffusion(
         steps=1000, learn_sigma=True, noise_schedule="linear")
     bwd = phase_backward(gen, *training_shapes(model, train_sched, train_cfg))
     phase_model(args.seed)
-    denoise_counts = phase_denoise(model, sched, cfg, args.seed)
+    denoise_counts, volume, eps = phase_denoise(model, sched, cfg, args.seed)
     phase_profile(model)
-    del model
+    fused_counts, fused_volume, fused_eps = phase_denoise(
+        fused, sched, cfg, args.seed, phase="denoise_fused")
+    check_fused_volume(volume, fused_volume, eps, fused_eps)
+    phase_profile(fused, phase="profile_fused")
+    del model, fused
     torch.cuda.empty_cache()
     train = phase_train(args.seed)
     phase_train_profile(train.pop("loop"))
@@ -887,14 +1144,21 @@ def main() -> None:
     kernels = []
     for name, meta in KERNELS.items():
         s = summary[name]
+        by_path = {"denoise": denoise_counts[name],
+                   "denoise_fused": fused_counts[name],
+                   "train": train["launches"][name]}
+        extra = {}
+        if name == "conv3d_fused":  # serving only: no single library call
+            extra["unfused_sequence_ms"] = s["unfused_sequence_ms"]
         kernels.append(dict(
-            name=name, **meta, launches=train["launches"][name],
-            launches_by_path={"denoise": denoise_counts[name],
-                              "train": train["launches"][name]},
+            name=name, **meta,
+            launches=by_path["denoise_fused" if name == "conv3d_fused"
+                             else "train"],
+            launches_by_path=by_path,
             max_abs_err=s["max_abs_err"], ms=s["kernel_ms"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
-            shapes_checked=s["shapes_checked"],
+            shapes_checked=s["shapes_checked"], **extra,
         ))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

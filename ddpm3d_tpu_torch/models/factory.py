@@ -42,11 +42,14 @@ def sr_create_model(
     dropout,
     resblock_updown,
     use_fp16,
+    fused=False,
 ) -> SuperResModel:
     """SuperResModel_noatt with in_channels=1 doubled by the conditioner;
     ``use_fp16`` means a bf16 torso with f32 params; ``use_checkpoint``
-    recomputes the high-resolution ResBlocks in the backward. ``small_size``
-    is accepted for CLI parity."""
+    recomputes the high-resolution ResBlocks in the backward; ``fused``
+    serves the ResBlocks without up/down through the fused conv kernel
+    (inference only; off under ``use_checkpoint``). ``small_size`` is
+    accepted for CLI parity."""
     _ = small_size
     if large_size in (512, 256):
         channel_mult = (1, 1, 2, 2, 4, 4)
@@ -73,6 +76,7 @@ def sr_create_model(
         middle_attention=False,
         use_checkpoint=use_checkpoint,
         dtype=torch.bfloat16 if use_fp16 else torch.float32,
+        fused=fused,
     )
 
 
@@ -145,8 +149,10 @@ def sr_create_model_and_diffusion(
     resblock_updown,
     use_fp16,
     predict_v=False,
+    fused=False,
 ):
-    """-> (model, schedule, config) from the CLI's flags."""
+    """-> (model, schedule, config) from the CLI's flags; ``fused`` as in
+    :func:`sr_create_model`."""
     model = sr_create_model(
         large_size,
         small_size,
@@ -163,6 +169,7 @@ def sr_create_model_and_diffusion(
         dropout=dropout,
         resblock_updown=resblock_updown,
         use_fp16=use_fp16,
+        fused=fused,
     )
     sched, cfg = create_gaussian_diffusion(
         steps=diffusion_steps,

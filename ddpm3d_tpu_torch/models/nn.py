@@ -6,7 +6,10 @@ Parameter names and shapes follow the reference torch modules (convs
 ``(out, in, kd, kh, kw)``, GroupNorm ``weight``/``bias``), so reference
 state dicts load with ``strict=True``. The 3x3x3 convs and the GroupNorms
 run the hand-written kernels of :mod:`ddpm3d_tpu_torch.ops` on the card,
-through autograd Functions whose backward is the same on both devices.
+through autograd Functions whose backward is the same on both devices. The
+fused serving path (inference only) folds a GroupNorm into a [B, C] affine
+(``GroupNorm32(..., fold_only=True)``) that the next conv applies in its
+prologue (``Conv3x3x3(..., fused=True)``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv3d as conv_ops
+from ..ops import conv3d_fused as fused_ops
 from ..ops import groupnorm as gn_ops
 
 NORM_GROUPS = gn_ops.NORM_GROUPS
@@ -43,7 +47,12 @@ def timestep_embedding(
 
 class GroupNorm32(nn.Module):
     """GroupNorm(32) in f32, cast back to the input dtype, with the optional
-    FiLM scale/shift and SiLU folded into the normalize pass."""
+    FiLM scale/shift and SiLU folded into the normalize pass.
+
+    With ``fold_only=True`` (the fused path) the call returns the folded
+    per-channel affine (g, b), [B, C] f32 each, from ``stats`` ([B, 2, C]
+    sums, e.g. a fused conv's) or, without them, from the stats of x; the
+    normalize then happens in the consumer conv's prologue."""
 
     def __init__(self, channels: int, num_groups: int = NORM_GROUPS,
                  eps: float = 1e-5):
@@ -59,7 +68,17 @@ class GroupNorm32(nn.Module):
         film_scale: Optional[torch.Tensor] = None,
         film_shift: Optional[torch.Tensor] = None,
         apply_silu: bool = False,
-    ) -> torch.Tensor:
+        stats: Optional[torch.Tensor] = None,
+        fold_only: bool = False,
+    ):
+        if fold_only:
+            if stats is None:
+                stats = gn_ops.channel_stats(
+                    x.reshape(x.shape[0], -1, x.shape[-1]))
+            return gn_ops.fold_gn_affine(
+                stats, math.prod(x.shape[1:-1]), self.weight, self.bias,
+                self.num_groups, self.eps,
+                film_scale=film_scale, film_shift=film_shift)
         return gn_ops.group_norm(
             x, self.weight, self.bias, self.num_groups, self.eps,
             film_scale=film_scale, film_shift=film_shift, apply_silu=apply_silu,
@@ -70,7 +89,11 @@ class Conv3x3x3(nn.Module):
     """Stride-1 SAME 3x3x3 conv over the conv kernel, computed in the input's
     dtype (params stay f32). Without autograd (inference) the weight is kept
     packed in the kernel's layout on the card and repacked when the
-    parameter changes; a forward that records gradients packs afresh."""
+    parameter changes; a forward that records gradients packs afresh.
+
+    ``fused=True`` runs the fused kernel (:func:`..ops.conv3d_fused.
+    conv3d_fused`, inference only) with ``fused_kw`` its prologue, skip and
+    stats arguments; it returns what that function returns."""
 
     def __init__(self, in_ch: int, out_ch: int, zero_init: bool = False):
         super().__init__()
@@ -80,16 +103,21 @@ class Conv3x3x3(nn.Module):
         self._packed = None
         self._packed_key = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        packed = None
-        if x.device.type == "cuda" and not (
+    def _packed_weight(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        if x.device.type != "cuda" or (
                 torch.is_grad_enabled() and self.weight.requires_grad):
-            key = (x.dtype, x.device, self.weight.data_ptr(),
-                   self.weight._version)
-            if key != self._packed_key:
-                self._packed = conv_ops.pack_weight(self.weight, x.dtype)
-                self._packed_key = key
-            packed = self._packed
+            return None
+        key = (x.dtype, x.device, self.weight.data_ptr(), self.weight._version)
+        if key != self._packed_key:
+            self._packed = conv_ops.pack_weight(self.weight, x.dtype)
+            self._packed_key = key
+        return self._packed
+
+    def forward(self, x: torch.Tensor, fused: bool = False, **fused_kw):
+        packed = self._packed_weight(x)
+        if fused:
+            return fused_ops.conv3d_fused(
+                x, self.weight, self.bias, w_packed=packed, **fused_kw)
         return conv_ops.conv3d(x, self.weight, self.bias, w_packed=packed)
 
 

@@ -1,9 +1,9 @@
 """3-D diffusion UNet in PyTorch, channels-last ``[B, D, H, W, C]``.
 
 Port of ``ddpm3d_tpu/models/unet.py`` for the denoising and training paths:
-the unfused ``ResBlock`` (in-block up/down, FiLM scale-shift norm, dropout in
-``train()`` mode), ``UNetModel`` without attention and ``SuperResModel``
-(concat conditioner). The wiring comes from
+``ResBlock`` (in-block up/down, FiLM scale-shift norm, dropout in ``train()``
+mode, and the fused serving branch), ``UNetModel`` without attention and
+``SuperResModel`` (concat conditioner). The wiring comes from
 :func:`.plan.plan_unet` (the reference's pair-pop decoder); module names
 follow the reference torch state dict (``input_blocks.i.j.in_layers.2``,
 ``out.2`` ...).
@@ -37,7 +37,16 @@ REMAT_MAX_DS = 2
 
 class ResBlock(nn.Module):
     """Residual block with timestep FiLM conditioning and optional in-block
-    up/down resampling (the JAX package's unfused branch)."""
+    up/down resampling.
+
+    With ``fused=True``, in eval mode, scale-shift norm, no dropout and no
+    up/down, both convs run through the fused kernel (``ops/
+    conv3d_fused.py``; the JAX package's fused branch, ``unet.py:157-194``):
+    each GroupNorm(+FiLM)+SiLU is folded into a [B, C] affine that the conv
+    applies in its prologue, the residual add is the second conv's
+    epilogue, and each conv emits the per-channel sums that fold the next
+    GroupNorm. ``x_stats`` carries such sums in; the fused call returns
+    ``(out, out_stats)``, the unfused one ``out``."""
 
     def __init__(
         self,
@@ -48,10 +57,13 @@ class ResBlock(nn.Module):
         use_scale_shift_norm: bool = False,
         up: bool = False,
         down: bool = False,
+        fused: bool = False,
     ):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
         self.up, self.down = up, down
+        self.dropout = dropout
+        self.fused = fused
         self.in_layers = nn.ModuleList([
             prim.GroupNorm32(channels), nn.SiLU(),
             prim.Conv3x3x3(channels, out_channels),
@@ -70,7 +82,16 @@ class ResBlock(nn.Module):
             else prim.Conv1x1x1(channels, out_channels)
         )
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def fusable(self) -> bool:
+        """The JAX package's ``_fusable`` without its TPU tiling terms."""
+        return (self.fused and not self.training and not self.up
+                and not self.down and self.use_scale_shift_norm
+                and self.dropout == 0.0)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                x_stats: Optional[torch.Tensor] = None):
+        if self.fusable():
+            return self._forward_fused(x, emb, x_stats)
         h = self.in_layers[0](x, apply_silu=True)
         if self.up:
             h = prim.upsample_nearest_hw(h)
@@ -90,6 +111,20 @@ class ResBlock(nn.Module):
         h = self.out_layers[2](h)
         h = self.out_layers[3](h)
         return self.skip_connection(x) + h
+
+    def _forward_fused(self, x, emb, x_stats):
+        g1, b1 = self.in_layers[0](x, stats=x_stats, fold_only=True)
+        h, h_stats = self.in_layers[2](
+            x, fused=True, prologue_g=g1, prologue_b=b1, prologue_silu=True,
+            want_stats=True)
+        emb_out = prim.linear(self.emb_layers[1], F.silu(emb), x.dtype)
+        scale, shift = emb_out.float().chunk(2, dim=-1)
+        g2, b2 = self.out_layers[0](
+            h, stats=h_stats, film_scale=scale, film_shift=shift,
+            fold_only=True)
+        return self.out_layers[3](
+            h, fused=True, prologue_g=g2, prologue_b=b2, prologue_silu=True,
+            skip=self.skip_connection(x), want_stats=True)
 
 
 class Downsample(nn.Module):
@@ -148,6 +183,7 @@ class UNetModel(nn.Module):
         middle_attention: bool = True,
         use_checkpoint: bool = False,
         dtype: torch.dtype = torch.float32,
+        fused: bool = False,
     ):
         super().__init__()
         if dims != 3:
@@ -172,6 +208,9 @@ class UNetModel(nn.Module):
         self.num_classes = num_classes
         self.use_checkpoint = use_checkpoint
         self.dtype = dtype
+        # the fused serving path (inference only) is off under remat, as in
+        # the JAX package
+        self.fused = fused and not use_checkpoint
         # downsample rate of each stage (the JAX forward's ds bookkeeping)
         self._stage_ds = []
         ds = 1
@@ -201,7 +240,7 @@ class UNetModel(nn.Module):
                 return ResBlock(
                     spec.in_ch, emb_ch, spec.out_ch, dropout=dropout,
                     use_scale_shift_norm=use_scale_shift_norm,
-                    up=spec.up, down=spec.down,
+                    up=spec.up, down=spec.down, fused=self.fused,
                 )
             if isinstance(spec, DownSpec):
                 return Downsample(spec.in_ch, spec.out_ch, spec.use_conv)
@@ -225,21 +264,27 @@ class UNetModel(nn.Module):
         prim.init_params(self, seed=0)
 
     def _run_stage(self, i: int, stage: nn.ModuleList, h: torch.Tensor,
-                   emb: torch.Tensor) -> torch.Tensor:
+                   emb: torch.Tensor, stats: Optional[torch.Tensor]):
         """Run stage ``i`` (input, middle, output stages in order). Only
         ResBlocks take the timestep embedding; with ``use_checkpoint`` those
-        at downsample rate <= REMAT_MAX_DS recompute in the backward."""
+        at downsample rate <= REMAT_MAX_DS recompute in the backward.
+
+        ``stats`` threads the fused path's per-channel sums of ``h`` from
+        block to block; any other op and any unfused ResBlock drops them
+        (the next fused block then takes the stats of its input). Returns
+        ``(h, stats)``."""
         remat = (self.use_checkpoint and torch.is_grad_enabled()
                  and self._stage_ds[i] <= REMAT_MAX_DS)
         for m in stage:
             if not isinstance(m, ResBlock):
-                h = m(h)
+                h, stats = m(h), None
             elif remat:
-                h = torch.utils.checkpoint.checkpoint(
-                    m, h, emb, use_reentrant=False)
+                h, stats = torch.utils.checkpoint.checkpoint(
+                    m, h, emb, use_reentrant=False), None
             else:
-                h = m(h, emb)
-        return h
+                out = m(h, emb, stats)
+                h, stats = out if isinstance(out, tuple) else (out, None)
+        return h, stats
 
     def forward(
         self,
@@ -254,16 +299,22 @@ class UNetModel(nn.Module):
         if y is not None:
             emb = emb + self.label_emb(y)
         h = x.to(self.dtype)
+        stats = None
         hs = []
         stages = (list(self.input_blocks) + [self.middle_block]
                   + list(self.output_blocks))
         n_in = len(self.input_blocks)
         for i, stage in enumerate(stages):
             if i > n_in:
-                h = torch.cat([h, hs.pop()], dim=-1)
-            h = self._run_stage(i, stage, h, emb)
+                h_skip, skip_stats = hs.pop()
+                h = torch.cat([h, h_skip], dim=-1)
+                # per-channel sums concatenate like the activations
+                stats = (torch.cat([stats, skip_stats], dim=-1)
+                         if stats is not None and skip_stats is not None
+                         else None)
+            h, stats = self._run_stage(i, stage, h, emb, stats)
             if i < n_in:
-                hs.append(h)
+                hs.append((h, stats))
         h = self.out[0](h.to(x.dtype), apply_silu=True)
         return self.out[2](h)
 

@@ -2,13 +2,16 @@
 
 * :mod:`.conv3d` — stride-1 SAME 3x3x3 conv (``csrc/conv3d.cu``), forward
   and the dx of its backward;
+* :mod:`.conv3d_fused` — the fused ResBlock conv (GN/FiLM/SiLU prologue,
+  bias/skip epilogue, next-GN stats), the fused instance of the same
+  ``csrc/conv3d.cu`` template;
 * :mod:`.groupnorm` — GroupNorm stats and fused normalize/FiLM/SiLU
   (``csrc/groupnorm.cu``).
 """
 
 from typing import Dict
 
-from . import conv3d, groupnorm
+from . import conv3d, conv3d_fused, groupnorm
 
 
 def launch_counts() -> Dict[str, int]:
@@ -16,6 +19,7 @@ def launch_counts() -> Dict[str, int]:
     return {
         "conv3d": conv3d.launches,
         "conv3d_dx": conv3d.dx_launches,
+        "conv3d_fused": conv3d_fused.launches,
         "gn_stats": groupnorm.stats_launches,
         "gn_apply": groupnorm.apply_launches,
     }
@@ -24,5 +28,6 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     conv3d.launches = 0
     conv3d.dx_launches = 0
+    conv3d_fused.launches = 0
     groupnorm.stats_launches = 0
     groupnorm.apply_launches = 0

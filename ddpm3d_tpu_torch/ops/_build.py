@@ -34,6 +34,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "conv3d_ndhwc_launch": (
         "conv3d", [_P, _P, _P, _P] + [_I] * 10 + [_P]),
+    "conv3d_fused_launch": (
+        "conv3d", [_P] * 5 + [_I] + [_P] * 5 + [_I] * 10 + [_P]),
     "gn_stats_launch": ("groupnorm", [_P, _P, _P] + [_I] * 5 + [_P]),
     "gn_apply_launch": ("groupnorm", [_P, _P, _P, _P] + [_I] * 5 + [_P]),
 }

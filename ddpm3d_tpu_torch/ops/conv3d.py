@@ -111,25 +111,33 @@ def conv3d_plain(
     return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
 
 
+def check_kernel_inputs(x: torch.Tensor, w_packed: torch.Tensor,
+                        what: str) -> int:
+    """Raise unless the conv kernels take ``x`` [B, D, H, W, Cin] (a CUDA
+    tensor, bf16 or f32) with ``w_packed``; returns Cout."""
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{what} kernel takes CUDA tensors, got {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what} kernel takes bf16 or f32, got {x.dtype}")
+    if x.dim() != 5:
+        raise ValueError(f"expected [B, D, H, W, C], got {tuple(x.shape)}")
+    cin = x.shape[-1]
+    if w_packed.shape[0] != 27 or w_packed.shape[2] != cin:
+        raise ValueError(
+            f"packed weight {tuple(w_packed.shape)} does not fit Cin={cin}")
+    if w_packed.dtype != x.dtype or w_packed.device != x.device:
+        raise ValueError("packed weight must match x's dtype and device")
+    return w_packed.shape[1]
+
+
 def _launch(
     x: torch.Tensor,
     w_packed: torch.Tensor,
     bias: Optional[torch.Tensor],
 ) -> torch.Tensor:
     """Run ``csrc/conv3d.cu`` once on CUDA tensors (callers count it)."""
-    if x.device.type != "cuda":
-        raise RuntimeError(f"conv3d kernel takes CUDA tensors, got {x.device}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"conv3d kernel takes bf16 or f32, got {x.dtype}")
-    if x.dim() != 5:
-        raise ValueError(f"expected [B, D, H, W, C], got {tuple(x.shape)}")
+    cout = check_kernel_inputs(x, w_packed, "conv3d")
     B, D, H, W, cin = x.shape
-    if w_packed.shape[0] != 27 or w_packed.shape[2] != cin:
-        raise ValueError(
-            f"packed weight {tuple(w_packed.shape)} does not fit Cin={cin}")
-    if w_packed.dtype != x.dtype or w_packed.device != x.device:
-        raise ValueError("packed weight must match x's dtype and device")
-    cout = w_packed.shape[1]
     x = x.contiguous()
     w_packed = w_packed.contiguous()
     b = None

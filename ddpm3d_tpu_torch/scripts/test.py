@@ -4,10 +4,12 @@
         --model_path model.pt [--device cuda] <model and diffusion flags>
 
 The flags and defaults of the JAX package's ``scripts/test.py``, plus
-``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path). The
-checkpoint is a ``.pt`` state dict (``tools/export_torch_ckpt.py`` converts
-a JAX checkpoint). Samplers and modes this slice does not have yet refuse
-to start and name the ROADMAP.md item that brings them.
+``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path). As in
+the JAX package, ``DDPM3D_FUSED=1`` in the environment serves the ResBlocks
+through the fused conv kernel. The checkpoint is a ``.pt`` state dict
+(``tools/export_torch_ckpt.py`` converts a JAX checkpoint). Samplers and
+modes this slice does not have yet refuse to start and name the ROADMAP.md
+item that brings them.
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ def torch_noise_provider(seed: int, patch_size: int, num_steps: int):
 
 
 def main(argv=None):
+    fused = os.environ.get("DDPM3D_FUSED", "0") == "1"
     args = create_argparser().parse_args(argv)
     _refuse_unported(args)
     device = resolve_device(args.device)
@@ -83,8 +86,11 @@ def main(argv=None):
 
     log("creating model...")
     model, sched, cfg = sr_create_model_and_diffusion(
-        **args_to_dict(args, sr_model_and_diffusion_defaults().keys())
+        **args_to_dict(args, sr_model_and_diffusion_defaults().keys()),
+        fused=fused,
     )
+    log("serving path: " + (
+        "fused ResBlock convs (DDPM3D_FUSED)" if model.fused else "unfused"))
     if args.model_path:
         log(f"loading checkpoint {args.model_path}...")
         model.load_state_dict(load_checkpoint(args.model_path), strict=True)

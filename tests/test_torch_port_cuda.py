@@ -17,6 +17,7 @@ from ddpm3d_tpu_torch.models import SuperResModel
 from ddpm3d_tpu_torch.models import factory
 from ddpm3d_tpu_torch.models.nn import init_params
 from ddpm3d_tpu_torch.ops import conv3d as cv
+from ddpm3d_tpu_torch.ops import conv3d_fused as fo
 from ddpm3d_tpu_torch.ops import groupnorm as gn
 from ddpm3d_tpu_torch.training import train_loop as tl
 
@@ -24,6 +25,11 @@ pytestmark = pytest.mark.cuda
 
 # bf16 outputs may differ by one bf16 rounding where f32 sums differ in order
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+# a bf16 model served fused against unfused: the fused path folds each GN
+# from the f32 conv sums, the unfused one from the bf16-rounded output, so
+# each of the ~10 convs in sequence rounds slightly different inputs to bf16
+# (2^-8 each); the differences compound over the depth
+BF16_FUSED_MODEL_TOL = 3e-2
 
 
 @pytest.fixture
@@ -223,3 +229,121 @@ def test_model_kernel_path_matches_cpu(dev):
     counts = ops.launch_counts()
     assert counts["conv3d"] > 0 and counts["gn_stats"] == counts["gn_apply"] > 0
     assert _rel(out, ref) <= 1e-4
+
+
+# every flag combination of the fused conv: (prologue, silu, skip, stats)
+FUSED_FLAGS = [(pro, silu, skip, stats)
+               for pro, silu in ((False, True), (True, True), (True, False))
+               for skip in (False, True) for stats in (False, True)]
+
+
+def _fused_inputs(dev, seed, shape, cout, dtype, shift=0.3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, cin = shape[0], shape[-1]
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) / (27 * cin) ** 0.5
+    b = torch.randn((cout,), generator=g, device=dev)
+    pg = 1 + 0.3 * torch.randn((B, cin), generator=g, device=dev)
+    pb = shift + 0.3 * torch.randn((B, cin), generator=g, device=dev)
+    skip = torch.randn(shape[:-1] + (cout,), generator=g, device=dev).to(dtype)
+    return x, w, b, pg, pb, skip
+
+
+def _check_fused_stats(st, ref_st, ref_out):
+    """The first sum may cancel to near 0, so its error is held against the
+    sum of |y|; the sum of squares against itself. Both differ from the
+    plain sums by the summation order and by the tensor cores' f32
+    accumulation (about 6e-8 x Cin relative, chip_smoke.py STATS_S2_TOL)."""
+    abs_sum = ref_out.float().abs().sum(dim=(1, 2, 3))
+    assert ((st[:, 0] - ref_st[:, 0]).abs() <= 1e-4 * abs_sum).all()
+    assert ((st[:, 1] - ref_st[:, 1]).abs() <= 1e-4 * ref_st[:, 1]).all()
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 5, 7, 9, 32), 16),      # ragged tiles, 2 batches, per-sample (g, b)
+    ((1, 6, 12, 12, 256), 130),  # Cout past one 128-column tile, ragged
+    ((1, 4, 8, 8, 2), 128),      # Cin = 2 (unaligned staging)
+    ((1, 4, 8, 8, 40), 2),       # Cout = 2 (the narrow f32 tile)
+    ((1, 8, 6, 6, 1024), 64),    # W = 6 plane, deep Cin
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3d_fused_kernel_matches_plain(dev, shape, cout, dtype):
+    """Every flag combination: output at the kernel tolerance, stats as in
+    _check_fused_stats; one launch per call."""
+    x, w, b, pg, pb, skip = _fused_inputs(dev, 8, shape, cout, dtype)
+    for pro, silu, use_skip, stats in FUSED_FLAGS:
+        kw = dict(prologue_silu=silu, want_stats=stats,
+                  skip=skip if use_skip else None)
+        if pro:
+            kw.update(prologue_g=pg, prologue_b=pb)
+        before = ops.launch_counts()["conv3d_fused"]
+        got = fo.conv3d_fused(x, w, b, **kw)
+        assert ops.launch_counts()["conv3d_fused"] == before + 1
+        ref = fo.conv3d_fused_plain(x, w, b, **kw)
+        torch.cuda.synchronize()
+        out, ref_out = (got[0], ref[0]) if stats else (got, ref)
+        assert out.dtype == dtype and out.shape == ref_out.shape
+        assert _rel(out, ref_out) <= TOL[dtype], (pro, silu, use_skip, stats)
+        if stats:
+            assert got[1].shape == (shape[0], 2, cout)
+            _check_fused_stats(got[1], ref[1], ref_out)
+
+
+def test_conv3d_fused_masks_the_padding(dev):
+    """A large prologue shift makes silu(0 * g + b) far from 0: the halo
+    past every volume edge must stay 0 (conv after normalize), as in the
+    plain version, which normalizes before padding."""
+    x, w, b, pg, pb, _ = _fused_inputs(dev, 9, (1, 3, 5, 6, 32), 32,
+                                       torch.float32, shift=4.0)
+    out = fo.conv3d_fused(x, w, b, prologue_g=pg, prologue_b=pb)
+    ref = fo.conv3d_fused_plain(x, w, b, prologue_g=pg, prologue_b=pb)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3d_fused_is_deterministic_and_batch_invariant(dev, dtype):
+    """The stats are ordered by the volume's shape alone: two runs agree
+    bit for bit, and volume 0 of a batch of 2 equals it alone."""
+    x, w, b, pg, pb, skip = _fused_inputs(dev, 10, (2, 6, 40, 40, 128), 128,
+                                          dtype)
+    kw = dict(prologue_g=pg, prologue_b=pb, skip=skip, want_stats=True)
+    out1, st1 = fo.conv3d_fused(x, w, b, **kw)
+    out2, st2 = fo.conv3d_fused(x, w, b, **kw)
+    one, st_one = fo.conv3d_fused(
+        x[:1].contiguous(), w, b, prologue_g=pg[:1], prologue_b=pb[:1],
+        skip=skip[:1].contiguous(), want_stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2) and torch.equal(st1, st2)
+    assert torch.equal(out1[:1], one) and torch.equal(st1[:1], st_one)
+
+
+def test_fused_model_matches_unfused(dev):
+    """A small model served fused on the card against the plain fused path
+    on the CPU (f32, within 1e-4) and against the unfused card forward
+    (f32 within 1e-4; bf16 within BF16_FUSED_MODEL_TOL); two convs per
+    fusable ResBlock go through the fused kernel."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((2, 4, 16, 16, 1), np.float32))
+    t = torch.tensor([10, 900])
+    for dtype in (torch.float32, torch.bfloat16):
+        unfused = _tiny_model(dtype).eval()
+        fused = SuperResModel(
+            in_channels=1, model_channels=32, out_channels=2,
+            num_res_blocks=1, channel_mult=(1, 2), use_scale_shift_norm=True,
+            resblock_updown=True, middle_attention=False, dtype=dtype,
+            fused=True).eval()
+        fused.load_state_dict(unfused.state_dict(), strict=True)
+        n_fused = sum(m.fusable() for m in fused.modules()
+                      if hasattr(m, "fusable"))
+        with torch.no_grad():
+            cpu = fused(x, t, low_res=x)
+            ref = unfused.to(dev)(x.to(dev), t.to(dev), low_res=x.to(dev))
+            ops.reset_launch_counts()
+            out = fused.to(dev)(x.to(dev), t.to(dev), low_res=x.to(dev))
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["conv3d_fused"] == 2 * n_fused > 0
+        if dtype == torch.float32:
+            assert _rel(out.cpu(), cpu) <= 1e-4
+        assert _rel(out, ref) <= (1e-4 if dtype == torch.float32
+                                  else BF16_FUSED_MODEL_TOL)
