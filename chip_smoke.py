@@ -35,7 +35,22 @@ Phases (each failure exits non-zero before the final line):
                ``denoise_fused``, the denoise phase again on the fused
                model, against the unfused volume and with exact launch
                counts; ``profile_fused``, its one-forward breakdown;
-  7. train   — the training CLI (``ddpm3d_tpu_torch.scripts.train``) at the
+  7. int8    — the int8 (W8A8) serving path (``int8=Int8Config()``, the
+               same weights): ``conv3d_s8`` against its plain version at
+               every distinct quantized-conv shape of one bf16 96^3 int8
+               forward (read by hooks; 3^3, 1^3 and the stacked phases of
+               the up sites), each at batch 1 and 2, dynamic and static,
+               with and without bias, bf16 and f32 out, checked for
+               equality; six sites timed beside K3 and the plain version
+               (the 1x1 skip beside ``torch._int_mm``); ``model_int8``, the
+               full-width f32 int8 model on the card against the CPU, every
+               site's output equal to the plain int8 conv on its own input;
+               ``denoise_int8``, the denoise phase on the int8 model with
+               dynamic scales, exact launches per forward and the volume
+               against the bf16 one; ``denoise_int8_static``, per-time-bin
+               scales from ``INT8_SCALES_PROD.json`` over its 25-step
+               respacing; ``profile_int8``, one forward by family;
+  8. train   — the training CLI (``ddpm3d_tpu_torch.scripts.train``) at the
                production flags on a synthetic (2, 96, 200, 200) low/high
                pair: 6 bf16 steps at batch 1 with the launch counters zeroed
                just before; step time, peak memory, losses, launches per
@@ -60,12 +75,14 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core bf16 (NVIDIA data sheet, SXM)
+H100_INT8_OPS = 1979e12    # dense tensor-core int8
 H100_F32_FLOPS = 67e12     # f32 on CUDA cores
 H100_BYTES = 3.35e12       # HBM3 bytes/s
 
@@ -85,6 +102,9 @@ KERNELS = {
     "conv3d_fused": dict(
         route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d.cu",
         replaces="ddpm3d_tpu/ops/conv3d_fused.py:230"),
+    "conv3d_s8": dict(
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_s8.cu",
+        replaces="ddpm3d_tpu/ops/conv3d_s8.py:369"),
 }
 TRAIN_KERNELS = ("conv3d", "conv3d_dx", "gn_stats", "gn_apply")
 
@@ -118,16 +138,29 @@ FUSED_FORWARD_TOL = 5e-2
 # sqrt(1/acp - 1) ~ 158 before clipping to [-1, 1], so single voxels may
 # move across the whole clip range while the volume agrees
 DENOISE_FUSED_TOL = 5e-2
+# the bf16 model served in int8 against unfused bf16 (same weights, volume
+# and noise), the first forward (max-based) and the volume (mean-based):
+# not an equivalence but the quantization error of random weights through
+# ~70 quantized layers, measured at 4.7e-2 and 2.5e-2 on an H100 80GB HBM3
+# at 700 W; about 3x margin, which a wrong scale, bias or tap breaks
+INT8_FORWARD_TOL = 0.15
+DENOISE_INT8_TOL = 0.1
 # launches per forward of the production model on each serving path
 FORWARD_LAUNCHES = {
     "denoise": {"conv3d": 72, "conv3d_dx": 0, "conv3d_fused": 0,
-                "gn_stats": 71, "gn_apply": 71},
+                "conv3d_s8": 0, "gn_stats": 71, "gn_apply": 71},
     # 27 fusable ResBlocks x 2; input conv, head conv, 8 up/down blocks x 2;
     # 16 + the head's GN applied; 17 unfused GNs + 14 fused blocks that
     # enter without stats (5 in the encoder, 9 in the decoder)
     "denoise_fused": {"conv3d": 18, "conv3d_dx": 0, "conv3d_fused": 54,
-                      "gn_stats": 31, "gn_apply": 17},
+                      "conv3d_s8": 0, "gn_stats": 31, "gn_apply": 17},
+    # the 90 conv sites of INT8_SCALES_PROD.json less in0_0 and head_conv:
+    # 66 3x3x3 + the 4 up blocks' in_conv (one phase-route launch each) +
+    # 18 1x1 skips; the two excluded convs stay K3
+    "denoise_int8": {"conv3d": 2, "conv3d_dx": 0, "conv3d_fused": 0,
+                     "conv3d_s8": 88, "gn_stats": 71, "gn_apply": 71},
 }
+FORWARD_LAUNCHES["denoise_int8_static"] = FORWARD_LAUNCHES["denoise_int8"]
 # the production training flags (test_DDPM_3d_tpu.sh model flags with the
 # training CLI's defaults: batch 1, lr 1e-4, EMA 0.9999, AdamW)
 TRAIN_FLAGS = [
@@ -313,16 +346,21 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
         a_err, a_rel = rel_err(y, y_ref)
         f_err, f_rel = rel_err(full, y_ref)
         isz = x.element_size()
+        # K1's yardstick: the one PyTorch call that yields the same group
+        # statistics (mean and variance over the [N, C/32] group view); K2
+        # has none (no single call does GN + FiLM + SiLU)
+        xg = x.reshape(B, N, gn.NORM_GROUPS, C // gn.NORM_GROUPS)
         cases = (
             ("gn_stats", s_err, s_rel, 1e-5,
              lambda: gn.channel_stats(x), lambda: gn.channel_stats_plain(x),
+             lambda: torch.var_mean(xg, dim=(1, 3)),
              B * N * C * isz + B * 2 * C * 4, 3.0 * B * N * C),
             ("gn_apply", a_err, a_rel, TOL[dt],
              lambda: gn.gn_apply(x, g, bb, silu),
-             lambda: gn.gn_apply_plain(x, g, bb, silu),
+             lambda: gn.gn_apply_plain(x, g, bb, silu), None,
              2 * B * N * C * isz + 2 * B * C * 4, 6.0 * B * N * C),
         )
-        for name, err, rel, tol, kfn, pfn, nbytes, flops in cases:
+        for name, err, rel, tol, kfn, pfn, lfn, nbytes, flops in cases:
             line = dict(kernel=name, shape=[B, N, C],
                         dtype=str(dt).split(".")[-1], film=film, silu=silu,
                         max_abs_err=err, rel_err=rel, tol=tol)
@@ -330,7 +368,8 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
                 ms = time_ms(kfn)
                 bms, by = bound(flops, nbytes, torch.float32)
                 line.update(kernel_ms=ms, plain_ms=time_ms(pfn),
-                            library_ms=None, bound_ms=bms, bound_by=by,
+                            library_ms=time_ms(lfn) if lfn else None,
+                            bound_ms=bms, bound_by=by,
                             gb_per_s=nbytes / ms / 1e6)
             emit(line)
             check(rel <= tol, f"{name} {line['shape']} rel err {rel}")
@@ -486,7 +525,7 @@ def phase_fused_kernels(gen: torch.Generator, shapes) -> dict:
     return dict(summary, shapes_checked=checked)
 
 
-def _model(use_fp16: bool, seed: int, fused: bool = False):
+def _model(use_fp16: bool, seed: int, fused: bool = False, int8=None):
     from ddpm3d_tpu_torch.models.factory import sr_create_model_and_diffusion
     from ddpm3d_tpu_torch.models.nn import init_params
     from ddpm3d_tpu_torch.utils.config import sr_model_and_diffusion_defaults
@@ -499,7 +538,8 @@ def _model(use_fp16: bool, seed: int, fused: bool = False):
         diffusion_steps=1000, noise_schedule="linear",
     )
     args["timestep_respacing"] = "3"
-    model, sched, cfg = sr_create_model_and_diffusion(**args, fused=fused)
+    model, sched, cfg = sr_create_model_and_diffusion(**args, fused=fused,
+                                                      int8=int8)
     init_params(model, seed=seed, zero_heads=False)
     return model.eval(), sched, cfg
 
@@ -637,26 +677,26 @@ def phase_denoise(model, sched, cfg, seed: int, phase: str = "denoise"):
     return counts, result, first[0]
 
 
-def check_fused_volume(volume, fused_volume, eps, fused_eps) -> None:
-    """The fused chain against the unfused one: the first forward (the same
-    input on both paths) within FUSED_FORWARD_TOL, the volume within
-    DENOISE_FUSED_TOL (mean-based; the max is reported)."""
-    d = np.abs(fused_volume - volume)
-    fwd_rel = rel_err(fused_eps, eps)[1]
+def check_volumes(phase, volume, other, eps, other_eps, forward_tol,
+                  volume_tol) -> None:
+    """Another serving path's chain against the unfused one (same weights,
+    volume and noise): the first forward (the same input on both paths)
+    within ``forward_tol`` (max-based), the volume within ``volume_tol``
+    (mean-based; the max is reported)."""
+    d = np.abs(other - volume)
+    fwd_rel = rel_err(other_eps, eps)[1]
     mean_rel = float(d.mean() / np.abs(volume).mean())
-    emit({"phase": "denoise_fused_vs_unfused",
-          "first_forward_rel_diff": fwd_rel, "forward_tol": FUSED_FORWARD_TOL,
-          "volume_mean_rel_diff": mean_rel, "volume_tol": DENOISE_FUSED_TOL,
+    emit({"phase": phase,
+          "first_forward_rel_diff": fwd_rel, "forward_tol": forward_tol,
+          "volume_mean_rel_diff": mean_rel, "volume_tol": volume_tol,
           "volume_max_abs_diff": float(d.max()),
           "volume_max_rel_diff": float(d.max() / np.abs(volume).max()),
           "volume_share_within": {str(a): float((d <= a).mean())
                                   for a in (1e-3, 1e-2, 1e-1)},
           "volume_quantiles": {str(q): float(np.quantile(d, q))
                                for q in (0.5, 0.9, 0.99, 0.999)}})
-    check(fwd_rel <= FUSED_FORWARD_TOL,
-          f"fused vs unfused first forward rel {fwd_rel}")
-    check(mean_rel <= DENOISE_FUSED_TOL,
-          f"fused vs unfused volume mean rel {mean_rel}")
+    check(fwd_rel <= forward_tol, f"{phase}: first forward rel {fwd_rel}")
+    check(mean_rel <= volume_tol, f"{phase}: volume mean rel {mean_rel}")
 
 
 # kernel families of a profile, by substrings of the device kernels' names
@@ -698,22 +738,33 @@ def device_breakdown(prof, families) -> tuple:
     return by_family, other
 
 
-def phase_profile(model, phase: str = "profile") -> None:
+def phase_profile(model, phase: str = "profile",
+                  families=FORWARD_FAMILIES) -> None:
     """Device time of one bf16 96^3 forward at batch 1, by kernel family
-    (torch.profiler), against the forward's CUDA-event time."""
+    (torch.profiler), against the forward's CUDA-event time; and the host's
+    time to issue the forward (the call returns before the card is done:
+    near the forward's time, the host holds the card back)."""
     from torch.profiler import ProfilerActivity, profile
 
     x = torch.randn((1, 96, 96, 96, 1), device="cuda")
     t = torch.tensor([500], device="cuda")
     with torch.no_grad():
         fwd_ms = time_ms(lambda: model(x, t, low_res=x), reps=3, warmup=1)
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(x, t, low_res=x)
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             model(x, t, low_res=x)
             torch.cuda.synchronize()
-    by_family, other = device_breakdown(prof, FORWARD_FAMILIES)
+    by_family, other = device_breakdown(prof, families)
     top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])
     device_ms = sum(by_family.values()) + sum(other.values())
     emit({"phase": phase, "forward_ms": fwd_ms, "batch": 1,
+          "host_issue_ms": statistics.median(host),
           "device_ms": device_ms, "kernel_ms": by_family,
           "other_ms": sum(other.values()), "top_other_ms": top,
           "idle_share": max(0.0, 1 - device_ms / fwd_ms)})
@@ -1028,7 +1079,7 @@ def phase_train(seed: int) -> dict:
     for name in TRAIN_KERNELS:
         check(counts[name] > 0, f"kernel {name} launched on the train path")
     check(per_step == {"conv3d": 72, "conv3d_dx": 71, "conv3d_fused": 0,
-                       "gn_stats": 71, "gn_apply": 71},
+                       "conv3d_s8": 0, "gn_stats": 71, "gn_apply": 71},
           f"launches per step {per_step}")
 
     # the saved weights serve: a serving model loads them strictly, they
@@ -1055,6 +1106,295 @@ def phase_train(seed: int) -> dict:
     del serving, y
     line["loop"] = loops[0]
     return line
+
+
+# ------------------------------------------------------------------ int8 --
+
+# a quantized conv site: (D, H, W, Cin, N, taps, upsample) of one bf16 96^3
+# int8 forward; N = Cout, or 4 * Cout stacked phases on the phase route
+def int8_path_shapes(model) -> list:
+    """Every distinct quantized conv of one bf16 96^3 batch-1 int8 forward,
+    read by forward hooks on the int8 sites."""
+    shapes = set()
+
+    def hook(mod, args, kwargs, out):
+        _, D, H, W, cin = args[0].shape
+        up = bool(kwargs.get("upsample", False))
+        n = mod.weight.shape[0] * (4 if up else 1)
+        shapes.add((D, H, W, cin, n, mod.weight[0, 0].numel(), up))
+
+    handles = [m.register_forward_hook(hook, with_kwargs=True)
+               for m in model.modules()
+               if getattr(m, "site", "") and m.int8_active()]
+    x = torch.randn((1, 96, 96, 96, 1), device="cuda")
+    with torch.no_grad():
+        model(x, torch.tensor([500], device="cuda"), low_res=x)
+    for h in handles:
+        h.remove()
+    return sorted(shapes)
+
+
+# sites timed beside the plain version and K3 (bf16) at the conv int8
+# replaces: (D, H, W, Cin, N, taps, upsample); the up site is added from
+# the path (its widest)
+S8_TIMED = [
+    (96, 96, 96, 128, 128, 27, False),   # level-0 ResBlock conv
+    (96, 96, 96, 256, 128, 27, False),   # level-0 decoder in_conv
+    (96, 96, 96, 256, 128, 1, False),    # its 1x1 skip (beside _int_mm)
+    (96, 48, 48, 256, 128, 27, False),   # level-1 decoder in_conv
+    (96, 6, 6, 1024, 512, 27, False),    # level-4 decoder in_conv
+]
+
+
+def _s8_inputs(gen, case, B, static):
+    D, H, W, cin, n, taps, up = case
+    dev = torch.device("cuda")
+    k = 3 if taps == 27 else 1
+    xq = torch.randint(-127, 128, (B, D, H, W, cin), generator=gen,
+                       device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, cin, k, k, k), generator=gen,
+                       device=dev, dtype=torch.int8)
+    s_x = (torch.full((B,), 0.02, device=dev) if static else
+           0.01 + 0.02 * torch.rand((B,), generator=gen, device=dev))
+    s_w = 1e-4 + 1e-3 * torch.rand((n,), generator=gen, device=dev)
+    bias = torch.randn((n // 4 if up else n,), generator=gen, device=dev)
+    return xq, wq, s_x, s_w, bias
+
+
+def phase_s8_kernels(gen: torch.Generator, shapes) -> dict:
+    """``conv3d_s8`` against its plain version at every distinct quantized
+    shape of the int8 path, three variants each (batch 1 dynamic with bias
+    and bf16 out, as the path runs it; batch 2 dynamic with per-sample
+    scales, no bias, f32 out; batch 1 static with bias, f32 out): equal
+    bit for bit. The S8_TIMED sites and the widest up site are timed."""
+    from ddpm3d_tpu_torch.ops import conv3d as cv
+    from ddpm3d_tpu_torch.ops import conv3d_s8 as s8
+
+    for case in S8_TIMED:
+        check(case in shapes, f"timed s8 conv {case} is on the int8 path")
+    up_sites = [c for c in shapes if c[6]]
+    check(len(up_sites) > 0, "the int8 path has phase-route sites")
+    timed = S8_TIMED + [max(up_sites, key=lambda c: c[1] * c[2])]
+    variants = (  # (B, static, bias, out dtype)
+        (1, False, True, torch.bfloat16),
+        (2, False, False, torch.float32),
+        (1, True, True, torch.float32),
+    )
+    summary, checked, worst = None, 0, 0.0
+    for case in timed + [c for c in shapes if c not in timed]:
+        D, H, W, cin, n, taps, up = case
+        for vi, (B, static, with_bias, dt) in enumerate(variants):
+            xq, wq, s_x, s_w, bias = _s8_inputs(gen, case, B, static)
+            bias = bias if with_bias else None
+            wp = s8.pack_weight_s8(wq)
+            got = s8.conv3d_s8_kernel(xq, wp, s_x, s_w, bias, dt, up)
+            ref = s8.conv3d_s8_plain(xq, wq, s_x, s_w, bias, dt, up)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            line = dict(kernel="conv3d_s8", shape=[B, D, H, W, cin], n=n,
+                        taps=taps, upsample=up, static=static,
+                        bias=with_bias, dtype=str(dt).split(".")[-1],
+                        tile=list(cv.pick_tile(D, H, W)), max_abs_err=err,
+                        equal=bool(torch.equal(got, ref)))
+            check(bool(torch.isfinite(got.float()).all()), "conv3d_s8 finite")
+            if vi == 0 and case in timed:
+                line.update(_time_s8_site(case, xq, wq, wp, s_x, s_w, bias, dt))
+                if summary is None:
+                    summary = line
+            emit(line)
+            # K5 equals its plain version bit for bit: the same int32 sums
+            # (exact in any order) and the same f32 multiply, add and
+            # rounding, none contracted into an FMA
+            check(line["equal"], f"conv3d_s8 {case} variant {vi} differs "
+                  f"from its plain version by {err}")
+            worst = max(worst, err)
+            checked += 1
+            del xq, wq, got, ref
+    emit({"phase": "s8_kernels", "shapes": len(shapes),
+          "checks": checked, "worst_max_abs_err": worst})
+    return dict(summary, shapes_checked=len(shapes))
+
+
+def _time_s8_site(case, xq, wq, wp, s_x, s_w, bias, dt) -> dict:
+    """Kernel, plain and K3 (bf16, the conv int8 replaces: on the
+    upsampled input for the phase route) times at one site, the quantize
+    glue on a bf16 activation of the site's shape, and the bound; the 1x1
+    skip also beside ``torch._int_mm`` (its s8 GEMM alone)."""
+    from ddpm3d_tpu_torch.models.nn import upsample_nearest_hw
+    from ddpm3d_tpu_torch.ops import conv3d as cv
+    from ddpm3d_tpu_torch.ops import conv3d_s8 as s8
+    from ddpm3d_tpu_torch.ops import quant
+
+    D, H, W, cin, n, taps, up = case
+    cout = n // 4 if up else n
+    vox = D * H * W
+    ms = time_ms(lambda: s8.conv3d_s8_kernel(xq, wp, s_x, s_w, bias, dt, up))
+    plain_ms = time_ms(lambda: s8.conv3d_s8_plain(xq, wq, s_x, s_w, bias,
+                                                  dt, up), reps=3, warmup=1)
+    xb = (torch.randn(xq.shape, device="cuda") * 2).to(torch.bfloat16)
+    quant_ms = time_ms(lambda: quant.quantize_act(xb))
+    out = {"kernel_ms": ms, "plain_ms": plain_ms, "quantize_act_ms": quant_ms,
+           "library_ms": None}
+    if taps == 27:
+        xk = upsample_nearest_hw(xb) if up else xb
+        wk = cv.pack_weight(torch.randn((cout, cin, 3, 3, 3), device="cuda")
+                            * (27 * cin) ** -0.5, torch.bfloat16)
+        out["k3_bf16_ms"] = time_ms(lambda: cv.conv3d_kernel(xk, wk, bias))
+    else:
+        a = xq.reshape(vox, cin)
+        b = wq.reshape(n, cin).t()  # column-major [Cin, N]
+        try:
+            out["library_ms"] = time_ms(lambda: torch._int_mm(a, b))
+            out["library"] = "torch._int_mm (the s8 GEMM alone, int32 out)"
+        except RuntimeError as e:  # a yardstick only: report, go on
+            out["library_error"] = str(e)[:200]
+        wl = torch.randn((cout, cin), device="cuda").to(torch.bfloat16)
+        out["bf16_linear_ms"] = time_ms(lambda: F.linear(xb, wl))
+    # bound: the phase route counts its 12-tap work, not the 27 it executes
+    macs = vox * cin * cout * (48 if up else taps)
+    out_vox = vox * (4 if up else 1)
+    nbytes = (vox * cin + wq.numel() + out_vox * cout * (2 if dt ==
+              torch.bfloat16 else 4) + (n + 1 + cout) * 4)
+    t_ops, t_bytes = 2.0 * macs / H100_INT8_OPS * 1e3, nbytes / H100_BYTES * 1e3
+    out.update(bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               tops=2.0 * macs / ms / 1e9)
+    return out
+
+
+# the int8 model on the card against the plain int8 path on the CPU, f32.
+# An int8 network is discontinuous in its input: the float layers between
+# the quantized convs (the f32 K3 input conv, GroupNorm, FiLM) sum in
+# another order on the card (~1e-7 relative), so an activation near a
+# rounding boundary quantizes to the neighbouring int8 value, and the
+# change spreads through the GroupNorms that follow (this full-width model
+# measured 4.6e-2 card against CPU on an H100 80GB HBM3 at 700 W). So
+# every quantized site is held exactly (its card output
+# equals the plain int8 conv on the CPU on the site's own input), and the
+# whole forward only by its mean |diff| / mean |CPU|, with 3x margin:
+INT8_MODEL_MEAN_TOL = 0.15
+
+
+def phase_model_int8(seed: int) -> None:
+    """The full-width f32 int8 model at [1, 8, 32, 32, 1]: card against
+    CPU, per site and whole; 88 ``conv3d_s8`` launches."""
+    from ddpm3d_tpu_torch import ops
+    from ddpm3d_tpu_torch.ops import quant
+
+    model, _, _ = _model(use_fp16=False, seed=seed, int8=quant.Int8Config())
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((1, 8, 32, 32, 1), np.float32))
+    low = torch.from_numpy(rng.standard_normal((1, 8, 32, 32, 1), np.float32))
+    t = torch.tensor([517])
+    card = copy.deepcopy(model).cuda()
+    io = []
+    handles = [m.register_forward_hook(
+        lambda mod, args, kwargs, out: io.append(
+            (mod, args[0].cpu(), out.cpu(), bool(kwargs.get("upsample")))),
+        with_kwargs=True) for m in card.modules()
+        if getattr(m, "site", "") and m.int8_active()]
+    with torch.no_grad():
+        ref = model(x, t, low_res=low)
+        ops.reset_launch_counts()
+        out = card(x.cuda(), t.cuda(), low_res=low.cuda()).cpu()
+        n_s8 = ops.launch_counts()["conv3d_s8"]
+        for h in handles:
+            h.remove()
+        unequal = []
+        for mod, xin, yout, up in io:
+            cpu_mod = model.get_submodule(
+                next(n for n, m in card.named_modules() if m is mod))
+            y_cpu = cpu_mod(xin, upsample=up) if up else cpu_mod(xin)
+            if not torch.equal(y_cpu, yout):
+                unequal.append((mod.site, (y_cpu - yout).abs().max().item()))
+    err, rel = rel_err(out, ref)
+    mean_rel = ((out - ref).abs().mean() / ref.abs().mean()).item()
+    emit({"phase": "model_int8", "shape": list(x.shape), "channels": 128,
+          "dtype": "float32", "sites_checked": len(io),
+          "sites_unequal": unequal, "max_abs_err": err, "rel_err": rel,
+          "mean_rel_err": mean_rel, "mean_tol": INT8_MODEL_MEAN_TOL,
+          "conv3d_s8_launches": n_s8})
+    check(n_s8 == FORWARD_LAUNCHES["denoise_int8"]["conv3d_s8"],
+          f"int8 model launched conv3d_s8 {n_s8} times")
+    check(len(io) == n_s8 and not unequal,
+          f"int8 sites unequal to the plain int8 conv: {unequal}")
+    check(bool(torch.isfinite(out).all()), "int8 model output finite")
+    check(mean_rel <= INT8_MODEL_MEAN_TOL,
+          f"int8 model card vs CPU mean rel err {mean_rel}")
+
+
+def phase_denoise_int8_static(model, seed: int):
+    """The int8 model on per-time-bin static scales (the committed
+    INT8_SCALES_PROD.json, 25 bins over its 25-step respacing) through
+    ``denoise_volume``: 25 distinct bins, finite output, exact launches.
+    Random weights: no quality figure."""
+    from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
+    from ddpm3d_tpu_torch.ops import quant
+
+    fname = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "INT8_SCALES_PROD.json")
+    cfg8 = quant.Int8Config(scales=fname)
+    check(cfg8.has_time_bins, "INT8_SCALES_PROD.json has time bins")
+    model.set_int8(cfg8)
+    sched, cfg = create_gaussian_diffusion(
+        steps=1000, learn_sigma=True, noise_schedule="linear",
+        timestep_respacing="25")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        counts, volume, _ = phase_denoise(model, sched, cfg, seed,
+                                          phase="denoise_int8_static")
+    emit({"phase": "denoise_int8_static_bins",
+          "bins_used": sorted(cfg8.bins_used),
+          "distinct_bins": len(cfg8.bins_used),
+          "warnings": sorted({str(w.message)[:80] for w in caught}),
+          "volume_abs_mean": float(np.abs(volume).mean())})
+    check(len(cfg8.bins_used) == 25, f"bins used {sorted(cfg8.bins_used)}")
+    check(not caught, "every site has a scale in the file")
+    return counts
+
+
+# quantize glue kernels (the JAX package's XLA-fused glue): the per-sample
+# min/max, the f32 division, round and clamp; the cast to int8 is a plain
+# copy kernel and stays in "other"
+INT8_FAMILIES = dict(
+    FORWARD_FAMILIES,
+    conv3d_s8=("conv3d_s8_kernel",),
+    quantize=("MinMax", "minmax", "DivFunctor", "div_true", "round_kernel",
+              "clamp"),
+)
+
+
+def phase_profile_int8(model) -> None:
+    """One bf16 96^3 int8 forward at batch 1 by kernel family
+    (torch.profiler), the quantize glue also by CUDA events around each
+    ``quantize_act`` call, and the idle share."""
+    from ddpm3d_tpu_torch.ops import quant
+
+    phase_profile(model, phase="profile_int8", families=INT8_FAMILIES)
+    x = torch.randn((1, 96, 96, 96, 1), device="cuda")
+    t = torch.tensor([500], device="cuda")
+    evs = []
+    orig = quant.quantize_act
+
+    def timed(*a, **k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig(*a, **k)
+        e1.record()
+        evs.append((e0, e1))
+        return out
+
+    with torch.no_grad():
+        model(x, t, low_res=x)  # warm
+        quant.quantize_act = timed
+        try:
+            model(x, t, low_res=x)
+        finally:
+            quant.quantize_act = orig
+    torch.cuda.synchronize()
+    emit({"phase": "profile_int8_quantize", "calls": len(evs),
+          "quantize_act_ms": sum(a.elapsed_time(b) for a, b in evs)})
 
 
 def phase_train_profile(loop) -> None:
@@ -1122,20 +1462,34 @@ def main() -> None:
     fused = _model(use_fp16=True, seed=args.seed, fused=True)[0]
     fused.load_state_dict(model.state_dict(), strict=True)
     fused.cuda()
+    from ddpm3d_tpu_torch.ops import quant
+    int8m = _model(use_fp16=True, seed=args.seed,
+                   int8=quant.Int8Config())[0]
+    int8m.load_state_dict(model.state_dict(), strict=True)
+    int8m.cuda()
     summary = phase_kernels(gen, *main_path_shapes(model))
     summary["conv3d_fused"] = phase_fused_kernels(gen, fused_path_shapes(fused))
+    summary["conv3d_s8"] = phase_s8_kernels(gen, int8_path_shapes(int8m))
     from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
     train_sched, train_cfg = create_gaussian_diffusion(
         steps=1000, learn_sigma=True, noise_schedule="linear")
     bwd = phase_backward(gen, *training_shapes(model, train_sched, train_cfg))
     phase_model(args.seed)
+    phase_model_int8(args.seed)
     denoise_counts, volume, eps = phase_denoise(model, sched, cfg, args.seed)
     phase_profile(model)
     fused_counts, fused_volume, fused_eps = phase_denoise(
         fused, sched, cfg, args.seed, phase="denoise_fused")
-    check_fused_volume(volume, fused_volume, eps, fused_eps)
+    check_volumes("denoise_fused_vs_unfused", volume, fused_volume, eps,
+                  fused_eps, FUSED_FORWARD_TOL, DENOISE_FUSED_TOL)
     phase_profile(fused, phase="profile_fused")
-    del model, fused
+    int8_counts, int8_volume, int8_eps = phase_denoise(
+        int8m, sched, cfg, args.seed, phase="denoise_int8")
+    check_volumes("denoise_int8_vs_bf16", volume, int8_volume, eps, int8_eps,
+                  INT8_FORWARD_TOL, DENOISE_INT8_TOL)
+    phase_profile_int8(int8m)
+    static_counts = phase_denoise_int8_static(int8m, args.seed)
+    del model, fused, int8m
     torch.cuda.empty_cache()
     train = phase_train(args.seed)
     phase_train_profile(train.pop("loop"))
@@ -1146,14 +1500,19 @@ def main() -> None:
         s = summary[name]
         by_path = {"denoise": denoise_counts[name],
                    "denoise_fused": fused_counts[name],
+                   "denoise_int8": int8_counts[name],
+                   "denoise_int8_static": static_counts[name],
                    "train": train["launches"][name]}
+        main_path = {"conv3d_fused": "denoise_fused",
+                     "conv3d_s8": "denoise_int8"}.get(name, "train")
         extra = {}
         if name == "conv3d_fused":  # serving only: no single library call
             extra["unfused_sequence_ms"] = s["unfused_sequence_ms"]
+        if name == "conv3d_s8":  # the bf16 conv it replaces at that site
+            extra["k3_bf16_ms"] = s["k3_bf16_ms"]
         kernels.append(dict(
             name=name, **meta,
-            launches=by_path["denoise_fused" if name == "conv3d_fused"
-                             else "train"],
+            launches=by_path[main_path],
             launches_by_path=by_path,
             max_abs_err=s["max_abs_err"], ms=s["kernel_ms"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],

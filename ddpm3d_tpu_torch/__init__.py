@@ -6,8 +6,9 @@ tensors keep the JAX package's channels-last layout ``[B, D, H, W, C]`` and
 parameter names follow the reference torch state dict, so a ``.pt``
 exported by ``tools/export_torch_ckpt.py`` loads with ``strict=True``.
 
-Every stride-1 3x3x3 convolution and every GroupNorm of the denoising path
-runs a hand-written kernel on the card (``csrc/``, built on first use);
+Every stride-1 3x3x3 convolution and every GroupNorm of the denoising path,
+and every quantized conv site of int8 serving, runs a hand-written kernel on
+the card (``csrc/``, built on first use);
 on the CPU the same modules run the kernels' plain PyTorch versions.
 Entry points run on ``cuda`` unless the caller asks for ``cpu``.
 """

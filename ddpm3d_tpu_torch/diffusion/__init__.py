@@ -1,5 +1,5 @@
 """Diffusion schedules, process math, training losses and the DDPM
-ancestral sampler."""
+ancestral and DDIM samplers."""
 
 from .losses import calc_bpd_loop, training_losses, vb_terms_bpd
 from .process import (
@@ -9,7 +9,13 @@ from .process import (
     VarType,
     p_mean_variance,
 )
-from .sampling import p_sample, p_sample_loop
+from .sampling import (
+    ddim_reverse_sample,
+    ddim_sample,
+    ddim_sample_loop,
+    p_sample,
+    p_sample_loop,
+)
 from .schedules import (
     Schedule,
     get_named_beta_schedule,

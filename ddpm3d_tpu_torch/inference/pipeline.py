@@ -2,9 +2,11 @@
 Hann blend -> .npz / .tif outputs.
 
 Port of ``ddpm3d_tpu/inference/pipeline.py`` for one GPU: the patches run
-in order, ``batch_size`` at a time, through the DDPM ancestral chain. Each
-patch's noise is keyed by its global index (and the seed), so the result
-does not depend on the batch size. Multi-GPU patch splitting, DDIM and
+in order, ``batch_size`` at a time, through the DDPM ancestral chain or,
+with ``use_ddim``, the DDIM chain. Each patch's noise is keyed by its global
+index (and the seed), so the result does not depend on the batch size. A
+model served in int8 (``model.int8``) is told each step's chain index, which
+picks its per-time-bin activation scales. Multi-GPU patch splitting and
 DPM-Solver wait for later slices (ROADMAP.md).
 """
 
@@ -84,6 +86,8 @@ def denoise_patches(
     noise_stream=None,
     progress_cb: Optional[Callable[[int, int], None]] = None,
     device=None,
+    use_ddim: bool = False,
+    eta: float = 0.0,
 ) -> np.ndarray:
     """Run the full reverse chain on conditioner patches [P, Z, X, Y] and
     return the denoised [P, Z, X, Y] (f32, host).
@@ -96,7 +100,13 @@ def denoise_patches(
     noise, ordered t = T-1 .. 0: an array [P, T, Z, X, Y] (with ``noise``),
     or a callable ``(lo, hi) -> (x_T [n, Z, X, Y], stream [n, T, Z, X, Y])``
     called for increasing patch ranges, so only one batch's noise exists at
-    a time. Without them, noise is drawn per (seed, patch index, t)."""
+    a time. Without them, noise is drawn per (seed, patch index, t).
+
+    ``use_ddim`` runs DDIM steps with ``eta``. An int8 model's sites read
+    their scales for the bin of the chain index ``i`` (the respaced step,
+    ``clip(i * n_bins // chain_steps)``), set before each step on the host:
+    the JAX pipeline bins on the model's timestep ``timestep_map[i]``
+    instead, which agrees on an unspaced chain only."""
     device = resolve_device(device)
     model_device = next(model.parameters()).device
     if model_device != device:
@@ -113,6 +123,9 @@ def denoise_patches(
 
     def model_fn(x, t, low_res):
         return model(x, t, low_res=low_res).float()
+
+    int8 = getattr(model, "int8", None)
+    before_step = int8.set_chain_step if int8 is not None else None
 
     outs = []
     with torch.inference_mode():
@@ -142,10 +155,13 @@ def denoise_patches(
                 noise_stream=stream, clip_denoised=clip_denoised,
                 model_kwargs={"low_res": low}, seed=seed,
                 sample_ids=range(lo, hi), device=device,
+                before_step=before_step, use_ddim=use_ddim, eta=eta,
             )
             outs.append(img[..., 0].cpu().numpy())
             if progress_cb is not None:
                 progress_cb(hi, P)
+    if int8 is not None:
+        int8.set_chain_step(None)
     return np.concatenate(outs)
 
 
@@ -167,6 +183,8 @@ def denoise_volume(
     noise_stream=None,
     log: Log = print,
     device=None,
+    use_ddim: bool = False,
+    eta: float = 0.0,
 ) -> Tuple[np.ndarray, Dict]:
     """Denoise a whole (Z, H, W) volume; returns ((H, W, Z) result, stats).
 
@@ -176,7 +194,8 @@ def denoise_volume(
     ``num_samples > 1`` draws that many chains and returns their mean, with
     the per-voxel std in ``stats["uncertainty_hwz"]``. The chain runs on
     ``device`` as in :func:`denoise_patches`: ``cuda`` unless the caller
-    passes ``"cpu"``, and the model must lie there."""
+    passes ``"cpu"``, and the model must lie there; ``use_ddim`` and ``eta``
+    choose the sampler as there."""
     Z, H, W = volume_zxy.shape
     if normalize_div4:
         volume_zxy = np.clip(volume_zxy, None, 4.0) / 4.0
@@ -212,7 +231,7 @@ def denoise_volume(
         progress_cb=lambda done, total: log(
             f"denoised {done}/{total} patch-draws "
             f"[{time.monotonic() - t0:.1f}s]"),
-        device=device,
+        device=device, use_ddim=use_ddim, eta=eta,
     )
     sample_wall_s = time.monotonic() - t0
     P = low.shape[0]

@@ -43,13 +43,16 @@ def sr_create_model(
     resblock_updown,
     use_fp16,
     fused=False,
+    int8=None,
 ) -> SuperResModel:
     """SuperResModel_noatt with in_channels=1 doubled by the conditioner;
     ``use_fp16`` means a bf16 torso with f32 params; ``use_checkpoint``
     recomputes the high-resolution ResBlocks in the backward; ``fused``
     serves the ResBlocks without up/down through the fused conv kernel
-    (inference only; off under ``use_checkpoint``). ``small_size`` is
-    accepted for CLI parity."""
+    (inference only; off under ``use_checkpoint``); ``int8`` (an
+    :class:`..ops.quant.Int8Config`) serves the conv sites it quantizes in
+    int8 (inference only; not with ``fused``). ``small_size`` is accepted
+    for CLI parity."""
     _ = small_size
     if large_size in (512, 256):
         channel_mult = (1, 1, 2, 2, 4, 4)
@@ -77,6 +80,7 @@ def sr_create_model(
         use_checkpoint=use_checkpoint,
         dtype=torch.bfloat16 if use_fp16 else torch.float32,
         fused=fused,
+        int8=int8,
     )
 
 
@@ -150,9 +154,10 @@ def sr_create_model_and_diffusion(
     use_fp16,
     predict_v=False,
     fused=False,
+    int8=None,
 ):
-    """-> (model, schedule, config) from the CLI's flags; ``fused`` as in
-    :func:`sr_create_model`."""
+    """-> (model, schedule, config) from the CLI's flags; ``fused`` and
+    ``int8`` as in :func:`sr_create_model`."""
     model = sr_create_model(
         large_size,
         small_size,
@@ -170,6 +175,7 @@ def sr_create_model_and_diffusion(
         resblock_updown=resblock_updown,
         use_fp16=use_fp16,
         fused=fused,
+        int8=int8,
     )
     sched, cfg = create_gaussian_diffusion(
         steps=diffusion_steps,

@@ -9,7 +9,9 @@ run the hand-written kernels of :mod:`ddpm3d_tpu_torch.ops` on the card,
 through autograd Functions whose backward is the same on both devices. The
 fused serving path (inference only) folds a GroupNorm into a [B, C] affine
 (``GroupNorm32(..., fold_only=True)``) that the next conv applies in its
-prologue (``Conv3x3x3(..., fused=True)``).
+prologue (``Conv3x3x3(..., fused=True)``). The int8 serving path (inference
+only) runs a conv site through :func:`..ops.quant.conv3d_int8` when the
+model attached an :class:`..ops.quant.Int8Config` that quantizes the site.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ from torch import nn
 
 from ..ops import conv3d as conv_ops
 from ..ops import conv3d_fused as fused_ops
+from ..ops import conv3d_s8 as s8_ops
 from ..ops import groupnorm as gn_ops
+from ..ops import quant
 
 NORM_GROUPS = gn_ops.NORM_GROUPS
 
@@ -85,13 +89,48 @@ class GroupNorm32(nn.Module):
         )
 
 
-class Conv3x3x3(nn.Module):
+class _Int8Site:
+    """A conv module's int8 mode: ``int8`` (the model's config, or None)
+    and ``site`` (its flax module path, as the scales files key it) are
+    attached by the model. The quantized weight (per output channel, or
+    per phase on the up route) and its packed layout on the card are
+    cached per parameter version: quantized once, not per step."""
+
+    int8: Optional[quant.Int8Config] = None
+    site: str = ""
+    _q_key = None
+    _q = None
+
+    def int8_active(self) -> bool:
+        return self.int8 is not None and self.int8.quantized(self.site)
+
+    def _int8(self, x: torch.Tensor, bias: torch.Tensor,
+              upsample: bool = False) -> torch.Tensor:
+        if self.training:
+            raise RuntimeError(
+                f"int8 site {self.site} is inference-only: call model.eval()")
+        key = (x.device, upsample, self.weight.data_ptr(),
+               self.weight._version)
+        if key != self._q_key:
+            wq, s_w = quant.quantize_weight(self.weight, upsample)
+            packed = (s8_ops.pack_weight_s8(wq) if x.device.type == "cuda"
+                      else None)
+            self._q, self._q_key = (wq, s_w, packed), key
+        wq, s_w, packed = self._q
+        return quant.conv3d_int8(x, wq, s_w, bias,
+                                 self.int8.act_scale(self.site),
+                                 upsample=upsample, w_packed=packed)
+
+
+class Conv3x3x3(_Int8Site, nn.Module):
     """Stride-1 SAME 3x3x3 conv over the conv kernel, computed in the input's
     dtype (params stay f32). Without autograd (inference) the weight is kept
     packed in the kernel's layout on the card and repacked when the
     parameter changes; a forward that records gradients packs afresh.
 
-    ``fused=True`` runs the fused kernel (:func:`..ops.conv3d_fused.
+    ``upsample=True`` convolves ``nearest_up2_HW(x)``: an int8 site computes
+    it from the low-resolution x by the phase route, any other upsamples
+    first. ``fused=True`` runs the fused kernel (:func:`..ops.conv3d_fused.
     conv3d_fused`, inference only) with ``fused_kw`` its prologue, skip and
     stats arguments; it returns what that function returns."""
 
@@ -113,7 +152,12 @@ class Conv3x3x3(nn.Module):
             self._packed_key = key
         return self._packed
 
-    def forward(self, x: torch.Tensor, fused: bool = False, **fused_kw):
+    def forward(self, x: torch.Tensor, fused: bool = False,
+                upsample: bool = False, **fused_kw):
+        if self.int8_active():  # never fused: the model refuses both
+            return self._int8(x, self.bias, upsample)
+        if upsample:
+            x = upsample_nearest_hw(x)
         packed = self._packed_weight(x)
         if fused:
             return fused_ops.conv3d_fused(
@@ -121,8 +165,9 @@ class Conv3x3x3(nn.Module):
         return conv_ops.conv3d(x, self.weight, self.bias, w_packed=packed)
 
 
-class Conv1x1x1(nn.Module):
-    """1x1x1 conv (the ResBlock skip) as a plain matmul in the input dtype."""
+class Conv1x1x1(_Int8Site, nn.Module):
+    """1x1x1 conv (the ResBlock skip) as a plain matmul in the input dtype,
+    or, at an int8 site, through the int8 conv."""
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
@@ -130,6 +175,8 @@ class Conv1x1x1(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8_active():
+            return self._int8(x, self.bias)
         w = self.weight.reshape(self.weight.shape[:2]).to(x.dtype)
         return F.linear(x, w, self.bias.to(x.dtype))
 

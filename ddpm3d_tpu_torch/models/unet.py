@@ -14,6 +14,14 @@ casts back; the time embedding is f32 and each ResBlock's ``emb`` dense runs
 in the torso dtype; the head (norm, SiLU, conv) runs in the input's dtype.
 The anisotropic pyramid never resamples depth: down blocks pool H and W
 before ``in_conv``, up blocks upsample H and W before it.
+
+Int8 serving (``int8=`` an :class:`..ops.quant.Int8Config`, inference
+only) gives every conv module its site name (its flax module path, as the
+scales files key it: ``unet/in1_0/in_conv``) and the config; the sites the
+config quantizes run the int8 conv, the up blocks' ``in_conv`` and the
+``Upsample`` convs by the phase route on the low-resolution input
+(``ddpm3d_tpu/models/unet.py:197-211, 350-354``). Int8 and the fused path
+exclude each other.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ..ops.quant import Int8Config
+from ..utils.convert import torch_module_to_flax_path
 from . import nn as prim
 from .plan import AttnSpec, ConvSpec, DownSpec, ResSpec, UpSpec, plan_unet
 
@@ -94,12 +104,11 @@ class ResBlock(nn.Module):
             return self._forward_fused(x, emb, x_stats)
         h = self.in_layers[0](x, apply_silu=True)
         if self.up:
-            h = prim.upsample_nearest_hw(h)
             x = prim.upsample_nearest_hw(x)
         elif self.down:
             h = prim.avg_pool_hw(h)
             x = prim.avg_pool_hw(x)
-        h = self.in_layers[2](h)
+        h = self.in_layers[2](h, upsample=self.up)
         emb_out = prim.linear(self.emb_layers[1], F.silu(emb), h.dtype)
         if self.use_scale_shift_norm:
             scale, shift = emb_out.float().chunk(2, dim=-1)
@@ -155,13 +164,17 @@ class Upsample(nn.Module):
             self.conv = prim.Conv3x3x3(channels, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = prim.upsample_nearest_hw(x)
-        return self.conv(x) if self.use_conv else x
+        if self.use_conv:
+            return self.conv(x, upsample=True)
+        return prim.upsample_nearest_hw(x)
 
 
 class UNetModel(nn.Module):
     """The UNet with timestep (and optional class) conditioning. Attention
     blocks are not ported yet: a plan that needs one raises."""
+
+    # prefix of the conv sites' flax module paths
+    SITE_PREFIX = ""
 
     def __init__(
         self,
@@ -184,6 +197,7 @@ class UNetModel(nn.Module):
         use_checkpoint: bool = False,
         dtype: torch.dtype = torch.float32,
         fused: bool = False,
+        int8: Optional[Int8Config] = None,
     ):
         super().__init__()
         if dims != 3:
@@ -262,6 +276,20 @@ class UNetModel(nn.Module):
                            zero_init=True),
         ])
         prim.init_params(self, seed=0)
+        self.set_int8(int8)
+
+    def set_int8(self, int8: Optional[Int8Config]) -> None:
+        """Serve the conv sites ``int8`` quantizes in int8 (None: none);
+        each conv module gets the config and its site name."""
+        if int8 is not None and self.fused:
+            raise ValueError(
+                "int8 and fused serving exclude each other (the JAX package "
+                "serves bf16 when both are asked for); choose one")
+        self.int8 = int8
+        for name, m in self.named_modules():
+            if isinstance(m, (prim.Conv3x3x3, prim.Conv1x1x1)):
+                m.int8 = int8
+                m.site = self.SITE_PREFIX + torch_module_to_flax_path(name)
 
     def _run_stage(self, i: int, stage: nn.ModuleList, h: torch.Tensor,
                    emb: torch.Tensor, stats: Optional[torch.Tensor]):
@@ -323,6 +351,9 @@ class SuperResModel(UNetModel):
     """Conditional denoiser: the full-resolution conditioner is concatenated
     onto x channel-wise (in_channels doubles). ``middle_attention=False``
     gives the production SuperResModel_noatt."""
+
+    # the JAX SuperResModel wraps its UNet as ``unet``
+    SITE_PREFIX = "unet/"
 
     def __init__(self, in_channels: int, *args, **kwargs):
         super().__init__(in_channels * 2, *args, **kwargs)

@@ -6,12 +6,15 @@
   bias/skip epilogue, next-GN stats), the fused instance of the same
   ``csrc/conv3d.cu`` template;
 * :mod:`.groupnorm` — GroupNorm stats and fused normalize/FiLM/SiLU
-  (``csrc/groupnorm.cu``).
+  (``csrc/groupnorm.cu``);
+* :mod:`.conv3d_s8` — the int8 (s8 x s8 -> s32) conv with its dequantize
+  epilogue (``csrc/conv3d_s8.cu``), under :mod:`.quant` (int8 serving) and
+  :mod:`.phase_up` (the up sites' phase kernels).
 """
 
 from typing import Dict
 
-from . import conv3d, conv3d_fused, groupnorm
+from . import conv3d, conv3d_fused, conv3d_s8, groupnorm
 
 
 def launch_counts() -> Dict[str, int]:
@@ -20,6 +23,7 @@ def launch_counts() -> Dict[str, int]:
         "conv3d": conv3d.launches,
         "conv3d_dx": conv3d.dx_launches,
         "conv3d_fused": conv3d_fused.launches,
+        "conv3d_s8": conv3d_s8.launches,
         "gn_stats": groupnorm.stats_launches,
         "gn_apply": groupnorm.apply_launches,
     }
@@ -29,5 +33,6 @@ def reset_launch_counts() -> None:
     conv3d.launches = 0
     conv3d.dx_launches = 0
     conv3d_fused.launches = 0
+    conv3d_s8.launches = 0
     groupnorm.stats_launches = 0
     groupnorm.apply_launches = 0

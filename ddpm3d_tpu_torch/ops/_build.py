@@ -22,7 +22,7 @@ from typing import Dict
 _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SRC_DIR = osp.join(_PKG, "csrc")
 BUILD_DIR = osp.join(_PKG, "_build")
-SOURCES = ("conv3d", "groupnorm")
+SOURCES = ("conv3d", "conv3d_s8", "groupnorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -36,6 +36,8 @@ _SIGNATURES = {
         "conv3d", [_P, _P, _P, _P] + [_I] * 10 + [_P]),
     "conv3d_fused_launch": (
         "conv3d", [_P] * 5 + [_I] + [_P] * 5 + [_I] * 10 + [_P]),
+    "conv3d_s8_launch": (
+        "conv3d_s8", [_P] * 6 + [_I] * 12 + [_P]),
     "gn_stats_launch": ("groupnorm", [_P, _P, _P] + [_I] * 5 + [_P]),
     "gn_apply_launch": ("groupnorm", [_P, _P, _P, _P] + [_I] * 5 + [_P]),
 }

@@ -6,16 +6,27 @@
 The flags and defaults of the JAX package's ``scripts/test.py``, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path). As in
 the JAX package, ``DDPM3D_FUSED=1`` in the environment serves the ResBlocks
-through the fused conv kernel. The checkpoint is a ``.pt`` state dict
-(``tools/export_torch_ckpt.py`` converts a JAX checkpoint). Samplers and
-modes this slice does not have yet refuse to start and name the ROADMAP.md
-item that brings them.
+through the fused conv kernel, and ``--int8 [--int8_scales FILE]`` serves
+the conv sites in int8 (W8A8), with ``DDPM3D_INT8_EXCLUDE`` (sites kept out,
+default ``in0_0,head_conv``) and ``DDPM3D_INT8_NO_TIME_SCALES=1`` (whole-
+chain scales only) read once here. ``--use_ddim`` samples with DDIM. The
+checkpoint is a ``.pt`` state dict (``tools/export_torch_ckpt.py``
+converts a JAX checkpoint). Samplers and modes this slice does not have yet
+refuse to start and name the ROADMAP.md item that brings them.
+
+Departures from the JAX CLI: ``--int8`` with ``DDPM3D_FUSED=1`` is refused
+(the JAX package silently serves bf16); ``--int8 --use_ddim`` is refused
+when time-bin scales are off (``DDPM3D_INT8_NO_TIME_SCALES=1``), not only
+when the file lacks them; the scales file is validated with the run's own
+sampler, and its checkpoint compared by stem (``.pt`` / ``.msgpack``
+stripped).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -25,6 +36,7 @@ from ..data import tiff_io
 from ..data.patches import patch_grid, test_xy_starts, test_z_starts
 from ..inference import denoise_volume, load_volume_for_denoising, save_outputs
 from ..models.factory import sr_create_model_and_diffusion
+from ..ops import quant
 from ..utils import logger as logger_mod
 from ..utils.config import (
     add_dict_to_argparser,
@@ -35,10 +47,7 @@ from ..utils.convert import load_checkpoint
 
 # flag -> why this slice refuses it
 _NOT_PORTED = {
-    "use_ddim": "DDIM sampling is not ported yet (ROADMAP.md Queue 1 item 5)",
     "use_dpm_solver": "DPM-Solver is not ported yet (ROADMAP.md Queue 1 item 7)",
-    "int8": "int8 serving is not ported yet (ROADMAP.md Queue 1 item 8)",
-    "int8_scales": "int8 serving is not ported yet (ROADMAP.md Queue 1 item 8)",
     "timesteps_file": "explicit distilled chains wait for distillation "
                       "(ROADMAP.md Queue 1 item 10)",
 }
@@ -48,6 +57,50 @@ def _refuse_unported(args) -> None:
     for flag, why in _NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag}: {why}")
+
+
+def int8_config(args, fused: bool):
+    """The int8 serving config of the run, or None without ``--int8``. The
+    JAX CLI's gates: ``--use_dpm_solver`` is refused; ``--use_ddim`` only
+    runs on per-time-bin scales (with a warning); a scales file is checked
+    against the run (``quant.validate_scales_file``)."""
+    if not args.int8:
+        return None
+    if fused:
+        raise SystemExit(
+            "--int8 with DDPM3D_FUSED=1 is refused: int8 and fused serving "
+            "exclude each other (the JAX package would silently serve "
+            "bf16); unset DDPM3D_FUSED or drop --int8")
+    time_scales = os.environ.get("DDPM3D_INT8_NO_TIME_SCALES") != "1"
+    scales = args.int8_scales
+    if args.use_dpm_solver or args.use_ddim:
+        binned = (time_scales and bool(scales)
+                  and quant.scale_tables(scales) is not None)
+        if args.use_ddim and binned:
+            warnings.warn(
+                "--int8 --use_ddim with per-time-bin scales: keep the "
+                "scales file's bins (whole-chain static scales collapse "
+                "deterministic chains)")
+        else:
+            which = "--use_ddim" if args.use_ddim else "--use_dpm_solver"
+            raise SystemExit(
+                f"--int8 with {which} is refused: deterministic chains "
+                "accumulate quantization bias coherently. Use ancestral "
+                "respacing (--timestep_respacing 250/25), or for DDIM pass "
+                "per-time-bin scales (tools/calibrate_int8.py --time_bins) "
+                "via --int8_scales")
+    if scales:
+        quant.validate_scales_file(
+            scales, model_path=args.model_path,
+            sampler="ddim" if args.use_ddim else "ddpm",
+            respacing=args.timestep_respacing or str(args.diffusion_steps),
+            model_config=dict(size=args.large_size,
+                              model_channels=args.num_channels,
+                              num_res_blocks=args.num_res_blocks))
+    return quant.Int8Config(
+        exclude=quant.parse_exclude(os.environ.get(
+            "DDPM3D_INT8_EXCLUDE", quant.EXCLUDE_DEFAULT)),
+        scales=scales, time_scales=time_scales)
 
 
 def torch_noise_provider(seed: int, patch_size: int, num_steps: int):
@@ -79,6 +132,7 @@ def torch_noise_provider(seed: int, patch_size: int, num_steps: int):
 def main(argv=None):
     fused = os.environ.get("DDPM3D_FUSED", "0") == "1"
     args = create_argparser().parse_args(argv)
+    int8 = int8_config(args, fused)  # its --use_dpm_solver gate first
     _refuse_unported(args)
     device = resolve_device(args.device)
     logger = logger_mod.configure(args.save_dir or None)
@@ -87,10 +141,21 @@ def main(argv=None):
     log("creating model...")
     model, sched, cfg = sr_create_model_and_diffusion(
         **args_to_dict(args, sr_model_and_diffusion_defaults().keys()),
-        fused=fused,
+        fused=fused, int8=int8,
     )
-    log("serving path: " + (
-        "fused ResBlock convs (DDPM3D_FUSED)" if model.fused else "unfused"))
+    if int8 is not None:
+        scales = "dynamic"
+        if int8.scales:
+            scales = int8.scales + (" per time bin of the chain index"
+                                    if int8.has_time_bins else " whole-chain")
+        log("serving path: int8 (W8A8) convs, excluding "
+            f"{','.join(int8.exclude) or 'none'}; activation scales: {scales}")
+    else:
+        log("serving path: " + (
+            "fused ResBlock convs (DDPM3D_FUSED)" if model.fused
+            else "unfused"))
+    log("sampler: " + (f"DDIM (eta {args.eta})" if args.use_ddim
+                       else "DDPM ancestral"))
     if args.model_path:
         log(f"loading checkpoint {args.model_path}...")
         model.load_state_dict(load_checkpoint(args.model_path), strict=True)
@@ -134,6 +199,8 @@ def main(argv=None):
             num_samples=args.num_samples,
             log=log,
             device=device,
+            use_ddim=args.use_ddim,
+            eta=args.eta,
         )
         save_outputs(logger.dir, vol_path, result, log=log)
         if "uncertainty_hwz" in stats:

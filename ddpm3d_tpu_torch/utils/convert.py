@@ -89,6 +89,33 @@ def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
     raise KeyError(f"unrecognized flax param path: {path}")
 
 
+_TORCH_STAGES = {"input_blocks": "in", "output_blocks": "out"}
+_INNER_FLAX = {v: k for k, v in _INNER.items()}
+
+
+def torch_module_to_flax_path(name: str) -> str:
+    """A module's torch name -> its flax module path (the inverse of
+    :func:`flax_path_to_torch_key` without the leaf), e.g.
+    ``input_blocks.1.0.in_layers.2`` -> ``in1_0/in_conv``, ``out.2`` ->
+    ``head_conv``: the conv site names the int8 scales files key on (under
+    the SuperResModel's ``unet/``)."""
+    if name in ("out.0", "out.2"):
+        return {"out.0": "head_norm", "out.2": "head_conv"}[name]
+    parts = name.split(".")
+    if parts[0] in _TORCH_STAGES and len(parts) >= 3:
+        head, rest = f"{_TORCH_STAGES[parts[0]]}{parts[1]}_{parts[2]}", parts[3:]
+    elif parts[0] == "middle_block" and len(parts) >= 2:
+        head, rest = f"mid_{parts[1]}", parts[2:]
+    else:
+        raise KeyError(f"no flax module for torch module {name!r}")
+    if not rest:
+        return head
+    inner = ".".join(rest)
+    if inner not in _INNER_FLAX:
+        raise KeyError(f"no flax module for torch module {name!r}")
+    return f"{head}/{_INNER_FLAX[inner]}"
+
+
 def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX ``params`` tree (numpy leaves; with or without the ``params``
     level and the SuperResModel ``unet`` wrapper) -> the port's state dict

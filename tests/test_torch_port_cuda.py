@@ -347,3 +347,90 @@ def test_fused_model_matches_unfused(dev):
             assert _rel(out.cpu(), cpu) <= 1e-4
         assert _rel(out, ref) <= (1e-4 if dtype == torch.float32
                                   else BF16_FUSED_MODEL_TOL)
+
+
+# the int8 conv: (shape, N, taps, upsample); N = 4 * Cout on the phase route
+S8_CASES = [
+    ((2, 5, 7, 9, 32), 16, 27, False),      # ragged tiles, Cin 32, batch 2
+    ((1, 4, 6, 6, 128), 128, 27, False),    # W = 6 planes
+    ((2, 3, 12, 12, 256), 130, 27, False),  # W = 12, N past one tile, ragged
+    ((1, 2, 8, 96, 128), 64, 27, False),    # W = 96
+    ((2, 4, 12, 12, 256), 128, 1, False),   # the 1x1x1 skip
+    ((1, 3, 6, 6, 128), 4 * 64, 27, True),  # stacked phases of an up site
+    ((2, 3, 6, 12, 32), 4 * 24, 27, True),  # phases, batch 2, Cin 32
+    ((1, 3, 5, 6, 40), 24, 27, False),      # Cin % 16 != 0: byte staging
+]
+
+
+@pytest.mark.parametrize("shape,n,taps,up", S8_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3d_s8_kernel_matches_plain(dev, shape, n, taps, up, dtype):
+    """K5 against its plain version, dynamic (per-sample scales) and static,
+    with and without bias: equal bit for bit (exact int32 sums, the same
+    f32 epilogue ops, no FMA contraction); one launch per call."""
+    from ddpm3d_tpu_torch.ops import conv3d_s8 as s8
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    B, cin = shape[0], shape[-1]
+    k = 3 if taps == 27 else 1
+    xq = torch.randint(-127, 128, shape, generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, cin, k, k, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    s_w = 1e-4 + 1e-3 * torch.rand((n,), generator=g, device=dev)
+    bias = torch.randn((n // 4 if up else n,), generator=g, device=dev)
+    wp = s8.pack_weight_s8(wq)
+    for static in (False, True):
+        s_x = (torch.full((B,), 0.02, device=dev) if static else
+               0.01 + 0.02 * torch.rand((B,), generator=g, device=dev))
+        for b in (None, bias):
+            before = ops.launch_counts()["conv3d_s8"]
+            got = s8.conv3d_s8(xq, wq, s_x, s_w, b, dtype, up, w_packed=wp)
+            assert ops.launch_counts()["conv3d_s8"] == before + 1
+            ref = s8.conv3d_s8_plain(xq, wq, s_x, s_w, b, dtype, up)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == ref.shape
+            assert torch.equal(got, ref), (static, b is not None)
+
+
+def test_int8_model_matches_cpu(dev):
+    """A small f32 model served in int8: every quantized site's card output
+    equals the plain int8 conv on the CPU on the same input, one launch per
+    site; the whole forward within the int8 network's discontinuity
+    (chip_smoke.py INT8_MODEL_MEAN_TOL says why); bf16 finite."""
+    from ddpm3d_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((2, 4, 16, 16, 1), np.float32))
+    t = torch.tensor([10, 900])
+    for dtype in (torch.float32, torch.bfloat16):
+        model = SuperResModel(
+            in_channels=1, model_channels=32, out_channels=2,
+            num_res_blocks=1, channel_mult=(1, 2), use_scale_shift_norm=True,
+            resblock_updown=True, middle_attention=False, dtype=dtype,
+            int8=quant.Int8Config()).eval()
+        init_params(model, seed=3, zero_heads=False)
+        sites = [m for m in model.modules()
+                 if getattr(m, "site", "") and m.int8_active()]
+        io = []
+        handles = [m.register_forward_hook(
+            lambda mod, args, kwargs, out: io.append(
+                (mod, args[0].cpu(), out.cpu(), kwargs.get("upsample"))),
+            with_kwargs=True) for m in sites]
+        with torch.no_grad():
+            cpu = model(x, t, low_res=x)
+            card_model = model.to(dev)
+            ops.reset_launch_counts()
+            out = card_model(x.to(dev), t.to(dev), low_res=x.to(dev)).cpu()
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["conv3d_s8"] == len(sites)
+            card_model.cpu()
+            for mod, xin, yout, up in io[len(sites):]:  # the card's calls
+                y = mod(xin, upsample=True) if up else mod(xin)
+                assert torch.equal(y, yout), mod.site
+        for h in handles:
+            h.remove()
+        assert bool(torch.isfinite(out).all())
+        if dtype == torch.float32:
+            mean_rel = ((out - cpu).abs().mean() / cpu.abs().mean()).item()
+            assert mean_rel <= 5e-2

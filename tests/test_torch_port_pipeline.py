@@ -182,7 +182,7 @@ def test_cli_runs_on_cpu(tmp_path, rng):
     np.testing.assert_array_equal(tif, result.transpose(2, 0, 1))
 
 
-@pytest.mark.parametrize("flag", ["--use_ddim", "--use_dpm_solver", "--int8"])
+@pytest.mark.parametrize("flag", ["--use_dpm_solver"])
 def test_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         cli.main(CLI_FLAGS + [flag, "True"])
