@@ -11,7 +11,9 @@ Phases (each failure exits non-zero before the final line):
                every distinct shape of the main path (read by hooks from one
                bf16 96^3 forward): error vs tolerance; at the main sites
                also kernel / plain / library time (CUDA events, median) and
-               the bound;
+               the bound; each conv on its route (``conv3d_route``: the
+               bf16 torso on ``csrc/conv3d_sm90.cu``), timed beside the
+               previous kernel (``csrc/conv3d.cu``) on the same inputs;
   3. backward — at every distinct conv and GroupNorm shape of one bf16 96^3
                training step (read by hooks): the conv dx kernel, the
                library filter gradient and the GroupNorm Function's backward
@@ -23,7 +25,8 @@ Phases (each failure exits non-zero before the final line):
                loss and every parameter gradient;
   5. denoise — ``denoise_volume`` at 128 ch / 96^3 patches / bf16 on a
                synthetic volume with a short respaced chain; the launch
-               counters are zeroed just before and read just after; then a
+               counters are zeroed just before and read just after, and
+               the conv launches per forward are checked by route; then a
                torch.profiler breakdown of one forward by kernel family;
   6. fused   — the fused serving path (``fused=True``, the same weights):
                ``conv3d_fused`` against its plain version at every distinct
@@ -88,10 +91,10 @@ H100_BYTES = 3.35e12       # HBM3 bytes/s
 
 KERNELS = {
     "conv3d": dict(
-        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d.cu",
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_sm90.cu",
         replaces="ddpm3d_tpu/ops/conv3d_mxu.py:203"),
     "conv3d_dx": dict(
-        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d.cu",
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_sm90.cu",
         replaces="ddpm3d_tpu/ops/conv3d_mxu.py:267"),
     "gn_stats": dict(
         route="cuda", source="ddpm3d_tpu_torch/csrc/groupnorm.cu",
@@ -161,6 +164,22 @@ FORWARD_LAUNCHES = {
                      "conv3d_s8": 88, "gn_stats": 71, "gn_apply": 71},
 }
 FORWARD_LAUNCHES["denoise_int8_static"] = FORWARD_LAUNCHES["denoise_int8"]
+# the conv3d launches per forward by kernel route (ops.route_counts): the
+# bf16 torso convs on csrc/conv3d_sm90.cu, the Cin = 2 input conv and the f32
+# head conv on csrc/conv3d.cu; fused: 8 up/down blocks x 2 on sm90
+FORWARD_ROUTES = {
+    "denoise": {"conv3d.sm90": 70, "conv3d.ndhwc": 2,
+                "conv3d_dx.sm90": 0, "conv3d_dx.ndhwc": 0},
+    "denoise_fused": {"conv3d.sm90": 16, "conv3d.ndhwc": 2,
+                      "conv3d_dx.sm90": 0, "conv3d_dx.ndhwc": 0},
+    "denoise_int8": {"conv3d.sm90": 0, "conv3d.ndhwc": 2,
+                     "conv3d_dx.sm90": 0, "conv3d_dx.ndhwc": 0},
+}
+FORWARD_ROUTES["denoise_int8_static"] = FORWARD_ROUTES["denoise_int8"]
+# per training step: the forward's, and the dx of every conv but the input
+# conv (70 bf16 torso dx on sm90, the f32 head's dx on csrc/conv3d.cu)
+STEP_ROUTES = {"conv3d.sm90": 70, "conv3d.ndhwc": 2,
+               "conv3d_dx.sm90": 70, "conv3d_dx.ndhwc": 1}
 # the production training flags (test_DDPM_3d_tpu.sh model flags with the
 # training CLI's defaults: batch 1, lr 1e-4, EMA 0.9999, AdamW)
 TRAIN_FLAGS = [
@@ -193,6 +212,20 @@ def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def warm_card(seconds: float = 1.0) -> None:
+    """Run bf16 tensor-core work for about ``seconds`` so that the first
+    kernel timed meets the card at its loaded clock, as the later ones do."""
+    x = torch.randn((1, 96, 96, 96, 128), device="cuda").bfloat16()
+    w = torch.randn((128, 128, 3, 3, 3), device="cuda").bfloat16() * 0.02
+    xn = x.permute(0, 4, 1, 2, 3)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < seconds:
+        for _ in range(10):
+            F.conv3d(xn, w, padding=1)
+        torch.cuda.synchronize()
+
+
 def bound(flops: float, nbytes: float, dtype) -> tuple:
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES * 1e3
@@ -222,6 +255,14 @@ def phase_build() -> None:
             for line in f:
                 if "registers" in line or "spill" in line:
                     print(f"ptxas[{name}]: {line.strip()}")
+                if name == "conv3d_sm90":
+                    # the wgmma kernel: no spill, and ptxas must not have
+                    # serialized its wgmma pipeline
+                    check("spill" not in line or " 0 bytes spill stores, 0 "
+                          "bytes spill loads" in line,
+                          f"conv3d_sm90 spills: {line.strip()}")
+                    check("serialized" not in line,
+                          f"conv3d_sm90 wgmma serialized: {line.strip()}")
 
 
 def main_path_shapes(model) -> tuple:
@@ -273,6 +314,34 @@ GN_TIMED = [  # (N, C, dtype, film, silu)
 ]
 
 
+def _ndhwc_conv(x, wp, bias):
+    """csrc/conv3d.cu's instance for x's dtype on the same inputs: the
+    kernel that carried every conv before the sm90 route (its plain-conv
+    instances are unchanged), timed beside the sm90 kernel in one run."""
+    from ddpm3d_tpu_torch.ops import _build
+    from ddpm3d_tpu_torch.ops import conv3d as cv
+
+    B, D, H, W, cin = x.shape
+    y = torch.empty((B, D, H, W, wp.shape[1]), dtype=x.dtype, device=x.device)
+    err = _build.fn("conv3d_ndhwc_launch")(
+        x.data_ptr(), wp.data_ptr(),
+        None if bias is None else bias.data_ptr(), y.data_ptr(),
+        B, D, H, W, cin, wp.shape[1], *cv.pick_tile(D, H, W),
+        1 if x.dtype == torch.bfloat16 else 0,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "conv3d_ndhwc_launch")
+    return y
+
+
+def _conv_tile(cv, x, cout, route):
+    """The output tile the conv's launch uses (sm90: 256 or 128 rows)."""
+    B, D, H, W, _ = x.shape
+    if route == "sm90":
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        return list(cv.sm90_tile(B, D, H, W, cout, sms))
+    return list(cv.pick_tile(D, H, W))
+
+
 def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
     """Each kernel against its plain version at every distinct shape of the
     main path; the shapes of CONV_TIMED / GN_TIMED are timed too."""
@@ -286,6 +355,7 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
         check(case in gn_shapes, f"timed GN {case} is on the main path")
     summary = {}
     checked = {"conv3d": 0, "gn_stats": 0, "gn_apply": 0}
+    warm_card()
 
     for case in CONV_TIMED + [c for c in conv_shapes if c not in CONV_TIMED]:
         D, H, W, cin, cout, dt = case
@@ -301,11 +371,15 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
         torch.cuda.synchronize()
         err, rel = rel_err(out, ref)
         check(bool(torch.isfinite(out.float()).all()), "conv3d output finite")
+        route = cv.conv3d_route(x.shape, dt)
         line = dict(kernel="conv3d", shape=[B, D, H, W, cin], cout=cout,
-                    dtype=str(dt).split(".")[-1], tile=list(cv.pick_tile(D, H, W)),
+                    dtype=str(dt).split(".")[-1], route=route,
+                    tile=_conv_tile(cv, x, cout, route),
                     max_abs_err=err, rel_err=rel, tol=TOL[dt])
         if case in CONV_TIMED:
             ms = time_ms(lambda: cv.conv3d_kernel(x, wp, b))
+            if route == "sm90":  # the same conv on the previous kernel
+                line["ndhwc_ms"] = time_ms(lambda: _ndhwc_conv(x, wp, b))
             plain_ms = time_ms(lambda: cv.conv3d_plain(x, wd, b), reps=3,
                                warmup=1)
             xn = x.permute(0, 4, 1, 2, 3)  # NCDHW view of the same bytes
@@ -648,11 +722,13 @@ def phase_denoise(model, sched, cfg, seed: int, phase: str = "denoise"):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = ops.launch_counts()
+    routes = ops.route_counts()
     hook.remove()
     steps = sched.num_timesteps
     n_patches = 4
     forwards = steps * -(-n_patches // batch)
     per_forward = {k: v / forwards for k, v in counts.items()}
+    routes_per_forward = {k: v / forwards for k, v in routes.items()}
     line = {
         "phase": phase, "volume_zhw": list(shape), "patches": n_patches,
         "patch": 96, "channels": 128, "dtype": "bfloat16", "steps": steps,
@@ -664,6 +740,7 @@ def phase_denoise(model, sched, cfg, seed: int, phase: str = "denoise"):
             n_patches * 96 ** 3 * steps / stats["sample_wall_s"],
         "launches": counts,
         "launches_per_forward": per_forward,
+        "routes_per_forward": routes_per_forward,
         "finite": bool(np.isfinite(result).all()),
         "result_shape": list(result.shape),
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -674,6 +751,9 @@ def phase_denoise(model, sched, cfg, seed: int, phase: str = "denoise"):
     check(float(np.abs(result).max()) > 0, "result is non-trivial")
     check(per_forward == FORWARD_LAUNCHES[phase],
           f"{phase} launches per forward {per_forward}")
+    check(routes_per_forward == FORWARD_ROUTES[phase],
+          f"{phase} conv routes per forward {routes_per_forward}")
+    counts["routes"] = routes
     return counts, result, first[0]
 
 
@@ -708,6 +788,7 @@ FORWARD_FAMILIES = {
                      "conv3d_bf16_kernel<false, true>",
                      "conv3d_bf16_kernelILb1ELb1E", "conv3d_bf16_kernelILb0ELb1E",
                      "stats_sum_kernel"),
+    "conv3d_sm90": ("conv3d_sm90_kernel",),
     "conv3d_bf16": ("conv3d_bf16_kernel",),
     "conv3d_f32": ("conv3d_f32_kernel",),
     "gn_stats": ("gn_partial_kernel", "gn_finish_kernel"),
@@ -882,12 +963,17 @@ def phase_backward(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
             torch.cuda.synchronize()
             err, rel = rel_err(dx, dx_ref)
             check(bool(torch.isfinite(dx.float()).all()), "conv3d_dx finite")
-            line = dict(kernel="conv3d_dx", **base, max_abs_err=err,
-                        rel_err=rel, tol=TOL[dt],
+            route = cv.conv3d_route(dy.shape, dt)
+            line = dict(kernel="conv3d_dx", **base, route=route,
+                        tile=_conv_tile(cv, dy, cin, route),
+                        max_abs_err=err, rel_err=rel, tol=TOL[dt],
                         kernel_ms=time_ms(lambda: cv.conv3d_dx_kernel(dy, wpd)))
             per_step["conv3d_dx_ms"] += line["kernel_ms"] * calls[case]
             if case in DX_TIMED:
                 wd = w.to(dt)
+                if route == "sm90":  # the same dx on the previous kernel
+                    line["ndhwc_ms"] = time_ms(
+                        lambda: _ndhwc_conv(dy, wpd, None))
                 line["plain_ms"] = time_ms(lambda: cv.conv3d_dx_plain(dy, w),
                                            reps=3, warmup=1)
                 line["library_ms"] = time_ms(lambda: _library_dx(dy, x, wd))
@@ -1043,6 +1129,7 @@ def phase_train(seed: int) -> dict:
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
             counts = ops.launch_counts()
+            routes = ops.route_counts()
         finally:
             TrainLoop.run_step, TrainLoop.save = run_step, save
             del os.environ["DIFFUSION_TRAINING_TEST"]
@@ -1057,6 +1144,7 @@ def phase_train(seed: int) -> dict:
 
     steps = len(step_ms)
     per_step = {k: v / steps for k, v in counts.items()}
+    routes_per_step = {k: v / steps for k, v in routes.items()}
     line = {
         "phase": "train", "flags": " ".join(TRAIN_FLAGS), "batch": 1,
         "steps": steps, "step_ms": step_ms,
@@ -1067,7 +1155,7 @@ def phase_train(seed: int) -> dict:
         "vb": [r.get("vb") for r in rows],
         "grad_norm": [r.get("grad_norm") for r in rows],
         "launches": counts, "launches_per_step": per_step,
-        "save_s": save_s, "wall_s": wall, "files": files,
+        "routes_per_step": routes_per_step, "save_s": save_s, "wall_s": wall, "files": files,
     }
     emit(line)
     check(steps == TRAIN_STEPS and len(rows) == TRAIN_STEPS,
@@ -1081,6 +1169,9 @@ def phase_train(seed: int) -> dict:
     check(per_step == {"conv3d": 72, "conv3d_dx": 71, "conv3d_fused": 0,
                        "conv3d_s8": 0, "gn_stats": 71, "gn_apply": 71},
           f"launches per step {per_step}")
+    check(routes_per_step == STEP_ROUTES,
+          f"conv routes per step {routes_per_step}")
+    line["launches"] = dict(counts, routes=routes)
 
     # the saved weights serve: a serving model loads them strictly, they
     # moved from the initial ones, and a bf16 96^3 forward is finite
@@ -1510,6 +1601,17 @@ def main() -> None:
             extra["unfused_sequence_ms"] = s["unfused_sequence_ms"]
         if name == "conv3d_s8":  # the bf16 conv it replaces at that site
             extra["k3_bf16_ms"] = s["k3_bf16_ms"]
+        if name in ("conv3d", "conv3d_dx"):
+            # the previous kernel (csrc/conv3d.cu) on the same inputs, and
+            # each path's launches by route (ops.route_counts)
+            extra["ndhwc_ms"] = s["ndhwc_ms"]
+            extra["routes_by_path"] = {
+                path: {k: v for k, v in c["routes"].items()
+                       if k.startswith(name + ".")}
+                for path, c in (("denoise", denoise_counts),
+                                ("denoise_fused", fused_counts),
+                                ("denoise_int8", int8_counts),
+                                ("train", train["launches"]))}
         kernels.append(dict(
             name=name, **meta,
             launches=by_path[main_path],

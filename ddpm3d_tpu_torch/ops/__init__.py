@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-* :mod:`.conv3d` — stride-1 SAME 3x3x3 conv (``csrc/conv3d.cu``), forward
-  and the dx of its backward;
+* :mod:`.conv3d` — stride-1 SAME 3x3x3 conv, forward and the dx of its
+  backward: ``csrc/conv3d_sm90.cu`` (bf16, wgmma/TMA) or ``csrc/conv3d.cu``
+  (f32, narrow Cin), by :func:`.conv3d.conv3d_route`;
 * :mod:`.conv3d_fused` — the fused ResBlock conv (GN/FiLM/SiLU prologue,
   bias/skip epilogue, next-GN stats), the fused instance of the same
   ``csrc/conv3d.cu`` template;
@@ -29,7 +30,16 @@ def launch_counts() -> Dict[str, int]:
     }
 
 
+def route_counts() -> Dict[str, int]:
+    """The conv launches of :func:`launch_counts` by kernel route
+    ("conv3d.sm90", "conv3d.ndhwc", "conv3d_dx.sm90", "conv3d_dx.ndhwc")."""
+    return {k: conv3d.route_launches.get(k, 0)
+            for k in ("conv3d.sm90", "conv3d.ndhwc",
+                      "conv3d_dx.sm90", "conv3d_dx.ndhwc")}
+
+
 def reset_launch_counts() -> None:
+    conv3d.route_launches.clear()
     conv3d.launches = 0
     conv3d.dx_launches = 0
     conv3d_fused.launches = 0

@@ -22,7 +22,7 @@ from typing import Dict
 _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SRC_DIR = osp.join(_PKG, "csrc")
 BUILD_DIR = osp.join(_PKG, "_build")
-SOURCES = ("conv3d", "conv3d_s8", "groupnorm")
+SOURCES = ("conv3d", "conv3d_s8", "conv3d_sm90", "groupnorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -36,6 +36,8 @@ _SIGNATURES = {
         "conv3d", [_P, _P, _P, _P] + [_I] * 10 + [_P]),
     "conv3d_fused_launch": (
         "conv3d", [_P] * 5 + [_I] + [_P] * 5 + [_I] * 10 + [_P]),
+    "conv3d_sm90_launch": (
+        "conv3d_sm90", [_P, _P, _P, _P] + [_I] * 9 + [_P]),
     "conv3d_s8_launch": (
         "conv3d_s8", [_P] * 6 + [_I] * 12 + [_P]),
     "gn_stats_launch": ("groupnorm", [_P, _P, _P] + [_I] * 5 + [_P]),
@@ -60,8 +62,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(osp.join(SRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, of
+    every header in ``csrc/`` (``*.cuh``: a source may include any of them)
+    and of the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(SRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(osp.join(SRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return osp.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

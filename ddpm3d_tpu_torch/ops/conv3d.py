@@ -1,11 +1,17 @@
 """Stride-1 SAME 3x3x3 convolution on channels-last volumes.
 
 Counterpart of ``ddpm3d_tpu/ops/conv3d_mxu.py:conv3d_mxu`` (the Pallas TPU
-kernel ``_conv_kernel``). The Hopper kernel is ``csrc/conv3d.cu``: an
-implicit GEMM that stages a haloed input tile in shared memory once per Cin
-chunk and runs all 27 taps out of it on bf16 tensor cores (``mma.sync``), or
-on CUDA cores for f32. It is bound by operations at every shape of the
-model; its source note says what the design does about that.
+kernel ``_conv_kernel``). Two Hopper kernels compute it, chosen by
+:func:`conv3d_route`:
+  * ``"sm90"``, ``csrc/conv3d_sm90.cu``: bf16 with Cin % 8 == 0, every conv
+    of the model's torso. A warp-specialised implicit GEMM: TMA stages a
+    haloed input tile once per 64-channel Cin chunk and the weights of each
+    tap through a ring of mbarrier-guarded stages, and two warpgroups run
+    all 27 taps on ``wgmma`` with A gathered from the halo by ``ldmatrix``;
+  * ``"ndhwc"``, ``csrc/conv3d.cu``: f32 (the head conv, f32 models) and
+    bf16 with narrow Cin (the 2-channel input conv), ``mma.sync`` or FFMA.
+Both are bound by operations at every shape of the model; each source
+note says what its design does about that.
 
 :func:`conv3d` is differentiable (:class:`Conv3dFunction`, the counterpart of
 the custom VJP ``_conv3d_mxu_fwd``/``_conv3d_mxu_bwd``):
@@ -20,14 +26,14 @@ the custom VJP ``_conv3d_mxu_fwd``/``_conv3d_mxu_bwd``):
 Every public function dispatches on the tensor's device: a CPU tensor takes
 the plain version (:func:`conv3d_plain`: PyTorch's convolution in f32 with
 TF32 off, rounded once to x's dtype, the kernel's arithmetic); a CUDA
-tensor launches the kernel or raises.
+tensor launches a kernel or raises.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,12 +41,25 @@ import torch.nn.functional as F
 from . import _build
 
 # kernel launches on the main path (see ops.launch_counts): forward convs
-# and the dx convs of the backward
+# and the dx convs of the backward, over both routes
 launches = 0
 dx_launches = 0
+# the same launches by route (see ops.route_counts): "conv3d.sm90",
+# "conv3d.ndhwc", "conv3d_dx.sm90", "conv3d_dx.ndhwc"
+route_launches: Dict[str, int] = {}
 
 MAX_ROWS = 128   # output voxels per block (csrc/conv3d.cu kMaxRows)
 MAX_HALO = 640   # staged halo voxels per block (kMaxHalo)
+
+# csrc/conv3d_sm90.cu
+SM90_MAX_ROWS = 256    # output voxels per tile (kMaxRows); 128-row tiles
+                       # run the kernel's kMT = 1 instance
+SM90_SMS = 132         # SMs of an H100 SXM, for host-side planning on the CPU
+SM90_MAX_HALO = 640    # (TD+2)(TH+2)(TW+2), at most (kMaxHalo)
+SM90_BK = 64           # Cin chunk (kBK)
+SM90_BN = 128          # output channels per tile (kBN)
+SM90_STAGES = 4        # weight ring (kStages)
+SM90_SMEM_LIMIT = 232448  # dynamic shared memory a block may use (H100)
 
 
 def pack_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -82,6 +101,96 @@ def pick_tile(D: int, H: int, W: int) -> Tuple[int, int, int]:
             if best is None or key < best[0]:
                 best = (key, (td, th, tw))
     return best[1]
+
+
+def conv3d_route(x_shape, dtype: torch.dtype) -> str:
+    """Which kernel takes a conv of x [B, D, H, W, Cin] in ``dtype``:
+    ``"sm90"`` (``csrc/conv3d_sm90.cu``) for bf16 with Cin % 8 == 0, whose
+    rows TMA can stage (16-byte strides); ``"ndhwc"`` (``csrc/conv3d.cu``)
+    for f32 and for bf16 with narrow or unaligned Cin."""
+    if dtype == torch.bfloat16 and x_shape[-1] % 8 == 0:
+        return "sm90"
+    return "ndhwc"
+
+
+def sm90_halo(tile: Tuple[int, int, int]) -> int:
+    """Voxels of the haloed input tile (TD+2)(TH+2)(TW+2)."""
+    td, th, tw = tile
+    return (td + 2) * (th + 2) * (tw + 2)
+
+
+def sm90_smem_bytes(tile: Tuple[int, int, int]) -> int:
+    """Dynamic shared memory of one block of ``csrc/conv3d_sm90.cu``
+    (``smem_bytes``): 1024 of alignment slack, two halo stages of 128 bytes
+    per voxel each rounded up to 1024, the weight ring of 16 KB stages, the
+    2 * (2 + stages) mbarriers and the 4-byte row table."""
+    halo_bytes = -(-sm90_halo(tile) * SM90_BK * 2 // 1024) * 1024
+    return (1024 + 2 * halo_bytes + SM90_STAGES * SM90_BN * SM90_BK * 2
+            + 8 * (4 + 2 * SM90_STAGES) + 4 * SM90_MAX_ROWS)
+
+
+@functools.lru_cache(maxsize=64)
+def pick_tile_sm90(D: int, H: int, W: int,
+                   rows: int = SM90_MAX_ROWS) -> Tuple[int, int, int]:
+    """Output tile (TD, TH, TW) of ``csrc/conv3d_sm90.cu`` for a DxHxW
+    volume: at most ``rows`` (256 or 128) voxels and SM90_MAX_HALO halo
+    voxels; fewest tiles first (every tile costs ``rows`` rows of math),
+    then the smallest halo, then the widest TW (8 consecutive voxels keep
+    ldmatrix free of bank conflicts)."""
+    best = None
+    for tw in range(1, min(W, rows) + 1):
+        for th in range(1, min(H, rows // tw) + 1):
+            td = min(D, rows // (tw * th))
+            halo = sm90_halo((td, th, tw))
+            if halo > SM90_MAX_HALO:
+                continue
+            tiles = -(-D // td) * -(-H // th) * -(-W // tw)
+            key = (tiles, halo, -tw)
+            if best is None or key < best[0]:
+                best = (key, (td, th, tw))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=256)
+def sm90_tile(B: int, D: int, H: int, W: int, cout: int,
+              sms: int = SM90_SMS) -> Tuple[int, int, int]:
+    """The tile of one launch: 256-row tiles, unless 128-row ones fill the
+    card's ``sms`` SMs so much better that waves x rows per tile drop by a
+    quarter (the small volumes, where 256-row tiles leave SMs idle)."""
+    def cost(tile, rows):
+        return -(-sm90_tiles(B, D, H, W, cout, tile) // sms) * rows
+
+    big = pick_tile_sm90(D, H, W)
+    small = pick_tile_sm90(D, H, W, SM90_MAX_ROWS // 2)
+    if cost(small, SM90_MAX_ROWS // 2) <= 0.75 * cost(big, SM90_MAX_ROWS):
+        return small
+    return big
+
+
+def sm90_tiles(B: int, D: int, H: int, W: int, cout: int,
+               tile: Tuple[int, int, int]) -> int:
+    """Work items of one launch (``Shape::total``): spatial tiles times
+    128-column tiles. The grid is min(this, SMs); block i takes items i,
+    i + grid, ..."""
+    td, th, tw = tile
+    spatial = B * -(-D // td) * -(-H // th) * -(-W // tw)
+    return spatial * -(-cout // SM90_BN)
+
+
+def sm90_tile_origin(q: int, B: int, D: int, H: int, W: int, cout: int,
+                     tile: Tuple[int, int, int]) -> Tuple[int, int, int, int, int]:
+    """Work item q -> (b, d0, h0, w0, n0), as the kernel's ``decode_tile``:
+    column tile slowest, then batch, D, H, W. The halo box of chunk c is
+    loaded at (64 c, w0 - 1, h0 - 1, d0 - 1, b)."""
+    td, th, tw = tile
+    nD, nH, nW = -(-D // td), -(-H // th), -(-W // tw)
+    spatial = B * nD * nH * nW
+    n0 = (q // spatial) * SM90_BN
+    i = q % spatial
+    i, iw = divmod(i, nW)
+    i, ih = divmod(i, nH)
+    b, idd = divmod(i, nD)
+    return b, idd * td, ih * th, iw * tw, n0
 
 
 @contextlib.contextmanager
@@ -134,8 +243,10 @@ def _launch(
     x: torch.Tensor,
     w_packed: torch.Tensor,
     bias: Optional[torch.Tensor],
+    what: str,
 ) -> torch.Tensor:
-    """Run ``csrc/conv3d.cu`` once on CUDA tensors (callers count it)."""
+    """Run the kernel of :func:`conv3d_route` once on CUDA tensors and count
+    it under ``what`` ("conv3d" or "conv3d_dx") and its route."""
     cout = check_kernel_inputs(x, w_packed, "conv3d")
     B, D, H, W, cin = x.shape
     x = x.contiguous()
@@ -144,14 +255,26 @@ def _launch(
     if bias is not None:
         b = bias.detach().to(device=x.device, dtype=torch.float32).contiguous()
     y = torch.empty((B, D, H, W, cout), dtype=x.dtype, device=x.device)
-    td, th, tw = pick_tile(D, H, W)
-    err = _build.fn("conv3d_ndhwc_launch")(
-        x.data_ptr(), w_packed.data_ptr(), b.data_ptr() if b is not None else None,
-        y.data_ptr(), B, D, H, W, cin, cout, td, th, tw,
-        1 if x.dtype == torch.bfloat16 else 0,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(err, "conv3d_ndhwc_launch")
+    route = conv3d_route(x.shape, x.dtype)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    b_ptr = b.data_ptr() if b is not None else None
+    if route == "sm90":
+        if x.data_ptr() % 16 or w_packed.data_ptr() % 16:
+            raise ValueError("conv3d_sm90 takes 16-byte-aligned x and weight")
+        name = "conv3d_sm90_launch"
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        err = _build.fn(name)(
+            x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
+            B, D, H, W, cin, cout, *sm90_tile(B, D, H, W, cout, sms), stream)
+    else:
+        name = "conv3d_ndhwc_launch"
+        err = _build.fn(name)(
+            x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
+            B, D, H, W, cin, cout, *pick_tile(D, H, W),
+            1 if x.dtype == torch.bfloat16 else 0, stream)
+    _build.check(err, name)
+    key = f"{what}.{route}"
+    route_launches[key] = route_launches.get(key, 0) + 1
     return y
 
 
@@ -160,20 +283,21 @@ def conv3d_kernel(
     w_packed: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Launch ``csrc/conv3d.cu`` on CUDA tensors. ``w_packed`` comes from
-    :func:`pack_weight` in x's dtype; bias is cast to f32."""
+    """Launch the conv kernel (:func:`conv3d_route`) on CUDA tensors.
+    ``w_packed`` comes from :func:`pack_weight` in x's dtype; bias is cast
+    to f32."""
     global launches
-    y = _launch(x, w_packed, bias)
+    y = _launch(x, w_packed, bias, "conv3d")
     launches += 1
     return y
 
 
 def conv3d_dx_kernel(dy: torch.Tensor, w_packed_dx: torch.Tensor) -> torch.Tensor:
-    """dx of the conv: ``csrc/conv3d.cu`` on dy [B, D, H, W, Cout] with
-    :func:`pack_weight_dx` in dy's dtype (no bias); the result has Cin
-    channels."""
+    """dx of the conv: the conv kernel (:func:`conv3d_route`) on dy [B, D,
+    H, W, Cout] with :func:`pack_weight_dx` in dy's dtype (no bias); the
+    result has Cin channels."""
     global dx_launches
-    dx = _launch(dy, w_packed_dx, None)
+    dx = _launch(dy, w_packed_dx, None, "conv3d_dx")
     dx_launches += 1
     return dx
 

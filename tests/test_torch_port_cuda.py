@@ -61,8 +61,11 @@ def test_conv3d_kernel_matches_plain(dev, shape, cout, dtype):
     w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) / (27 * cin) ** 0.5
     b = torch.randn((cout,), generator=g, device=dev)
     before = ops.launch_counts()["conv3d"]
+    key = "conv3d." + cv.conv3d_route(shape, dtype)
+    routed = ops.route_counts()[key]
     out = cv.conv3d(x, w, b)
     assert ops.launch_counts()["conv3d"] == before + 1
+    assert ops.route_counts()[key] == routed + 1
     ref = cv.conv3d_plain(x, w.to(dtype), b)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == ref.shape
@@ -91,8 +94,10 @@ def test_kernels_are_batch_invariant(dev):
     x = torch.randn((2, 6, 16, 16, 128), generator=g, device=dev).bfloat16()
     w = cv.pack_weight(torch.randn((128, 128, 3, 3, 3), generator=g,
                                    device=dev) * 0.02, torch.bfloat16)
+    routed = ops.route_counts()["conv3d.sm90"]
     both = cv.conv3d_kernel(x, w)
     assert torch.equal(both[1:], cv.conv3d_kernel(x[1:].contiguous(), w))
+    assert ops.route_counts()["conv3d.sm90"] == routed + 2
     x3 = x.reshape(2, -1, 128)
     assert torch.equal(gn.channel_stats(x3)[1:],
                        gn.channel_stats(x3[1:].contiguous()))
@@ -114,8 +119,11 @@ def test_conv3d_backward_matches_plain(dev, shape, cout, dtype):
     w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) / (27 * cin) ** 0.5
     dy = torch.randn(shape[:-1] + (cout,), generator=g, device=dev).to(dtype)
     before = ops.launch_counts()["conv3d_dx"]
+    key = "conv3d_dx." + cv.conv3d_route(dy.shape, dtype)
+    routed = ops.route_counts()[key]
     dx = cv.conv3d_dx(dy, w)
     assert ops.launch_counts()["conv3d_dx"] == before + 1
+    assert ops.route_counts()[key] == routed + 1
     dw = cv.conv3d_dw(x, dy)
     dx_ref = cv.conv3d_dx_plain(dy, w)
     dw_ref = cv.conv3d_dw_plain(x, dy)
@@ -124,6 +132,91 @@ def test_conv3d_backward_matches_plain(dev, shape, cout, dtype):
     assert dw.shape == w.shape and dw.dtype == dtype
     assert _rel(dx, dx_ref) <= TOL[dtype]
     assert _rel(dw, dw_ref) <= TOL[dtype]
+
+
+# reduced-depth versions of the main path's bf16 torso families (every
+# volume's plane, every Cout > 128 column tiling, W = 12 and W = 6, Cin up
+# to 1024) and a batch of 2 with ragged tiles on every axis
+SM90_SHAPES = [
+    ((1, 8, 96, 96, 128), 128),
+    ((1, 8, 48, 48, 256), 128),
+    ((1, 8, 24, 24, 128), 256),
+    ((1, 8, 24, 24, 512), 256),
+    ((1, 6, 12, 12, 256), 384),
+    ((1, 6, 12, 12, 768), 384),
+    ((1, 4, 6, 6, 1024), 512),
+    ((1, 9, 6, 6, 384), 512),
+    ((2, 5, 7, 9, 64), 128),
+]
+
+
+@pytest.mark.parametrize("shape,cout", SM90_SHAPES)
+def test_conv3d_sm90_matches_plain(dev, shape, cout):
+    """csrc/conv3d_sm90.cu against the plain version at bf16, forward and
+    dx, counted on its own route; repeated calls give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    cin = shape[-1]
+    x = torch.randn(shape, generator=g, device=dev).bfloat16()
+    w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) / (27 * cin) ** 0.5
+    b = torch.randn((cout,), generator=g, device=dev)
+    dy = torch.randn(shape[:-1] + (cout,), generator=g, device=dev).bfloat16()
+    before = ops.route_counts()
+    wp = cv.pack_weight(w, torch.bfloat16)
+    out = cv.conv3d_kernel(x, wp, b)
+    dx = cv.conv3d_dx(dy, w)
+    after = ops.route_counts()
+    assert after["conv3d.sm90"] == before["conv3d.sm90"] + 1
+    assert after["conv3d_dx.sm90"] == before["conv3d_dx.sm90"] + 1
+    assert after["conv3d.ndhwc"] == before["conv3d.ndhwc"]
+    assert after["conv3d_dx.ndhwc"] == before["conv3d_dx.ndhwc"]
+    ref = cv.conv3d_plain(x, w.bfloat16(), b)
+    dx_ref = cv.conv3d_dx_plain(dy, w)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and dx.shape == x.shape
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+    assert _rel(dx, dx_ref) <= TOL[torch.bfloat16]
+    assert torch.equal(out, cv.conv3d_kernel(x, wp, b))
+    assert torch.equal(dx, cv.conv3d_dx(dy, w))
+
+
+@pytest.mark.parametrize("rows", [256, 128])
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 5, 7, 9, 64), 128), ((2, 6, 12, 12, 256), 384)])
+def test_conv3d_sm90_both_instances_match_plain(dev, shape, cout, rows):
+    """The kernel's 256- and 128-row instances on the same ragged batch-2
+    inputs (the launch given each tile size directly)."""
+    from ddpm3d_tpu_torch.ops import _build
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, D, H, W, cin = shape
+    x = torch.randn(shape, generator=g, device=dev).bfloat16()
+    w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) / (27 * cin) ** 0.5
+    b = torch.randn((cout,), generator=g, device=dev)
+    wp = cv.pack_weight(w, torch.bfloat16)
+    y = torch.empty((B, D, H, W, cout), dtype=torch.bfloat16, device=dev)
+    tile = cv.pick_tile_sm90(D, H, W, rows)
+    assert 64 * rows // 128 < tile[0] * tile[1] * tile[2] <= rows
+    err = _build.fn("conv3d_sm90_launch")(
+        x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(),
+        B, D, H, W, cin, cout, *tile, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "conv3d_sm90_launch")
+    ref = cv.conv3d_plain(x, w.bfloat16(), b)
+    torch.cuda.synchronize()
+    assert _rel(y, ref) <= TOL[torch.bfloat16]
+
+
+def test_conv3d_sm90_rejects_unaligned_pointers(dev):
+    """TMA needs 16-byte-aligned global addresses: a view that starts
+    mid-row raises instead of running another kernel."""
+    x = torch.zeros((1, 2, 4, 4, 72), device=dev, dtype=torch.bfloat16)
+    xv = x.view(-1)[8:8 + 2 * 4 * 4 * 64].view(1, 2, 4, 4, 64)
+    assert xv.is_contiguous() and xv.data_ptr() % 16 == 0
+    wp = cv.pack_weight(torch.zeros((8, 64, 3, 3, 3), device=dev),
+                        torch.bfloat16)
+    cv.conv3d_kernel(xv, wp)  # aligned: runs
+    xu = x.view(-1)[1:1 + 2 * 4 * 4 * 64].view(1, 2, 4, 4, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        cv.conv3d_kernel(xu, wp)
 
 
 def _tiny_model(dtype, seed=3):
