@@ -12,7 +12,9 @@ Phases (each failure exits non-zero before the final line):
                bf16 96^3 forward): error vs tolerance; at the main sites
                also kernel / plain / library time (CUDA events, median) and
                the bound; each conv on its route (``conv3d_route``: the
-               bf16 torso on ``csrc/conv3d_sm90.cu``), timed beside the
+               bf16 torso on ``csrc/conv3d_sm90.cu``, the Cin = 2 input
+               conv on ``csrc/conv3d_narrow.cu``, the f32 head on
+               ``csrc/conv3d.cu``), the wgmma ones timed beside the
                previous kernel (``csrc/conv3d.cu``) on the same inputs;
   3. backward — at every distinct conv and GroupNorm shape of one bf16 96^3
                training step (read by hooks): the conv dx kernel, the
@@ -45,7 +47,10 @@ Phases (each failure exits non-zero before the final line):
                the up sites), each at batch 1 and 2, dynamic and static,
                with and without bias, bf16 and f32 out, checked for
                equality; six sites timed beside K3 and the plain version
-               (the 1x1 skip beside ``torch._int_mm``); ``model_int8``, the
+               (the 1x1 skip beside ``torch._int_mm``), and beside the
+               previous K5 when ``--parent-s8`` names its source; the
+               widest phase site also beside a 27-tap build of the same
+               kernel (``-DCONV3D_S8_ALL_TAPS``); ``model_int8``, the
                full-width f32 int8 model on the card against the CPU, every
                site's output equal to the plain int8 conv on its own input;
                ``denoise_int8``, the denoise phase on the int8 model with
@@ -62,7 +67,9 @@ Phases (each failure exits non-zero before the final line):
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``.
 
-Weights are random, made from ``--seed``. Imports no JAX.
+Weights are random, made from ``--seed``. Imports no JAX. The build
+phase fails on a spill or a serialized wgmma in the wgmma kernels and on an
+FFMA in K5's SASS (its epilogue must not contract the multiply and add).
 """
 
 from __future__ import annotations
@@ -108,7 +115,17 @@ KERNELS = {
     "conv3d_s8": dict(
         route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_s8.cu",
         replaces="ddpm3d_tpu/ops/conv3d_s8.py:369"),
+    # K3's other instances, by conv3d_route: the Cin = 2 input conv and the
+    # f32 head conv (their launches are those of their routes)
+    "conv3d_narrow": dict(
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_narrow.cu",
+        replaces="ddpm3d_tpu/ops/conv3d_mxu.py:203"),
+    "conv3d_f32": dict(
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d.cu",
+        replaces="ddpm3d_tpu/ops/conv3d_mxu.py:203"),
 }
+# the route (ops.route_counts) whose launches are each instance's
+ROUTE_OF = {"conv3d_narrow": "conv3d.sm90_narrow", "conv3d_f32": "conv3d.ndhwc"}
 TRAIN_KERNELS = ("conv3d", "conv3d_dx", "gn_stats", "gn_apply")
 
 # relative tolerance = max|kernel - plain| / max|plain|: bf16 outputs may
@@ -165,21 +182,24 @@ FORWARD_LAUNCHES = {
 }
 FORWARD_LAUNCHES["denoise_int8_static"] = FORWARD_LAUNCHES["denoise_int8"]
 # the conv3d launches per forward by kernel route (ops.route_counts): the
-# bf16 torso convs on csrc/conv3d_sm90.cu, the Cin = 2 input conv and the f32
-# head conv on csrc/conv3d.cu; fused: 8 up/down blocks x 2 on sm90
+# bf16 torso convs on csrc/conv3d_sm90.cu, the Cin = 2 input conv on
+# csrc/conv3d_narrow.cu, the f32 head conv on csrc/conv3d.cu; fused: 8
+# up/down blocks x 2 on sm90
+def _routes(sm90, narrow, ndhwc, dx_sm90=0, dx_ndhwc=0):
+    return {"conv3d.sm90": sm90, "conv3d.sm90_narrow": narrow,
+            "conv3d.ndhwc": ndhwc, "conv3d_dx.sm90": dx_sm90,
+            "conv3d_dx.sm90_narrow": 0, "conv3d_dx.ndhwc": dx_ndhwc}
+
+
 FORWARD_ROUTES = {
-    "denoise": {"conv3d.sm90": 70, "conv3d.ndhwc": 2,
-                "conv3d_dx.sm90": 0, "conv3d_dx.ndhwc": 0},
-    "denoise_fused": {"conv3d.sm90": 16, "conv3d.ndhwc": 2,
-                      "conv3d_dx.sm90": 0, "conv3d_dx.ndhwc": 0},
-    "denoise_int8": {"conv3d.sm90": 0, "conv3d.ndhwc": 2,
-                     "conv3d_dx.sm90": 0, "conv3d_dx.ndhwc": 0},
+    "denoise": _routes(70, 1, 1),
+    "denoise_fused": _routes(16, 1, 1),
+    "denoise_int8": _routes(0, 1, 1),
 }
 FORWARD_ROUTES["denoise_int8_static"] = FORWARD_ROUTES["denoise_int8"]
 # per training step: the forward's, and the dx of every conv but the input
 # conv (70 bf16 torso dx on sm90, the f32 head's dx on csrc/conv3d.cu)
-STEP_ROUTES = {"conv3d.sm90": 70, "conv3d.ndhwc": 2,
-               "conv3d_dx.sm90": 70, "conv3d_dx.ndhwc": 1}
+STEP_ROUTES = _routes(70, 1, 1, dx_sm90=70, dx_ndhwc=1)
 # the production training flags (test_DDPM_3d_tpu.sh model flags with the
 # training CLI's defaults: batch 1, lr 1e-4, EMA 0.9999, AdamW)
 TRAIN_FLAGS = [
@@ -243,26 +263,55 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"FAILED: {what}")
 
 
-def phase_build() -> None:
+WGMMA_SOURCES = ("conv3d_sm90", "conv3d_s8", "conv3d_narrow")
+# study builds compiled beside the package's sources (chip_smoke's own
+# names): K5 with every phase tile running all 27 taps, and the previous
+# K5 when --parent-s8 names its source
+VARIANTS = {"s8_all_taps": ("ddpm3d_tpu_torch/csrc/conv3d_s8.cu",
+                            ("-DCONV3D_S8_ALL_TAPS",))}
+
+
+def phase_build(parent_s8=None) -> dict:
+    """Build every source and the study variants in parallel; check the
+    ptxas reports and K5's SASS. Returns {variant: ctypes library}."""
     from ddpm3d_tpu_torch.ops import _build
 
+    variants = dict(VARIANTS)
+    if parent_s8:
+        variants["s8_parent"] = (parent_s8, ())
+    root = os.path.dirname(os.path.abspath(__file__))
+    variants = {k: (os.path.join(root, src), flags)
+                for k, (src, flags) in variants.items()}
     t0 = time.monotonic()
+    libs = _build.build_variants(variants)
     paths = _build.build_all()
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
-          "libs": sorted(paths)})
+          "libs": sorted(paths), "variants": sorted(libs)})
     for name, path in paths.items():
         with open(path + ".log") as f:
             for line in f:
                 if "registers" in line or "spill" in line:
                     print(f"ptxas[{name}]: {line.strip()}")
-                if name == "conv3d_sm90":
-                    # the wgmma kernel: no spill, and ptxas must not have
-                    # serialized its wgmma pipeline
+                if name in WGMMA_SOURCES:
+                    # the wgmma kernels: no spill, and ptxas must not have
+                    # serialized their wgmma pipeline
                     check("spill" not in line or " 0 bytes spill stores, 0 "
                           "bytes spill loads" in line,
-                          f"conv3d_sm90 spills: {line.strip()}")
+                          f"{name} spills: {line.strip()}")
                     check("serialized" not in line,
-                          f"conv3d_sm90 wgmma serialized: {line.strip()}")
+                          f"{name} wgmma serialized: {line.strip()}")
+    # K5 equals its plain version only if the multiply and the add of its
+    # epilogue stay two roundings: no FFMA anywhere in its code
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", paths["conv3d_s8"]],
+                          capture_output=True, text=True, check=True).stdout
+    # (GMMA: the wgmma opcodes, IGMMA for int8)
+    counts = {op: sass.count(op) for op in ("FFMA", "FMUL", "FADD", "GMMA")}
+    emit({"phase": "build_sass", "lib": "conv3d_s8", "counts": counts})
+    check(counts["GMMA"] > 0 and counts["FMUL"] > 0,
+          "conv3d_s8 SASS has its wgmma and its epilogue multiply")
+    check(counts["FFMA"] == 0, f"conv3d_s8 SASS contracts an FMA: {counts}")
+    return libs
 
 
 def main_path_shapes(model) -> tuple:
@@ -334,11 +383,14 @@ def _ndhwc_conv(x, wp, bias):
 
 
 def _conv_tile(cv, x, cout, route):
-    """The output tile the conv's launch uses (sm90: 256 or 128 rows)."""
+    """The output tile the conv's launch uses (sm90: 256 or 128 rows; the
+    narrow kernel walks 64-row slices of the flattened voxels)."""
     B, D, H, W, _ = x.shape
     if route == "sm90":
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         return list(cv.sm90_tile(B, D, H, W, cout, sms))
+    if route == "sm90_narrow":
+        return None
     return list(cv.pick_tile(D, H, W))
 
 
@@ -364,7 +416,7 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
         w = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev)
              * (27 * cin) ** -0.5)
         b = torch.randn((cout,), generator=gen, device=dev) * 0.1
-        wp = cv.pack_weight(w, dt)
+        wp = cv.pack_weight_kernel(w, dt)
         wd = w.to(dt)
         out = cv.conv3d_kernel(x, wp, b)
         ref = cv.conv3d_plain(x, wd, b)
@@ -378,8 +430,9 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
                     max_abs_err=err, rel_err=rel, tol=TOL[dt])
         if case in CONV_TIMED:
             ms = time_ms(lambda: cv.conv3d_kernel(x, wp, b))
-            if route == "sm90":  # the same conv on the previous kernel
-                line["ndhwc_ms"] = time_ms(lambda: _ndhwc_conv(x, wp, b))
+            if route != "ndhwc":  # the same conv on the previous kernel
+                wo = cv.pack_weight(w, dt)
+                line["ndhwc_ms"] = time_ms(lambda: _ndhwc_conv(x, wo, b))
             plain_ms = time_ms(lambda: cv.conv3d_plain(x, wd, b), reps=3,
                                warmup=1)
             xn = x.permute(0, 4, 1, 2, 3)  # NCDHW view of the same bytes
@@ -395,6 +448,11 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
         check(rel <= TOL[dt], f"conv3d {line['shape']}->{cout} rel err {rel}")
         checked["conv3d"] += 1
         summary.setdefault("conv3d", line)
+        if case in CONV_TIMED:  # the input and head instances' own lines
+            name = {"sm90_narrow": "conv3d_narrow", "ndhwc": "conv3d_f32"}.get(
+                route)
+            if name:
+                summary.setdefault(name, dict(line, shapes_checked=1))
         del x, out, ref
 
     for case in GN_TIMED + [c for c in gn_shapes if c not in GN_TIMED]:
@@ -789,6 +847,7 @@ FORWARD_FAMILIES = {
                      "conv3d_bf16_kernelILb1ELb1E", "conv3d_bf16_kernelILb0ELb1E",
                      "stats_sum_kernel"),
     "conv3d_sm90": ("conv3d_sm90_kernel",),
+    "conv3d_narrow": ("conv3d_narrow_kernel",),
     "conv3d_bf16": ("conv3d_bf16_kernel",),
     "conv3d_f32": ("conv3d_f32_kernel",),
     "gn_stats": ("gn_partial_kernel", "gn_finish_kernel"),
@@ -980,6 +1039,8 @@ def phase_backward(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
                 nbytes = vox * (cin + cout) * isz + 27 * cin * cout * isz
                 line["bound_ms"], line["bound_by"] = bound(flops, nbytes, dt)
             lines.append(line)
+            if dt == torch.float32 and case in DX_TIMED:  # the f32 head
+                summary["conv3d_f32_dx"] = line
             del dx, dx_ref
         dw = cv.conv3d_dw_library(x, dy)
         dw_ref = cv.conv3d_dw_plain(x, dy)
@@ -1238,6 +1299,11 @@ S8_TIMED = [
 
 
 def _s8_inputs(gen, case, B, static):
+    """Random int8 operands of one site; on the phase route the weight is
+    zero outside each phase's 2x2 window, as ``stacked_phase_weight`` makes
+    it (the kernel's phase tiles run only those taps)."""
+    from ddpm3d_tpu_torch.ops.phase_up import phase_window_mask
+
     D, H, W, cin, n, taps, up = case
     dev = torch.device("cuda")
     k = 3 if taps == 27 else 1
@@ -1245,6 +1311,8 @@ def _s8_inputs(gen, case, B, static):
                        device=dev, dtype=torch.int8)
     wq = torch.randint(-127, 128, (n, cin, k, k, k), generator=gen,
                        device=dev, dtype=torch.int8)
+    if up:
+        wq = wq * phase_window_mask(n // 4).to(dev, torch.int8)
     s_x = (torch.full((B,), 0.02, device=dev) if static else
            0.01 + 0.02 * torch.rand((B,), generator=gen, device=dev))
     s_w = 1e-4 + 1e-3 * torch.rand((n,), generator=gen, device=dev)
@@ -1252,13 +1320,13 @@ def _s8_inputs(gen, case, B, static):
     return xq, wq, s_x, s_w, bias
 
 
-def phase_s8_kernels(gen: torch.Generator, shapes) -> dict:
+def phase_s8_kernels(gen: torch.Generator, shapes, libs) -> dict:
     """``conv3d_s8`` against its plain version at every distinct quantized
     shape of the int8 path, three variants each (batch 1 dynamic with bias
     and bf16 out, as the path runs it; batch 2 dynamic with per-sample
     scales, no bias, f32 out; batch 1 static with bias, f32 out): equal
-    bit for bit. The S8_TIMED sites and the widest up site are timed."""
-    from ddpm3d_tpu_torch.ops import conv3d as cv
+    bit for bit. The S8_TIMED sites and the widest up site are timed, the
+    latter also on the 27-tap study build ``libs["s8_all_taps"]``."""
     from ddpm3d_tpu_torch.ops import conv3d_s8 as s8
 
     for case in S8_TIMED:
@@ -1285,11 +1353,12 @@ def phase_s8_kernels(gen: torch.Generator, shapes) -> dict:
             line = dict(kernel="conv3d_s8", shape=[B, D, H, W, cin], n=n,
                         taps=taps, upsample=up, static=static,
                         bias=with_bias, dtype=str(dt).split(".")[-1],
-                        tile=list(cv.pick_tile(D, H, W)), max_abs_err=err,
-                        equal=bool(torch.equal(got, ref)))
+                        tile=list(s8.s8_tile(B, D, H, W, n, taps, dt)),
+                        max_abs_err=err, equal=bool(torch.equal(got, ref)))
             check(bool(torch.isfinite(got.float()).all()), "conv3d_s8 finite")
             if vi == 0 and case in timed:
-                line.update(_time_s8_site(case, xq, wq, wp, s_x, s_w, bias, dt))
+                line.update(_time_s8_site(case, xq, wq, wp, s_x, s_w, bias,
+                                          dt, libs, ref))
                 if summary is None:
                     summary = line
             emit(line)
@@ -1306,11 +1375,34 @@ def phase_s8_kernels(gen: torch.Generator, shapes) -> dict:
     return dict(summary, shapes_checked=len(shapes))
 
 
-def _time_s8_site(case, xq, wq, wp, s_x, s_w, bias, dt) -> dict:
+def _s8_variant(lib, xq, wp, s_x, s_w, bias, dt, up, tile):
+    """One launch of a study build of K5 (the package's C entry point) on
+    the tile it is given."""
+    from ddpm3d_tpu_torch.ops import _build
+
+    B, D, H, W, cin = xq.shape
+    n = wp.shape[1]
+    cout = n // 4 if up else n
+    y = torch.empty((B, D, 2 * H, 2 * W, cout) if up else (B, D, H, W, cout),
+                    dtype=dt, device=xq.device)
+    if bias is not None and up:  # the phase route adds the rounded bias
+        bias = bias.to(dt).float()
+    err = _build.variant_fn(lib, "conv3d_s8_launch")(
+        xq.data_ptr(), wp.data_ptr(), s_x.data_ptr(), s_w.data_ptr(),
+        None if bias is None else bias.data_ptr(), y.data_ptr(), B, D, H, W,
+        cin, n, wp.shape[0], int(up), *tile, 1 if dt == torch.bfloat16 else 0,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "conv3d_s8_launch (study build)")
+    return y
+
+
+def _time_s8_site(case, xq, wq, wp, s_x, s_w, bias, dt, libs, ref) -> dict:
     """Kernel, plain and K3 (bf16, the conv int8 replaces: on the
     upsampled input for the phase route) times at one site, the quantize
     glue on a bf16 activation of the site's shape, and the bound; the 1x1
-    skip also beside ``torch._int_mm`` (its s8 GEMM alone)."""
+    skip also beside ``torch._int_mm`` (its s8 GEMM alone); the previous K5
+    on its own 128-row tiles (``parent_ms``) when its build is given; a
+    phase site also on the 27-tap build (``all_taps_ms``), both equal."""
     from ddpm3d_tpu_torch.models.nn import upsample_nearest_hw
     from ddpm3d_tpu_torch.ops import conv3d as cv
     from ddpm3d_tpu_torch.ops import conv3d_s8 as s8
@@ -1326,6 +1418,19 @@ def _time_s8_site(case, xq, wq, wp, s_x, s_w, bias, dt) -> dict:
     quant_ms = time_ms(lambda: quant.quantize_act(xb))
     out = {"kernel_ms": ms, "plain_ms": plain_ms, "quantize_act_ms": quant_ms,
            "library_ms": None}
+    for key, name, tile in (
+            ("parent", "s8_parent", cv.pick_tile(D, H, W)),
+            ("all_taps", "s8_all_taps", s8.s8_tile(1, D, H, W, n, taps,
+                                                   dt))):
+        if name not in libs or (key == "all_taps" and not up):
+            continue
+        run = lambda: _s8_variant(libs[name], xq, wp, s_x, s_w,  # noqa: E731
+                                  bias, dt, up, tile)
+        y = run()
+        torch.cuda.synchronize()
+        out[key + "_equal"] = bool(torch.equal(y, ref))
+        check(out[key + "_equal"], f"{name} at {case} equals the plain K5")
+        out[key + "_ms"] = time_ms(run)
     if taps == 27:
         xk = upsample_nearest_hw(xb) if up else xb
         wk = cv.pack_weight(torch.randn((cout, cin, 3, 3, 3), device="cuda")
@@ -1536,6 +1641,9 @@ def phase_train_profile(loop) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent-s8", metavar="FILE",
+                    help="a previous csrc/conv3d_s8.cu (same C entry point) "
+                         "to time beside K5 at the timed int8 sites")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1547,7 +1655,7 @@ def main() -> None:
           "count": torch.cuda.device_count()})
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
 
-    phase_build()
+    libs = phase_build(args.parent_s8)
     model, sched, cfg = _model(use_fp16=True, seed=args.seed)
     model.cuda()
     fused = _model(use_fp16=True, seed=args.seed, fused=True)[0]
@@ -1560,7 +1668,8 @@ def main() -> None:
     int8m.cuda()
     summary = phase_kernels(gen, *main_path_shapes(model))
     summary["conv3d_fused"] = phase_fused_kernels(gen, fused_path_shapes(fused))
-    summary["conv3d_s8"] = phase_s8_kernels(gen, int8_path_shapes(int8m))
+    summary["conv3d_s8"] = phase_s8_kernels(gen, int8_path_shapes(int8m),
+                                            libs)
     from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
     train_sched, train_cfg = create_gaussian_diffusion(
         steps=1000, learn_sigma=True, noise_schedule="linear")
@@ -1589,11 +1698,13 @@ def main() -> None:
     kernels = []
     for name, meta in KERNELS.items():
         s = summary[name]
-        by_path = {"denoise": denoise_counts[name],
-                   "denoise_fused": fused_counts[name],
-                   "denoise_int8": int8_counts[name],
-                   "denoise_int8_static": static_counts[name],
-                   "train": train["launches"][name]}
+        count = ((lambda c: c[name]) if name not in ROUTE_OF
+                 else (lambda c: c["routes"][ROUTE_OF[name]]))
+        by_path = {"denoise": count(denoise_counts),
+                   "denoise_fused": count(fused_counts),
+                   "denoise_int8": count(int8_counts),
+                   "denoise_int8_static": count(static_counts),
+                   "train": count(train["launches"])}
         main_path = {"conv3d_fused": "denoise_fused",
                      "conv3d_s8": "denoise_int8"}.get(name, "train")
         extra = {}
@@ -1601,6 +1712,13 @@ def main() -> None:
             extra["unfused_sequence_ms"] = s["unfused_sequence_ms"]
         if name == "conv3d_s8":  # the bf16 conv it replaces at that site
             extra["k3_bf16_ms"] = s["k3_bf16_ms"]
+            extra["parent_ms"] = s.get("parent_ms")
+        if name == "conv3d_narrow":  # the previous kernel on its inputs
+            extra["ndhwc_ms"] = s["ndhwc_ms"]
+        if name == "conv3d_f32":  # the head's dx beside cuDNN's
+            d = bwd["conv3d_f32_dx"]
+            extra.update(dx_ms=d["kernel_ms"], dx_library_ms=d["library_ms"],
+                         dx_bound_ms=d["bound_ms"], dx_plain_ms=d["plain_ms"])
         if name in ("conv3d", "conv3d_dx"):
             # the previous kernel (csrc/conv3d.cu) on the same inputs, and
             # each path's launches by route (ops.route_counts)

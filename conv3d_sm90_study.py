@@ -1,13 +1,18 @@
-"""On-card study of the bf16 conv kernel ``ddpm3d_tpu_torch/csrc/conv3d_sm90.cu``.
+"""On-card study of the wgmma conv kernels: the bf16 K3
+``ddpm3d_tpu_torch/csrc/conv3d_sm90.cu`` and, with ``--s8``, the int8 K5
+``ddpm3d_tpu_torch/csrc/conv3d_s8.cu``.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 conv3d_sm90_study.py [--against OTHER.cu]
+    python3 conv3d_sm90_study.py --s8 [--against OTHER_S8.cu]
 
-Builds the committed source and three ablations of it with nvcc (into
-``chiprun_out/conv3d_sm90_study/``), and ``--against`` another version of
-the source (same C entry point) for an A/B in one run on one card, then
-times each at main-path shapes beside ``F.conv3d``, after warming the card:
+Writes the committed source's ablations (and ``--against`` another version
+of the source, same C entry point, for an A/B in one run on one card) to
+``chiprun_out/conv3d_sm90_study/``, builds them in parallel with the
+package's builder (``ddpm3d_tpu_torch/ops/_build.py``), then
+times each at main-path shapes beside a library call, after warming the
+card. The bf16 kernel, beside ``F.conv3d``:
   * ``base``      — the kernel as committed;
   * ``noweights`` — the weight ring is filled once, later taps reuse stale
     tiles (no L2 -> SM weight traffic after the first kStages loads);
@@ -20,7 +25,23 @@ what each part of the kernel costs. Then both tile sizes (256-row and
 128-row instances) at the small volumes. One JSON line per shape, times in
 ms (CUDA events over 20 launches, three rounds), then the rate of one
 8192^3 bf16 matrix product (the card's practical peak at its power limit),
-the card's name, power limit and SM clock. Imports no JAX.
+the card's name, power limit and SM clock.
+
+With ``--s8`` the int8 kernel, bit-equality to its plain version checked
+for every variant that computes the function:
+  * ``base``       — the kernel as committed;
+  * ``all_taps``   — built with ``-DCONV3D_S8_ALL_TAPS``: the phase tiles run
+    all 27 taps (their zero weights included), the parent's work;
+  * ``thread_stores`` — built with ``-DCONV3D_S8_THREAD_STORES``: the
+    epilogue's threads store the output instead of TMA;
+  * ``noweights``, ``nohalo``, ``nostore`` — as above; ``noepilogue`` also
+    skips the dequantize and staging;
+  * ``against``    — another version of the source, e.g. the previous K5,
+    run on the previous kernel's own tiles (``ops/conv3d.py:pick_tile``,
+    at most 128 rows);
+at the 3x3x3 sites beside the bf16 K3 on the conv int8 replaces, the 1x1
+sites beside ``torch._int_mm``, and the rate of one 8192^3 ``torch._int_mm``.
+Imports no JAX.
 """
 
 from __future__ import annotations
@@ -40,6 +61,8 @@ sys.path.insert(0, ROOT)
 
 from ddpm3d_tpu_torch.ops import _build  # noqa: E402
 from ddpm3d_tpu_torch.ops import conv3d as cv  # noqa: E402
+from ddpm3d_tpu_torch.ops import conv3d_s8 as s8  # noqa: E402
+from ddpm3d_tpu_torch.ops.phase_up import phase_window_mask  # noqa: E402
 
 OUT = os.path.join(ROOT, "chiprun_out", "conv3d_sm90_study")
 H100_BF16_FLOPS = 989e12
@@ -52,10 +75,49 @@ H_LOAD = """  mbar_expect_tx(m.hfull(st), s.halo_tx);
 STORE = "if (r >= rows || col >= s.Cout) continue;"
 
 
-def variants(src: str, against: str = None) -> dict:
-    for part in (W_LOAD, H_LOAD, STORE):
+# the same ablations of csrc/conv3d_s8.cu
+S8_W_LOAD = """          mbar_expect_tx(m.wfull(st), kWBytes);
+          tma_load_3d(m.w_at(st), &tm_w, m.wfull(st), c * kBK, t.n0, tap);"""
+S8_H_LOAD = """  mbar_expect_tx(m.hfull(st), s.halo_tx);
+  tma_load_5d(m.halo_at(st), tm_x, m.hfull(st), c * kBK, t.w0 - s.pad,
+              t.h0 - s.pad, t.d0 - s.pad, t.b);"""
+S8_STAGE = "if (r >= rows) continue;  // only the tile's rows fit the stage"
+S8_STORE = "if (r >= rows || n >= s.N) continue;"
+S8_TMA_STORE = "if (threadIdx.x == 128 && nc < s.N) {"
+NEVER = " || acc[0][0] != 0x7fffffff)"  # a condition the compiler keeps
+
+
+def _anchors(src: str, parts) -> None:
+    for part in parts:
         if part not in src:
             raise SystemExit(f"source changed, ablation anchor missing:\n{part}")
+
+
+def variants_s8(src: str, against: str = None) -> dict:
+    """{name: (source text, extra nvcc flags)} of the int8 study."""
+    _anchors(src, (S8_W_LOAD, S8_H_LOAD, S8_STAGE, S8_STORE, S8_TMA_STORE))
+    nostore = src.replace(S8_STORE, S8_STORE.replace(")", NEVER, 1)).replace(
+        S8_TMA_STORE, S8_TMA_STORE.replace(
+            ")", " && acc[0][0] == 0x7fffffff)", 1))
+    out = {
+        "base": (src, ()),
+        "all_taps": (src, ("-DCONV3D_S8_ALL_TAPS",)),
+        "thread_stores": (src, ("-DCONV3D_S8_THREAD_STORES",)),
+        "noweights": (src.replace(S8_W_LOAD, "if (nw < kStages) {\n" + S8_W_LOAD
+                                  + "\n} else { mbar_arrive(m.wfull(st)); }"), ()),
+        "nohalo": (src.replace(S8_H_LOAD, "if (n < s.hstages) {\n" + S8_H_LOAD
+                               + "\n} else { mbar_arrive(m.hfull(st)); }"), ()),
+        "nostore": (nostore, ()),
+        "noepilogue": (nostore.replace(S8_STAGE, S8_STAGE.replace(
+            ")", NEVER, 1)), ()),
+    }
+    if against is not None:
+        out["against"] = (against, ())
+    return out
+
+
+def variants(src: str, against: str = None) -> dict:
+    _anchors(src, (W_LOAD, H_LOAD, STORE))
     extra = {} if against is None else {"against": against}
     return {
         "base": src,
@@ -69,29 +131,26 @@ def variants(src: str, against: str = None) -> dict:
     }
 
 
-def build(src: str, against: str = None) -> dict:
-    """{variant: ctypes function}; prints each build's ptxas lines."""
+def build(sources: dict, entry: str = "conv3d_sm90_launch") -> dict:
+    """{variant: ctypes function ``entry``} from {variant: source text or
+    (source text, extra nvcc flags)}, built in parallel by the package's
+    builder; prints each build's ptxas lines."""
     os.makedirs(OUT, exist_ok=True)
-    procs = {}
-    for name, text in variants(src, against).items():
-        cu, so = os.path.join(OUT, f"{name}.cu"), os.path.join(OUT, f"{name}.so")
+    jobs = {}
+    for name, text in sources.items():
+        text, flags = text if isinstance(text, tuple) else (text, ())
+        cu = os.path.join(OUT, f"{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
-        procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        jobs[name] = (cu, tuple(flags))
+    paths = _build.build_all(jobs)
     fns = {}
-    for name, (so, proc) in procs.items():
-        out, _ = proc.communicate()
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"ptxas[{name}]: {line.strip()}")
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed for {name}")
-        fn = ctypes.CDLL(so).conv3d_sm90_launch
-        fn.argtypes = _build._SIGNATURES["conv3d_sm90_launch"][1]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+    for name in sources:
+        with open(paths[name] + ".log") as f:
+            for line in f:
+                if any(k in line for k in ("registers", "spill", "serialized")):
+                    print(f"ptxas[{name}]: {line.strip()}")
+        fns[name] = _build.variant_fn(ctypes.CDLL(paths[name]), entry)
     return fns
 
 
@@ -150,9 +209,115 @@ def study(fns, gen, shape, cout, tiles, names) -> dict:
     return line
 
 
+def launch_s8(fn, xq, wp, s_x, s_w, bias, up, tile):
+    """One bf16-out launch; ``bias`` as the wrapper passes it (on the
+    phase route already rounded to bf16)."""
+    B, D, H, W, cin = xq.shape
+    n = wp.shape[1]
+    cout = n // 4 if up else n
+    shape = (B, D, 2 * H, 2 * W, cout) if up else (B, D, H, W, cout)
+    y = torch.empty(shape, dtype=torch.bfloat16, device=xq.device)
+    err = fn(xq.data_ptr(), wp.data_ptr(), s_x.data_ptr(), s_w.data_ptr(),
+             bias.data_ptr(), y.data_ptr(), B, D, H, W, cin, n, wp.shape[0],
+             int(up), *tile, 1, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "conv3d_s8_launch")
+    return y
+
+
+# (B, D, H, W, Cin), N, taps, upsample: the main-path int8 sites of
+# chip_smoke.py's S8_TIMED, the widest phase site and a deep 1x1 site
+S8_SHAPES = (
+    ((1, 96, 96, 96, 128), 128, 27, False),
+    ((1, 96, 96, 96, 256), 128, 27, False),
+    ((1, 96, 96, 96, 256), 128, 1, False),
+    ((1, 96, 48, 48, 256), 128, 27, False),
+    ((1, 96, 6, 6, 1024), 512, 27, False),
+    ((1, 96, 48, 48, 128), 4 * 128, 27, True),
+    ((1, 96, 12, 12, 768), 384, 1, False),
+)
+
+
+def study_s8(fns, gen, shape, n, taps, up) -> dict:
+    """Every variant at one site (three rounds), bit-equality to the plain
+    version for those that compute the function, and the yardstick."""
+    dev = torch.device("cuda")
+    cin = shape[-1]
+    k = 3 if taps == 27 else 1
+    xq = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, cin, k, k, k), generator=gen,
+                       device=dev, dtype=torch.int8)
+    if up:  # the stacked phase kernels are zero outside their windows
+        wq = wq * phase_window_mask(n // 4).to(dev, torch.int8)
+    s_x = torch.full((1,), 0.02, device=dev)
+    s_w = 1e-4 + 1e-3 * torch.rand((n,), generator=gen, device=dev)
+    bias = torch.randn((n // 4 if up else n,), generator=gen, device=dev)
+    kb = bias.bfloat16().float() if up else bias  # as the wrapper passes it
+    wp = s8.pack_weight_s8(wq)
+    ref = s8.conv3d_s8_plain(xq, wq, s_x, s_w, bias, torch.bfloat16, up)
+    tile = s8.s8_tile(*shape[:4], n, taps)
+    vox = shape[0] * shape[1] * shape[2] * shape[3]
+    cout = n // 4 if up else n
+    macs = vox * cin * cout * (48 if up else taps)
+    line = dict(shape=list(shape), n=n, taps=taps, upsample=up,
+                tile=list(tile), bound_ms=2.0 * macs / 1979e12 * 1e3)
+    if taps == 1:
+        a, b = xq.reshape(vox, cin), wq.reshape(n, cin).t()
+        lib = lambda: torch._int_mm(a, b)  # noqa: E731
+        line["library"] = "torch._int_mm"
+    else:
+        xb = torch.randn(ref.shape[:-1] + (cin,), generator=gen,
+                         device=dev).bfloat16()
+        wk = cv.pack_weight(torch.randn((cout, cin, 3, 3, 3), generator=gen,
+                                        device=dev) * 0.01, torch.bfloat16)
+        lib = lambda: cv.conv3d_kernel(xb, wk)  # noqa: E731
+        line["library"] = "bf16 K3 (conv3d_sm90) on the conv int8 replaces"
+    line["library_ms"] = [time_ms(lib)]
+    for _ in range(3):
+        for name, fn in fns.items():
+            t = cv.pick_tile(*shape[1:4]) if name == "against" else tile
+            y = launch_s8(fn, xq, wp, s_x, s_w, kb, up, t)
+            torch.cuda.synchronize()
+            if name in ("base", "all_taps", "thread_stores", "against"):
+                line[name + "_equal"] = bool(torch.equal(y, ref))
+            line.setdefault(name, []).append(
+                time_ms(lambda: launch_s8(fn, xq, wp, s_x, s_w, kb, up, t)))
+    line["library_ms"].append(time_ms(lib))
+    return line
+
+
+def main_s8(against) -> None:
+    with open(os.path.join(ROOT, "ddpm3d_tpu_torch", "csrc",
+                           "conv3d_s8.cu")) as f:
+        fns = build(variants_s8(f.read(), against), "conv3d_s8_launch")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    warm(gen)
+    for shape, n, taps, up in S8_SHAPES:
+        print(json.dumps(study_s8(fns, gen, shape, n, taps, up)), flush=True)
+    a = torch.randint(-127, 128, (8192, 8192), device="cuda", dtype=torch.int8)
+    ms = time_ms(lambda: torch._int_mm(a, a.t()))
+    print(json.dumps({"int_mm_8192_ms": ms,
+                      "tops": 2 * 8192 ** 3 / ms / 1e9}), flush=True)
+
+
+def warm(gen) -> None:
+    x, w, _ = inputs(gen, (1, 96, 96, 96, 128), 128)
+    for _ in range(50):  # warm the card to its loaded clock
+        F.conv3d(x.permute(0, 4, 1, 2, 3), w.bfloat16(), padding=1)
+    torch.cuda.synchronize()
+
+
+def smi() -> None:
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", help="another version of the source")
+    ap.add_argument("--s8", action="store_true",
+                    help="study the int8 kernel (csrc/conv3d_s8.cu)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("conv3d_sm90_study: no CUDA device available")
@@ -161,14 +326,15 @@ def main() -> None:
     if args.against:
         with open(args.against) as f:
             against = f.read()
+    if args.s8:
+        main_s8(against)
+        smi()
+        return
     with open(os.path.join(ROOT, "ddpm3d_tpu_torch", "csrc",
                            "conv3d_sm90.cu")) as f:
-        fns = build(f.read(), against)
+        fns = build(variants(f.read(), against))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x, w, _ = inputs(gen, (1, 96, 96, 96, 128), 128)
-    for _ in range(50):  # warm the card to its loaded clock
-        F.conv3d(x.permute(0, 4, 1, 2, 3), w.bfloat16(), padding=1)
-    torch.cuda.synchronize()
+    warm(gen)
     for shape, cout in (((1, 96, 96, 96, 128), 128),
                         ((1, 96, 96, 96, 256), 128),
                         ((1, 96, 24, 24, 256), 256)):
@@ -190,9 +356,7 @@ def main() -> None:
     ms = time_ms(lambda: a @ a)
     print(json.dumps({"matmul_8192_bf16_ms": ms,
                       "tflops": 2 * 8192 ** 3 / ms / 1e9}), flush=True)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
-         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
+    smi()
 
 
 if __name__ == "__main__":

@@ -73,10 +73,9 @@
 //     fit 168: two A buffers, and an epilogue that loads the bias per
 //     column pair.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -90,16 +89,12 @@ constexpr int kMaxRows = 128 * kConsumers;  // output voxels per tile
 constexpr int kMaxHalo = 640;             // (TD+2)(TH+2)(TW+2), at most
 constexpr int kTaps = 27;
 constexpr int kWBytes = kBN * kRowBytes;  // one weight stage, 16 KB
-constexpr int kSmemLimit = 232448;        // per block on the H100
 constexpr int kLaunchRegs = 168;          // 65536 / 384, as ptxas allots
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;        // 128*40 + 256*232 = 384*168
 static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <=
                   kThreads * kLaunchRegs,
               "setmaxnreg must not ask for more registers than launch gave");
-// A wait that outlasts this many cycles (~8 s) traps: a fault, not a hang.
-constexpr long long kHangCycles = 1ll << 34;
-
 struct Shape {
   int B, D, H, W, Cin, Cout;
   int TD, TH, TW;
@@ -130,103 +125,6 @@ __device__ __forceinline__ TileId decode_tile(const Shape& s, int q) {
 }
 
 // ------------------------------------------------------------ PTX shims --
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - t0 > kHangCycles) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* m,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(c4)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* m,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// Barrier `id` (1..15) over `count` threads (the consumers only).
-__device__ __forceinline__ void named_barrier(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-// K-major, 128-byte-swizzled shared-memory matrix descriptor: rows of 128
-// bytes, 8-row groups 1024 bytes apart (SBO), LBO unused (1).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma boundary (they are registers, not memory).
@@ -351,12 +249,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---------------------------------------------------- producer --
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x != 0) return;
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                     reinterpret_cast<uint64_t>(&tm_x))
-                 : "memory");
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                     reinterpret_cast<uint64_t>(&tm_w))
-                 : "memory");
+    prefetch_tensormap(&tm_x);
+    prefetch_tensormap(&tm_w);
     int nh = 0, nw = 0;
     if (static_cast<int>(blockIdx.x) < s.total)
       load_halo(s, m, &tm_x, nh++, blockIdx.x, 0);
@@ -552,47 +446,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---------------------------------------------------------------- host --
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, or NULL.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// bf16 tensor map of `rank` dims (innermost first), 128-byte swizzle, zero
-// fill outside the tensor. strides[i] is the byte stride of dim i + 1.
-bool encode_map(CUtensorMap* map, const void* ptr, cuuint32_t rank,
-                const cuuint64_t* dims, const cuuint64_t* strides,
-                const cuuint32_t* box) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // One launch of the kMT instance. setmaxnreg hands registers between the
 // warpgroups of a block: launch must have given every thread kLaunchRegs,
 // or the consumers' request would wait for registers that never come.
@@ -675,14 +528,12 @@ int conv3d_sm90_launch(const void* x, const void* w, const float* bias,
                             static_cast<cuuint64_t>(Cout), kTaps};
   const cuuint64_t ws[2] = {wd[0] * 2, wd[0] * wd[1] * 2};
   const cuuint32_t wb[3] = {kBK, kBN, 1};
-  if (!encode_map(&tm_x, x, 5, xd, xs, xb) ||
-      !encode_map(&tm_w, w, 3, wd, ws, wb))
+  if (!encode_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, 5, xd, xs, xb) ||
+      !encode_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, 3, wd, ws, wb))
     return static_cast<int>(cudaErrorInvalidValue);
 
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaError_t err;
+  const int sms = sm_count(&err);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = s.total < sms ? s.total : sms;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);

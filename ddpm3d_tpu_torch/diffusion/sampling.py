@@ -43,7 +43,15 @@ def step_noise(
     device: torch.device,
 ) -> torch.Tensor:
     """Standard normal noise [len(sample_ids), *shape] in f32; sample i's
-    draw depends only on (seed, sample_ids[i], t)."""
+    draw depends only on (seed, sample_ids[i], t) and the device type.
+
+    So a seeded run is the same whatever the batch composition, the
+    chunking and the number of GPUs, on one device type. It is not the same
+    on the CPU and the card: the generator is MT19937 on the CPU and Philox
+    on CUDA (an intended divergence, ROADMAP Queue 3; drawing on the host
+    and copying would add host time to every patch-step). Neither matches
+    the JAX package's ``fold_in`` draws either: tests that compare the two
+    packages feed explicit noise."""
     out = []
     for sid in sample_ids:
         g = torch.Generator(device=device)

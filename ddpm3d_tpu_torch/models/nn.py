@@ -142,13 +142,17 @@ class Conv3x3x3(_Int8Site, nn.Module):
         self._packed = None
         self._packed_key = None
 
-    def _packed_weight(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+    def _packed_weight(self, x: torch.Tensor,
+                       fused: bool) -> Optional[torch.Tensor]:
         if x.device.type != "cuda" or (
                 torch.is_grad_enabled() and self.weight.requires_grad):
             return None
-        key = (x.dtype, x.device, self.weight.data_ptr(), self.weight._version)
+        key = (x.dtype, x.device, self.weight.data_ptr(), self.weight._version,
+               fused)
         if key != self._packed_key:
-            self._packed = conv_ops.pack_weight(self.weight, x.dtype)
+            # the fused kernel takes the tap-major layout at every Cin
+            pack = conv_ops.pack_weight if fused else conv_ops.pack_weight_kernel
+            self._packed = pack(self.weight, x.dtype)
             self._packed_key = key
         return self._packed
 
@@ -158,7 +162,7 @@ class Conv3x3x3(_Int8Site, nn.Module):
             return self._int8(x, self.bias, upsample)
         if upsample:
             x = upsample_nearest_hw(x)
-        packed = self._packed_weight(x)
+        packed = self._packed_weight(x, fused)
         if fused:
             return fused_ops.conv3d_fused(
                 x, self.weight, self.bias, w_packed=packed, **fused_kw)

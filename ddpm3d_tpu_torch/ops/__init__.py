@@ -1,15 +1,18 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
 * :mod:`.conv3d` — stride-1 SAME 3x3x3 conv, forward and the dx of its
-  backward: ``csrc/conv3d_sm90.cu`` (bf16, wgmma/TMA) or ``csrc/conv3d.cu``
-  (f32, narrow Cin), by :func:`.conv3d.conv3d_route`;
+  backward: ``csrc/conv3d_sm90.cu`` (bf16, wgmma/TMA),
+  ``csrc/conv3d_narrow.cu`` (bf16, Cin = 2: the input conv) or
+  ``csrc/conv3d.cu`` (f32, other narrow Cin), by
+  :func:`.conv3d.conv3d_route`;
 * :mod:`.conv3d_fused` — the fused ResBlock conv (GN/FiLM/SiLU prologue,
   bias/skip epilogue, next-GN stats), the fused instance of the same
   ``csrc/conv3d.cu`` template;
 * :mod:`.groupnorm` — GroupNorm stats and fused normalize/FiLM/SiLU
   (``csrc/groupnorm.cu``);
 * :mod:`.conv3d_s8` — the int8 (s8 x s8 -> s32) conv with its dequantize
-  epilogue (``csrc/conv3d_s8.cu``), under :mod:`.quant` (int8 serving) and
+  epilogue (``csrc/conv3d_s8.cu``, wgmma s8 fed by TMA), under :mod:`.quant`
+  (int8 serving) and
   :mod:`.phase_up` (the up sites' phase kernels).
 """
 
@@ -32,10 +35,10 @@ def launch_counts() -> Dict[str, int]:
 
 def route_counts() -> Dict[str, int]:
     """The conv launches of :func:`launch_counts` by kernel route
-    ("conv3d.sm90", "conv3d.ndhwc", "conv3d_dx.sm90", "conv3d_dx.ndhwc")."""
-    return {k: conv3d.route_launches.get(k, 0)
-            for k in ("conv3d.sm90", "conv3d.ndhwc",
-                      "conv3d_dx.sm90", "conv3d_dx.ndhwc")}
+    ("conv3d.sm90", "conv3d.sm90_narrow", "conv3d.ndhwc" and the same for
+    "conv3d_dx")."""
+    return {f"{what}.{route}": conv3d.route_launches.get(f"{what}.{route}", 0)
+            for what in ("conv3d", "conv3d_dx") for route in conv3d.ROUTES}
 
 
 def reset_launch_counts() -> None:

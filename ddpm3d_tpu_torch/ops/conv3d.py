@@ -1,17 +1,22 @@
 """Stride-1 SAME 3x3x3 convolution on channels-last volumes.
 
 Counterpart of ``ddpm3d_tpu/ops/conv3d_mxu.py:conv3d_mxu`` (the Pallas TPU
-kernel ``_conv_kernel``). Two Hopper kernels compute it, chosen by
+kernel ``_conv_kernel``). Three Hopper kernels compute it, chosen by
 :func:`conv3d_route`:
   * ``"sm90"``, ``csrc/conv3d_sm90.cu``: bf16 with Cin % 8 == 0, every conv
     of the model's torso. A warp-specialised implicit GEMM: TMA stages a
     haloed input tile once per 64-channel Cin chunk and the weights of each
     tap through a ring of mbarrier-guarded stages, and two warpgroups run
     all 27 taps on ``wgmma`` with A gathered from the halo by ``ldmatrix``;
+  * ``"sm90_narrow"``, ``csrc/conv3d_narrow.cu``: bf16 with Cin = 2, the
+    model's input conv. The 27 taps fold into one 64-wide K (k = 2 * tap +
+    ci, :func:`pack_weight_narrow`), A is gathered into registers straight
+    from device memory, four ``wgmma`` per 64 rows;
   * ``"ndhwc"``, ``csrc/conv3d.cu``: f32 (the head conv, f32 models) and
-    bf16 with narrow Cin (the 2-channel input conv), ``mma.sync`` or FFMA.
-Both are bound by operations at every shape of the model; each source
-note says what its design does about that.
+    bf16 with any other Cin, ``mma.sync`` or FFMA.
+Each source note says what bounds its kernel and what its design does about
+that (the narrow conv is bound by the bytes it stores, the others by
+operations).
 
 :func:`conv3d` is differentiable (:class:`Conv3dFunction`, the counterpart of
 the custom VJP ``_conv3d_mxu_fwd``/``_conv3d_mxu_bwd``):
@@ -44,9 +49,10 @@ from . import _build
 # and the dx convs of the backward, over both routes
 launches = 0
 dx_launches = 0
-# the same launches by route (see ops.route_counts): "conv3d.sm90",
-# "conv3d.ndhwc", "conv3d_dx.sm90", "conv3d_dx.ndhwc"
+# the same launches by route (see ops.route_counts): "conv3d.<route>" and
+# "conv3d_dx.<route>" for each of ROUTES
 route_launches: Dict[str, int] = {}
+ROUTES = ("sm90", "sm90_narrow", "ndhwc")
 
 MAX_ROWS = 128   # output voxels per block (csrc/conv3d.cu kMaxRows)
 MAX_HALO = 640   # staged halo voxels per block (kMaxHalo)
@@ -61,6 +67,9 @@ SM90_BN = 128          # output channels per tile (kBN)
 SM90_STAGES = 4        # weight ring (kStages)
 SM90_SMEM_LIMIT = 232448  # dynamic shared memory a block may use (H100)
 
+# csrc/conv3d_narrow.cu: the taps folded into one K chunk (kK)
+NARROW_K = 64
+
 
 def pack_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """(Cout, Cin, 3, 3, 3) -> the kernel's [27, Cout, Cin] layout, in
@@ -72,6 +81,23 @@ def pack_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     )
 
 
+def pack_weight_narrow(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(Cout, 2, 3, 3, 3) -> the narrow kernel's [Cout, NARROW_K] layout in
+    ``dtype``: column k = 2 * tap + ci with tap = 9 kd + 3 kh + kw, zeros
+    from k = 54 on."""
+    cout, cin = weight.shape[:2]
+    w = weight.detach().to(dtype).permute(0, 2, 3, 4, 1).reshape(cout, 27 * cin)
+    return F.pad(w, (0, NARROW_K - 27 * cin)).contiguous()
+
+
+def pack_weight_kernel(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The layout that the kernel of :func:`conv3d_route` takes for a conv
+    with this (Cout, Cin, 3, 3, 3) weight in ``dtype``."""
+    if conv3d_route(weight.shape[1:2], dtype) == "sm90_narrow":
+        return pack_weight_narrow(weight, dtype)
+    return pack_weight(weight, dtype)
+
+
 def flip_weight(weight: torch.Tensor) -> torch.Tensor:
     """The dx conv's weight: ``wt[ci, co, a, b, c] = w[co, ci, 2-a, 2-b,
     2-c]`` (``conv3d_mxu.py:_conv3d_mxu_bwd``)."""
@@ -79,9 +105,9 @@ def flip_weight(weight: torch.Tensor) -> torch.Tensor:
 
 
 def pack_weight_dx(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(Cout, Cin, 3, 3, 3) -> the kernel's [27, Cin, Cout] layout of the
-    flipped, in/out-swapped weight: the dx conv maps Cout -> Cin."""
-    return pack_weight(flip_weight(weight), dtype)
+    """(Cout, Cin, 3, 3, 3) -> the kernel's layout (:func:`pack_weight_kernel`)
+    of the flipped, in/out-swapped weight: the dx conv maps Cout -> Cin."""
+    return pack_weight_kernel(flip_weight(weight), dtype)
 
 
 @functools.lru_cache(maxsize=64)
@@ -104,19 +130,23 @@ def pick_tile(D: int, H: int, W: int) -> Tuple[int, int, int]:
 
 
 def conv3d_route(x_shape, dtype: torch.dtype) -> str:
-    """Which kernel takes a conv of x [B, D, H, W, Cin] in ``dtype``:
-    ``"sm90"`` (``csrc/conv3d_sm90.cu``) for bf16 with Cin % 8 == 0, whose
-    rows TMA can stage (16-byte strides); ``"ndhwc"`` (``csrc/conv3d.cu``)
-    for f32 and for bf16 with narrow or unaligned Cin."""
+    """Which kernel takes a conv of x [..., Cin] in ``dtype``: ``"sm90"``
+    (``csrc/conv3d_sm90.cu``) for bf16 with Cin % 8 == 0, whose rows TMA can
+    stage (16-byte strides); ``"sm90_narrow"`` (``csrc/conv3d_narrow.cu``)
+    for bf16 with Cin = 2, the input conv; ``"ndhwc"`` (``csrc/conv3d.cu``)
+    for f32 and for bf16 with any other Cin."""
     if dtype == torch.bfloat16 and x_shape[-1] % 8 == 0:
         return "sm90"
+    if dtype == torch.bfloat16 and x_shape[-1] == 2:
+        return "sm90_narrow"
     return "ndhwc"
 
 
-def sm90_halo(tile: Tuple[int, int, int]) -> int:
-    """Voxels of the haloed input tile (TD+2)(TH+2)(TW+2)."""
+def sm90_halo(tile: Tuple[int, int, int], pad: int = 1) -> int:
+    """Voxels of the haloed input tile (TD+2p)(TH+2p)(TW+2p): p = 1 for the
+    3x3x3 conv; p = 0 (no halo) for the int8 kernel's 1x1x1 instance."""
     td, th, tw = tile
-    return (td + 2) * (th + 2) * (tw + 2)
+    return (td + 2 * pad) * (th + 2 * pad) * (tw + 2 * pad)
 
 
 def sm90_smem_bytes(tile: Tuple[int, int, int]) -> int:
@@ -130,18 +160,19 @@ def sm90_smem_bytes(tile: Tuple[int, int, int]) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def pick_tile_sm90(D: int, H: int, W: int,
-                   rows: int = SM90_MAX_ROWS) -> Tuple[int, int, int]:
-    """Output tile (TD, TH, TW) of ``csrc/conv3d_sm90.cu`` for a DxHxW
-    volume: at most ``rows`` (256 or 128) voxels and SM90_MAX_HALO halo
-    voxels; fewest tiles first (every tile costs ``rows`` rows of math),
-    then the smallest halo, then the widest TW (8 consecutive voxels keep
-    ldmatrix free of bank conflicts)."""
+def pick_tile_sm90(D: int, H: int, W: int, rows: int = SM90_MAX_ROWS,
+                   pad: int = 1) -> Tuple[int, int, int]:
+    """Output tile (TD, TH, TW) of ``csrc/conv3d_sm90.cu`` (and of
+    ``csrc/conv3d_s8.cu``, whose tiles follow the same rules; ``pad`` 0 for
+    its 1x1x1 instance) for a DxHxW volume: at most ``rows`` (256 or 128)
+    voxels and SM90_MAX_HALO halo voxels; fewest tiles first (every tile
+    costs ``rows`` rows of math), then the smallest halo, then the widest
+    TW (8 consecutive voxels keep ldmatrix free of bank conflicts)."""
     best = None
     for tw in range(1, min(W, rows) + 1):
         for th in range(1, min(H, rows // tw) + 1):
             td = min(D, rows // (tw * th))
-            halo = sm90_halo((td, th, tw))
+            halo = sm90_halo((td, th, tw), pad)
             if halo > SM90_MAX_HALO:
                 continue
             tiles = -(-D // td) * -(-H // th) * -(-W // tw)
@@ -153,15 +184,15 @@ def pick_tile_sm90(D: int, H: int, W: int,
 
 @functools.lru_cache(maxsize=256)
 def sm90_tile(B: int, D: int, H: int, W: int, cout: int,
-              sms: int = SM90_SMS) -> Tuple[int, int, int]:
+              sms: int = SM90_SMS, pad: int = 1) -> Tuple[int, int, int]:
     """The tile of one launch: 256-row tiles, unless 128-row ones fill the
     card's ``sms`` SMs so much better that waves x rows per tile drop by a
     quarter (the small volumes, where 256-row tiles leave SMs idle)."""
     def cost(tile, rows):
         return -(-sm90_tiles(B, D, H, W, cout, tile) // sms) * rows
 
-    big = pick_tile_sm90(D, H, W)
-    small = pick_tile_sm90(D, H, W, SM90_MAX_ROWS // 2)
+    big = pick_tile_sm90(D, H, W, SM90_MAX_ROWS, pad)
+    small = pick_tile_sm90(D, H, W, SM90_MAX_ROWS // 2, pad)
     if cost(small, SM90_MAX_ROWS // 2) <= 0.75 * cost(big, SM90_MAX_ROWS):
         return small
     return big
@@ -221,9 +252,10 @@ def conv3d_plain(
 
 
 def check_kernel_inputs(x: torch.Tensor, w_packed: torch.Tensor,
-                        what: str) -> int:
+                        what: str, narrow: bool = False) -> int:
     """Raise unless the conv kernels take ``x`` [B, D, H, W, Cin] (a CUDA
-    tensor, bf16 or f32) with ``w_packed``; returns Cout."""
+    tensor, bf16 or f32) with ``w_packed`` (:func:`pack_weight`, or with
+    ``narrow`` :func:`pack_weight_narrow`); returns Cout."""
     if x.device.type != "cuda":
         raise RuntimeError(f"{what} kernel takes CUDA tensors, got {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -231,11 +263,17 @@ def check_kernel_inputs(x: torch.Tensor, w_packed: torch.Tensor,
     if x.dim() != 5:
         raise ValueError(f"expected [B, D, H, W, C], got {tuple(x.shape)}")
     cin = x.shape[-1]
-    if w_packed.shape[0] != 27 or w_packed.shape[2] != cin:
-        raise ValueError(
-            f"packed weight {tuple(w_packed.shape)} does not fit Cin={cin}")
     if w_packed.dtype != x.dtype or w_packed.device != x.device:
         raise ValueError("packed weight must match x's dtype and device")
+    if narrow:
+        if w_packed.dim() != 2 or w_packed.shape[1] != NARROW_K:
+            raise ValueError(f"packed weight {tuple(w_packed.shape)} is not "
+                             f"the narrow [Cout, {NARROW_K}] layout")
+        return w_packed.shape[0]
+    if (w_packed.dim() != 3 or w_packed.shape[0] != 27
+            or w_packed.shape[2] != cin):
+        raise ValueError(
+            f"packed weight {tuple(w_packed.shape)} does not fit Cin={cin}")
     return w_packed.shape[1]
 
 
@@ -247,7 +285,8 @@ def _launch(
 ) -> torch.Tensor:
     """Run the kernel of :func:`conv3d_route` once on CUDA tensors and count
     it under ``what`` ("conv3d" or "conv3d_dx") and its route."""
-    cout = check_kernel_inputs(x, w_packed, "conv3d")
+    route = conv3d_route(x.shape, x.dtype)
+    cout = check_kernel_inputs(x, w_packed, what, route == "sm90_narrow")
     B, D, H, W, cin = x.shape
     x = x.contiguous()
     w_packed = w_packed.contiguous()
@@ -255,7 +294,6 @@ def _launch(
     if bias is not None:
         b = bias.detach().to(device=x.device, dtype=torch.float32).contiguous()
     y = torch.empty((B, D, H, W, cout), dtype=x.dtype, device=x.device)
-    route = conv3d_route(x.shape, x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     b_ptr = b.data_ptr() if b is not None else None
     if route == "sm90":
@@ -266,6 +304,14 @@ def _launch(
         err = _build.fn(name)(
             x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
             B, D, H, W, cin, cout, *sm90_tile(B, D, H, W, cout, sms), stream)
+    elif route == "sm90_narrow":
+        if x.data_ptr() % 4 or w_packed.data_ptr() % 16:
+            raise ValueError("conv3d_narrow takes 4-byte-aligned x and a "
+                             "16-byte-aligned weight")
+        name = "conv3d_narrow_launch"
+        err = _build.fn(name)(
+            x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
+            B, D, H, W, cout, stream)
     else:
         name = "conv3d_ndhwc_launch"
         err = _build.fn(name)(
@@ -284,8 +330,8 @@ def conv3d_kernel(
     bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch the conv kernel (:func:`conv3d_route`) on CUDA tensors.
-    ``w_packed`` comes from :func:`pack_weight` in x's dtype; bias is cast
-    to f32."""
+    ``w_packed`` comes from :func:`pack_weight_kernel` in x's dtype; bias
+    is cast to f32."""
     global launches
     y = _launch(x, w_packed, bias, "conv3d")
     launches += 1
@@ -369,7 +415,7 @@ class Conv3dFunction(torch.autograd.Function):
         if x.device.type != "cuda":
             raise RuntimeError(f"conv3d: unsupported device {x.device}")
         if w_packed is None:
-            w_packed = pack_weight(weight, x.dtype)
+            w_packed = pack_weight_kernel(weight, x.dtype)
         return conv3d_kernel(x, w_packed, bias)
 
     @staticmethod
@@ -395,7 +441,7 @@ def conv3d(
     """Stride-1 SAME 3x3x3 conv of channels-last ``x`` [B, D, H, W, Cin] with
     a torch-layout ``weight`` (Cout, Cin, 3, 3, 3). The weight is used in x's
     dtype; ``w_packed`` may carry the kernel's layout prepared ahead
-    (:func:`pack_weight`). Differentiable in x, weight and bias."""
+    (:func:`pack_weight_kernel`). Differentiable in x, weight and bias."""
     if tuple(weight.shape[2:]) != (3, 3, 3):
         raise ValueError(f"3x3x3 kernels only, got {tuple(weight.shape)}")
     return Conv3dFunction.apply(x, weight, bias, w_packed)

@@ -65,3 +65,15 @@ def stacked_phase_weight(weight: torch.Tensor) -> torch.Tensor:
         emb.append(e)
     return torch.cat([_combine(weight, emb[a], emb[b])
                       for a in (0, 1) for b in (0, 1)])
+
+
+def phase_window_mask(cout: int) -> torch.Tensor:
+    """(4 * Cout, 1, 1, 3, 3) f32: 1 where :func:`stacked_phase_weight` may
+    be non-zero (phase p = 2a + b: rows a..a+1, columns b..b+1 of its zero
+    3x3 window), 0 where it is exactly 0. The int8 kernel's phase tiles run
+    only those taps (``ops/conv3d_s8.py:s8_tap_mask``)."""
+    mask = torch.zeros((4, cout, 1, 1, 3, 3))
+    for p in range(4):
+        a, b = divmod(p, 2)
+        mask[p, :, :, :, a:a + 2, b:b + 2] = 1.0
+    return mask.reshape(4 * cout, 1, 1, 3, 3)

@@ -1,6 +1,8 @@
 """Host-side rules of the port's 3x3x3 conv (ddpm3d_tpu_torch.ops.conv3d):
-which kernel takes which conv, and the tiles and work items of the Hopper
-kernel ``csrc/conv3d_sm90.cu``. Pure Python, on the CPU; the kernel itself
+which kernel takes which conv (``csrc/conv3d_sm90.cu`` for the torso,
+``csrc/conv3d_narrow.cu`` for the Cin = 2 input conv, ``csrc/conv3d.cu``
+for the f32 head), and the tiles and work items of the Hopper kernel
+``csrc/conv3d_sm90.cu``. Pure Python, on the CPU; the kernel itself
 is held against its plain version on the card (tests/test_torch_port_cuda.py,
 chip_smoke.py).
 """
@@ -55,18 +57,18 @@ def main_path_convs():
 
 def test_main_path_takes_the_sm90_kernel(main_path_convs):
     """70 of the forward's 72 convs (22 distinct bf16 torso shapes) take the
-    new kernel; only the Cin = 2 input conv and the f32 head conv stay on
-    csrc/conv3d.cu."""
+    sm90 kernel, the Cin = 2 input conv the narrow one; only the f32 head
+    conv stays on csrc/conv3d.cu."""
     assert sum(main_path_convs.values()) == 72
     routes = collections.Counter()
-    old = set()
+    by_route = collections.defaultdict(set)
     for (D, H, W, cin, cout, dt), n in main_path_convs.items():
         route = cv.conv3d_route((1, D, H, W, cin), dt)
         routes[route] += n
-        if route == "ndhwc":
-            old.add((cin, cout, dt))
-    assert routes == {"sm90": 70, "ndhwc": 2}
-    assert old == {(2, 128, torch.bfloat16), (128, 2, torch.float32)}
+        by_route[route].add((cin, cout, dt))
+    assert routes == {"sm90": 70, "sm90_narrow": 1, "ndhwc": 1}
+    assert by_route["sm90_narrow"] == {(2, 128, torch.bfloat16)}
+    assert by_route["ndhwc"] == {(128, 2, torch.float32)}
     torso = [k for k in main_path_convs
              if cv.conv3d_route((1,) + k[:3] + (k[3],), k[5]) == "sm90"]
     assert len(torso) == 22
@@ -88,7 +90,9 @@ def test_training_dx_takes_the_sm90_kernel(main_path_convs):
 @pytest.mark.parametrize("shape,dtype,route", [
     ((1, 4, 8, 8, 128), torch.bfloat16, "sm90"),
     ((2, 5, 7, 9, 8), torch.bfloat16, "sm90"),      # smallest aligned Cin
-    ((1, 4, 8, 8, 2), torch.bfloat16, "ndhwc"),     # the input conv
+    ((1, 4, 8, 8, 2), torch.bfloat16, "sm90_narrow"),  # the input conv
+    ((1, 4, 8, 8, 2), torch.float32, "ndhwc"),      # an f32 input conv
+    ((1, 4, 8, 8, 3), torch.bfloat16, "ndhwc"),     # other narrow Cin
     ((1, 4, 8, 8, 130), torch.bfloat16, "ndhwc"),   # rows not 16-byte strided
     ((1, 4, 8, 8, 128), torch.float32, "ndhwc"),    # f32 models and the head
 ])

@@ -451,8 +451,31 @@ S8_CASES = [
     ((2, 4, 12, 12, 256), 128, 1, False),   # the 1x1x1 skip
     ((1, 3, 6, 6, 128), 4 * 64, 27, True),  # stacked phases of an up site
     ((2, 3, 6, 12, 32), 4 * 24, 27, True),  # phases, batch 2, Cin 32
-    ((1, 3, 5, 6, 40), 24, 27, False),      # Cin % 16 != 0: byte staging
+    ((1, 3, 5, 6, 48), 24, 27, False),      # Cin % 128 != 0: a ragged chunk
+    ((1, 4, 16, 32, 256), 128, 1, False),   # a 1x1 site's 256-row tiles
+    ((1, 3, 8, 8, 128), 4 * 128, 27, True),   # phase site, Cout 128: 12 taps
+    ((1, 2, 6, 12, 384), 4 * 384, 27, True),  # phase site, Cout 384
 ]
+
+
+def _s8_case(dev, g, shape, n, taps, up):
+    """int8 x and weight of one case, and per-channel weight scales and a
+    bias: the phase route's weight is zero outside each phase's 2x2 window
+    (it is :func:`stacked_phase_weight`'s layout; the kernel's phase tiles
+    run only those taps)."""
+    from ddpm3d_tpu_torch.ops.phase_up import phase_window_mask
+
+    cin = shape[-1]
+    k = 3 if taps == 27 else 1
+    xq = torch.randint(-127, 128, shape, generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, cin, k, k, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    if up:
+        wq = wq * phase_window_mask(n // 4).to(dev, torch.int8)
+    s_w = 1e-4 + 1e-3 * torch.rand((n,), generator=g, device=dev)
+    bias = torch.randn((n // 4 if up else n,), generator=g, device=dev)
+    return xq, wq, s_w, bias
 
 
 @pytest.mark.parametrize("shape,n,taps,up", S8_CASES)
@@ -460,18 +483,13 @@ S8_CASES = [
 def test_conv3d_s8_kernel_matches_plain(dev, shape, n, taps, up, dtype):
     """K5 against its plain version, dynamic (per-sample scales) and static,
     with and without bias: equal bit for bit (exact int32 sums, the same
-    f32 epilogue ops, no FMA contraction); one launch per call."""
+    f32 epilogue ops, no FMA contraction); one launch per call; the same
+    bits on a repeat."""
     from ddpm3d_tpu_torch.ops import conv3d_s8 as s8
 
     g = torch.Generator(device=dev).manual_seed(12)
-    B, cin = shape[0], shape[-1]
-    k = 3 if taps == 27 else 1
-    xq = torch.randint(-127, 128, shape, generator=g, device=dev,
-                       dtype=torch.int8)
-    wq = torch.randint(-127, 128, (n, cin, k, k, k), generator=g, device=dev,
-                       dtype=torch.int8)
-    s_w = 1e-4 + 1e-3 * torch.rand((n,), generator=g, device=dev)
-    bias = torch.randn((n // 4 if up else n,), generator=g, device=dev)
+    B = shape[0]
+    xq, wq, s_w, bias = _s8_case(dev, g, shape, n, taps, up)
     wp = s8.pack_weight_s8(wq)
     for static in (False, True):
         s_x = (torch.full((B,), 0.02, device=dev) if static else
@@ -484,6 +502,85 @@ def test_conv3d_s8_kernel_matches_plain(dev, shape, n, taps, up, dtype):
             torch.cuda.synchronize()
             assert got.dtype == dtype and got.shape == ref.shape
             assert torch.equal(got, ref), (static, b is not None)
+            again = s8.conv3d_s8(xq, wq, s_x, s_w, b, dtype, up, w_packed=wp)
+            assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("case", [S8_CASES[2], S8_CASES[4], S8_CASES[6]])
+def test_conv3d_s8_is_batch_invariant(dev, case):
+    """Each volume's K5 result is bit-identical alone or in a batch (its
+    own scale, the same tiles and sums)."""
+    from ddpm3d_tpu_torch.ops import conv3d_s8 as s8
+
+    shape, n, taps, up = case
+    g = torch.Generator(device=dev).manual_seed(14)
+    xq, wq, s_w, bias = _s8_case(dev, g, shape, n, taps, up)
+    s_x = 0.01 + 0.02 * torch.rand((shape[0],), generator=g, device=dev)
+    both = s8.conv3d_s8(xq, wq, s_x, s_w, bias, torch.bfloat16, up)
+    for i in range(shape[0]):
+        one = s8.conv3d_s8(xq[i:i + 1].contiguous(), wq, s_x[i:i + 1], s_w,
+                           bias, torch.bfloat16, up)
+        assert torch.equal(both[i:i + 1], one)
+
+
+def test_conv3d_s8_rejects_what_tma_cannot_stage(dev):
+    """TMA needs 16-byte row strides and addresses: Cin % 16 != 0 and a
+    misaligned view raise instead of running another kernel."""
+    from ddpm3d_tpu_torch.ops import conv3d_s8 as s8
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    xq, wq, s_w, _ = _s8_case(dev, g, (1, 3, 5, 6, 40), 24, 27, False)
+    s_x = torch.full((1,), 0.02, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        s8.conv3d_s8(xq, wq, s_x, s_w)
+    xq, wq, s_w, _ = _s8_case(dev, g, (1, 2, 4, 4, 32), 16, 27, False)
+    flat = torch.zeros(xq.numel() + 1, device=dev, dtype=torch.int8)
+    xv = flat[1:].view(xq.shape)
+    xv.copy_(xq)
+    with pytest.raises(ValueError, match="16-byte"):
+        s8.conv3d_s8(xv, wq, s_x, s_w)
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 96, 24, 24, 2), 128),  # the input conv at 96 x 24^2
+    ((2, 5, 7, 9, 2), 32),      # ragged volume, batch 2, Cout < 128
+    ((1, 4, 8, 8, 2), 130),     # Cout past one 128-column tile, ragged
+])
+def test_conv3d_narrow_matches_plain(dev, shape, cout):
+    """The Cin = 2 input conv on csrc/conv3d_narrow.cu (counted on its own
+    route) against the plain version within one bf16 rounding; the same
+    bits on a repeat; per-volume results batch-invariant."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn(shape, generator=g, device=dev).bfloat16()
+    w = torch.randn((cout, 2, 3, 3, 3), generator=g, device=dev) / 54 ** 0.5
+    b = torch.randn((cout,), generator=g, device=dev)
+    before = ops.route_counts()
+    wp = cv.pack_weight_kernel(w, torch.bfloat16)
+    out = cv.conv3d_kernel(x, wp, b)
+    after = ops.route_counts()
+    assert after["conv3d.sm90_narrow"] == before["conv3d.sm90_narrow"] + 1
+    assert after["conv3d.ndhwc"] == before["conv3d.ndhwc"]
+    ref = cv.conv3d_plain(x, w.bfloat16(), b)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+    assert torch.equal(out, cv.conv3d_kernel(x, wp, b))
+    if shape[0] > 1:
+        assert torch.equal(out[1:], cv.conv3d_kernel(x[1:].contiguous(), wp, b))
+
+
+def test_step_noise_is_batch_invariant_on_the_card(dev):
+    """On one device type the seeded chain's noise does not depend on the
+    batch: ids [0, 1] draw what [0] and [1] draw alone. The CUDA draw
+    differs from the CPU one (Philox against MT19937): the intended
+    divergence of ROADMAP Queue 3."""
+    from ddpm3d_tpu_torch.diffusion.sampling import step_noise
+
+    both = step_noise(7, [0, 1], 5, (4, 8, 8, 1), dev)
+    assert torch.equal(both[0:1], step_noise(7, [0], 5, (4, 8, 8, 1), dev))
+    assert torch.equal(both[1:2], step_noise(7, [1], 5, (4, 8, 8, 1), dev))
+    cpu = step_noise(7, [0, 1], 5, (4, 8, 8, 1), torch.device("cpu"))
+    assert not torch.equal(both.cpu(), cpu)
 
 
 def test_int8_model_matches_cpu(dev):
