@@ -14,17 +14,22 @@ Phases (each failure exits non-zero before the final line):
                the bound; each conv on its route (``conv3d_route``: the
                bf16 torso on ``csrc/conv3d_sm90.cu``, the Cin = 2 input
                conv on ``csrc/conv3d_narrow.cu``, the f32 head on
-               ``csrc/conv3d.cu``), the wgmma ones timed beside the
-               previous kernel (``csrc/conv3d.cu``) on the same inputs;
+               ``csrc/conv3d_head.cu``), each timed beside the previous
+               kernel (``csrc/conv3d.cu``) on the same inputs; the head
+               also beside the parent's head instance when
+               ``--parent-conv`` names a previous ``csrc/conv3d.cu``;
   3. backward — at every distinct conv and GroupNorm shape of one bf16 96^3
                training step (read by hooks): the conv dx kernel, the
                library filter gradient and the GroupNorm Function's backward
                against their plain versions; each timed, and summed per step;
-               at the main sites also the plain and library (cuDNN) times;
+               at the main sites also the plain and library (cuDNN) times,
+               the head's dx (f32 2 -> 128 on ``csrc/conv3d_head.cu``) also
+               beside ``F.conv3d`` and the previous kernel;
   4. model   — the full-width model (128 ch, (1,1,2,3,4), 2 res blocks) in
                f32 at a small spatial size, kernel path on the card against
-               the plain path on the CPU: the forward, then one training
-               loss and every parameter gradient;
+               the plain path on the CPU (its input conv and head on the
+               f32 routes of ``csrc/conv3d_head.cu``): the forward, then one
+               training loss and every parameter gradient;
   5. denoise — ``denoise_volume`` at 128 ch / 96^3 patches / bf16 on a
                synthetic volume with a short respaced chain; the launch
                counters are zeroed just before and read just after, and
@@ -68,8 +73,9 @@ Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``.
 
 Weights are random, made from ``--seed``. Imports no JAX. The build
-phase fails on a spill or a serialized wgmma in the wgmma kernels and on an
-FFMA in K5's SASS (its epilogue must not contract the multiply and add).
+phase fails on a spill in the Hopper kernels (the wgmma ones and
+``csrc/conv3d_head.cu``), on a serialized wgmma and on an FFMA in K5's SASS
+(its epilogue must not contract the multiply and add).
 """
 
 from __future__ import annotations
@@ -115,17 +121,22 @@ KERNELS = {
     "conv3d_s8": dict(
         route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_s8.cu",
         replaces="ddpm3d_tpu/ops/conv3d_s8.py:369"),
-    # K3's other instances, by conv3d_route: the Cin = 2 input conv and the
-    # f32 head conv (their launches are those of their routes)
+    # K3's other instances, by conv3d_route: the bf16 Cin = 2 input conv,
+    # the f32 head conv and its dx (their launches are those of their routes)
     "conv3d_narrow": dict(
         route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_narrow.cu",
         replaces="ddpm3d_tpu/ops/conv3d_mxu.py:203"),
-    "conv3d_f32": dict(
-        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d.cu",
+    "conv3d_head": dict(
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_head.cu",
         replaces="ddpm3d_tpu/ops/conv3d_mxu.py:203"),
+    "conv3d_head_dx": dict(
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_head.cu",
+        replaces="ddpm3d_tpu/ops/conv3d_mxu.py:267"),
 }
 # the route (ops.route_counts) whose launches are each instance's
-ROUTE_OF = {"conv3d_narrow": "conv3d.sm90_narrow", "conv3d_f32": "conv3d.ndhwc"}
+ROUTE_OF = {"conv3d_narrow": "conv3d.sm90_narrow",
+            "conv3d_head": "conv3d.f32_head",
+            "conv3d_head_dx": "conv3d_dx.f32_narrow"}
 TRAIN_KERNELS = ("conv3d", "conv3d_dx", "gn_stats", "gn_apply")
 
 # relative tolerance = max|kernel - plain| / max|plain|: bf16 outputs may
@@ -183,12 +194,16 @@ FORWARD_LAUNCHES = {
 FORWARD_LAUNCHES["denoise_int8_static"] = FORWARD_LAUNCHES["denoise_int8"]
 # the conv3d launches per forward by kernel route (ops.route_counts): the
 # bf16 torso convs on csrc/conv3d_sm90.cu, the Cin = 2 input conv on
-# csrc/conv3d_narrow.cu, the f32 head conv on csrc/conv3d.cu; fused: 8
-# up/down blocks x 2 on sm90
-def _routes(sm90, narrow, ndhwc, dx_sm90=0, dx_ndhwc=0):
-    return {"conv3d.sm90": sm90, "conv3d.sm90_narrow": narrow,
-            "conv3d.ndhwc": ndhwc, "conv3d_dx.sm90": dx_sm90,
-            "conv3d_dx.sm90_narrow": 0, "conv3d_dx.ndhwc": dx_ndhwc}
+# csrc/conv3d_narrow.cu, the f32 head conv on csrc/conv3d_head.cu, none on
+# csrc/conv3d.cu; fused: 8 up/down blocks x 2 on sm90
+def _routes(sm90, narrow, head, dx_sm90=0, dx_f32_narrow=0):
+    counts = {f"{what}.{route}": 0 for what in ("conv3d", "conv3d_dx")
+              for route in ("sm90", "sm90_narrow", "f32_head", "f32_narrow",
+                            "ndhwc")}
+    counts.update({"conv3d.sm90": sm90, "conv3d.sm90_narrow": narrow,
+                   "conv3d.f32_head": head, "conv3d_dx.sm90": dx_sm90,
+                   "conv3d_dx.f32_narrow": dx_f32_narrow})
+    return counts
 
 
 FORWARD_ROUTES = {
@@ -198,8 +213,8 @@ FORWARD_ROUTES = {
 }
 FORWARD_ROUTES["denoise_int8_static"] = FORWARD_ROUTES["denoise_int8"]
 # per training step: the forward's, and the dx of every conv but the input
-# conv (70 bf16 torso dx on sm90, the f32 head's dx on csrc/conv3d.cu)
-STEP_ROUTES = _routes(70, 1, 1, dx_sm90=70, dx_ndhwc=1)
+# conv (70 bf16 torso dx on sm90, the f32 head's 2 -> 128 dx on f32_narrow)
+STEP_ROUTES = _routes(70, 1, 1, dx_sm90=70, dx_f32_narrow=1)
 # the production training flags (test_DDPM_3d_tpu.sh model flags with the
 # training CLI's defaults: batch 1, lr 1e-4, EMA 0.9999, AdamW)
 TRAIN_FLAGS = [
@@ -264,14 +279,16 @@ def check(ok: bool, what: str) -> None:
 
 
 WGMMA_SOURCES = ("conv3d_sm90", "conv3d_s8", "conv3d_narrow")
+# sources whose kernels must not spill: the wgmma ones and the f32 head's
+NO_SPILL_SOURCES = WGMMA_SOURCES + ("conv3d_head",)
 # study builds compiled beside the package's sources (chip_smoke's own
 # names): K5 with every phase tile running all 27 taps, and the previous
-# K5 when --parent-s8 names its source
+# K5 / csrc/conv3d.cu when --parent-s8 / --parent-conv names its source
 VARIANTS = {"s8_all_taps": ("ddpm3d_tpu_torch/csrc/conv3d_s8.cu",
                             ("-DCONV3D_S8_ALL_TAPS",))}
 
 
-def phase_build(parent_s8=None) -> dict:
+def phase_build(parent_s8=None, parent_conv=None) -> dict:
     """Build every source and the study variants in parallel; check the
     ptxas reports and K5's SASS. Returns {variant: ctypes library}."""
     from ddpm3d_tpu_torch.ops import _build
@@ -279,6 +296,8 @@ def phase_build(parent_s8=None) -> dict:
     variants = dict(VARIANTS)
     if parent_s8:
         variants["s8_parent"] = (parent_s8, ())
+    if parent_conv:
+        variants["conv_parent"] = (parent_conv, ())
     root = os.path.dirname(os.path.abspath(__file__))
     variants = {k: (os.path.join(root, src), flags)
                 for k, (src, flags) in variants.items()}
@@ -292,12 +311,12 @@ def phase_build(parent_s8=None) -> dict:
             for line in f:
                 if "registers" in line or "spill" in line:
                     print(f"ptxas[{name}]: {line.strip()}")
-                if name in WGMMA_SOURCES:
-                    # the wgmma kernels: no spill, and ptxas must not have
-                    # serialized their wgmma pipeline
+                if name in NO_SPILL_SOURCES:
                     check("spill" not in line or " 0 bytes spill stores, 0 "
                           "bytes spill loads" in line,
                           f"{name} spills: {line.strip()}")
+                if name in WGMMA_SOURCES:
+                    # ptxas must not have serialized the wgmma pipeline
                     check("serialized" not in line,
                           f"{name} wgmma serialized: {line.strip()}")
     # K5 equals its plain version only if the multiply and the add of its
@@ -363,16 +382,20 @@ GN_TIMED = [  # (N, C, dtype, film, silu)
 ]
 
 
-def _ndhwc_conv(x, wp, bias):
-    """csrc/conv3d.cu's instance for x's dtype on the same inputs: the
-    kernel that carried every conv before the sm90 route (its plain-conv
-    instances are unchanged), timed beside the sm90 kernel in one run."""
+def _ndhwc_conv(x, wp, bias, lib=None):
+    """csrc/conv3d.cu's instance for x's dtype on the same inputs (``wp``
+    from ``pack_weight``): the kernel that carried every conv before the
+    sm90 and head routes (its bf16 and f32 BN = 64 instances are
+    unchanged), timed beside the new kernels in one run; with ``lib``, the
+    same entry point of another build (the parent's source)."""
     from ddpm3d_tpu_torch.ops import _build
     from ddpm3d_tpu_torch.ops import conv3d as cv
 
     B, D, H, W, cin = x.shape
     y = torch.empty((B, D, H, W, wp.shape[1]), dtype=x.dtype, device=x.device)
-    err = _build.fn("conv3d_ndhwc_launch")(
+    launch = (_build.fn("conv3d_ndhwc_launch") if lib is None
+              else _build.variant_fn(lib, "conv3d_ndhwc_launch"))
+    err = launch(
         x.data_ptr(), wp.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(),
         B, D, H, W, cin, wp.shape[1], *cv.pick_tile(D, H, W),
@@ -384,19 +407,26 @@ def _ndhwc_conv(x, wp, bias):
 
 def _conv_tile(cv, x, cout, route):
     """The output tile the conv's launch uses (sm90: 256 or 128 rows; the
-    narrow kernel walks 64-row slices of the flattened voxels)."""
+    head: its (H, W) window and D segments per volume; the narrow kernels
+    walk 64- or 128-row slices of the flattened voxels)."""
     B, D, H, W, _ = x.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     if route == "sm90":
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
         return list(cv.sm90_tile(B, D, H, W, cout, sms))
-    if route == "sm90_narrow":
+    if route == "f32_head":
+        return dict(window=list(cv.head_tile(cout)),
+                    segments=cv.head_plan(D, H, W, cout, sms)[2])
+    if route in ("sm90_narrow", "f32_narrow"):
         return None
     return list(cv.pick_tile(D, H, W))
 
 
-def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
+def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes,
+                  conv_parent=None) -> dict:
     """Each kernel against its plain version at every distinct shape of the
-    main path; the shapes of CONV_TIMED / GN_TIMED are timed too."""
+    main path; the shapes of CONV_TIMED / GN_TIMED are timed too, the f32
+    head also beside ``conv_parent`` (a build of the parent's
+    csrc/conv3d.cu, whose Cout <= 8 instance carried it) when given."""
     from ddpm3d_tpu_torch.ops import conv3d as cv
     from ddpm3d_tpu_torch.ops import groupnorm as gn
 
@@ -423,16 +453,23 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
         torch.cuda.synchronize()
         err, rel = rel_err(out, ref)
         check(bool(torch.isfinite(out.float()).all()), "conv3d output finite")
-        route = cv.conv3d_route(x.shape, dt)
+        route = cv.conv3d_route(x.shape, dt, cout)
         line = dict(kernel="conv3d", shape=[B, D, H, W, cin], cout=cout,
                     dtype=str(dt).split(".")[-1], route=route,
                     tile=_conv_tile(cv, x, cout, route),
                     max_abs_err=err, rel_err=rel, tol=TOL[dt])
         if case in CONV_TIMED:
             ms = time_ms(lambda: cv.conv3d_kernel(x, wp, b))
+            wo = cv.pack_weight(w, dt)
             if route != "ndhwc":  # the same conv on the previous kernel
-                wo = cv.pack_weight(w, dt)
                 line["ndhwc_ms"] = time_ms(lambda: _ndhwc_conv(x, wo, b))
+            if route == "f32_head":  # and on the parent's head instance
+                line["parent_ms"] = None
+                if conv_parent is not None:
+                    line["parent_ms"] = time_ms(
+                        lambda: _ndhwc_conv(x, wo, b, conv_parent))
+                    p_err = rel_err(_ndhwc_conv(x, wo, b, conv_parent), ref)
+                    line["parent_rel_err"] = p_err[1]
             plain_ms = time_ms(lambda: cv.conv3d_plain(x, wd, b), reps=3,
                                warmup=1)
             xn = x.permute(0, 4, 1, 2, 3)  # NCDHW view of the same bytes
@@ -449,8 +486,8 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
         checked["conv3d"] += 1
         summary.setdefault("conv3d", line)
         if case in CONV_TIMED:  # the input and head instances' own lines
-            name = {"sm90_narrow": "conv3d_narrow", "ndhwc": "conv3d_f32"}.get(
-                route)
+            name = {"sm90_narrow": "conv3d_narrow",
+                    "f32_head": "conv3d_head"}.get(route)
             if name:
                 summary.setdefault(name, dict(line, shapes_checked=1))
         del x, out, ref
@@ -688,14 +725,21 @@ def phase_model(seed: int) -> None:
     t = torch.tensor([517])
     with torch.no_grad():
         ref = model(x, t, low_res=low)
+        ops.reset_launch_counts()
         out = copy.deepcopy(model).cuda()(
             x.cuda(), t.cuda(), low_res=low.cuda()).cpu()
+    routes = {k: v for k, v in ops.route_counts().items() if v}
     err, rel = rel_err(out, ref)
     emit({"phase": "model", "shape": list(x.shape), "channels": 128,
           "dtype": "float32", "max_abs_err": err, "rel_err": rel,
-          "tol": MODEL_TOL, "ref_abs_max": ref.abs().max().item()})
+          "tol": MODEL_TOL, "ref_abs_max": ref.abs().max().item(),
+          "routes": routes})
     check(ref.abs().max().item() > 1e-3, "model output is non-trivial")
     check(rel <= MODEL_TOL, f"full-width model kernel path rel err {rel}")
+    # the f32 model: its Cin = 2 input conv and its head on csrc/
+    # conv3d_head.cu, the 70 torso convs on csrc/conv3d.cu
+    check(routes == {"conv3d.f32_narrow": 1, "conv3d.f32_head": 1,
+                     "conv3d.ndhwc": 70}, f"f32 model conv routes {routes}")
 
     # the same weights served fused: the card's kernels against the plain
     # fused path on the CPU, and against the unfused card forward
@@ -849,6 +893,8 @@ FORWARD_FAMILIES = {
     "conv3d_sm90": ("conv3d_sm90_kernel",),
     "conv3d_narrow": ("conv3d_narrow_kernel",),
     "conv3d_bf16": ("conv3d_bf16_kernel",),
+    "conv3d_head": ("conv3d_head_kernel",),
+    "conv3d_f32_narrow": ("conv3d_f32_narrow_kernel",),
     "conv3d_f32": ("conv3d_f32_kernel",),
     "gn_stats": ("gn_partial_kernel", "gn_finish_kernel"),
     "gn_apply": ("gn_apply_kernel",),
@@ -1022,7 +1068,7 @@ def phase_backward(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
             torch.cuda.synchronize()
             err, rel = rel_err(dx, dx_ref)
             check(bool(torch.isfinite(dx.float()).all()), "conv3d_dx finite")
-            route = cv.conv3d_route(dy.shape, dt)
+            route = cv.conv3d_route(dy.shape, dt, cin)
             line = dict(kernel="conv3d_dx", **base, route=route,
                         tile=_conv_tile(cv, dy, cin, route),
                         max_abs_err=err, rel_err=rel, tol=TOL[dt],
@@ -1030,17 +1076,25 @@ def phase_backward(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
             per_step["conv3d_dx_ms"] += line["kernel_ms"] * calls[case]
             if case in DX_TIMED:
                 wd = w.to(dt)
-                if route == "sm90":  # the same dx on the previous kernel
+                if route != "ndhwc":  # the same dx on the previous kernel
+                    wpo = cv.pack_weight(cv.flip_weight(w), dt)
                     line["ndhwc_ms"] = time_ms(
-                        lambda: _ndhwc_conv(dy, wpd, None))
+                        lambda: _ndhwc_conv(dy, wpo, None))
                 line["plain_ms"] = time_ms(lambda: cv.conv3d_dx_plain(dy, w),
                                            reps=3, warmup=1)
                 line["library_ms"] = time_ms(lambda: _library_dx(dy, x, wd))
+                if route == "f32_narrow":  # one F.conv3d on the flipped weight
+                    wf = cv.flip_weight(wd).contiguous()
+                    dyn = dy.permute(0, 4, 1, 2, 3)
+                    line["conv_call_ms"] = time_ms(
+                        lambda: F.conv3d(dyn, wf, padding=1))
                 nbytes = vox * (cin + cout) * isz + 27 * cin * cout * isz
                 line["bound_ms"], line["bound_by"] = bound(flops, nbytes, dt)
             lines.append(line)
-            if dt == torch.float32 and case in DX_TIMED:  # the f32 head
-                summary["conv3d_f32_dx"] = line
+            if route == "f32_narrow":  # the f32 head's dx
+                checked["conv3d_head_dx"] += 1
+                if case in DX_TIMED:
+                    summary["conv3d_head_dx"] = line
             del dx, dx_ref
         dw = cv.conv3d_dw_library(x, dy)
         dw_ref = cv.conv3d_dw_plain(x, dy)
@@ -1644,6 +1698,10 @@ def main() -> None:
     ap.add_argument("--parent-s8", metavar="FILE",
                     help="a previous csrc/conv3d_s8.cu (same C entry point) "
                          "to time beside K5 at the timed int8 sites")
+    ap.add_argument("--parent-conv", metavar="FILE",
+                    help="a previous csrc/conv3d.cu (same C entry point) "
+                         "whose Cout <= 8 instance is timed beside the "
+                         "f32 head kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1655,7 +1713,7 @@ def main() -> None:
           "count": torch.cuda.device_count()})
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
 
-    libs = phase_build(args.parent_s8)
+    libs = phase_build(args.parent_s8, args.parent_conv)
     model, sched, cfg = _model(use_fp16=True, seed=args.seed)
     model.cuda()
     fused = _model(use_fp16=True, seed=args.seed, fused=True)[0]
@@ -1666,7 +1724,8 @@ def main() -> None:
                    int8=quant.Int8Config())[0]
     int8m.load_state_dict(model.state_dict(), strict=True)
     int8m.cuda()
-    summary = phase_kernels(gen, *main_path_shapes(model))
+    summary = phase_kernels(gen, *main_path_shapes(model),
+                            conv_parent=libs.get("conv_parent"))
     summary["conv3d_fused"] = phase_fused_kernels(gen, fused_path_shapes(fused))
     summary["conv3d_s8"] = phase_s8_kernels(gen, int8_path_shapes(int8m),
                                             libs)
@@ -1695,6 +1754,7 @@ def main() -> None:
     phase_train_profile(train.pop("loop"))
 
     summary["conv3d_dx"] = bwd["conv3d_dx"]
+    summary["conv3d_head_dx"] = bwd["conv3d_head_dx"]
     kernels = []
     for name, meta in KERNELS.items():
         s = summary[name]
@@ -1713,12 +1773,12 @@ def main() -> None:
         if name == "conv3d_s8":  # the bf16 conv it replaces at that site
             extra["k3_bf16_ms"] = s["k3_bf16_ms"]
             extra["parent_ms"] = s.get("parent_ms")
-        if name == "conv3d_narrow":  # the previous kernel on its inputs
-            extra["ndhwc_ms"] = s["ndhwc_ms"]
-        if name == "conv3d_f32":  # the head's dx beside cuDNN's
-            d = bwd["conv3d_f32_dx"]
-            extra.update(dx_ms=d["kernel_ms"], dx_library_ms=d["library_ms"],
-                         dx_bound_ms=d["bound_ms"], dx_plain_ms=d["plain_ms"])
+        if name in ("conv3d_narrow", "conv3d_head", "conv3d_head_dx"):
+            extra["ndhwc_ms"] = s["ndhwc_ms"]  # the previous kernel
+        if name == "conv3d_head":  # the parent's head instance (or None)
+            extra["parent_ms"] = s["parent_ms"]
+        if name == "conv3d_head_dx":  # F.conv3d on the flipped weight
+            extra["conv_call_ms"] = s["conv_call_ms"]
         if name in ("conv3d", "conv3d_dx"):
             # the previous kernel (csrc/conv3d.cu) on the same inputs, and
             # each path's launches by route (ops.route_counts)

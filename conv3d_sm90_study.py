@@ -1,11 +1,13 @@
-"""On-card study of the wgmma conv kernels: the bf16 K3
-``ddpm3d_tpu_torch/csrc/conv3d_sm90.cu`` and, with ``--s8``, the int8 K5
-``ddpm3d_tpu_torch/csrc/conv3d_s8.cu``.
+"""On-card study of the port's conv kernels: the bf16 K3
+``ddpm3d_tpu_torch/csrc/conv3d_sm90.cu``, with ``--s8`` the int8 K5
+``ddpm3d_tpu_torch/csrc/conv3d_s8.cu``, with ``--head`` the f32 head conv
+and its dx ``ddpm3d_tpu_torch/csrc/conv3d_head.cu``.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 conv3d_sm90_study.py [--against OTHER.cu]
     python3 conv3d_sm90_study.py --s8 [--against OTHER_S8.cu]
+    python3 conv3d_sm90_study.py --head [--against OLD_CONV3D.cu]
 
 Writes the committed source's ablations (and ``--against`` another version
 of the source, same C entry point, for an A/B in one run on one card) to
@@ -41,6 +43,24 @@ for every variant that computes the function:
     at most 128 rows);
 at the 3x3x3 sites beside the bf16 K3 on the conv int8 replaces, the 1x1
 sites beside ``torch._int_mm``, and the rate of one 8192^3 ``torch._int_mm``.
+
+With ``--head`` the f32 kernels at the head's shapes, checked against the
+plain version (f32, 1e-5): the forward [1,96^3,128] -> 2 as committed at
+its D-segment count (``ops/conv3d.py:head_plan``) and at others, then
+``nomath`` (staging only), ``nostage`` (math on the first two staged
+chunks only), ``chunk8`` (8-channel chunks: 32 bytes of each voxel per
+load), ``chunk8_stages3`` / ``chunk8_stages4`` (the same with a 3- or
+4-chunk ring), ``stages3`` (a 3-chunk ring of 16-channel chunks: one
+block per SM) and ``r8`` (8 outputs per thread along W, a 32-wide
+window), beside
+``F.conv3d`` f32 and ``--against`` (a previous ``csrc/conv3d.cu``, whose
+Cout <= 8 instance carried the head); the dx dy [1,96^3,2] -> 128 as
+committed, ``nostore``, ``nogather`` (the A tile gathered for a block's
+first tile only) and ``t256`` (256-thread blocks, two per SM), beside cuDNN's data gradient,
+``F.conv3d`` on the flipped weight and the previous kernel (the f32
+instance of ``csrc/conv3d.cu``), and a plain 453 MB ``fill_`` (the bytes
+the dx writes); then the card's FFMA rate alone (independent register
+chains, no memory traffic), the practical ceiling of both kernels.
 Imports no JAX.
 """
 
@@ -300,6 +320,195 @@ def main_s8(against) -> None:
                       "tops": 2 * 8192 ** 3 / ms / 1e9}), flush=True)
 
 
+# ablations of csrc/conv3d_head.cu
+HEAD_MATH = "        head_chunk<COP>(ring"
+HEAD_STAGE = "        if (nx < items)\n"
+HEAD_CK = "constexpr int kHeadCK = 16;"
+HEAD_STAGES = "constexpr int kHeadStages = 2;"
+HEAD_R = "static constexpr int R = COP <= 2 ? 4 : 8 / COP;"
+DX_STORE = "      if (mr >= s.M) continue;"
+DX_GATHER = "    // the thread's 14 taps in two batches of 7 loads in flight\n"
+DX_GATHER_END = "    __syncthreads();\n\n    float acc[8][8];"
+DX_THREADS = ("constexpr int kNThreads = 128;\nconstexpr int kNBlocks = 3;")
+
+
+def variants_head(src: str) -> tuple:
+    """({name: source} of the forward study, {name: source} of the dx's)."""
+    _anchors(src, (HEAD_MATH, HEAD_STAGE, HEAD_CK, HEAD_STAGES, HEAD_R,
+                   DX_STORE,
+                   DX_GATHER, DX_GATHER_END, DX_THREADS))
+    fwd = {
+        "base": src,
+        "nomath": src.replace(HEAD_MATH, HEAD_MATH.replace(
+            "head_chunk", "if (s.nC < 0) head_chunk")),
+        "nostage": src.replace(HEAD_STAGE, HEAD_STAGE.replace(
+            ")", " && k < 1)")),
+        "chunk8": src.replace(HEAD_CK, HEAD_CK.replace("16", "8")),
+        "chunk8_stages4": src.replace(HEAD_CK, HEAD_CK.replace("16", "8"))
+                             .replace(HEAD_STAGES, HEAD_STAGES.replace("2", "4")),
+        "chunk8_stages3": src.replace(HEAD_CK, HEAD_CK.replace("16", "8"))
+                             .replace(HEAD_STAGES, HEAD_STAGES.replace("2", "3")),
+        "stages3": src.replace(HEAD_STAGES, HEAD_STAGES.replace("2", "3")),
+        "r8": src.replace(HEAD_R, HEAD_R.replace("? 4 :", "? 8 :")),
+    }
+    dx = {
+        "dx_base": src,
+        "dx_nostore": src.replace(DX_STORE, DX_STORE.replace(
+            ")", " || acc[i][0] != 1.2345e-30f)", 1)),
+        "dx_nogather": src.replace(DX_GATHER, "    if (tile == (int)blockIdx.x) {\n")
+                          .replace(DX_GATHER_END, "    }\n" + DX_GATHER_END),
+        "dx_t256": src.replace(DX_THREADS, DX_THREADS.replace(
+            "128", "256").replace("= 3", "= 2")),
+    }
+    return fwd, dx
+
+
+def main_head(against) -> None:
+    """The f32 head conv and its dx (see the module note)."""
+    with open(os.path.join(ROOT, "ddpm3d_tpu_torch", "csrc",
+                           "conv3d_head.cu")) as f:
+        fwd_src, dx_src = variants_head(f.read())
+    fwd = build(fwd_src, "conv3d_head_launch")
+    dxf = build(dx_src, "conv3d_f32_narrow_launch")
+    old = build({"against": against} if against else {}, "conv3d_ndhwc_launch")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    warm(gen)
+    st = torch.cuda.current_stream().cuda_stream
+    B, D, H, W, cin, cout = 1, 96, 96, 96, 128, 2
+    x = torch.randn((B, D, H, W, cin), generator=gen, device="cuda")
+    w = torch.randn((cout, cin, 3, 3, 3), generator=gen, device="cuda") \
+        * (27 * cin) ** -0.5
+    b = torch.randn((cout,), generator=gen, device="cuda")
+    vox = B * D * H * W
+    flops = 2.0 * 27 * cin * cout * vox
+    nbytes = 4.0 * (vox * (cin + cout) + 27 * cin * cout + cout)
+    bound = max(flops / 67e12, nbytes / 3.35e12) * 1e3
+    ref = cv.conv3d_plain(x, w, b)
+    wp = cv.pack_weight_head(w)
+    y = torch.empty_like(ref)
+
+    def head(fn, nseg):
+        return lambda: _build.check(fn(
+            x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(), B, D, H,
+            W, cin, cout, nseg, st), "conv3d_head_launch")
+
+    plan = cv.head_plan(D, H, W, cout)[2]
+    line = dict(kernel="head", shape=[B, D, H, W, cin], cout=cout,
+                bound_ms=bound, plan_nseg=plan)
+    segs = {"base": sorted({plan // 2, plan, plan + 2, 2 * plan}),
+            "stages3": [plan // 2, plan],  # one block per SM
+            "r8": [2 * 132 // 9]}  # its 32-wide window: 9 per plane
+    for _ in range(3):
+        for name, fn in fwd.items():
+            for nseg in segs.get(name, [plan]):
+                key = name if nseg == plan else f"{name}_nseg{nseg}"
+                y.zero_()
+                line.setdefault(key, []).append(time_ms(head(fn, nseg)))
+                line[key + "_rel_err"] = ((y - ref).abs().max()
+                                          / ref.abs().max()).item()
+        if "against" in old:
+            wo = cv.pack_weight(w, torch.float32)
+            line.setdefault("against", []).append(time_ms(lambda: launch_old(
+                old["against"], x, wo, b, y)))
+            line["against_rel_err"] = ((y - ref).abs().max()
+                                       / ref.abs().max()).item()
+        xn = x.permute(0, 4, 1, 2, 3)
+        line.setdefault("library_ms", []).append(
+            time_ms(lambda: F.conv3d(xn, w, b, padding=1)))
+    print(json.dumps(line), flush=True)
+    del x, y, ref
+
+    dy = torch.randn((B, D, H, W, cout), generator=gen, device="cuda")
+    xs = torch.empty((B, D, H, W, cin), device="cuda")
+    ref = cv.conv3d_dx_plain(dy, w)
+    wd = cv.pack_weight_dx(w, torch.float32)
+    wo = cv.pack_weight(cv.flip_weight(w), torch.float32)
+    dx = torch.empty_like(ref)
+    wf = cv.flip_weight(w).contiguous()
+    dyn = dy.permute(0, 4, 1, 2, 3)
+    line = dict(kernel="head_dx", shape=[B, D, H, W, cout], cout=cin,
+                bound_ms=bound)
+
+    def narrow(fn):
+        return lambda: _build.check(fn(
+            dy.data_ptr(), wd.data_ptr(), None, dx.data_ptr(), B, D, H, W,
+            cin, st), "conv3d_f32_narrow_launch")
+
+    for _ in range(3):
+        for name, fn in dxf.items():
+            dx.zero_()
+            line.setdefault(name, []).append(time_ms(narrow(fn)))
+            line[name + "_rel_err"] = ((dx - ref).abs().max()
+                                       / ref.abs().max()).item()
+        line.setdefault("previous", []).append(time_ms(lambda: launch_old(
+            _build.fn("conv3d_ndhwc_launch"), dy, wo, None, dx)))
+        line.setdefault("cudnn_data_grad_ms", []).append(time_ms(
+            lambda: torch.ops.aten.convolution_backward(
+                dyn, xs.permute(0, 4, 1, 2, 3), w, None, [1, 1, 1],
+                [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1,
+                [True, False, False])))
+        line.setdefault("conv3d_call_ms", []).append(
+            time_ms(lambda: F.conv3d(dyn, wf, padding=1)))
+        line.setdefault("fill_ms", []).append(time_ms(lambda: dx.fill_(1.0)))
+    print(json.dumps(line), flush=True)
+
+
+# the card's practical f32 FFMA rate: 8 independent chains per thread, 8
+# warps per block, 4 blocks per SM, no memory traffic
+FFMA_PEAK_CU = r"""
+#include <cuda_runtime.h>
+__global__ void __launch_bounds__(256) ffma_kernel(float* out, int iters) {
+  float a[8];
+  for (int i = 0; i < 8; ++i) a[i] = threadIdx.x * 1e-9f + i;
+  const float m = 0.999999f, c = 1e-7f;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = fmaf(a[i], m, c);
+  }
+  float s = 0.f;
+  for (int i = 0; i < 8; ++i) s += a[i];
+  if (s == 1.2345f) out[0] = s;  // keeps the chains alive
+}
+extern "C" int ffma_peak_launch(void* out, int blocks, int iters,
+                                void* stream) {
+  ffma_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def ffma_peak() -> dict:
+    """TFLOP/s of FFMA alone on this card (2 FLOP per FFMA)."""
+    os.makedirs(OUT, exist_ok=True)
+    cu = os.path.join(OUT, "ffma_peak.cu")
+    with open(cu, "w") as f:
+        f.write(FFMA_PEAK_CU)
+    lib = ctypes.CDLL(_build.build_all({"ffma_peak": (cu, ())})["ffma_peak"])
+    fn = lib.ffma_peak_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    out = torch.zeros(1, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, iters = 4 * sms, 4096
+    ms = time_ms(lambda: _build.check(fn(
+        out.data_ptr(), blocks, iters, torch.cuda.current_stream().cuda_stream),
+        "ffma_peak"), n=5)
+    flops = 2.0 * blocks * 256 * iters * 16 * 8
+    return {"ffma_peak_ms": ms, "ffma_tflops": flops / ms / 1e9}
+
+
+def launch_old(fn, x, wp, b, y):
+    """csrc/conv3d.cu's ``conv3d_ndhwc_launch`` (f32) into ``y``."""
+    B, D, H, W, cin = x.shape
+    err = fn(x.data_ptr(), wp.data_ptr(), None if b is None else b.data_ptr(),
+             y.data_ptr(), B, D, H, W, cin, wp.shape[1],
+             *cv.pick_tile(D, H, W), 0, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "conv3d_ndhwc_launch")
+
+
 def warm(gen) -> None:
     x, w, _ = inputs(gen, (1, 96, 96, 96, 128), 128)
     for _ in range(50):  # warm the card to its loaded clock
@@ -318,6 +527,8 @@ def main() -> None:
     ap.add_argument("--against", help="another version of the source")
     ap.add_argument("--s8", action="store_true",
                     help="study the int8 kernel (csrc/conv3d_s8.cu)")
+    ap.add_argument("--head", action="store_true",
+                    help="study the f32 head kernels (csrc/conv3d_head.cu)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("conv3d_sm90_study: no CUDA device available")
@@ -328,6 +539,11 @@ def main() -> None:
             against = f.read()
     if args.s8:
         main_s8(against)
+        smi()
+        return
+    if args.head:
+        main_head(against)
+        print(json.dumps(ffma_peak()), flush=True)
         smi()
         return
     with open(os.path.join(ROOT, "ddpm3d_tpu_torch", "csrc",

@@ -16,7 +16,7 @@
 // Design (implicit GEMM, M = output voxels, N = Cout, K = 27*Cin):
 //  * A block owns an output tile of TD x TH x TW voxels (<= 128 rows, the
 //    shape is picked per volume on the host so that ragged W = 6 or 12
-//    planes still fill the rows) and 128 (bf16) or 64/8 (f32) output
+//    planes still fill the rows) and 128 (bf16) or 64 (f32) output
 //    channels.
 //  * Per Cin chunk the block stages the HALOED input tile
 //    (TD+2)(TH+2)(TW+2) x chunk in shared memory once, then runs all 27
@@ -29,8 +29,9 @@
 //  * bf16: 8 warps, warp tile 64x32, mma.sync m16n8k16 bf16 -> f32 with
 //    operands fed by ldmatrix. Row addresses of ldmatrix are free per lane,
 //    which is what lets one staged halo tile serve all 27 shifted taps.
-//  * f32: the same staging with FFMA on CUDA cores (the f32 head conv and
-//    f32 models; full f32 precision, no TF32).
+//  * f32: the same staging with FFMA on CUDA cores (the torso convs of f32
+//    models; full f32 precision, no TF32). The f32 head conv (Cout <= 8) and
+//    the f32 convs with Cin = 2 run csrc/conv3d_head.cu.
 //  * Bias is added in f32 in the epilogue; rows outside the volume or the
 //    tile and columns past Cout are masked there.
 // wgmma/TMA and a persistent schedule are later work.
@@ -702,37 +703,20 @@ cudaError_t launch_conv(const void* x, const void* w, const float* bias,
         static_cast<__nv_bfloat16*>(y), s, f);
   } else if (dtype == 0) {
     const bool vec = aligned && s.Cin % 4 == 0;
-    if (s.Cout <= 8) {  // the 2-channel head conv
-      constexpr int BN = 8;
-      const dim3 grid(static_cast<unsigned>(tiles), (s.Cout + BN - 1) / BN);
-      const size_t smem = (static_cast<size_t>(halo) * kLdaF +
-                           2 * kBKf * (BN + 4)) * sizeof(float) +
-                          (kFused ? fused_smem(kWarps * 2 * BN) : 0);
-      auto kernel = vec ? conv3d_f32_kernel<BN, 2, 2, true, kFused>
-                        : conv3d_f32_kernel<BN, 2, 2, false, kFused>;
-      err = cudaFuncSetAttribute(kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return err;
-      kernel<<<grid, kThreads, smem, stream>>>(
-          static_cast<const float*>(x), static_cast<const float*>(w), bias,
-          static_cast<float*>(y), s, f);
-    } else {
-      constexpr int BN = 64;
-      const dim3 grid(static_cast<unsigned>(tiles), (s.Cout + BN - 1) / BN);
-      const size_t smem = (static_cast<size_t>(halo) * kLdaF +
-                           2 * kBKf * (BN + 4)) * sizeof(float) +
-                          (kFused ? fused_smem(kWarps * 2 * BN) : 0);
-      auto kernel = vec ? conv3d_f32_kernel<BN, 4, 8, true, kFused>
-                        : conv3d_f32_kernel<BN, 4, 8, false, kFused>;
-      err = cudaFuncSetAttribute(kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return err;
-      kernel<<<grid, kThreads, smem, stream>>>(
-          static_cast<const float*>(x), static_cast<const float*>(w), bias,
-          static_cast<float*>(y), s, f);
-    }
+    constexpr int BN = 64;
+    const dim3 grid(static_cast<unsigned>(tiles), (s.Cout + BN - 1) / BN);
+    const size_t smem = (static_cast<size_t>(halo) * kLdaF +
+                         2 * kBKf * (BN + 4)) * sizeof(float) +
+                        (kFused ? fused_smem(kWarps * 2 * BN) : 0);
+    auto kernel = vec ? conv3d_f32_kernel<BN, 4, 8, true, kFused>
+                      : conv3d_f32_kernel<BN, 4, 8, false, kFused>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), bias,
+        static_cast<float*>(y), s, f);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -2,9 +2,10 @@
 
 * :mod:`.conv3d` — stride-1 SAME 3x3x3 conv, forward and the dx of its
   backward: ``csrc/conv3d_sm90.cu`` (bf16, wgmma/TMA),
-  ``csrc/conv3d_narrow.cu`` (bf16, Cin = 2: the input conv) or
-  ``csrc/conv3d.cu`` (f32, other narrow Cin), by
-  :func:`.conv3d.conv3d_route`;
+  ``csrc/conv3d_narrow.cu`` (bf16, Cin = 2: the input conv),
+  ``csrc/conv3d_head.cu`` (f32 with Cout <= 8: the head conv; f32 with Cin
+  = 2: the head's dx) or ``csrc/conv3d.cu`` (the other f32 convs and bf16
+  with another narrow Cin), by :func:`.conv3d.conv3d_route`;
 * :mod:`.conv3d_fused` — the fused ResBlock conv (GN/FiLM/SiLU prologue,
   bias/skip epilogue, next-GN stats), the fused instance of the same
   ``csrc/conv3d.cu`` template;
@@ -35,8 +36,8 @@ def launch_counts() -> Dict[str, int]:
 
 def route_counts() -> Dict[str, int]:
     """The conv launches of :func:`launch_counts` by kernel route
-    ("conv3d.sm90", "conv3d.sm90_narrow", "conv3d.ndhwc" and the same for
-    "conv3d_dx")."""
+    ("conv3d.<route>" and "conv3d_dx.<route>" for each of
+    :data:`.conv3d.ROUTES`)."""
     return {f"{what}.{route}": conv3d.route_launches.get(f"{what}.{route}", 0)
             for what in ("conv3d", "conv3d_dx") for route in conv3d.ROUTES}
 

@@ -24,7 +24,8 @@ from typing import Dict
 _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SRC_DIR = osp.join(_PKG, "csrc")
 BUILD_DIR = osp.join(_PKG, "_build")
-SOURCES = ("conv3d", "conv3d_narrow", "conv3d_s8", "conv3d_sm90", "groupnorm")
+SOURCES = ("conv3d", "conv3d_head", "conv3d_narrow", "conv3d_s8", "conv3d_sm90",
+           "groupnorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -40,6 +41,10 @@ _SIGNATURES = {
         "conv3d", [_P] * 5 + [_I] + [_P] * 5 + [_I] * 10 + [_P]),
     "conv3d_sm90_launch": (
         "conv3d_sm90", [_P, _P, _P, _P] + [_I] * 9 + [_P]),
+    "conv3d_head_launch": (
+        "conv3d_head", [_P, _P, _P, _P] + [_I] * 7 + [_P]),
+    "conv3d_f32_narrow_launch": (
+        "conv3d_head", [_P, _P, _P, _P] + [_I] * 5 + [_P]),
     "conv3d_narrow_launch": (
         "conv3d_narrow", [_P, _P, _P, _P] + [_I] * 5 + [_P]),
     "conv3d_s8_launch": (

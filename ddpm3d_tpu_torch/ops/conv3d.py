@@ -1,7 +1,7 @@
 """Stride-1 SAME 3x3x3 convolution on channels-last volumes.
 
 Counterpart of ``ddpm3d_tpu/ops/conv3d_mxu.py:conv3d_mxu`` (the Pallas TPU
-kernel ``_conv_kernel``). Three Hopper kernels compute it, chosen by
+kernel ``_conv_kernel``). Five Hopper kernels compute it, chosen by
 :func:`conv3d_route`:
   * ``"sm90"``, ``csrc/conv3d_sm90.cu``: bf16 with Cin % 8 == 0, every conv
     of the model's torso. A warp-specialised implicit GEMM: TMA stages a
@@ -12,10 +12,18 @@ kernel ``_conv_kernel``). Three Hopper kernels compute it, chosen by
     model's input conv. The 27 taps fold into one 64-wide K (k = 2 * tap +
     ci, :func:`pack_weight_narrow`), A is gathered into registers straight
     from device memory, four ``wgmma`` per 64 rows;
-  * ``"ndhwc"``, ``csrc/conv3d.cu``: f32 (the head conv, f32 models) and
-    bf16 with any other Cin, ``mma.sync`` or FFMA.
+  * ``"f32_head"``, ``csrc/conv3d_head.cu``: f32 with Cout <= 8, the model's
+    head conv (128 -> 2). FFMA; a block walks a segment of D under a 32 x TW
+    window of (H, W), staging each input plane once and keeping rolling
+    accumulators for the three output planes it feeds
+    (:func:`pack_weight_head`, :func:`head_plan`);
+  * ``"f32_narrow"``, ``csrc/conv3d_head.cu``: f32 with Cin = 2, the head's
+    dx (2 -> 128) and an f32 model's input conv. FFMA with the taps folded
+    into K = 54 (:func:`pack_weight_f32_narrow`);
+  * ``"ndhwc"``, ``csrc/conv3d.cu``: the other f32 convs (the torso of f32
+    models) and bf16 with any other Cin, ``mma.sync`` or FFMA.
 Each source note says what bounds its kernel and what its design does about
-that (the narrow conv is bound by the bytes it stores, the others by
+that (the narrow bf16 conv is bound by the bytes it stores, the others by
 operations).
 
 :func:`conv3d` is differentiable (:class:`Conv3dFunction`, the counterpart of
@@ -52,7 +60,7 @@ dx_launches = 0
 # the same launches by route (see ops.route_counts): "conv3d.<route>" and
 # "conv3d_dx.<route>" for each of ROUTES
 route_launches: Dict[str, int] = {}
-ROUTES = ("sm90", "sm90_narrow", "ndhwc")
+ROUTES = ("sm90", "sm90_narrow", "f32_head", "f32_narrow", "ndhwc")
 
 MAX_ROWS = 128   # output voxels per block (csrc/conv3d.cu kMaxRows)
 MAX_HALO = 640   # staged halo voxels per block (kMaxHalo)
@@ -69,6 +77,15 @@ SM90_SMEM_LIMIT = 232448  # dynamic shared memory a block may use (H100)
 
 # csrc/conv3d_narrow.cu: the taps folded into one K chunk (kK)
 NARROW_K = 64
+
+# csrc/conv3d_head.cu
+HEAD_MAX_COUT = 8     # the head kernel's widest instance (COP)
+HEAD_TH = 32          # window rows, one per lane (kHeadTH)
+HEAD_WARPS = 4        # W strips per window (kHeadThreads / 32)
+HEAD_CK = 16          # Cin chunk of a staged plane (kHeadCK)
+HEAD_STAGES = 2       # staged chunks in the plane ring (kHeadStages)
+HEAD_BLOCKS_PER_SM = 2  # __launch_bounds__(128, 2)
+F32_NARROW_K = 54     # the f32 narrow kernel's folded K (kNK), no padding
 
 
 def pack_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -90,12 +107,52 @@ def pack_weight_narrow(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     return F.pad(w, (0, NARROW_K - 27 * cin)).contiguous()
 
 
+def pack_weight_f32_narrow(weight: torch.Tensor) -> torch.Tensor:
+    """(Cout, 2, 3, 3, 3) -> the f32 narrow kernel's [Cout, 54] f32 layout:
+    column k = 2 * tap + ci with tap = 9 kd + 3 kh + kw (the kernel stages
+    it as [54][128] column tiles)."""
+    cout, cin = weight.shape[:2]
+    return (weight.detach().float().permute(0, 2, 3, 4, 1)
+            .reshape(cout, 27 * cin).contiguous())
+
+
+def pack_weight_head(weight: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 3, 3, 3) -> the head kernel's [Cin / 4, 27, 4, Cout] f32
+    layout: 4-channel group, tap = 9 kd + 3 kh + kw, channel in the group,
+    output channel (the kernel pads Cout to its instance's width in shared
+    memory). Cin % 4 == 0."""
+    cout, cin = weight.shape[:2]
+    if cin % 4:
+        raise ValueError(f"the head kernel takes Cin % 4 == 0, got {cin}")
+    w = weight.detach().float().permute(1, 2, 3, 4, 0).reshape(
+        cin // 4, 4, 27, cout)
+    return w.transpose(1, 2).contiguous()
+
+
 def pack_weight_kernel(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The layout that the kernel of :func:`conv3d_route` takes for a conv
     with this (Cout, Cin, 3, 3, 3) weight in ``dtype``."""
-    if conv3d_route(weight.shape[1:2], dtype) == "sm90_narrow":
+    route = conv3d_route(weight.shape[1:2], dtype, weight.shape[0])
+    if route == "sm90_narrow":
         return pack_weight_narrow(weight, dtype)
+    if route == "f32_narrow":
+        return pack_weight_f32_narrow(weight)
+    if route == "f32_head":
+        return pack_weight_head(weight)
     return pack_weight(weight, dtype)
+
+
+def packed_cout(w_packed: torch.Tensor) -> int:
+    """Cout of a weight in any kernel layout: [27, Cout, Cin]
+    (:func:`pack_weight`), [Cout, K] (the two narrow layouts) or [Cin / 4,
+    27, 4, Cout] (:func:`pack_weight_head`)."""
+    if w_packed.dim() == 2:
+        return w_packed.shape[0]
+    if w_packed.dim() == 3:
+        return w_packed.shape[1]
+    if w_packed.dim() == 4:
+        return w_packed.shape[3]
+    raise ValueError(f"not a packed conv weight: {tuple(w_packed.shape)}")
 
 
 def flip_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -129,17 +186,83 @@ def pick_tile(D: int, H: int, W: int) -> Tuple[int, int, int]:
     return best[1]
 
 
-def conv3d_route(x_shape, dtype: torch.dtype) -> str:
-    """Which kernel takes a conv of x [..., Cin] in ``dtype``: ``"sm90"``
-    (``csrc/conv3d_sm90.cu``) for bf16 with Cin % 8 == 0, whose rows TMA can
-    stage (16-byte strides); ``"sm90_narrow"`` (``csrc/conv3d_narrow.cu``)
-    for bf16 with Cin = 2, the input conv; ``"ndhwc"`` (``csrc/conv3d.cu``)
-    for f32 and for bf16 with any other Cin."""
-    if dtype == torch.bfloat16 and x_shape[-1] % 8 == 0:
-        return "sm90"
-    if dtype == torch.bfloat16 and x_shape[-1] == 2:
-        return "sm90_narrow"
+def head_cop(cout: int) -> int:
+    """The head kernel's instance for ``cout`` output channels: Cout padded
+    to 1, 2, 4 or 8 (COP)."""
+    return next(c for c in (1, 2, 4, 8) if c >= cout)
+
+
+def head_tile(cout: int) -> Tuple[int, int]:
+    """The head kernel's (H, W) window: 32 rows (one per lane) x 4 strips
+    of R outputs along W, R = 4 up to COP = 2, 8 / COP above (HeadCfg)."""
+    cop = head_cop(cout)
+    r = 4 if cop <= 2 else 8 // cop
+    return HEAD_TH, HEAD_WARPS * r
+
+
+def head_smem_bytes(cin: int, cout: int) -> int:
+    """Dynamic shared memory of one head block: the padded weight (Cin
+    chunks x 4 groups x 27 taps x 4 x COP floats) and the ring's two plane
+    buffers of (TH + 2) rows, each of (TW + 2) x 16 + 4 floats."""
+    cop = head_cop(cout)
+    th, tw = head_tile(cout)
+    chunks = -(-cin // HEAD_CK)
+    buf = (th + 2) * ((tw + 2) * HEAD_CK + 4)
+    return 4 * (chunks * (HEAD_CK // 4) * 27 * 4 * cop + HEAD_STAGES * buf)
+
+
+def conv3d_route(x_shape, dtype: torch.dtype, cout: int) -> str:
+    """Which kernel takes a conv of x [..., Cin] to ``cout`` channels in
+    ``dtype``: ``"sm90"`` (``csrc/conv3d_sm90.cu``) for bf16 with Cin % 8 ==
+    0, whose rows TMA can stage (16-byte strides); ``"sm90_narrow"``
+    (``csrc/conv3d_narrow.cu``) for bf16 with Cin = 2, the input conv;
+    ``"f32_narrow"`` (``csrc/conv3d_head.cu``) for f32 with Cin = 2, the
+    head's dx; ``"f32_head"`` (``csrc/conv3d_head.cu``) for f32 with Cout <=
+    8, Cin % 4 == 0 (16-byte rows) and a weight that fits the block's
+    shared memory, the head conv; ``"ndhwc"`` (``csrc/conv3d.cu``) for the
+    rest."""
+    cin = x_shape[-1]
+    if dtype == torch.bfloat16:
+        if cin % 8 == 0:
+            return "sm90"
+        if cin == 2:
+            return "sm90_narrow"
+    elif dtype == torch.float32:
+        if cin == 2:
+            return "f32_narrow"
+        if (cout <= HEAD_MAX_COUT and cin % 4 == 0
+                and head_smem_bytes(cin, cout) <= SM90_SMEM_LIMIT):
+            return "f32_head"
     return "ndhwc"
+
+
+@functools.lru_cache(maxsize=64)
+def head_plan(D: int, H: int, W: int, cout: int,
+              sms: int = SM90_SMS) -> Tuple[int, int, int]:
+    """(nH, nW, nseg) of a head launch: the (H, W) windows and the D
+    segments of one volume. Segments are chosen so that windows x segments
+    fill the card's ``sms`` SMs twice (two blocks each) without passing the
+    volume's depth; they depend on the volume alone (not the batch), so a
+    volume's sums do not depend on the batch."""
+    th, tw = head_tile(cout)
+    n_h, n_w = -(-H // th), -(-W // tw)
+    nseg = max(1, min(D, HEAD_BLOCKS_PER_SM * sms // (n_h * n_w)))
+    return n_h, n_w, nseg
+
+
+def head_block(q: int, B: int, D: int, H: int, W: int, cout: int,
+               sms: int = SM90_SMS) -> Tuple[int, int, int, int, int, bool]:
+    """Block q of a head launch -> (b, d0, d1, h0, w0, up), as the kernel
+    decodes ``blockIdx.x``: W window fastest, then H window, D segment,
+    batch. The block stores output planes d0 .. d1 - 1 of its window,
+    walking up (even segments) or down (odd ones)."""
+    n_h, n_w, nseg = head_plan(D, H, W, cout, sms)
+    th, tw = head_tile(cout)
+    q, iw = divmod(q, n_w)
+    q, ih = divmod(q, n_h)
+    b, seg = divmod(q, nseg)
+    return (b, seg * D // nseg, (seg + 1) * D // nseg, ih * th, iw * tw,
+            seg % 2 == 0)
 
 
 def sm90_halo(tile: Tuple[int, int, int], pad: int = 1) -> int:
@@ -251,11 +374,12 @@ def conv3d_plain(
     return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
 
 
-def check_kernel_inputs(x: torch.Tensor, w_packed: torch.Tensor,
-                        what: str, narrow: bool = False) -> int:
+def check_kernel_inputs(x: torch.Tensor, w_packed: torch.Tensor, what: str,
+                        route: Optional[str] = None) -> Tuple[str, int]:
     """Raise unless the conv kernels take ``x`` [B, D, H, W, Cin] (a CUDA
-    tensor, bf16 or f32) with ``w_packed`` (:func:`pack_weight`, or with
-    ``narrow`` :func:`pack_weight_narrow`); returns Cout."""
+    tensor, bf16 or f32) with ``w_packed`` in the layout of ``route``
+    (default: :func:`conv3d_route`'s, as :func:`pack_weight_kernel` packs;
+    ``"ndhwc"`` for :func:`pack_weight`'s); returns (route, Cout)."""
     if x.device.type != "cuda":
         raise RuntimeError(f"{what} kernel takes CUDA tensors, got {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -265,16 +389,18 @@ def check_kernel_inputs(x: torch.Tensor, w_packed: torch.Tensor,
     cin = x.shape[-1]
     if w_packed.dtype != x.dtype or w_packed.device != x.device:
         raise ValueError("packed weight must match x's dtype and device")
-    if narrow:
-        if w_packed.dim() != 2 or w_packed.shape[1] != NARROW_K:
-            raise ValueError(f"packed weight {tuple(w_packed.shape)} is not "
-                             f"the narrow [Cout, {NARROW_K}] layout")
-        return w_packed.shape[0]
-    if (w_packed.dim() != 3 or w_packed.shape[0] != 27
-            or w_packed.shape[2] != cin):
+    cout = packed_cout(w_packed)
+    route = route or conv3d_route(x.shape, x.dtype, cout)
+    expect = {
+        "sm90_narrow": (cout, NARROW_K),
+        "f32_narrow": (cout, F32_NARROW_K),
+        "f32_head": (cin // 4, 27, 4, cout),
+    }.get(route, (27, cout, cin))
+    if tuple(w_packed.shape) != expect:
         raise ValueError(
-            f"packed weight {tuple(w_packed.shape)} does not fit Cin={cin}")
-    return w_packed.shape[1]
+            f"packed weight {tuple(w_packed.shape)} does not fit Cin={cin} "
+            f"on route {route} (expected {expect})")
+    return route, cout
 
 
 def _launch(
@@ -285,8 +411,7 @@ def _launch(
 ) -> torch.Tensor:
     """Run the kernel of :func:`conv3d_route` once on CUDA tensors and count
     it under ``what`` ("conv3d" or "conv3d_dx") and its route."""
-    route = conv3d_route(x.shape, x.dtype)
-    cout = check_kernel_inputs(x, w_packed, what, route == "sm90_narrow")
+    route, cout = check_kernel_inputs(x, w_packed, what)
     B, D, H, W, cin = x.shape
     x = x.contiguous()
     w_packed = w_packed.contiguous()
@@ -296,11 +421,11 @@ def _launch(
     y = torch.empty((B, D, H, W, cout), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     b_ptr = b.data_ptr() if b is not None else None
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if route == "sm90":
         if x.data_ptr() % 16 or w_packed.data_ptr() % 16:
             raise ValueError("conv3d_sm90 takes 16-byte-aligned x and weight")
         name = "conv3d_sm90_launch"
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         err = _build.fn(name)(
             x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
             B, D, H, W, cin, cout, *sm90_tile(B, D, H, W, cout, sms), stream)
@@ -309,6 +434,20 @@ def _launch(
             raise ValueError("conv3d_narrow takes 4-byte-aligned x and a "
                              "16-byte-aligned weight")
         name = "conv3d_narrow_launch"
+        err = _build.fn(name)(
+            x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
+            B, D, H, W, cout, stream)
+    elif route == "f32_head":
+        if x.data_ptr() % 16:
+            raise ValueError("conv3d_head takes 16-byte-aligned x")
+        name = "conv3d_head_launch"
+        err = _build.fn(name)(
+            x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
+            B, D, H, W, cin, cout, head_plan(D, H, W, cout, sms)[2], stream)
+    elif route == "f32_narrow":
+        if x.data_ptr() % 8:
+            raise ValueError("conv3d_f32_narrow takes 8-byte-aligned x")
+        name = "conv3d_f32_narrow_launch"
         err = _build.fn(name)(
             x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
             B, D, H, W, cout, stream)

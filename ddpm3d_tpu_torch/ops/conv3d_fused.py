@@ -89,7 +89,7 @@ def conv3d_fused_kernel(
     :func:`.conv3d.pack_weight` in x's dtype; bias, g and b are cast to
     f32, skip to x's dtype."""
     global launches
-    cout = check_kernel_inputs(x, w_packed, "conv3d_fused")
+    _, cout = check_kernel_inputs(x, w_packed, "conv3d_fused", "ndhwc")
     B, D, H, W, cin = x.shape
 
     def f32(t, shape, what):

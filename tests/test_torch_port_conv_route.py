@@ -1,15 +1,17 @@
 """Host-side rules of the port's 3x3x3 conv (ddpm3d_tpu_torch.ops.conv3d):
 which kernel takes which conv (``csrc/conv3d_sm90.cu`` for the torso,
-``csrc/conv3d_narrow.cu`` for the Cin = 2 input conv, ``csrc/conv3d.cu``
-for the f32 head), and the tiles and work items of the Hopper kernel
-``csrc/conv3d_sm90.cu``. Pure Python, on the CPU; the kernel itself
-is held against its plain version on the card (tests/test_torch_port_cuda.py,
-chip_smoke.py).
+``csrc/conv3d_narrow.cu`` for the bf16 Cin = 2 input conv,
+``csrc/conv3d_head.cu`` for the f32 head conv and its dx), the tiles and
+work items of the Hopper kernel ``csrc/conv3d_sm90.cu``, and the windows
+and D segments of the head kernel. Pure Python, on the CPU; the kernels
+themselves are held against their plain versions on the card
+(tests/test_torch_port_cuda.py, chip_smoke.py).
 """
 
 import collections
 import itertools
 
+import numpy as np
 import pytest
 import torch
 
@@ -57,47 +59,55 @@ def main_path_convs():
 
 def test_main_path_takes_the_sm90_kernel(main_path_convs):
     """70 of the forward's 72 convs (22 distinct bf16 torso shapes) take the
-    sm90 kernel, the Cin = 2 input conv the narrow one; only the f32 head
-    conv stays on csrc/conv3d.cu."""
+    sm90 kernel, the Cin = 2 input conv the narrow one, the f32 head conv
+    the head kernel; none is left on csrc/conv3d.cu."""
     assert sum(main_path_convs.values()) == 72
     routes = collections.Counter()
     by_route = collections.defaultdict(set)
     for (D, H, W, cin, cout, dt), n in main_path_convs.items():
-        route = cv.conv3d_route((1, D, H, W, cin), dt)
+        route = cv.conv3d_route((1, D, H, W, cin), dt, cout)
         routes[route] += n
         by_route[route].add((cin, cout, dt))
-    assert routes == {"sm90": 70, "sm90_narrow": 1, "ndhwc": 1}
+    assert routes == {"sm90": 70, "sm90_narrow": 1, "f32_head": 1}
     assert by_route["sm90_narrow"] == {(2, 128, torch.bfloat16)}
-    assert by_route["ndhwc"] == {(128, 2, torch.float32)}
+    assert by_route["f32_head"] == {(128, 2, torch.float32)}
     torso = [k for k in main_path_convs
-             if cv.conv3d_route((1,) + k[:3] + (k[3],), k[5]) == "sm90"]
+             if cv.conv3d_route((1,) + k[:3] + (k[3],), k[5], k[4]) == "sm90"]
     assert len(torso) == 22
     assert {k[:3] for k in torso} == set(VOLUMES)
 
 
 def test_training_dx_takes_the_sm90_kernel(main_path_convs):
     """The dx of a training step runs the conv on dy (Cout channels) with
-    the swapped weight: every torso dx takes the new kernel, the head's f32
-    dx the old one; the input conv has no dx (its input needs no grad)."""
+    the swapped weight (Cout -> Cin): every torso dx takes the sm90 kernel,
+    the head's f32 dx (2 -> 128) the f32 narrow one; the input conv has no
+    dx (its input needs no grad)."""
     routes = collections.Counter()
     for (D, H, W, cin, cout, dt), n in main_path_convs.items():
         if cin == 2:
             continue
-        routes[cv.conv3d_route((1, D, H, W, cout), dt)] += n
-    assert routes == {"sm90": 70, "ndhwc": 1}
+        routes[cv.conv3d_route((1, D, H, W, cout), dt, cin)] += n
+    assert routes == {"sm90": 70, "f32_narrow": 1}
 
 
-@pytest.mark.parametrize("shape,dtype,route", [
-    ((1, 4, 8, 8, 128), torch.bfloat16, "sm90"),
-    ((2, 5, 7, 9, 8), torch.bfloat16, "sm90"),      # smallest aligned Cin
-    ((1, 4, 8, 8, 2), torch.bfloat16, "sm90_narrow"),  # the input conv
-    ((1, 4, 8, 8, 2), torch.float32, "ndhwc"),      # an f32 input conv
-    ((1, 4, 8, 8, 3), torch.bfloat16, "ndhwc"),     # other narrow Cin
-    ((1, 4, 8, 8, 130), torch.bfloat16, "ndhwc"),   # rows not 16-byte strided
-    ((1, 4, 8, 8, 128), torch.float32, "ndhwc"),    # f32 models and the head
+@pytest.mark.parametrize("shape,dtype,cout,route", [
+    ((1, 4, 8, 8, 128), torch.bfloat16, 128, "sm90"),
+    ((2, 5, 7, 9, 8), torch.bfloat16, 16, "sm90"),  # smallest aligned Cin
+    ((1, 4, 8, 8, 128), torch.bfloat16, 2, "sm90"),  # a bf16 head
+    ((1, 4, 8, 8, 2), torch.bfloat16, 128, "sm90_narrow"),  # the input conv
+    ((1, 4, 8, 8, 2), torch.float32, 128, "f32_narrow"),  # f32 input conv
+    ((1, 4, 8, 8, 2), torch.float32, 2, "f32_narrow"),  # Cin = 2 goes first
+    ((1, 4, 8, 8, 128), torch.float32, 2, "f32_head"),  # the head conv
+    ((1, 4, 8, 8, 40), torch.float32, 8, "f32_head"),  # widest instance
+    ((1, 4, 8, 8, 40), torch.float32, 9, "ndhwc"),  # past the head's Cout
+    ((1, 4, 8, 8, 6), torch.float32, 2, "ndhwc"),  # rows not 16-byte strided
+    ((1, 4, 8, 8, 1024), torch.float32, 8, "ndhwc"),  # weight past the smem
+    ((1, 4, 8, 8, 3), torch.bfloat16, 8, "ndhwc"),  # other narrow Cin
+    ((1, 4, 8, 8, 130), torch.bfloat16, 8, "ndhwc"),  # rows not 16-byte strided
+    ((1, 4, 8, 8, 128), torch.float32, 128, "ndhwc"),  # f32 models' torso
 ])
-def test_conv3d_route(shape, dtype, route):
-    assert cv.conv3d_route(shape, dtype) == route
+def test_conv3d_route(shape, dtype, cout, route):
+    assert cv.conv3d_route(shape, dtype, cout) == route
 
 
 @pytest.mark.parametrize("rows", [256, 128])
@@ -136,7 +146,7 @@ def test_conv3d_sm90_tile_choice_on_the_main_path(main_path_convs):
         return -(-cv.sm90_tiles(1, D, H, W, co, tile) // 132) * rows
 
     for (D, H, W, cin, cout, dt) in main_path_convs:
-        if cv.conv3d_route((1, D, H, W, cin), dt) != "sm90":
+        if cv.conv3d_route((1, D, H, W, cin), dt, cout) != "sm90":
             continue
         for co in (cout, cin):  # the forward, then the dx (Cout = Cin)
             tile = cv.sm90_tile(1, D, H, W, co)
@@ -185,3 +195,40 @@ def test_conv3d_sm90_work_items_cover_the_output_once(B, dhw, cout):
     n_col = -(-cout // cv.SM90_BN)
     assert len(seen) == B * D * H * W * n_col
     assert set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize("cout", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("B,dhw", [(1, v) for v in VOLUMES] + [
+    (2, (5, 7, 9)), (1, (97, 13, 11)), (2, (1, 1, 1)), (1, (96, 6, 6)),
+    (1, (3, 70, 33)),
+])
+def test_head_blocks_cover_the_output_once(B, dhw, cout):
+    """The head kernel's blocks (``head_block``, the kernel's decode of
+    blockIdx.x) store every output voxel exactly once: windows tile (H, W),
+    segments tile D and never come out empty; the segments alternate
+    direction and do not depend on the batch; the block's shared memory
+    fits at the model's Cin."""
+    D, H, W = dhw
+    n_h, n_w, nseg = cv.head_plan(D, H, W, cout)
+    th, tw = cv.head_tile(cout)
+    assert 1 <= nseg <= D and n_h * th >= H and n_w * tw >= W
+    seen = np.zeros((B, D, H, W), np.int32)
+    for q in range(B * nseg * n_h * n_w):
+        b, d0, d1, h0, w0, up = cv.head_block(q, B, D, H, W, cout)
+        assert d0 < d1 and h0 < H and w0 < W
+        assert up == ((q // (n_h * n_w)) % nseg % 2 == 0)
+        seen[b, d0:d1, h0:h0 + th, w0:w0 + tw] += 1
+    assert (seen == 1).all()
+    assert cv.head_smem_bytes(128, cout) <= cv.SM90_SMEM_LIMIT
+
+
+def test_head_plan_fills_the_card_at_the_main_volume():
+    """At 96^3 the head runs 3 x 6 windows of 32 x 16 and 14 segments of 6
+    or 7 planes: 252 blocks, two per SM on 132 SMs, with 107,072 bytes of
+    shared memory each (27,648 of weight, two 39,712-byte plane buffers)."""
+    assert cv.head_tile(2) == (32, 16)
+    assert cv.head_plan(96, 96, 96, 2) == (3, 6, 14)
+    assert cv.head_smem_bytes(128, 2) == 27648 + 2 * 39712
+    lengths = {d1 - d0 for d0, d1 in (
+        cv.head_block(q, 1, 96, 96, 96, 2)[1:3] for q in range(252))}
+    assert lengths == {6, 7}

@@ -61,7 +61,7 @@ def test_conv3d_kernel_matches_plain(dev, shape, cout, dtype):
     w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) / (27 * cin) ** 0.5
     b = torch.randn((cout,), generator=g, device=dev)
     before = ops.launch_counts()["conv3d"]
-    key = "conv3d." + cv.conv3d_route(shape, dtype)
+    key = "conv3d." + cv.conv3d_route(shape, dtype, cout)
     routed = ops.route_counts()[key]
     out = cv.conv3d(x, w, b)
     assert ops.launch_counts()["conv3d"] == before + 1
@@ -119,7 +119,7 @@ def test_conv3d_backward_matches_plain(dev, shape, cout, dtype):
     w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) / (27 * cin) ** 0.5
     dy = torch.randn(shape[:-1] + (cout,), generator=g, device=dev).to(dtype)
     before = ops.launch_counts()["conv3d_dx"]
-    key = "conv3d_dx." + cv.conv3d_route(dy.shape, dtype)
+    key = "conv3d_dx." + cv.conv3d_route(dy.shape, dtype, cin)
     routed = ops.route_counts()[key]
     dx = cv.conv3d_dx(dy, w)
     assert ops.launch_counts()["conv3d_dx"] == before + 1
@@ -356,7 +356,7 @@ def _check_fused_stats(st, ref_st, ref_out):
     ((2, 5, 7, 9, 32), 16),      # ragged tiles, 2 batches, per-sample (g, b)
     ((1, 6, 12, 12, 256), 130),  # Cout past one 128-column tile, ragged
     ((1, 4, 8, 8, 2), 128),      # Cin = 2 (unaligned staging)
-    ((1, 4, 8, 8, 40), 2),       # Cout = 2 (the narrow f32 tile)
+    ((1, 4, 8, 8, 40), 2),       # Cout = 2
     ((1, 8, 6, 6, 1024), 64),    # W = 6 plane, deep Cin
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -567,6 +567,91 @@ def test_conv3d_narrow_matches_plain(dev, shape, cout):
     assert torch.equal(out, cv.conv3d_kernel(x, wp, b))
     if shape[0] > 1:
         assert torch.equal(out[1:], cv.conv3d_kernel(x[1:].contiguous(), wp, b))
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 5, 7, 9, 128), 1),      # ragged volume, 2 batches, each instance
+    ((2, 5, 7, 9, 128), 2),
+    ((2, 5, 7, 9, 128), 4),
+    ((2, 5, 7, 9, 128), 8),
+    ((1, 7, 35, 6, 40), 2),      # two H windows, W = 6, Cin not a chunk
+    ((1, 3, 9, 40, 36), 3),      # three W windows, Cout padded to 4
+    ((1, 96, 24, 24, 128), 2),   # the head at 96 x 24^2: many segments
+])
+def test_conv3d_head_matches_plain(dev, shape, cout):
+    """The f32 head conv on csrc/conv3d_head.cu (counted on its own route)
+    against the plain version within the f32 tolerance; the same bits on a
+    repeat; per-volume results batch-invariant."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    cin = shape[-1]
+    x = torch.randn(shape, generator=g, device=dev)
+    w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) / (27 * cin) ** 0.5
+    b = torch.randn((cout,), generator=g, device=dev)
+    assert cv.conv3d_route(shape, torch.float32, cout) == "f32_head"
+    before = ops.route_counts()
+    wp = cv.pack_weight_kernel(w, torch.float32)
+    out = cv.conv3d_kernel(x, wp, b)
+    after = ops.route_counts()
+    assert after["conv3d.f32_head"] == before["conv3d.f32_head"] + 1
+    assert after["conv3d.ndhwc"] == before["conv3d.ndhwc"]
+    ref = cv.conv3d_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert _rel(out, ref) <= TOL[torch.float32]
+    assert torch.equal(out, cv.conv3d_kernel(x, wp, b))
+    if shape[0] > 1:
+        assert torch.equal(out[1:], cv.conv3d_kernel(x[1:].contiguous(), wp, b))
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 5, 7, 9, 2), 128),      # the head's dx width, ragged, 2 batches
+    ((1, 4, 8, 8, 2), 16),       # Cout < 4 x 16 columns
+    ((1, 4, 8, 8, 2), 130),      # Cout past one 128-column tile, ragged
+    ((1, 96, 12, 12, 2), 128),
+])
+def test_conv3d_f32_narrow_matches_plain(dev, shape, cout):
+    """f32 convs with Cin = 2 (the head's dx, an f32 model's input conv) on
+    csrc/conv3d_head.cu, counted on their own route, against the plain
+    version; the same bits on a repeat; batch-invariant; and the dx of a
+    128 -> 2 conv through conv3d_dx on the same route."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    x = torch.randn(shape, generator=g, device=dev)
+    w = torch.randn((cout, 2, 3, 3, 3), generator=g, device=dev) / 54 ** 0.5
+    b = torch.randn((cout,), generator=g, device=dev)
+    before = ops.route_counts()
+    wp = cv.pack_weight_kernel(w, torch.float32)
+    out = cv.conv3d_kernel(x, wp, b)
+    dx = cv.conv3d_dx(x, w.transpose(0, 1).flip(2, 3, 4).contiguous())
+    after = ops.route_counts()
+    assert after["conv3d.f32_narrow"] == before["conv3d.f32_narrow"] + 1
+    assert after["conv3d_dx.f32_narrow"] == before["conv3d_dx.f32_narrow"] + 1
+    assert after["conv3d.ndhwc"] == before["conv3d.ndhwc"]
+    ref = cv.conv3d_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert _rel(out, ref) <= TOL[torch.float32]
+    assert _rel(dx, ref - b) <= TOL[torch.float32]
+    assert torch.equal(out, cv.conv3d_kernel(x, wp, b))
+    if shape[0] > 1:
+        assert torch.equal(out[1:], cv.conv3d_kernel(x[1:].contiguous(), wp, b))
+
+
+def test_f32_head_kernels_reject_what_they_cannot_take(dev):
+    """The head kernel stages 16-byte rows: a misaligned view raises; the
+    f32 narrow kernel takes 8-byte voxels: a view one float in raises."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    w = torch.randn((2, 8, 3, 3, 3), generator=g, device=dev)
+    wp = cv.pack_weight_kernel(w, torch.float32)
+    flat = torch.randn(2 * 3 * 4 * 8 + 1, generator=g, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        cv.conv3d_kernel(flat[1:].view(1, 2, 3, 4, 8), wp)
+    w2 = torch.randn((16, 2, 3, 3, 3), generator=g, device=dev)
+    with pytest.raises(ValueError, match="8-byte"):
+        cv.conv3d_kernel(flat[1:1 + 48].view(1, 2, 3, 4, 2),
+                         cv.pack_weight_kernel(w2, torch.float32))
+    with pytest.raises(ValueError, match="does not fit"):
+        cv.conv3d_kernel(flat[:2 * 3 * 4 * 8].view(1, 2, 3, 4, 8),
+                         cv.pack_weight(w, torch.float32))
 
 
 def test_step_noise_is_batch_invariant_on_the_card(dev):

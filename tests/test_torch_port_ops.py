@@ -75,6 +75,118 @@ def test_conv3d_packed_layout(rng):
         packed.numpy(), w.reshape(27, 5, 3).transpose(0, 2, 1))
 
 
+def _emulate_head(x, packed, bias, sms):
+    """csrc/conv3d_head.cu's walk on the CPU: each block of ``head_block``
+    walks its D segment plane by plane (up or down), adds each plane into
+    the three rolling output planes it feeds (only those in the segment),
+    with the weight read from ``pack_weight_head``'s [Cin/4, 27, 4, Cout]
+    layout, and stores the finished plane with the bias."""
+    B, D, H, W, cin = x.shape
+    cout = packed.shape[3]
+    th, tw = cv.head_tile(cout)
+    n_h, n_w, nseg = cv.head_plan(D, H, W, cout, sms)
+    # zero padding: one voxel before, up to a whole window after
+    xp = torch.zeros((B, D, n_h * th + 2, n_w * tw + 2, cin))
+    xp[:, :, 1:H + 1, 1:W + 1] = x
+    w_tap = packed.transpose(1, 2).reshape(cin, 27, cout)  # [ci][tap][co]
+    y = torch.full((B, D, H, W, cout), float("nan"))
+    for q in range(B * nseg * n_h * n_w):
+        b, d0, d1, h0, w0, up = cv.head_block(q, B, D, H, W, cout, sms)
+        acc = [torch.zeros((th, tw, cout)) for _ in range(3)]
+        for st in range(d1 - d0 + 2):
+            p = d0 - 1 + st if up else d1 - st
+            if 0 <= p < D:
+                plane = xp[b, p, h0:h0 + th + 2, w0:w0 + tw + 2]
+                for sl in range(3):
+                    if not d0 <= (p - 1 + sl if up else p + 1 - sl) < d1:
+                        continue
+                    kd = 2 - sl if up else sl
+                    for kh in range(3):
+                        for kw in range(3):
+                            acc[sl] += (plane[kh:kh + th, kw:kw + tw]
+                                        @ w_tap[:, 9 * kd + 3 * kh + kw])
+            out = p - 1 if up else p + 1
+            if d0 <= out < d1:
+                hh, ww = min(th, H - h0), min(tw, W - w0)
+                y[b, out, h0:h0 + hh, w0:w0 + ww] = acc[0][:hh, :ww] + bias
+            acc = [acc[1], acc[2], torch.zeros_like(acc[0])]
+    return y
+
+
+def _im2col_f32_narrow(x):
+    """[B, D, H, W, 2] -> [B*D*H*W, 54] rows, column k = 2 * tap + ci (the
+    f32 narrow kernel's gathered A tile), zero outside the volume."""
+    B, D, H, W, _ = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    taps = [xp[:, kd:kd + D, kh:kh + H, kw:kw + W]
+            for kd in range(3) for kh in range(3) for kw in range(3)]
+    return torch.stack(taps, dim=-2).reshape(-1, 54)
+
+
+@pytest.mark.parametrize("sms", [132, 1])  # 1: segments of many planes
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 5, 7, 9, 16), 2),      # ragged volume, 2 batches
+    ((1, 6, 35, 6, 40), 4),     # two H windows, W = 6, Cin not a chunk multiple
+    ((1, 4, 8, 8, 128), 2),     # the head's width
+])
+def test_pack_weight_head_walk_matches_xla_conv(rng, shape, cout, sms):
+    """The head kernel's D walk and rolling planes over pack_weight_head's
+    layout equal the plain conv and the JAX package's XLA conv (which the
+    JAX head conv runs)."""
+    x, w, b, w_torch = _conv_inputs(rng, shape, cout)
+    packed = cv.pack_weight_head(w_torch)
+    assert tuple(packed.shape) == (shape[-1] // 4, 27, 4, cout)
+    assert cv.pack_weight_kernel(w_torch, torch.float32).shape == packed.shape
+    got = _emulate_head(torch.from_numpy(x), packed, torch.from_numpy(b), sms)
+    ref = np.asarray(_xla_conv3d(jnp.asarray(x), jnp.asarray(w))) + b
+    plain = cv.conv3d_plain(torch.from_numpy(x), w_torch, torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=CONV_RTOL,
+                               atol=CONV_ATOL)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=CONV_RTOL, atol=CONV_ATOL)
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 4, 8, 8, 2), 128),     # the head's dx width
+    ((2, 3, 5, 7, 2), 130),     # ragged Cout past one 128-column tile
+])
+def test_pack_weight_f32_narrow_im2col_matches_xla_conv(rng, shape, cout):
+    """The f32 narrow kernel's arithmetic: the gathered [rows, 54] tile
+    times pack_weight_f32_narrow's [Cout, 54] weight, plus the bias."""
+    x, w, b, w_torch = _conv_inputs(rng, shape, cout)
+    packed = cv.pack_weight_f32_narrow(w_torch)
+    assert tuple(packed.shape) == (cout, cv.F32_NARROW_K)
+    assert cv.pack_weight_kernel(w_torch, torch.float32).shape == packed.shape
+    got = (_im2col_f32_narrow(torch.from_numpy(x)) @ packed.t()
+           + torch.from_numpy(b)).reshape(shape[:-1] + (cout,))
+    ref = np.asarray(_xla_conv3d(jnp.asarray(x), jnp.asarray(w))) + b
+    plain = cv.conv3d_plain(torch.from_numpy(x), w_torch, torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=CONV_RTOL,
+                               atol=CONV_ATOL)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=CONV_RTOL, atol=CONV_ATOL)
+
+
+def test_head_dx_on_its_route_matches_jax_vjp(rng):
+    """The head's dx (dy [.., 2] -> 128): pack_weight_dx packs the flipped,
+    swapped weight for the f32 narrow route, and the kernel's im2col
+    arithmetic on it equals jax.vjp of the XLA conv with respect to x (the
+    JAX package's head gradient) and the plain dx."""
+    import jax
+
+    x, w, _, w_torch = _conv_inputs(rng, (2, 4, 6, 5, 128), 2)
+    dy = rng.standard_normal((2, 4, 6, 5, 2), dtype=np.float32)
+    assert cv.conv3d_route(dy.shape, torch.float32, 128) == "f32_narrow"
+    packed = cv.pack_weight_dx(w_torch, torch.float32)
+    assert tuple(packed.shape) == (128, cv.F32_NARROW_K)
+    got = (_im2col_f32_narrow(torch.from_numpy(dy)) @ packed.t()).reshape(
+        x.shape)
+    _, vjp = jax.vjp(lambda v: _xla_conv3d(v, jnp.asarray(w)), jnp.asarray(x))
+    ref = np.asarray(vjp(jnp.asarray(dy))[0])
+    plain = cv.conv3d_dx(torch.from_numpy(dy), w_torch)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=CONV_RTOL, atol=CONV_ATOL)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=CONV_RTOL,
+                               atol=CONV_ATOL)
+
+
 @pytest.mark.parametrize("dhw", [
     (96, 96, 96), (96, 48, 48), (96, 24, 24), (96, 12, 12), (96, 6, 6),
     (8, 32, 32), (5, 7, 3), (1, 1, 1),

@@ -227,7 +227,7 @@ def test_pack_weight_narrow_im2col_matches_the_conv():
     assert tuple(packed.shape) == (32, cv.NARROW_K)
     assert bool((packed[:, 54:] == 0).all())
     assert cv.pack_weight_kernel(w_t, torch.bfloat16).shape == (32, 64)
-    assert cv.pack_weight_kernel(w_t, torch.float32).shape == (27, 32, 2)
+    assert cv.pack_weight_kernel(w_t, torch.float32).shape == (32, 54)
     got = (torch.from_numpy(_im2col_narrow(x)) @ packed.t()
            + torch.from_numpy(b)).numpy()
     plain = cv.conv3d_plain(torch.from_numpy(x), w_t, torch.from_numpy(b))
@@ -239,9 +239,10 @@ def test_pack_weight_narrow_im2col_matches_the_conv():
 
 def test_narrow_dx_packs_for_its_own_route():
     """The dx of a conv maps Cout -> Cin: its weight is packed for the route
-    of dy (Cout channels), narrow only where Cout = 2 in bf16."""
+    of dy (Cout channels), narrow only where Cout = 2 (bf16 [Cin, 64], f32
+    [Cin, 54])."""
     w = torch.randn((2, 16, 3, 3, 3))
     assert cv.pack_weight_dx(w, torch.bfloat16).shape == (16, 64)
-    assert cv.pack_weight_dx(w, torch.float32).shape == (27, 16, 2)
+    assert cv.pack_weight_dx(w, torch.float32).shape == (16, 54)
     w = torch.randn((128, 2, 3, 3, 3))
     assert cv.pack_weight_dx(w, torch.bfloat16).shape == (27, 2, 128)
