@@ -17,7 +17,11 @@ Phases (each failure exits non-zero before the final line):
                ``csrc/conv3d_head.cu``), each timed beside the previous
                kernel (``csrc/conv3d.cu``) on the same inputs; the head
                also beside the parent's head instance when
-               ``--parent-conv`` names a previous ``csrc/conv3d.cu``;
+               ``--parent-conv`` names a previous ``csrc/conv3d.cu``; K1
+               (GN stats, one launch) also bit for bit twice and alone
+               against in a batch of 2, timed beside ``torch.var_mean``
+               and, with ``--parent-gn``, a previous
+               ``csrc/groupnorm.cu``;
   3. backward — at every distinct conv and GroupNorm shape of one bf16 96^3
                training step (read by hooks): the conv dx kernel, the
                library filter gradient and the GroupNorm Function's backward
@@ -36,10 +40,14 @@ Phases (each failure exits non-zero before the final line):
                the conv launches per forward are checked by route; then a
                torch.profiler breakdown of one forward by kernel family;
   6. fused   — the fused serving path (``fused=True``, the same weights):
-               ``conv3d_fused`` against its plain version at every distinct
-               fused-conv shape of one bf16 96^3 forward (read by hooks),
-               with its stats checked as the next GroupNorm folds them and
-               five sites timed beside the unfused sequence they replace;
+               ``conv3d_fused`` (bf16: the fused instance of
+               ``csrc/conv3d_sm90.cu``) against its plain version at every
+               distinct fused-conv shape of one bf16 96^3 forward (read by
+               hooks), with its stats checked as the next GroupNorm folds
+               them, output and stats bit for bit twice and alone against
+               in a batch of 2, and five sites timed beside the unfused
+               sequence they replace and, with ``--parent-conv``, the
+               previous kernel (the parent's bf16 fused ``csrc/conv3d.cu``);
                the full-width f32 fused model on the card against the CPU
                and the unfused card forward (in the model phase);
                ``denoise_fused``, the denoise phase again on the fused
@@ -73,8 +81,9 @@ Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``.
 
 Weights are random, made from ``--seed``. Imports no JAX. The build
-phase fails on a spill in the Hopper kernels (the wgmma ones and
-``csrc/conv3d_head.cu``), on a serialized wgmma and on an FFMA in K5's SASS
+phase fails on a spill in the Hopper kernels (the wgmma ones, the fused
+K4's instances among them, ``csrc/conv3d_head.cu`` and
+``csrc/groupnorm.cu``), on a serialized wgmma and on an FFMA in K5's SASS
 (its epilogue must not contract the multiply and add).
 """
 
@@ -116,7 +125,7 @@ KERNELS = {
         route="cuda", source="ddpm3d_tpu_torch/csrc/groupnorm.cu",
         replaces="ddpm3d_tpu/ops/groupnorm.py:149"),
     "conv3d_fused": dict(
-        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d.cu",
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_sm90.cu",
         replaces="ddpm3d_tpu/ops/conv3d_fused.py:230"),
     "conv3d_s8": dict(
         route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_s8.cu",
@@ -195,11 +204,13 @@ FORWARD_LAUNCHES["denoise_int8_static"] = FORWARD_LAUNCHES["denoise_int8"]
 # the conv3d launches per forward by kernel route (ops.route_counts): the
 # bf16 torso convs on csrc/conv3d_sm90.cu, the Cin = 2 input conv on
 # csrc/conv3d_narrow.cu, the f32 head conv on csrc/conv3d_head.cu, none on
-# csrc/conv3d.cu; fused: 8 up/down blocks x 2 on sm90
-def _routes(sm90, narrow, head, dx_sm90=0, dx_f32_narrow=0):
+# csrc/conv3d.cu; fused: 8 up/down blocks x 2 on sm90, and every fused
+# conv on the sm90 fused instance (conv3d_fused.sm90), none on conv3d.cu
+def _routes(sm90, narrow, head, dx_sm90=0, dx_f32_narrow=0, fused_sm90=0):
     counts = {f"{what}.{route}": 0 for what in ("conv3d", "conv3d_dx")
               for route in ("sm90", "sm90_narrow", "f32_head", "f32_narrow",
                             "ndhwc")}
+    counts.update({"conv3d_fused.sm90": fused_sm90, "conv3d_fused.ndhwc": 0})
     counts.update({"conv3d.sm90": sm90, "conv3d.sm90_narrow": narrow,
                    "conv3d.f32_head": head, "conv3d_dx.sm90": dx_sm90,
                    "conv3d_dx.f32_narrow": dx_f32_narrow})
@@ -208,7 +219,7 @@ def _routes(sm90, narrow, head, dx_sm90=0, dx_f32_narrow=0):
 
 FORWARD_ROUTES = {
     "denoise": _routes(70, 1, 1),
-    "denoise_fused": _routes(16, 1, 1),
+    "denoise_fused": _routes(16, 1, 1, fused_sm90=54),
     "denoise_int8": _routes(0, 1, 1),
 }
 FORWARD_ROUTES["denoise_int8_static"] = FORWARD_ROUTES["denoise_int8"]
@@ -278,17 +289,20 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"FAILED: {what}")
 
 
+# the wgmma sources (conv3d_sm90 holds K3 and the fused K4's instances)
 WGMMA_SOURCES = ("conv3d_sm90", "conv3d_s8", "conv3d_narrow")
-# sources whose kernels must not spill: the wgmma ones and the f32 head's
-NO_SPILL_SOURCES = WGMMA_SOURCES + ("conv3d_head",)
+# sources whose kernels must not spill: the wgmma ones, the f32 head's and
+# the GroupNorm kernels
+NO_SPILL_SOURCES = WGMMA_SOURCES + ("conv3d_head", "groupnorm")
 # study builds compiled beside the package's sources (chip_smoke's own
 # names): K5 with every phase tile running all 27 taps, and the previous
-# K5 / csrc/conv3d.cu when --parent-s8 / --parent-conv names its source
+# K5 / csrc/conv3d.cu / csrc/groupnorm.cu when --parent-s8 / --parent-conv
+# / --parent-gn names its source
 VARIANTS = {"s8_all_taps": ("ddpm3d_tpu_torch/csrc/conv3d_s8.cu",
                             ("-DCONV3D_S8_ALL_TAPS",))}
 
 
-def phase_build(parent_s8=None, parent_conv=None) -> dict:
+def phase_build(parent_s8=None, parent_conv=None, parent_gn=None) -> dict:
     """Build every source and the study variants in parallel; check the
     ptxas reports and K5's SASS. Returns {variant: ctypes library}."""
     from ddpm3d_tpu_torch.ops import _build
@@ -298,6 +312,8 @@ def phase_build(parent_s8=None, parent_conv=None) -> dict:
         variants["s8_parent"] = (parent_s8, ())
     if parent_conv:
         variants["conv_parent"] = (parent_conv, ())
+    if parent_gn:
+        variants["gn_parent"] = (parent_gn, ())
     root = os.path.dirname(os.path.abspath(__file__))
     variants = {k: (os.path.join(root, src), flags)
                 for k, (src, flags) in variants.items()}
@@ -379,6 +395,7 @@ GN_TIMED = [  # (N, C, dtype, film, silu)
     (96 ** 3, 128, torch.bfloat16, True, True),    # out_norm + FiLM
     (96 ** 3, 128, torch.float32, False, True),    # f32 head norm
     (96 * 6 * 6, 1024, torch.bfloat16, False, True),
+    (96 * 6 * 6, 512, torch.bfloat16, True, True),  # level-4 out_norm
 ]
 
 
@@ -405,6 +422,30 @@ def _ndhwc_conv(x, wp, bias, lib=None):
     return y
 
 
+def _parent_gn_stats(lib, x):
+    """K1 of a previous ``csrc/groupnorm.cu`` (two launches: row-split
+    partials of max(64, ceil(N / 1024)) rows, then a one-block-per-slice
+    finish; its entry point ``gn_stats_launch(x, part, stats, B, N, C,
+    rows, dtype, stream)``) on the same input."""
+    import ctypes
+
+    from ddpm3d_tpu_torch.ops import _build
+
+    B, N, C = x.shape
+    rows = max(64, -(-N // 1024))
+    S = -(-N // rows)
+    part = torch.empty((B * S * 2 * C,), dtype=torch.float32, device=x.device)
+    stats = torch.empty((B, 2, C), dtype=torch.float32, device=x.device)
+    fn = lib.gn_stats_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(x.data_ptr(), part.data_ptr(), stats.data_ptr(), B, N, C,
+                    rows, 1 if x.dtype == torch.bfloat16 else 0,
+                    torch.cuda.current_stream().cuda_stream),
+                 "gn_stats_launch (parent)")
+    return stats
+
+
 def _conv_tile(cv, x, cout, route):
     """The output tile the conv's launch uses (sm90: 256 or 128 rows; the
     head: its (H, W) window and D segments per volume; the narrow kernels
@@ -422,11 +463,14 @@ def _conv_tile(cv, x, cout, route):
 
 
 def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes,
-                  conv_parent=None) -> dict:
+                  conv_parent=None, gn_parent=None) -> dict:
     """Each kernel against its plain version at every distinct shape of the
     main path; the shapes of CONV_TIMED / GN_TIMED are timed too, the f32
     head also beside ``conv_parent`` (a build of the parent's
-    csrc/conv3d.cu, whose Cout <= 8 instance carried it) when given."""
+    csrc/conv3d.cu, whose Cout <= 8 instance carried it) when given, K1
+    beside ``gn_parent`` (the parent's csrc/groupnorm.cu) when given. K1
+    is also checked bit for bit between two runs and between a volume
+    alone and in a batch of 2."""
     from ddpm3d_tpu_torch.ops import conv3d as cv
     from ddpm3d_tpu_torch.ops import groupnorm as gn
 
@@ -540,8 +584,29 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes,
                             library_ms=time_ms(lfn) if lfn else None,
                             bound_ms=bms, bound_by=by,
                             gb_per_s=nbytes / ms / 1e6)
+                if name == "gn_stats":
+                    line["parent_ms"] = None
+                    if gn_parent is not None:
+                        p_st = _parent_gn_stats(gn_parent, x)
+                        line["parent_rel_err"] = rel_err(p_st, st_ref)[1]
+                        line["parent_ms"] = time_ms(
+                            lambda: _parent_gn_stats(gn_parent, x))
+            if name == "gn_stats":
+                # one launch, fixed order: equal on a second run and for
+                # volume 1 of a batch of 2 (its own data) alone
+                x2 = torch.cat([x, (x.float() * 0.5 - 0.25).to(dt)])
+                st2 = gn.channel_stats(x2)
+                line["deterministic"] = bool(torch.equal(st, gn.channel_stats(x)))
+                line["batch_invariant"] = bool(torch.equal(
+                    st2[:1], st) and torch.equal(
+                        st2[1:], gn.channel_stats(x2[1:].contiguous())))
+                del x2
             emit(line)
             check(rel <= tol, f"{name} {line['shape']} rel err {rel}")
+            if name == "gn_stats":
+                check(line["deterministic"] and line["batch_invariant"],
+                      f"gn_stats {line['shape']} is deterministic and "
+                      f"batch-invariant")
             checked[name] += 1
             summary.setdefault(name, line)
         check(f_rel <= TOL[dt], f"group_norm end to end rel err {f_rel}")
@@ -594,18 +659,77 @@ FUSED_TIMED = [
 ]
 
 
-def phase_fused_kernels(gen: torch.Generator, shapes) -> dict:
+def _parent_fused(lib, x, wp, b, kw):
+    """The bf16 fused instance of a previous ``csrc/conv3d.cu`` (its
+    ``conv3d_fused_launch``: mma.sync, 128-row tiles of ``pick_tile``, a
+    two-level stats finish) on the same inputs: the kernel K4 replaces."""
+    from ddpm3d_tpu_torch.ops import _build
+    from ddpm3d_tpu_torch.ops import conv3d as cv
+    from ddpm3d_tpu_torch.ops import conv3d_fused as fo
+
+    B, D, H, W, cin = x.shape
+    cout = wp.shape[1]
+    td, th, tw = cv.pick_tile(D, H, W)
+    y = torch.empty((B, D, H, W, cout), dtype=x.dtype, device=x.device)
+    part = part2 = stats = None
+    if kw.get("want_stats"):
+        tiles = -(-D // td) * -(-H // th) * -(-W // tw)
+        groups = -(-tiles // fo.STATS_GROUP)
+        part = torch.empty((B * tiles * 2 * cout,), device=x.device)
+        part2 = torch.empty((B * groups * 2 * cout,), device=x.device)
+        stats = torch.empty((B, 2, cout), device=x.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _build.variant_fn(lib, "conv3d_fused_launch")(
+        x.data_ptr(), wp.data_ptr(), b.data_ptr(), ptr(kw.get("prologue_g")),
+        ptr(kw.get("prologue_b")), int(kw.get("prologue_silu", True)),
+        ptr(kw.get("skip")), y.data_ptr(), ptr(part), ptr(part2), ptr(stats),
+        B, D, H, W, cin, cout, td, th, tw, 1,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "conv3d_fused_launch (parent)")
+    return (y, stats) if kw.get("want_stats") else y
+
+
+def _fused_exact(fo, x, wp, b, kw, gen) -> dict:
+    """The sm90 fused conv repeats itself bit for bit, and volume 0 of a
+    batch of 2 (the second volume other data) equals it alone: output and
+    stats."""
+    got = fo.conv3d_fused_kernel(x, wp, b, **kw)
+    again = fo.conv3d_fused_kernel(x, wp, b, **kw)
+    other = (torch.randn(x.shape, generator=gen, device=x.device)
+             .to(x.dtype))
+    kw2 = dict(kw)
+    for key in ("prologue_g", "prologue_b"):
+        if kw.get(key) is not None:
+            kw2[key] = torch.cat([kw[key], kw[key].flip(1)])
+    if kw.get("skip") is not None:
+        kw2["skip"] = torch.cat([kw["skip"], kw["skip"].flip(-1)])
+    both = fo.conv3d_fused_kernel(torch.cat([x, other]), wp, b, **kw2)
+    torch.cuda.synchronize()
+    pairs = [(got, again, both)] if not kw.get("want_stats") else \
+        [(got[0], again[0], both[0]), (got[1], again[1], both[1])]
+    return dict(deterministic=all(torch.equal(a, c) for a, c, _ in pairs),
+                batch_invariant=all(torch.equal(a, z[:1]) for a, _, z in pairs))
+
+
+def phase_fused_kernels(gen: torch.Generator, shapes, conv_parent=None) -> dict:
     """``conv3d_fused`` against its plain version at every distinct fused
     shape with the flags the model uses there: the output at TOL, the stats
-    as the next GroupNorm folds them. At the FUSED_TIMED sites also the
-    kernel, plain and bound times and the unfused sequence the kernel
-    replaces (K2 gn_apply + K3 conv + skip add + K1 channel_stats): no
-    single PyTorch call computes this function."""
+    as the next GroupNorm folds them; at every distinct shape also bit for
+    bit between two runs and between a volume alone and in a batch of 2.
+    At the FUSED_TIMED sites also the kernel, plain and bound times, the
+    unfused sequence the kernel replaces (K2 gn_apply + K3 conv + skip add
+    + K1 channel_stats; no single PyTorch call computes this function) and,
+    with ``conv_parent`` (a previous csrc/conv3d.cu), the kernel it
+    replaces (``previous_ms``)."""
     from ddpm3d_tpu_torch.ops import conv3d as cv
     from ddpm3d_tpu_torch.ops import conv3d_fused as fo
     from ddpm3d_tpu_torch.ops import groupnorm as gn
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for case in FUSED_TIMED:
         check(case in shapes, f"timed fused conv {case} is on the fused path")
     summary, checked, worst = None, 0, collections.defaultdict(float)
@@ -635,8 +759,11 @@ def phase_fused_kernels(gen: torch.Generator, shapes) -> dict:
         err, rel = rel_err(out, ref_out)
         line = dict(kernel="conv3d_fused", shape=[B, D, H, W, cin], cout=cout,
                     dtype=str(dt).split(".")[-1], prologue=pro, silu=silu,
-                    skip=use_skip, stats=stats, tile=list(cv.pick_tile(D, H, W)),
+                    skip=use_skip, stats=stats,
+                    route=fo.conv3d_fused_route(x.shape, dt),
+                    tile=list(fo.fused_tile(D, H, W, cout, sms)),
                     max_abs_err=err, rel_err=rel, tol=TOL[dt])
+        line.update(_fused_exact(fo, x, wp, b, kw, gen))
         if stats:
             ones = torch.ones(cout, device=dev)
             zeros = torch.zeros(cout, device=dev)
@@ -673,10 +800,20 @@ def phase_fused_kernels(gen: torch.Generator, shapes) -> dict:
             bms, by = bound(flops, nbytes, dt)
             line.update(kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms,
                         bound_by=by, unfused_sequence_ms=seq_ms,
-                        library_ms=None, tflops=flops / ms / 1e9)
+                        library_ms=None, tflops=flops / ms / 1e9,
+                        previous_ms=None)
+            if conv_parent is not None:
+                prev = _parent_fused(conv_parent, x, wp, b, kw)
+                prev = prev[0] if stats else prev
+                line["previous_rel_err"] = rel_err(prev, ref_out)[1]
+                line["previous_ms"] = time_ms(
+                    lambda: _parent_fused(conv_parent, x, wp, b, kw))
         emit(line)
         check(rel <= TOL[dt], f"conv3d_fused {line['shape']}->{cout} "
               f"{case[6:]} rel err {rel}")
+        check(line["deterministic"] and line["batch_invariant"],
+              f"conv3d_fused {line['shape']}->{cout} {case[6:]} repeats "
+              f"exactly and alone equals in a batch of 2")
         if stats:
             check(line["stats_fold_rel_err"] <= STATS_FOLD_TOL,
                   f"conv3d_fused stats fold rel err {line['stats_fold_rel_err']}")
@@ -690,7 +827,8 @@ def phase_fused_kernels(gen: torch.Generator, shapes) -> dict:
             summary = line
         del x, got, ref, out, ref_out
     emit({"phase": "fused_kernels", "shapes_checked": checked,
-          "worst_rel_err": dict(worst)})
+          "worst_rel_err": dict(worst), "deterministic": True,
+          "batch_invariant": True})
     return dict(summary, shapes_checked=checked)
 
 
@@ -750,14 +888,19 @@ def phase_model(seed: int) -> None:
         ops.reset_launch_counts()
         out_fused = fused.cuda()(x.cuda(), t.cuda(), low_res=low.cuda()).cpu()
     n_fused = ops.launch_counts()["conv3d_fused"]
+    fused_routes = {k: v for k, v in ops.route_counts().items()
+                    if k.startswith("conv3d_fused.") and v}
     rel_cpu = rel_err(out_fused, ref_fused)[1]
     rel_unfused = rel_err(out_fused, out)[1]
     emit({"phase": "model_fused", "shape": list(x.shape), "channels": 128,
           "dtype": "float32", "rel_err_vs_cpu": rel_cpu,
           "rel_err_vs_unfused_card": rel_unfused, "tol": MODEL_TOL,
-          "conv3d_fused_launches": n_fused})
+          "conv3d_fused_launches": n_fused, "routes": fused_routes})
     check(n_fused == FORWARD_LAUNCHES["denoise_fused"]["conv3d_fused"],
           f"fused model launched conv3d_fused {n_fused} times")
+    # f32 fused convs stay on csrc/conv3d.cu's f32 instance
+    check(fused_routes == {"conv3d_fused.ndhwc": n_fused},
+          f"f32 fused model routes {fused_routes}")
     check(rel_cpu <= MODEL_TOL, f"fused model card vs CPU rel err {rel_cpu}")
     check(rel_unfused <= MODEL_TOL,
           f"fused vs unfused card forward rel err {rel_unfused}")
@@ -883,20 +1026,20 @@ def check_volumes(phase, volume, other, eps, other_eps, forward_tol,
 
 # kernel families of a profile, by substrings of the device kernels' names
 FORWARD_FAMILIES = {
-    # the fused instances of the bf16 conv template (kFused = true; names
-    # demangled or mangled) and their stats finish; listed first, so that
-    # the conv families below take only the plain conv
-    "conv3d_fused": ("conv3d_bf16_kernel<true, true>",
-                     "conv3d_bf16_kernel<false, true>",
-                     "conv3d_bf16_kernelILb1ELb1E", "conv3d_bf16_kernelILb0ELb1E",
-                     "stats_sum_kernel"),
+    # the fused instances of the sm90 conv (kFused = true; names demangled
+    # or mangled) and their stats finish; listed first, so that the conv
+    # families below take only the plain conv
+    "conv3d_fused": ("conv3d_sm90_kernel<1, true>",
+                     "conv3d_sm90_kernel<2, true>",
+                     "conv3d_sm90_kernelILi1ELb1E",
+                     "conv3d_sm90_kernelILi2ELb1E", "fused_stats_finish"),
     "conv3d_sm90": ("conv3d_sm90_kernel",),
     "conv3d_narrow": ("conv3d_narrow_kernel",),
     "conv3d_bf16": ("conv3d_bf16_kernel",),
     "conv3d_head": ("conv3d_head_kernel",),
     "conv3d_f32_narrow": ("conv3d_f32_narrow_kernel",),
     "conv3d_f32": ("conv3d_f32_kernel",),
-    "gn_stats": ("gn_partial_kernel", "gn_finish_kernel"),
+    "gn_stats": ("gn_stats_kernel",),
     "gn_apply": ("gn_apply_kernel",),
 }
 TRAIN_FAMILIES = dict(
@@ -1699,9 +1842,14 @@ def main() -> None:
                     help="a previous csrc/conv3d_s8.cu (same C entry point) "
                          "to time beside K5 at the timed int8 sites")
     ap.add_argument("--parent-conv", metavar="FILE",
-                    help="a previous csrc/conv3d.cu (same C entry point) "
+                    help="a previous csrc/conv3d.cu (same C entry points) "
                          "whose Cout <= 8 instance is timed beside the "
-                         "f32 head kernel")
+                         "f32 head kernel and whose bf16 fused instance "
+                         "beside K4")
+    ap.add_argument("--parent-gn", metavar="FILE",
+                    help="a previous csrc/groupnorm.cu whose two-launch "
+                         "gn_stats_launch (x, part, stats, ...) is timed "
+                         "beside K1")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1713,7 +1861,7 @@ def main() -> None:
           "count": torch.cuda.device_count()})
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
 
-    libs = phase_build(args.parent_s8, args.parent_conv)
+    libs = phase_build(args.parent_s8, args.parent_conv, args.parent_gn)
     model, sched, cfg = _model(use_fp16=True, seed=args.seed)
     model.cuda()
     fused = _model(use_fp16=True, seed=args.seed, fused=True)[0]
@@ -1725,8 +1873,10 @@ def main() -> None:
     int8m.load_state_dict(model.state_dict(), strict=True)
     int8m.cuda()
     summary = phase_kernels(gen, *main_path_shapes(model),
-                            conv_parent=libs.get("conv_parent"))
-    summary["conv3d_fused"] = phase_fused_kernels(gen, fused_path_shapes(fused))
+                            conv_parent=libs.get("conv_parent"),
+                            gn_parent=libs.get("gn_parent"))
+    summary["conv3d_fused"] = phase_fused_kernels(
+        gen, fused_path_shapes(fused), conv_parent=libs.get("conv_parent"))
     summary["conv3d_s8"] = phase_s8_kernels(gen, int8_path_shapes(int8m),
                                             libs)
     from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
@@ -1770,6 +1920,17 @@ def main() -> None:
         extra = {}
         if name == "conv3d_fused":  # serving only: no single library call
             extra["unfused_sequence_ms"] = s["unfused_sequence_ms"]
+            # the kernel it replaces (the parent's csrc/conv3d.cu, or None)
+            extra["previous_ms"] = s["previous_ms"]
+            extra["routes_by_path"] = {
+                path: {k: v for k, v in c["routes"].items()
+                       if k.startswith("conv3d_fused.")}
+                for path, c in (("denoise", denoise_counts),
+                                ("denoise_fused", fused_counts),
+                                ("denoise_int8", int8_counts),
+                                ("train", train["launches"]))}
+        if name == "gn_stats":  # the parent's two-launch K1 (or None)
+            extra["parent_ms"] = s["parent_ms"]
         if name == "conv3d_s8":  # the bf16 conv it replaces at that site
             extra["k3_bf16_ms"] = s["k3_bf16_ms"]
             extra["parent_ms"] = s.get("parent_ms")

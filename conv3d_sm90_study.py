@@ -8,6 +8,8 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 conv3d_sm90_study.py [--against OTHER.cu]
     python3 conv3d_sm90_study.py --s8 [--against OTHER_S8.cu]
     python3 conv3d_sm90_study.py --head [--against OLD_CONV3D.cu]
+    python3 conv3d_sm90_study.py --fused [--against OLD_CONV3D.cu]
+                                         [--against-gn OLD_GROUPNORM.cu]
 
 Writes the committed source's ablations (and ``--against`` another version
 of the source, same C entry point, for an A/B in one run on one card) to
@@ -61,6 +63,30 @@ first tile only) and ``t256`` (256-thread blocks, two per SM), beside cuDNN's da
 instance of ``csrc/conv3d.cu``), and a plain 453 MB ``fill_`` (the bytes
 the dx writes); then the card's FFMA rate alone (independent register
 chains, no memory traffic), the practical ceiling of both kernels.
+
+With ``--fused`` the bf16 fused ResBlock conv (K4, the fused instance of
+``csrc/conv3d_sm90.cu``) in parts, each beside plain K3 on the same
+inputs, at the model's fused sites: the kernel as committed with every
+part off (``none``), the prologue alone (``pro``), the skip alone
+(``skip``), the stats alone (``stats``) and all three (``all``); then
+study builds with all three: ``cons`` (the prologue in the consumer
+warpgroups at the start of each chunk, as ``csrc/conv3d.cu`` did),
+``frag`` (the skip read straight into the fragments from device memory),
+``exact`` (the correctly rounded expf and reciprocal in the SiLU) and
+``tap1`` / ``tap8`` (the next chunk's halo issued at tap 1 or 8, not 4);
+``lean`` (``-DCONV3D_SM90_PROLOGUE_ONLY``: the skip and stats code
+compiled out) with every part off and with the prologue alone; beside
+them
+the unfused sequence (K2 + K3 + skip add + K1) and ``--against`` (a
+previous ``csrc/conv3d.cu``, whose bf16 fused instance carried K4). Every
+variant's output is checked against the plain version; where the fused
+route's tile (``ops/conv3d_fused.py:fused_tile``) differs from the conv's,
+also all three parts on the conv's tile (``k3_tile``). Then K1 (GN
+stats): as committed, ``unroll1`` (``-DGN_STATS_UNROLL=1``: one load in
+flight per thread), rows per split halved and doubled, beside
+``torch.var_mean`` and ``--against-gn`` (a previous
+``csrc/groupnorm.cu``, two launches), and a plain 16-byte read of the same
+bytes (``torch.sum`` over the tensor) as the practical read rate.
 Imports no JAX.
 """
 
@@ -81,7 +107,9 @@ sys.path.insert(0, ROOT)
 
 from ddpm3d_tpu_torch.ops import _build  # noqa: E402
 from ddpm3d_tpu_torch.ops import conv3d as cv  # noqa: E402
+from ddpm3d_tpu_torch.ops import conv3d_fused as fo  # noqa: E402
 from ddpm3d_tpu_torch.ops import conv3d_s8 as s8  # noqa: E402
+from ddpm3d_tpu_torch.ops import groupnorm as gn  # noqa: E402
 from ddpm3d_tpu_torch.ops.phase_up import phase_window_mask  # noqa: E402
 
 OUT = os.path.join(ROOT, "chiprun_out", "conv3d_sm90_study")
@@ -480,6 +508,234 @@ extern "C" int ffma_peak_launch(void* out, int blocks, int iters,
 """
 
 
+# the fused study: (B, D, H, W, Cin), Cout, skip — the model's fused sites
+FUSED_SHAPES = (
+    ((1, 96, 96, 96, 128), 128, True),    # level-0 ResBlock out_conv
+    ((1, 96, 96, 96, 256), 128, False),   # level-0 decoder in_conv
+    ((1, 96, 48, 48, 256), 128, False),   # level-1 decoder in_conv
+    ((1, 96, 6, 6, 1024), 512, False),    # level-4 decoder in_conv
+)
+FUSED_BUILDS = {
+    "cons": ("-DCONV3D_SM90_PROLOGUE_IN_CONSUMERS",),
+    "frag": ("-DCONV3D_SM90_SKIP_FRAGMENT",),
+    "exact": ("-DCONV3D_SM90_EXACT_SILU",),
+    "tap1": ("-DCONV3D_SM90_FUSED_HALO_TAP=1",),
+    "tap8": ("-DCONV3D_SM90_FUSED_HALO_TAP=8",),
+    "lean": ("-DCONV3D_SM90_PROLOGUE_ONLY",),
+}
+PARTS = {"none": (0, 0, 0), "pro": (1, 0, 0), "skip": (0, 1, 0),
+         "stats": (0, 0, 1), "all": (1, 1, 1)}
+
+
+def launch_fused(fn, x, wp, b, pg, pb, sk, parts, y, part, st, tile):
+    """One launch of a build's ``conv3d_sm90_fused_launch`` with the parts
+    (prologue, skip, stats) on or off."""
+    B, D, H, W, cin = x.shape
+    pro, skip, stats = parts
+    err = fn(x.data_ptr(), wp.data_ptr(), b.data_ptr(),
+             pg.data_ptr() if pro else None, pb.data_ptr() if pro else None,
+             1, sk.data_ptr() if skip else None, y.data_ptr(),
+             part.data_ptr() if stats else None,
+             st.data_ptr() if stats else None, B, D, H, W, cin, wp.shape[1],
+             *tile, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "conv3d_sm90_fused_launch")
+
+
+def launch_fused_old(fn, x, wp, b, pg, pb, sk):
+    """The previous kernel: the bf16 fused instance of an older
+    ``csrc/conv3d.cu`` (``conv3d_fused_launch``) with every part on."""
+    B, D, H, W, cin = x.shape
+    cout = wp.shape[1]
+    td, th, tw = cv.pick_tile(D, H, W)
+    tiles = -(-D // td) * -(-H // th) * -(-W // tw)
+    y = torch.empty((B, D, H, W, cout), dtype=x.dtype, device=x.device)
+    part = torch.empty((B * tiles * 2 * cout,), device=x.device)
+    part2 = torch.empty((B * -(-tiles // fo.STATS_GROUP) * 2 * cout,),
+                        device=x.device)
+    st = torch.empty((B, 2, cout), device=x.device)
+    err = fn(x.data_ptr(), wp.data_ptr(), b.data_ptr(), pg.data_ptr(),
+             pb.data_ptr(), 1, None if sk is None else sk.data_ptr(),
+             y.data_ptr(), part.data_ptr(), part2.data_ptr(), st.data_ptr(),
+             B, D, H, W, cin, cout, td, th, tw, 1,
+             torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "conv3d_fused_launch (previous)")
+    return y
+
+
+def study_fused(fns, old, gen, shape, cout, use_skip) -> dict:
+    """K4's parts and builds at one site, three rounds each."""
+    dev = torch.device("cuda")
+    B, D, H, W, cin = shape
+    x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).bfloat16()
+    w = torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev) \
+        * (27 * cin) ** -0.5
+    b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+    pg = 0.5 * (1 + 0.1 * torch.randn((B, cin), generator=gen, device=dev))
+    pb = -0.25 + 0.1 * torch.randn((B, cin), generator=gen, device=dev)
+    sk = torch.randn(shape[:-1] + (cout,), generator=gen, device=dev) \
+        .bfloat16() if use_skip else None
+    wp = cv.pack_weight(w, torch.bfloat16)
+    tile = fo.fused_tile(D, H, W, cout)
+    T = -(-D // tile[0]) * -(-H // tile[1]) * -(-W // tile[2])
+    y = torch.empty(shape[:-1] + (cout,), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((B * T * 2 * cout,), device=dev)
+    st = torch.empty((B, 2, cout), device=dev)
+    ref = fo.conv3d_fused_plain(x, w.bfloat16(), b, prologue_g=pg,
+                                prologue_b=pb, skip=sk)
+    skx = sk if sk is not None else torch.zeros_like(y)
+
+    def unfused():
+        h = gn.gn_apply(x.reshape(B, -1, cin), pg, pb, True).reshape(x.shape)
+        out = cv.conv3d_kernel(h, wp, b)
+        if sk is not None:
+            out = out + sk
+        gn.channel_stats(out.reshape(B, -1, cout))
+
+    flops = 2.0 * 27 * cin * cout * D * H * W * B
+    line = dict(shape=list(shape), cout=cout, has_skip=use_skip,
+                tile=list(tile), conv_tile=list(cv.sm90_tile(*shape[:4], cout)),
+                bound_ms=flops / H100_BF16_FLOPS * 1e3)
+    runs = {"k3": lambda: cv.conv3d_kernel(x, wp, b), "unfused": unfused}
+    for part_name, parts in PARTS.items():
+        if part_name == "skip" and sk is None:
+            continue
+        if sk is None:  # "all" without a skip at this site
+            parts = (parts[0], 0, parts[2])
+        runs[part_name] = (lambda p=parts: launch_fused(
+            fns["base"], x, wp, b, pg, pb, skx, p, y, part, st, tile))
+    for name, fn in fns.items():
+        if name == "lean":  # no skip or stats code: parts off, prologue on
+            for pn, parts in (("none", (0, 0, 0)), ("pro", (1, 0, 0))):
+                runs[f"lean.{pn}"] = (lambda f=fn, p=parts: launch_fused(
+                    f, x, wp, b, pg, pb, skx, p, y, part, st, tile))
+        elif name != "base":
+            runs[name] = (lambda f=fn: launch_fused(
+                f, x, wp, b, pg, pb, skx, (1, int(sk is not None), 1), y,
+                part, st, tile))
+    k3_tile = cv.sm90_tile(*shape[:4], cout)
+    if k3_tile != tile:  # all three parts on the conv's own tile
+        T3 = -(-D // k3_tile[0]) * -(-H // k3_tile[1]) * -(-W // k3_tile[2])
+        part3 = torch.empty((B * T3 * 2 * cout,), device=dev)
+        runs["k3_tile"] = lambda: launch_fused(
+            fns["base"], x, wp, b, pg, pb, skx, (1, int(sk is not None), 1),
+            y, part3, st, k3_tile)
+    if old is not None:
+        runs["against"] = lambda: launch_fused_old(old, x, wp, b, pg, pb, sk)
+    for name, run in runs.items():
+        if (name in fns and name != "lean") or name in (
+                "all", "against", "k3_tile"):
+            out = run()
+            out = y if out is None else out
+            torch.cuda.synchronize()
+            line[name + "_rel_err"] = (
+                (out.float() - ref.float()).abs().max()
+                / ref.float().abs().max()).item()
+    for _ in range(3):
+        for name, run in runs.items():
+            line.setdefault(name, []).append(time_ms(run))
+    return line
+
+
+def study_gn(fns, old, gen) -> list:
+    """K1's variants at the main path's widest and deepest GN shapes."""
+    lines = []
+    for N, C, dt in ((96 ** 3, 128, torch.bfloat16),
+                     (96 ** 3, 128, torch.float32),
+                     (96 * 6 * 6, 512, torch.bfloat16),
+                     (96 * 6 * 6, 1024, torch.bfloat16)):
+        x = (torch.randn((1, N, C), generator=gen, device="cuda") * 2
+             + 0.5).to(dt)
+        ref = gn.channel_stats_plain(x)
+        code = 1 if dt == torch.bfloat16 else 0
+        v = 8 if code else 4
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def k1(fn, rows):
+            S = -(-N // rows)
+            CS = -(-C // (gn.STATS_LANES * v))
+            stats = torch.empty((1, 2, C), device="cuda")
+            ticket, part = gn._stats_scratch(x.device, stream, CS,
+                                             CS * S * 2 * gn.STATS_LANES * v)
+            _build.check(fn(x.data_ptr(), part.data_ptr(), ticket.data_ptr(),
+                            stats.data_ptr(), 1, N, C, rows, code, stream),
+                         "gn_stats_launch")
+            return stats
+
+        def k1_old():
+            rows = max(64, -(-N // 1024))
+            part = torch.empty((-(-N // rows) * 2 * C,), device="cuda")
+            stats = torch.empty((1, 2, C), device="cuda")
+            _build.check(old(x.data_ptr(), part.data_ptr(), stats.data_ptr(),
+                             1, N, C, rows, code, stream), "gn_stats_launch")
+            return stats
+
+        rows = gn.rows_per_split(N)
+        runs = {"base": lambda: k1(fns["base"], rows),
+                "unroll1": lambda: k1(fns["unroll1"], rows),
+                "rows_half": lambda: k1(fns["base"], max(1, rows // 2)),
+                "rows_double": lambda: k1(fns["base"], 2 * rows),
+                "var_mean": lambda: torch.var_mean(
+                    x.reshape(1, N, 32, C // 32), dim=(1, 3)),
+                "read_sum": lambda: torch.sum(x, dtype=torch.float32)}
+        if old is not None:
+            runs["against"] = k1_old
+        line = dict(shape=[1, N, C], dtype=str(dt).split(".")[-1],
+                    rows_per_split=rows,
+                    bound_ms=x.numel() * x.element_size() / 3.35e12 * 1e3)
+        for name in ("base", "unroll1", "rows_half", "rows_double",
+                     "against"):
+            if name in runs:
+                out = runs[name]()
+                torch.cuda.synchronize()
+                line[name + "_rel_err"] = (
+                    (out - ref).abs().max() / ref.abs().max()).item()
+        for _ in range(3):
+            for name, run in runs.items():
+                line.setdefault(name, []).append(time_ms(run))
+        lines.append(line)
+    return lines
+
+
+def main_fused(against, against_gn) -> None:
+    src = os.path.join(ROOT, "ddpm3d_tpu_torch", "csrc", "conv3d_sm90.cu")
+    gsrc = os.path.join(ROOT, "ddpm3d_tpu_torch", "csrc", "groupnorm.cu")
+    jobs = {f"fused_{k}": (src, flags) for k, flags in FUSED_BUILDS.items()}
+    jobs["gn_unroll1"] = (gsrc, ("-DGN_STATS_UNROLL=1",))
+    os.makedirs(OUT, exist_ok=True)
+    for name, text in (("fused_against", against), ("gn_against", against_gn)):
+        if text is not None:
+            path = os.path.join(OUT, f"{name}.cu")
+            with open(path, "w") as f:
+                f.write(text)
+            jobs[name] = (path, ())
+    libs = _build.build_variants(jobs)
+    paths = _build.build_all()
+    for line in open(paths["conv3d_sm90"] + ".log"):
+        if any(k in line for k in ("registers", "spill", "serialized")):
+            print(f"ptxas[conv3d_sm90]: {line.strip()}")
+    fns = {"base": _build.fn("conv3d_sm90_fused_launch")}
+    fns.update({k: _build.variant_fn(libs[f"fused_{k}"],
+                                     "conv3d_sm90_fused_launch")
+                for k in FUSED_BUILDS})
+    old = (_build.variant_fn(libs["fused_against"], "conv3d_fused_launch")
+           if "fused_against" in libs else None)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    warm(gen)
+    for shape, cout, use_skip in FUSED_SHAPES:
+        print(json.dumps(study_fused(fns, old, gen, shape, cout, use_skip)),
+              flush=True)
+    gfns = {"base": _build.fn("gn_stats_launch"),
+            "unroll1": _build.variant_fn(libs["gn_unroll1"], "gn_stats_launch")}
+    gold = None
+    if "gn_against" in libs:
+        gold = libs["gn_against"].gn_stats_launch
+        gold.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        gold.restype = ctypes.c_int
+    for line in study_gn(gfns, gold, gen):
+        print(json.dumps(line), flush=True)
+
+
 def ffma_peak() -> dict:
     """TFLOP/s of FFMA alone on this card (2 FLOP per FFMA)."""
     os.makedirs(OUT, exist_ok=True)
@@ -529,6 +785,11 @@ def main() -> None:
                     help="study the int8 kernel (csrc/conv3d_s8.cu)")
     ap.add_argument("--head", action="store_true",
                     help="study the f32 head kernels (csrc/conv3d_head.cu)")
+    ap.add_argument("--fused", action="store_true",
+                    help="study the bf16 fused conv (csrc/conv3d_sm90.cu's "
+                         "fused instance) and GN stats (csrc/groupnorm.cu)")
+    ap.add_argument("--against-gn",
+                    help="with --fused: a previous csrc/groupnorm.cu")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("conv3d_sm90_study: no CUDA device available")
@@ -539,6 +800,14 @@ def main() -> None:
             against = f.read()
     if args.s8:
         main_s8(against)
+        smi()
+        return
+    if args.fused:
+        against_gn = None
+        if args.against_gn:
+            with open(args.against_gn) as f:
+                against_gn = f.read()
+        main_fused(against, against_gn)
         smi()
         return
     if args.head:

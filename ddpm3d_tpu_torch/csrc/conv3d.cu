@@ -36,36 +36,36 @@
 //    tile and columns past Cout are masked there.
 // wgmma/TMA and a persistent schedule are later work.
 //
-// The fused ResBlock conv (conv3d_fused_launch) replaces the TPU kernel
-// ddpm3d_tpu/ops/conv3d_fused.py:_fused_kernel (reached through
-// conv3d_fused). It is the same kernel template with kFused = true; the
-// kFused = false instances are the plain conv above, unchanged:
+// The fused ResBlock conv in f32 (conv3d_fused_launch) replaces the TPU
+// kernel ddpm3d_tpu/ops/conv3d_fused.py:_fused_kernel (reached through
+// conv3d_fused) for f32 models (the f32 model checks); the bf16 fused conv
+// is the fused instance of csrc/conv3d_sm90.cu. It is the f32 kernel
+// template with kFused = true; the kFused = false instances are the plain
+// conv above, unchanged:
 //
-//   xn = silu?(x * g[b,ci] + b[b,ci])   f32, in-volume voxels only, rounded
-//                                       to x's dtype (padding stays 0)
-//   y  = conv(xn) + bias (+ skip)       f32, stored once in x's dtype
-//   stats[b] = (sum y, sum y^2)         of the f32 y, [B, 2, Cout]
+//   xn = silu?(x * g[b,ci] + b[b,ci])   f32, in-volume voxels only
+//                                       (padding stays 0)
+//   y  = conv(xn) + bias (+ skip)       f32
+//   stats[b] = (sum y, sum y^2)         of y, [B, 2, Cout]
 //
 // Bound on the H100: operations, as the plain conv (54*Cin*Cout FLOP per
 // output voxel; the prologue adds ~4 FLOP per staged input element and the
 // epilogue one skip read per output element). What the design does:
 //  * The prologue runs on the staged halo chunk in shared memory, at tap 0
 //    once the chunk has landed (tap 1's weights are already in flight): it
-//    rewrites the chunk in place (each thread owns one channel pair, so g
-//    and b sit in registers per chunk; which halo voxels lie in the volume
-//    is worked out once per block), and a barrier orders those writes
-//    before the first ldmatrix. The normalized activation never goes to
-//    device memory. The affine is a multiply and an add, not an FMA, so the
-//    bf16 rounding of the normalized input is the plain version's. With
-//    Cout > 128 every column tile re-applies the prologue to the same halo
-//    (Cout/128 times the ~4 FLOP per element: small).
-//  * Skip and stats live in the epilogue, on the f32 accumulators: stats
-//    are summed over the thread's rows, then across the fragment's row
-//    lanes by shuffles, then across warps in shared memory, and each block
-//    writes one partial per (tile, column). Two launches of a small ordered
-//    sum (kStatsGroup tiles, then the groups) finish them. No atomics, and
-//    the order depends only on the volume's shape: the stats repeat
-//    exactly and do not depend on the batch.
+//    rewrites the chunk in place (each thread owns one channel, so g and b
+//    sit in registers per chunk; which halo voxels lie in the volume is
+//    worked out once per block), and a barrier orders those writes before
+//    the first read. The normalized activation never goes to device
+//    memory. The affine is a multiply and an add, not an FMA, as in the
+//    plain version.
+//  * Skip and stats live in the epilogue: stats are summed over the
+//    thread's rows, then across a warp's row groups by shuffles, then
+//    across warps in shared memory, and each block writes one partial per
+//    (tile, column). Two launches of a small ordered sum (kStatsGroup
+//    tiles, then the groups) finish them. No atomics, and the order
+//    depends only on the volume's shape: the stats repeat exactly and do
+//    not depend on the batch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -257,85 +257,18 @@ __device__ __forceinline__ void stage_weights_bf16(
   }
 }
 
-// The fused prologue on the staged chunk, in place: silu?(x * g + b) in f32,
-// rounded to bf16, for in-volume voxels and channels < Cin. The padding and
-// ragged Cin were zero-filled while staging and stay 0 (conv after
-// normalize: silu(0 * g + b) is not 0). Each thread owns one channel pair.
-__device__ __forceinline__ void prologue_bf16(const Shape& s, const Tile& t,
-                                              const Fused& f,
-                                              const unsigned char* inside,
-                                              __nv_bfloat16* sA, int ci0) {
-  constexpr int kPairs = kBK / 2;
-  const int p = threadIdx.x % kPairs;
-  const int ci = ci0 + 2 * p;
-  const int64_t row = static_cast<int64_t>(t.b) * s.Cin;
-  const bool in0 = ci < s.Cin, in1 = ci + 1 < s.Cin;
-  if (!in0) return;
-  const float g0 = f.g[row + ci], b0 = f.b[row + ci];
-  const float g1 = in1 ? f.g[row + ci + 1] : 0.f;
-  const float b1 = in1 ? f.b[row + ci + 1] : 0.f;
-  for (int v = threadIdx.x / kPairs; v < t.halo; v += kThreads / kPairs) {
-    if (!inside[v]) continue;
-    __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(sA + v * kLds + 2 * p);
-    const float2 xv = __bfloat1622float2(*q);
-    const float h0 = prologue_f32_op(xv.x, g0, b0, f.silu);
-    const float h1 = in1 ? prologue_f32_op(xv.y, g1, b1, f.silu) : 0.f;
-    *q = __floats2bfloat162_rn(h0, h1);
-  }
-}
-
-// Per-block stats of the bf16 epilogue: s1/s2 hold the thread's sums over
-// its rows for its 8 columns; reduce over the fragment's 8 row lanes
-// (shuffles), then over the 2 row warps (shared memory, fixed order), and
-// write the block's partial for its tile and column tile.
-__device__ __forceinline__ void block_stats_bf16(const Shape& s,
-                                                 const Fused& f,
-                                                 float (&s1)[4][2],
-                                                 float (&s2)[4][2],
-                                                 float* red, int n0) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp & 1, wn = warp >> 1;
-#pragma unroll
-  for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        s1[nj][e] += __shfl_xor_sync(0xffffffffu, s1[nj][e], off);
-        s2[nj][e] += __shfl_xor_sync(0xffffffffu, s2[nj][e], off);
-      }
-  if ((lane >> 2) == 0) {  // red[wm][q][column of the tile]
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = wn * 32 + nj * 8 + (lane & 3) * 2 + e;
-        red[(wm * 2) * kBN + c] = s1[nj][e];
-        red[(wm * 2 + 1) * kBN + c] = s2[nj][e];
-      }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 2 * kBN; i += kThreads) {
-    const int q = i / kBN, c = i % kBN;
-    if (n0 + c < s.Cout)
-      f.part[(static_cast<int64_t>(blockIdx.x) * 2 + q) * s.Cout + n0 + c] =
-          red[q * kBN + c] + red[(2 + q) * kBN + c];
-  }
-}
-
-constexpr int kRedBf16 = 2 * 2 * kBN;  // floats of block_stats_bf16's red
-// the fused kernels' extra shared memory past the weight buffers: the stats
+// the fused kernel's extra shared memory past the weight buffers: the stats
 // reduction (red floats), then the halo's inside mask
 constexpr size_t fused_smem(int red_floats) {
   return red_floats * sizeof(float) + kMaxHalo;
 }
 
-template <bool kVec, bool kFused>
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
     conv3d_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                        const __nv_bfloat16* __restrict__ w,
                        const float* __restrict__ bias,
-                       __nv_bfloat16* __restrict__ y, Shape s, Fused f) {
+                       __nv_bfloat16* __restrict__ y, Shape s) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Tile t = decode_tile(s);
   __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -366,13 +299,6 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
 
-  // fused: [red floats][inside bytes] past the weight buffers
-  float* red = reinterpret_cast<float*>(sB0 + 2 * kBN * kLds);
-  unsigned char* inside = reinterpret_cast<unsigned char*>(red + kRedBf16);
-  if constexpr (kFused) {
-    if (f.g != nullptr) mark_inside(s, t, inside);
-  }
-
   for (int ci0 = 0; ci0 < s.Cin; ci0 += kBK) {
     __syncthreads();  // previous chunk's reads of sA / sB are done
     stage_halo_bf16<kVec>(s, t, x, sA, ci0);
@@ -387,12 +313,6 @@ __global__ void __launch_bounds__(kThreads, 2)
         cp_async_wait<0>();
       }
       __syncthreads();
-      if constexpr (kFused) {
-        if (tap == 0 && f.g != nullptr) {  // the chunk has landed
-          prologue_bf16(s, t, f, inside, sA, ci0);
-          __syncthreads();  // normalized before any ldmatrix reads it
-        }
-      }
       const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
       const int toff = (kd * t.HH + kh) * t.HW + kw;
       const __nv_bfloat16* tB = sB[tap & 1];
@@ -417,10 +337,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
 
-  // epilogue: + bias (f32) (fused: + skip, stats of the f32 sum), round to
-  // bf16, masked store
+  // epilogue: + bias (f32), round to bf16, masked store
   const int g = lane >> 2, tq = lane & 3;
-  float s1[4][2] = {}, s2[4][2] = {};
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
@@ -439,22 +357,6 @@ __global__ void __launch_bounds__(kThreads, 2)
           v0 += bias[col];
           if (col + 1 < s.Cout) v1 += bias[col + 1];
         }
-        if constexpr (kFused) {
-          if (f.skip != nullptr) {
-            const __nv_bfloat16* sk =
-                static_cast<const __nv_bfloat16*>(f.skip) + vox * s.Cout + col;
-            v0 += __bfloat162float(sk[0]);
-            if (col + 1 < s.Cout) v1 += __bfloat162float(sk[1]);
-          }
-          if (f.part != nullptr) {  // masked rows and columns add nothing
-            s1[nj][0] += v0;
-            s2[nj][0] += v0 * v0;
-            if (col + 1 < s.Cout) {
-              s1[nj][1] += v1;
-              s2[nj][1] += v1 * v1;
-            }
-          }
-        }
         if (col + 1 < s.Cout && (s.Cout & 1) == 0) {
           *reinterpret_cast<__nv_bfloat162*>(yr + col) =
               __floats2bfloat162_rn(v0, v1);
@@ -464,9 +366,6 @@ __global__ void __launch_bounds__(kThreads, 2)
         }
       }
     }
-  }
-  if constexpr (kFused) {
-    if (f.part != nullptr) block_stats_bf16(s, f, s1, s2, red, n0);
   }
 }
 
@@ -515,8 +414,9 @@ __device__ __forceinline__ void stage_weights_f32(const Shape& s,
   }
 }
 
-// The fused prologue on the staged f32 chunk, in place (see prologue_bf16;
-// no rounding). Each thread owns one channel of the chunk.
+// The fused prologue on the staged f32 chunk, in place: silu?(x * g + b)
+// for in-volume voxels; the padding and ragged Cin were zero-filled while
+// staging and stay 0 (conv after normalize: silu(0 * g + b) is not 0). Each thread owns one channel of the chunk.
 __device__ __forceinline__ void prologue_f32(const Shape& s, const Tile& t,
                                              const Fused& f,
                                              const unsigned char* inside,
@@ -685,14 +585,12 @@ cudaError_t launch_conv(const void* x, const void* w, const float* bias,
   const bool aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(w) % 16 == 0);
   cudaError_t err;
-  if (dtype == 1) {
+  if (dtype == 1 && !kFused) {  // (the bf16 fused conv: csrc/conv3d_sm90.cu)
     const dim3 grid(static_cast<unsigned>(tiles), (s.Cout + kBN - 1) / kBN);
     const size_t smem = (static_cast<size_t>(halo) + 2 * kBN) * kLds *
-                            sizeof(__nv_bfloat16) +
-                        (kFused ? fused_smem(kRedBf16) : 0);
+                        sizeof(__nv_bfloat16);
     const bool vec = aligned && s.Cin % 8 == 0;
-    auto kernel = vec ? conv3d_bf16_kernel<true, kFused>
-                      : conv3d_bf16_kernel<false, kFused>;
+    auto kernel = vec ? conv3d_bf16_kernel<true> : conv3d_bf16_kernel<false>;
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
@@ -700,7 +598,7 @@ cudaError_t launch_conv(const void* x, const void* w, const float* bias,
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(x),
         static_cast<const __nv_bfloat16*>(w), bias,
-        static_cast<__nv_bfloat16*>(y), s, f);
+        static_cast<__nv_bfloat16*>(y), s);
   } else if (dtype == 0) {
     const bool vec = aligned && s.Cin % 4 == 0;
     constexpr int BN = 64;
@@ -751,9 +649,10 @@ int conv3d_ndhwc_launch(const void* x, const void* w, const float* bias,
       x, w, bias, y, Fused{}, s, dtype, static_cast<cudaStream_t>(stream_ptr)));
 }
 
-// The fused conv. x, w, skip and y share dtype (0 = float32, 1 = bfloat16);
-// bias is f32 or NULL; g and gb are the [B, Cin] f32 prologue (both NULL for
-// none); skip is [B, D, H, W, Cout], 4-byte aligned, or NULL. With stats,
+// The fused conv in f32 (dtype must be 0; the bf16 fused conv is
+// conv3d_sm90_fused_launch in csrc/conv3d_sm90.cu). x, w, skip and y are
+// f32; bias is f32 or NULL; g and gb are the [B, Cin] f32 prologue (both
+// NULL for none); skip is [B, D, H, W, Cout] or NULL. With stats,
 // part holds B*T*2*Cout floats and part2 B*ceil(T/64)*2*Cout floats of
 // scratch (T = tiles per volume) and stats receives [B, 2, Cout] f32; all
 // three NULL for no stats. Returns a cudaError_t.

@@ -15,11 +15,13 @@
 // 3.35 TB/s (stats: read x once; apply: read x, write y).
 //
 // Design: 16-byte vector loads along C (8 bf16 or 4 f32 channels per
-// thread); the stats pass splits N into a number of row ranges that depends
-// only on N, each block writes its partial sums, and a second small kernel
-// adds the partials of each (batch, channel) in a fixed order. No atomics:
-// the result is the same from run to run and does not depend on how many
-// volumes share the batch.
+// thread). The stats pass is one launch: blocks split N into row ranges
+// (a number that depends only on N, ops/groupnorm.py:rows_per_split) and C
+// into slices of 16 vectors; each thread keeps kUnroll loads in flight,
+// each block writes its partial sums, and the last block of each (batch,
+// slice) to finish, found by a ticket on an integer counter, adds the
+// partials in split order. No float atomics: the result is the same from
+// run to run and does not depend on how many volumes share the batch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,79 +72,141 @@ struct Vec<float> {
   }
 };
 
-// grid (S, B): block (split, b) sums rows [split*rows, (split+1)*rows) of
-// batch b into part[b][split][0..1][C].
+constexpr int kLanes = 16;  // 16-byte vectors of a column slice
+#ifndef GN_STATS_UNROLL  // a study build may set another depth
+#define GN_STATS_UNROLL 4
+#endif
+constexpr int kUnroll = GN_STATS_UNROLL;  // row loads in flight per thread
+
+// Per-(batch, channel) sum x and sum x^2 over the N rows, in one launch.
+// grid (S, CS, B): block (split, cs, b) sums rows [split * rows_per_split,
+// ...) of column slice cs (kLanes vectors, 16 * V channels) of batch b into
+// part[b][cs][split][2][W] (W = the slice's channels), then takes a ticket
+// on ticket[b][cs]; the block that takes the last ticket adds the S
+// partials of the slice in split order and writes stats[b][0..1][c], and
+// resets the counter to 0 for the next launch. The ticket decides which
+// block adds, never the order.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    gn_partial_kernel(const T* __restrict__ x, float* __restrict__ part,
-                      int N, int C, int rows_per_split) {
+    gn_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
+                    unsigned* __restrict__ ticket, float* __restrict__ stats,
+                    int N, int C, int rows_per_split) {
   constexpr int V = Vec<T>::kN;
+  constexpr int kCW = kLanes * V;            // channels per slice, at most
   __shared__ float red[kThreads * 2 * V];
-  const int split = blockIdx.x, b = blockIdx.y, S = gridDim.x;
+  __shared__ bool last;
+  const int split = blockIdx.x, S = gridDim.x;
+  const int cs = blockIdx.y, CS = gridDim.y, b = blockIdx.z;
+  const int c0 = cs * kCW;
+  const int VL = min(kLanes, (C - c0) / V);  // vectors in this slice
+  const int W = VL * V;
+  const int rph = kThreads / VL;             // rows walked in parallel
+  const int lane = threadIdx.x % VL, rp = threadIdx.x / VL;
   const int r0 = split * rows_per_split;
   const int r1 = min(N, r0 + rows_per_split);
-  const int VL = C / V;                      // vectors per row
-  const int lanes = VL < kThreads ? VL : kThreads;
-  const int rph = kThreads / lanes;          // rows walked in parallel
-  const int lane = threadIdx.x % lanes, rp = threadIdx.x / lanes;
-  const T* xb = x + static_cast<int64_t>(b) * N * C;
-  float* out = part + (static_cast<int64_t>(b) * S + split) * 2 * C;
+  const T* xb = x + static_cast<int64_t>(b) * N * C + c0 + lane * V;
+  float* pbase = part + (static_cast<int64_t>(b) * CS + cs) * S * 2 * kCW;
 
-  for (int vb = 0; vb < VL; vb += lanes) {
-    const int v = vb + lane;
-    float s[V], q[V];
+  float s[V], q[V];
 #pragma unroll
-    for (int e = 0; e < V; ++e) s[e] = q[e] = 0.f;
-    if (rp < rph && v < VL) {
-      for (int r = r0 + rp; r < r1; r += rph) {
-        float xv[V];
-        Vec<T>::load(xb + static_cast<int64_t>(r) * C + v * V, xv);
+  for (int e = 0; e < V; ++e) s[e] = q[e] = 0.f;
+  if (rp < rph) {
+    int r = r0 + rp;
+    // kUnroll independent 16-byte loads in flight, summed in row order
+    for (; r + (kUnroll - 1) * rph < r1; r += kUnroll * rph) {
+      float xv[kUnroll][V];
 #pragma unroll
-        for (int e = 0; e < V; ++e) {
-          s[e] += xv[e];
-          q[e] = fmaf(xv[e], xv[e], q[e]);
-        }
-      }
-    }
+      for (int u = 0; u < kUnroll; ++u)
+        Vec<T>::load(xb + static_cast<int64_t>(r + u * rph) * C, xv[u]);
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      red[(threadIdx.x * 2) * V + e] = s[e];
-      red[(threadIdx.x * 2 + 1) * V + e] = q[e];
-    }
-    __syncthreads();
-    if (rp == 0 && v < VL) {
-      for (int p = 1; p < rph; ++p) {  // fixed order
-        const int o = (p * lanes + lane) * 2 * V;
+      for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
         for (int e = 0; e < V; ++e) {
-          s[e] += red[o + e];
-          q[e] += red[o + V + e];
+          s[e] += xv[u][e];
+          q[e] = fmaf(xv[u][e], xv[u][e], q[e]);
         }
-      }
+    }
+    for (; r < r1; r += rph) {
+      float xv[V];
+      Vec<T>::load(xb + static_cast<int64_t>(r) * C, xv);
 #pragma unroll
       for (int e = 0; e < V; ++e) {
-        out[v * V + e] = s[e];
-        out[C + v * V + e] = q[e];
+        s[e] += xv[e];
+        q[e] = fmaf(xv[e], xv[e], q[e]);
       }
     }
-    __syncthreads();
   }
-}
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    red[(threadIdx.x * 2) * V + e] = s[e];
+    red[(threadIdx.x * 2 + 1) * V + e] = q[e];
+  }
+  __syncthreads();
+  if (rp == 0) {
+    for (int p = 1; p < rph; ++p) {  // fixed order
+      const int o = (p * VL + lane) * 2 * V;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        s[e] += red[o + e];
+        q[e] += red[o + V + e];
+      }
+    }
+    float* out = pbase + static_cast<int64_t>(split) * 2 * W + lane * V;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      out[e] = s[e];
+      out[W + e] = q[e];
+    }
+  }
+  // publish this block's partial, then take a ticket
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned t = atomicAdd(ticket + b * CS + cs, 1u);
+    last = t == static_cast<unsigned>(S - 1);
+    if (last) ticket[b * CS + cs] = 0;  // no other block of this launch
+  }                                     // touches it again
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
 
-// grid (ceil(C/256), B): stats[b][0..1][c] = sum over splits, in order.
-__global__ void __launch_bounds__(kThreads)
-    gn_finish_kernel(const float* __restrict__ part, float* __restrict__ stats,
-                     int C, int S) {
-  const int c = blockIdx.x * kThreads + threadIdx.x, b = blockIdx.y;
-  if (c >= C) return;
-  const float* pb = part + static_cast<int64_t>(b) * S * 2 * C;
-  float s = 0.f, q = 0.f;
-  for (int i = 0; i < S; ++i) {
-    s += pb[static_cast<int64_t>(i) * 2 * C + c];
-    q += pb[static_cast<int64_t>(i) * 2 * C + C + c];
+  // the finish: 2 * W columns as float4 items; row lane l adds splits l,
+  // l + RL, ... in order, then the RL lanes are added in order
+  const int items = 2 * W / 4;
+  const int RL = kThreads / items;
+  const int it = threadIdx.x % items, rl = threadIdx.x / items;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (rl < RL) {
+    const float4* src = reinterpret_cast<const float4*>(pbase) + it;
+    int sp = rl;
+    for (; sp + (kUnroll - 1) * RL < S; sp += kUnroll * RL) {
+      float4 v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        v[u] = __ldcg(src + static_cast<int64_t>(sp + u * RL) * items);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        acc.x += v[u].x; acc.y += v[u].y; acc.z += v[u].z; acc.w += v[u].w;
+      }
+    }
+    for (; sp < S; sp += RL) {
+      const float4 v = __ldcg(src + static_cast<int64_t>(sp) * items);
+      acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+    }
   }
-  stats[(static_cast<int64_t>(b) * 2) * C + c] = s;
-  stats[(static_cast<int64_t>(b) * 2 + 1) * C + c] = q;
+  float4* red4 = reinterpret_cast<float4*>(red);
+  red4[threadIdx.x] = acc;
+  __syncthreads();
+  if (rl == 0) {
+    for (int l = 1; l < RL; ++l) {  // fixed order
+      const float4 v = red4[l * items + it];
+      acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+    }
+    const int k = it * 4;  // column of [2][W]
+    const int qq = k / W, c = c0 + k % W;
+    float* dst = stats + (static_cast<int64_t>(b) * 2 + qq) * C + c;
+    dst[0] = acc.x; dst[1] = acc.y; dst[2] = acc.z; dst[3] = acc.w;
+  }
 }
 
 template <typename T>
@@ -175,27 +239,34 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // x [B, N, C] (dtype 0 = float32, 1 = bfloat16), C a multiple of the vector
-// width, 16-byte aligned. part holds B*S*2*C floats of scratch with
-// S = ceil(N / rows_per_split); stats receives [B, 2, C] f32.
-int gn_stats_launch(const void* x, float* part, float* stats, int B, int N,
-                    int C, int rows_per_split, int dtype, void* stream_ptr) {
+// width, 16-byte aligned. part holds B * CS * S * 2 * 16 * V floats of
+// scratch (S = ceil(N / rows_per_split), CS = ceil(C / (16 * V)), V = 8
+// for bf16 and 4 for f32), ticket B * CS unsigned counters that are 0 (the
+// kernel leaves them 0; launches that share them must be ordered); stats
+// receives [B, 2, C] f32. One launch.
+int gn_stats_launch(const void* x, float* part, unsigned* ticket,
+                    float* stats, int B, int N, int C, int rows_per_split,
+                    int dtype, void* stream_ptr) {
   const int V = dtype == 1 ? 8 : 4;
   if (B <= 0 || N <= 0 || C <= 0 || C % V != 0 || rows_per_split <= 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 || (dtype != 0 && dtype != 1))
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(part) % 16 != 0 ||
+      (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int S = (N + rows_per_split - 1) / rows_per_split;
-  const dim3 grid(S, B);
+  const int CS = (C + kLanes * V - 1) / (kLanes * V);
+  if (CS > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(S, CS, B);
   if (dtype == 1)
-    gn_partial_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), part, N, C, rows_per_split);
+    gn_stats_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), part, ticket, stats, N, C,
+        rows_per_split);
   else
-    gn_partial_kernel<float><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(x), part, N, C, rows_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gn_finish_kernel<<<dim3((C + kThreads - 1) / kThreads, B), kThreads, 0,
-                     stream>>>(part, stats, C, S);
+    gn_stats_kernel<float><<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(x), part, ticket, stats, N, C,
+        rows_per_split);
   return static_cast<int>(cudaGetLastError());
 }
 

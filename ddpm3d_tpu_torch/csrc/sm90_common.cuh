@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels of this
 // directory (conv3d_sm90.cu, conv3d_s8.cu, conv3d_narrow.cu): mbarriers with
-// a hang guard, TMA tensor loads, ldmatrix, named barriers, 128-byte-swizzled
-// shared-memory matrix descriptors, the wgmma fence / commit / wait, and the
+// a hang guard, TMA tensor loads, cp.async, ldmatrix, named barriers,
+// 128-byte-swizzled shared-memory matrix descriptors, the wgmma fence / commit / wait, and the
 // host-side tensor-map encoding. Each source includes it once (one library
 // per source), so the unnamed namespace gives every library its own copy.
 
@@ -59,6 +59,20 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   while (!mbar_try_wait(bar, parity)) {
     if (clock64() - t0 > kHangCycles) __trap();
   }
+}
+
+// 16 bytes from device memory to shared memory, asynchronously; then wait
+// for all of this thread's copies
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile(
+      "cp.async.commit_group;\n"
+      "cp.async.wait_group 0;\n" ::
+          : "memory");
 }
 
 __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* m,

@@ -7,8 +7,9 @@
   = 2: the head's dx) or ``csrc/conv3d.cu`` (the other f32 convs and bf16
   with another narrow Cin), by :func:`.conv3d.conv3d_route`;
 * :mod:`.conv3d_fused` — the fused ResBlock conv (GN/FiLM/SiLU prologue,
-  bias/skip epilogue, next-GN stats), the fused instance of the same
-  ``csrc/conv3d.cu`` template;
+  bias/skip epilogue, next-GN stats): bf16 on the fused instance of
+  ``csrc/conv3d_sm90.cu`` (wgmma/TMA), f32 on that of ``csrc/conv3d.cu``,
+  by :func:`.conv3d_fused.conv3d_fused_route`;
 * :mod:`.groupnorm` — GroupNorm stats and fused normalize/FiLM/SiLU
   (``csrc/groupnorm.cu``);
 * :mod:`.conv3d_s8` — the int8 (s8 x s8 -> s32) conv with its dequantize
@@ -37,13 +38,18 @@ def launch_counts() -> Dict[str, int]:
 def route_counts() -> Dict[str, int]:
     """The conv launches of :func:`launch_counts` by kernel route
     ("conv3d.<route>" and "conv3d_dx.<route>" for each of
-    :data:`.conv3d.ROUTES`)."""
-    return {f"{what}.{route}": conv3d.route_launches.get(f"{what}.{route}", 0)
-            for what in ("conv3d", "conv3d_dx") for route in conv3d.ROUTES}
+    :data:`.conv3d.ROUTES`, "conv3d_fused.<route>" for each of
+    :data:`.conv3d_fused.ROUTES`)."""
+    counts = {f"{what}.{route}": conv3d.route_launches.get(f"{what}.{route}", 0)
+              for what in ("conv3d", "conv3d_dx") for route in conv3d.ROUTES}
+    counts.update({f"conv3d_fused.{route}": conv3d_fused.route_launches.get(
+        f"conv3d_fused.{route}", 0) for route in conv3d_fused.ROUTES})
+    return counts
 
 
 def reset_launch_counts() -> None:
     conv3d.route_launches.clear()
+    conv3d_fused.route_launches.clear()
     conv3d.launches = 0
     conv3d.dx_launches = 0
     conv3d_fused.launches = 0

@@ -41,6 +41,8 @@ _SIGNATURES = {
         "conv3d", [_P] * 5 + [_I] + [_P] * 5 + [_I] * 10 + [_P]),
     "conv3d_sm90_launch": (
         "conv3d_sm90", [_P, _P, _P, _P] + [_I] * 9 + [_P]),
+    "conv3d_sm90_fused_launch": (
+        "conv3d_sm90", [_P] * 5 + [_I] + [_P] * 4 + [_I] * 9 + [_P]),
     "conv3d_head_launch": (
         "conv3d_head", [_P, _P, _P, _P] + [_I] * 7 + [_P]),
     "conv3d_f32_narrow_launch": (
@@ -49,7 +51,7 @@ _SIGNATURES = {
         "conv3d_narrow", [_P, _P, _P, _P] + [_I] * 5 + [_P]),
     "conv3d_s8_launch": (
         "conv3d_s8", [_P] * 6 + [_I] * 12 + [_P]),
-    "gn_stats_launch": ("groupnorm", [_P, _P, _P] + [_I] * 5 + [_P]),
+    "gn_stats_launch": ("groupnorm", [_P] * 4 + [_I] * 5 + [_P]),
     "gn_apply_launch": ("groupnorm", [_P, _P, _P, _P] + [_I] * 5 + [_P]),
 }
 

@@ -276,10 +276,10 @@ def sm90_smem_bytes(tile: Tuple[int, int, int]) -> int:
     """Dynamic shared memory of one block of ``csrc/conv3d_sm90.cu``
     (``smem_bytes``): 1024 of alignment slack, two halo stages of 128 bytes
     per voxel each rounded up to 1024, the weight ring of 16 KB stages, the
-    2 * (2 + stages) mbarriers and the 4-byte row table."""
+    6 + 2 * stages mbarriers (``kBars``) and the 4-byte row table."""
     halo_bytes = -(-sm90_halo(tile) * SM90_BK * 2 // 1024) * 1024
     return (1024 + 2 * halo_bytes + SM90_STAGES * SM90_BN * SM90_BK * 2
-            + 8 * (4 + 2 * SM90_STAGES) + 4 * SM90_MAX_ROWS)
+            + 8 * (6 + 2 * SM90_STAGES) + 4 * SM90_MAX_ROWS)
 
 
 @functools.lru_cache(maxsize=64)

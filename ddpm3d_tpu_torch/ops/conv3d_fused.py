@@ -13,29 +13,105 @@ TPU kernel ``_fused_kernel``):
 fold_gn_affine`); the stats fold the NEXT GroupNorm the same way, so a chain
 of fused ResBlocks never re-reads an activation to normalize it.
 
-The Hopper kernel is the fused instance of ``csrc/conv3d.cu``'s conv
-template (``conv3d_fused_launch``); its source note says what bounds it and
-what the design does about that. Inference only, like the JAX kernel (no
-VJP): :func:`conv3d_fused` raises when autograd would record it. A CPU
-tensor takes :func:`conv3d_fused_plain`; a CUDA tensor launches the kernel
+Two Hopper kernels compute it, chosen by :func:`conv3d_fused_route`:
+  * ``"sm90"``, bf16 with Cin % 8 == 0 (every fused site of the model): the
+    fused instance of ``csrc/conv3d_sm90.cu`` (``conv3d_sm90_fused_launch``;
+    wgmma fed by TMA, the prologue in the producer warpgroup), on the tile
+    of :func:`fused_tile`, and its stats finish;
+  * ``"ndhwc"``, f32: the fused instance of ``csrc/conv3d.cu``'s FFMA conv
+    (``conv3d_fused_launch``).
+bf16 with another Cin raises. Each source note says what bounds its kernel
+and what the design does about that. Inference only, like the JAX kernel
+(no VJP): :func:`conv3d_fused` raises when autograd would record it. A CPU
+tensor takes :func:`conv3d_fused_plain`; a CUDA tensor launches a kernel
 or raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 from .conv3d import (
-    _full_f32, _ncdhw, check_kernel_inputs, pack_weight, pick_tile)
+    SM90_MAX_HALO, SM90_MAX_ROWS, SM90_SMS, _full_f32, _ncdhw,
+    check_kernel_inputs, pack_weight, pick_tile, sm90_halo, sm90_tile,
+    sm90_tiles)
 
-# kernel launches on the main path (see ops.launch_counts)
+# kernel launches on the main path (see ops.launch_counts), and the same
+# launches by route (see ops.route_counts): "conv3d_fused.<route>"
 launches = 0
+route_launches: Dict[str, int] = {}
+ROUTES = ("sm90", "ndhwc")
 
 STATS_GROUP = 64  # tiles per first-level stats sum (csrc/conv3d.cu kStatsGroup)
+# the sm90 route's stats pass the 8 consumer warps' sums through the
+# output's halo stage, past the tile's staged rows (256 bytes a row)
+FUSED_STATS_BYTES = 8 * 2 * 128 * 4
+
+
+def fused_stage_fits(tile: Tuple[int, int, int]) -> bool:
+    """Whether a halo stage of ``tile`` (128 bytes a voxel, rounded up to
+    1 KB) holds the staged output rows and the stats sums past them."""
+    stage = -(-sm90_halo(tile) * 128 // 1024) * 1024
+    return stage >= math.prod(tile) * 256 + FUSED_STATS_BYTES
+
+
+def conv3d_fused_route(x_shape, dtype: torch.dtype) -> str:
+    """Which kernel takes a fused conv of x [..., Cin] in ``dtype``:
+    ``"sm90"`` (``csrc/conv3d_sm90.cu``) for bf16 with Cin % 8 == 0, whose
+    rows TMA can stage; ``"ndhwc"`` (``csrc/conv3d.cu``) for f32. Raises for
+    bf16 with another Cin (no fused kernel takes it)."""
+    cin = x_shape[-1]
+    if dtype == torch.bfloat16:
+        if cin % 8:
+            raise ValueError(
+                f"the bf16 fused conv takes Cin % 8 == 0, got Cin={cin}")
+        return "sm90"
+    if dtype == torch.float32:
+        return "ndhwc"
+    raise TypeError(f"conv3d_fused takes bf16 or f32, got {dtype}")
+
+
+@functools.lru_cache(maxsize=256)
+def fused_tile(D: int, H: int, W: int, cout: int,
+               sms: int = SM90_SMS) -> Tuple[int, int, int]:
+    """The sm90 route's output tile, a function of (D, H, W, Cout) and the
+    SM count alone, so that a volume's per-tile stats, and the order in
+    which they are added, do not depend on the batch. It starts from the
+    conv's tile for one volume (:func:`.conv3d.sm90_tile` at B = 1) and
+    keeps its instance (256- or 128-row m-tiles) and its number of waves,
+    but takes the smallest halo among the tiles that do: every halo voxel
+    is staged and rewritten by the prologue once per work item (at the
+    96 x 6^2 level, 3 x 6 x 6 rather than 32 x 2 x 2: 320 halo voxels
+    for 108 rows, not 544 for 128)."""
+    base = sm90_tile(1, D, H, W, cout, sms)
+    cap = SM90_MAX_ROWS if math.prod(base) > SM90_MAX_ROWS // 2 \
+        else SM90_MAX_ROWS // 2
+    waves = -(-sm90_tiles(1, D, H, W, cout, base) // sms)
+    # ties keep the conv's tile (if its stage holds the stats)
+    best = ((sm90_halo(base) if fused_stage_fits(base)
+             else SM90_MAX_HALO + 1, 0), base)
+    # no narrower W run than the conv's (8 voxels keep ldmatrix free of
+    # bank conflicts)
+    for tw in range(min(8, base[2]), min(W, cap) + 1):
+        for th in range(1, min(H, cap // tw) + 1):
+            for td in range(1, min(D, cap // (tw * th)) + 1):
+                tile = (td, th, tw)
+                rows = td * th * tw
+                if rows * 2 <= cap and cap == SM90_MAX_ROWS:
+                    continue  # the 128-row instance
+                halo = sm90_halo(tile)
+                if (halo > SM90_MAX_HALO or not fused_stage_fits(tile)
+                        or -(-sm90_tiles(1, D, H, W, cout, tile) // sms)
+                        > waves):
+                    continue
+                best = min(best, ((halo, 1), tile))
+    return best[1]
 
 
 def conv3d_fused_plain(
@@ -90,6 +166,7 @@ def conv3d_fused_kernel(
     f32, skip to x's dtype."""
     global launches
     _, cout = check_kernel_inputs(x, w_packed, "conv3d_fused", "ndhwc")
+    route = conv3d_fused_route(x.shape, x.dtype)
     B, D, H, W, cin = x.shape
 
     def f32(t, shape, what):
@@ -115,29 +192,54 @@ def conv3d_fused_kernel(
         if sk.data_ptr() % 16:
             sk = sk.clone()
     y = torch.empty((B, D, H, W, cout), dtype=x.dtype, device=x.device)
-    td, th, tw = pick_tile(D, H, W)
-    part = part2 = stats = None
-    if want_stats:
-        tiles = -(-D // td) * -(-H // th) * -(-W // tw)
-        groups = -(-tiles // STATS_GROUP)
-        part = torch.empty((B * tiles * 2 * cout,), dtype=torch.float32,
-                           device=x.device)
-        part2 = torch.empty((B * groups * 2 * cout,), dtype=torch.float32,
-                            device=x.device)
-        stats = torch.empty((B, 2, cout), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = _build.fn("conv3d_fused_launch")(
-        x.data_ptr(), w_packed.data_ptr(), ptr(b), ptr(g), ptr(gb),
-        int(prologue_silu), ptr(sk), y.data_ptr(), ptr(part), ptr(part2),
-        ptr(stats), B, D, H, W, cin, cout, td, th, tw,
-        1 if x.dtype == torch.bfloat16 else 0,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(err, "conv3d_fused_launch")
+    if route == "sm90":
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        td, th, tw = fused_tile(D, H, W, cout, sms)
+        # 16-byte loads of x, the weight, (g, b) and the skip
+        for t in (x, w_packed):
+            if t.data_ptr() % 16:
+                raise ValueError("conv3d_fused takes a 16-byte-aligned x "
+                                 "and weight")
+        g, gb, sk = (t if t is None or t.data_ptr() % 16 == 0 else
+                     t.clone() for t in (g, gb, sk))
+        part = stats = None
+        if want_stats:
+            tiles = -(-D // td) * -(-H // th) * -(-W // tw)
+            part = torch.empty((B * tiles * 2 * cout,), dtype=torch.float32,
+                               device=x.device)
+            stats = torch.empty((B, 2, cout), dtype=torch.float32,
+                                device=x.device)
+        name = "conv3d_sm90_fused_launch"
+        err = _build.fn(name)(
+            x.data_ptr(), w_packed.data_ptr(), ptr(b), ptr(g), ptr(gb),
+            int(prologue_silu), ptr(sk), y.data_ptr(), ptr(part), ptr(stats),
+            B, D, H, W, cin, cout, td, th, tw, stream)
+    else:
+        td, th, tw = pick_tile(D, H, W)
+        part = part2 = stats = None
+        if want_stats:
+            tiles = -(-D // td) * -(-H // th) * -(-W // tw)
+            groups = -(-tiles // STATS_GROUP)
+            part = torch.empty((B * tiles * 2 * cout,), dtype=torch.float32,
+                               device=x.device)
+            part2 = torch.empty((B * groups * 2 * cout,), dtype=torch.float32,
+                                device=x.device)
+            stats = torch.empty((B, 2, cout), dtype=torch.float32,
+                                device=x.device)
+        name = "conv3d_fused_launch"
+        err = _build.fn(name)(
+            x.data_ptr(), w_packed.data_ptr(), ptr(b), ptr(g), ptr(gb),
+            int(prologue_silu), ptr(sk), y.data_ptr(), ptr(part), ptr(part2),
+            ptr(stats), B, D, H, W, cin, cout, td, th, tw, 0, stream)
+    _build.check(err, name)
     launches += 1
+    key = f"conv3d_fused.{route}"
+    route_launches[key] = route_launches.get(key, 0) + 1
     return (y, stats) if want_stats else y
 
 

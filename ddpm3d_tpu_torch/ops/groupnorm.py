@@ -7,7 +7,9 @@ statistics, variance ``max(E[x^2] - mean^2, 0)``, FiLM ``(1 + scale)`` gain
 and shift folded into one per-channel affine, result cast back to x's dtype.
 
 Two Hopper kernels in ``csrc/groupnorm.cu``, both bound by bytes:
-  * :func:`channel_stats` -> per-(batch, channel) (sum x, sum x^2) [B, 2, C];
+  * :func:`channel_stats` -> per-(batch, channel) (sum x, sum x^2) [B, 2, C],
+    one launch: row-split partials finished by the last block of each
+    column slice (a ticket on a counter), in a fixed order (:func:`stats_plan`);
   * :func:`gn_apply` -> ``silu?(x * g + b)`` with [B, C] f32 (g, b).
 Between them, :func:`fold_gn_affine` turns the [B, C] sums into (g, b).
 
@@ -23,7 +25,8 @@ rstd, not the output, and recomputes the SiLU input elementwise.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -44,16 +47,52 @@ def _dtype_code(x: torch.Tensor) -> int:
     raise TypeError(f"GroupNorm kernels take bf16 or f32, got {x.dtype}")
 
 
+STATS_THREADS = 256   # threads per stats block (csrc/groupnorm.cu kThreads)
+STATS_LANES = 16      # 16-byte vectors per column slice (kLanes)
+STATS_SPLITS = 256    # row splits per volume at large N
+
+
 def rows_per_split(n: int) -> int:
-    """Rows summed by one block of the stats pass. A function of N only, so
-    the partial sums, and hence the statistics, do not depend on the batch."""
-    return max(64, -(-n // 1024))
+    """Rows summed by one block of the stats pass: about STATS_SPLITS
+    splits of at least 32 rows. A function of N only, so the partial sums,
+    and hence the statistics, do not depend on the batch."""
+    return max(32, -(-n // STATS_SPLITS))
+
+
+@functools.lru_cache(maxsize=256)
+def stats_plan(n: int, c: int, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """(rows per split, splits S, column slices CS) of one stats launch over
+    [B, n, c] in ``dtype``: the grid is (S, CS, B)."""
+    v = 8 if dtype == torch.bfloat16 else 4
+    rows = rows_per_split(n)
+    return rows, -(-n // rows), -(-c // (STATS_LANES * v))
 
 
 def channel_stats_plain(x: torch.Tensor) -> torch.Tensor:
     """[B, N, C] -> [B, 2, C] f32 (sum x, sum x^2) over N."""
     xf = x.float()
     return torch.stack([xf.sum(1), (xf * xf).sum(1)], dim=1)
+
+
+# the stats kernel's scratch per (device, stream): the ticket counters
+# (zeroed once; every launch leaves them 0, so a launch needs no memset)
+# and the partial sums; launches on one stream run in order
+_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _stats_scratch(device: torch.device, stream: int, n_tickets: int,
+                   n_part: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ticket counters, partials) of at least the sizes given."""
+    key = (device.index if device.index is not None else
+           torch.cuda.current_device(), stream)
+    ticket, part = _scratch.get(key, (None, None))
+    if ticket is None or ticket.numel() < n_tickets:
+        ticket = torch.zeros((max(n_tickets, 64),), dtype=torch.int32,
+                             device=device)
+    if part is None or part.numel() < n_part:
+        part = torch.empty((n_part,), dtype=torch.float32, device=device)
+    _scratch[key] = (ticket, part)
+    return ticket, part
 
 
 def channel_stats(x: torch.Tensor) -> torch.Tensor:
@@ -66,13 +105,15 @@ def channel_stats(x: torch.Tensor) -> torch.Tensor:
     code = _dtype_code(x)
     x = x.contiguous()
     B, N, C = x.shape
-    rows = rows_per_split(N)
-    S = -(-N // rows)
-    part = torch.empty((B, S, 2, C), dtype=torch.float32, device=x.device)
+    rows, S, CS = stats_plan(N, C, x.dtype)
+    v = 8 if code == 1 else 4
     stats = torch.empty((B, 2, C), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ticket, part = _stats_scratch(x.device, stream, B * CS,
+                                  B * CS * S * 2 * STATS_LANES * v)
     err = _build.fn("gn_stats_launch")(
-        x.data_ptr(), part.data_ptr(), stats.data_ptr(), B, N, C, rows, code,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), part.data_ptr(), ticket.data_ptr(), stats.data_ptr(),
+        B, N, C, rows, code, stream,
     )
     _build.check(err, "gn_stats_launch")
     stats_launches += 1

@@ -362,16 +362,25 @@ def _check_fused_stats(st, ref_st, ref_out):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_conv3d_fused_kernel_matches_plain(dev, shape, cout, dtype):
     """Every flag combination: output at the kernel tolerance, stats as in
-    _check_fused_stats; one launch per call."""
+    _check_fused_stats; one launch per call, on the route of
+    conv3d_fused_route (bf16: csrc/conv3d_sm90.cu; bf16 with Cin % 8 != 0
+    raises)."""
     x, w, b, pg, pb, skip = _fused_inputs(dev, 8, shape, cout, dtype)
+    if dtype == torch.bfloat16 and shape[-1] % 8:
+        with pytest.raises(ValueError, match="Cin % 8"):
+            fo.conv3d_fused(x, w, b, prologue_g=pg, prologue_b=pb)
+        return
+    key = "conv3d_fused." + fo.conv3d_fused_route(shape, dtype)
     for pro, silu, use_skip, stats in FUSED_FLAGS:
         kw = dict(prologue_silu=silu, want_stats=stats,
                   skip=skip if use_skip else None)
         if pro:
             kw.update(prologue_g=pg, prologue_b=pb)
         before = ops.launch_counts()["conv3d_fused"]
+        routed = ops.route_counts()[key]
         got = fo.conv3d_fused(x, w, b, **kw)
         assert ops.launch_counts()["conv3d_fused"] == before + 1
+        assert ops.route_counts()[key] == routed + 1
         ref = fo.conv3d_fused_plain(x, w, b, **kw)
         torch.cuda.synchronize()
         out, ref_out = (got[0], ref[0]) if stats else (got, ref)
@@ -382,16 +391,77 @@ def test_conv3d_fused_kernel_matches_plain(dev, shape, cout, dtype):
             _check_fused_stats(got[1], ref[1], ref_out)
 
 
-def test_conv3d_fused_masks_the_padding(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3d_fused_masks_the_padding(dev, dtype):
     """A large prologue shift makes silu(0 * g + b) far from 0: the halo
     past every volume edge must stay 0 (conv after normalize), as in the
-    plain version, which normalizes before padding."""
-    x, w, b, pg, pb, _ = _fused_inputs(dev, 9, (1, 3, 5, 6, 32), 32,
-                                       torch.float32, shift=4.0)
-    out = fo.conv3d_fused(x, w, b, prologue_g=pg, prologue_b=pb)
-    ref = fo.conv3d_fused_plain(x, w, b, prologue_g=pg, prologue_b=pb)
+    plain version, which normalizes before padding; so must the channels
+    past Cin of a ragged 64-channel chunk (Cin = 40)."""
+    for seed, shape in ((9, (1, 3, 5, 6, 32)), (12, (2, 7, 5, 13, 40))):
+        x, w, b, pg, pb, _ = _fused_inputs(dev, seed, shape, 32, dtype,
+                                           shift=4.0)
+        out = fo.conv3d_fused(x, w, b, prologue_g=pg, prologue_b=pb)
+        ref = fo.conv3d_fused_plain(x, w, b, prologue_g=pg, prologue_b=pb)
+        torch.cuda.synchronize()
+        assert _rel(out, ref) <= TOL[dtype], shape
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 96, 6, 6, 1024), 512),   # the model's deepest fused site
+    ((1, 12, 24, 24, 256), 128),  # 256-row tiles, two chunks
+    ((2, 9, 12, 12, 384), 130),   # three column tiles, ragged, batch 2
+])
+def test_conv3d_fused_sm90_at_model_widths(dev, shape, cout):
+    """The sm90 fused instance at the model's widths (both tile sizes,
+    several chunks and column tiles): output and stats as above, and the
+    stats equal bit for bit between two runs."""
+    x, w, b, pg, pb, skip = _fused_inputs(dev, 13, shape, cout,
+                                          torch.bfloat16)
+    kw = dict(prologue_g=pg, prologue_b=pb, skip=skip, want_stats=True)
+    out, st = fo.conv3d_fused(x, w, b, **kw)
+    again = fo.conv3d_fused(x, w, b, **kw)[1]
+    ref, ref_st = fo.conv3d_fused_plain(x, w, b, **kw)
     torch.cuda.synchronize()
-    assert _rel(out, ref) <= TOL[torch.float32]
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+    _check_fused_stats(st, ref_st, ref)
+    assert torch.equal(st, again)
+
+
+def test_conv3d_fused_rejects_what_it_cannot_take(dev):
+    """bf16 with Cin % 8 != 0 (no TMA row), a misaligned x, and an int
+    dtype raise; nothing falls back."""
+    w = torch.zeros((8, 12, 3, 3, 3), device=dev)
+    with pytest.raises(ValueError, match="Cin % 8"):
+        fo.conv3d_fused(torch.zeros((1, 2, 4, 4, 12), device=dev,
+                                    dtype=torch.bfloat16), w)
+    x = torch.zeros((1, 2, 4, 4, 72), device=dev, dtype=torch.bfloat16)
+    xu = x.view(-1)[8:8 + 2 * 4 * 4 * 64].view(1, 2, 4, 4, 64)
+    assert xu.is_contiguous() and xu.data_ptr() % 16 == 0
+    w = torch.zeros((8, 64, 3, 3, 3), device=dev)
+    fo.conv3d_fused(xu, w)  # aligned: runs
+    xu = x.view(-1)[1:1 + 2 * 4 * 4 * 64].view(1, 2, 4, 4, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        fo.conv3d_fused(xu, w)
+    with pytest.raises(TypeError):
+        fo.conv3d_fused(torch.zeros((1, 2, 4, 4, 64), device=dev,
+                                    dtype=torch.float16), w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,C", [(96 * 12 * 12, 256), (96 * 6 * 6, 1024),
+                                 (33, 64)])
+def test_gn_stats_is_deterministic_and_batch_invariant(dev, dtype, N, C):
+    """K1 in one launch: two runs agree bit for bit, volume 1 of a batch of
+    2 equals it alone (the split plan depends on N only), and the sums
+    match the plain version within 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = (torch.randn((2, N, C), generator=g, device=dev) * 2 + 0.5).to(dtype)
+    before = ops.launch_counts()["gn_stats"]
+    st = gn.channel_stats(x)
+    assert ops.launch_counts()["gn_stats"] == before + 1
+    assert torch.equal(st, gn.channel_stats(x))
+    assert torch.equal(st[1:], gn.channel_stats(x[1:].contiguous()))
+    assert _rel(st, gn.channel_stats_plain(x)) <= 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
