@@ -39,6 +39,17 @@ Phases (each failure exits non-zero before the final line):
                counters are zeroed just before and read just after, and
                the conv launches per forward are checked by route; then a
                torch.profiler breakdown of one forward by kernel family;
+               then, on the same weights, volume and seed: ``dpm``,
+               DPM-Solver++(2M) over a 5-step respacing (exact launches),
+               order 1 against DDIM (eta 0) on the same x_T, and each
+               sampler's own device time per step beyond the forward;
+               ``distributed``, the phase again through the patch split
+               under an in-process NCCL group of one rank, bit-equal to
+               the denoise volume, and one all_gather timed; ``cli``, the
+               serving CLI under ``torchrun --nproc_per_node 1`` at the
+               production flags with ``--timesteps_file`` (3 steps) and
+               ``--use_dpm_solver``: outputs of (200, 200, 96), finite,
+               and the launches per forward that it logs;
   6. fused   — the fused serving path (``fused=True``, the same weights):
                ``conv3d_fused`` (bf16: the fused instance of
                ``csrc/conv3d_sm90.cu``) against its plain version at every
@@ -201,6 +212,11 @@ FORWARD_LAUNCHES = {
                      "conv3d_s8": 88, "gn_stats": 71, "gn_apply": 71},
 }
 FORWARD_LAUNCHES["denoise_int8_static"] = FORWARD_LAUNCHES["denoise_int8"]
+# the serving phases on the unfused bf16 model: DPM-Solver++ (orders 2 and
+# 1), DDIM, the patch split under a process group, the CLI under torchrun
+SERVING_PATHS = ("dpm", "dpm_order1", "ddim", "distributed", "cli")
+for _path in SERVING_PATHS:
+    FORWARD_LAUNCHES[_path] = FORWARD_LAUNCHES["denoise"]
 # the conv3d launches per forward by kernel route (ops.route_counts): the
 # bf16 torso convs on csrc/conv3d_sm90.cu, the Cin = 2 input conv on
 # csrc/conv3d_narrow.cu, the f32 head conv on csrc/conv3d_head.cu, none on
@@ -223,6 +239,8 @@ FORWARD_ROUTES = {
     "denoise_int8": _routes(0, 1, 1),
 }
 FORWARD_ROUTES["denoise_int8_static"] = FORWARD_ROUTES["denoise_int8"]
+for _path in SERVING_PATHS:
+    FORWARD_ROUTES[_path] = FORWARD_ROUTES["denoise"]
 # per training step: the forward's, and the dx of every conv but the input
 # conv (70 bf16 torso dx on sm90, the f32 head's 2 -> 128 dx on f32_narrow)
 STEP_ROUTES = _routes(70, 1, 1, dx_sm90=70, dx_f32_narrow=1)
@@ -938,9 +956,11 @@ def phase_model(seed: int) -> None:
     check(worst <= GRAD_TOL, f"gradient {worst_name} rel err {worst}")
 
 
-def phase_denoise(model, sched, cfg, seed: int, phase: str = "denoise"):
-    """``denoise_volume`` on the synthetic volume; launches per forward must
-    equal FORWARD_LAUNCHES[phase]. Returns (launch counts, volume, the
+def phase_denoise(model, sched, cfg, seed: int, phase: str = "denoise",
+                  **sampler):
+    """``denoise_volume`` on the synthetic volume, with ``sampler``'s options
+    (``use_ddim``, ``use_dpm_solver``, ``dpm_order``); launches per forward
+    must equal FORWARD_LAUNCHES[phase]. Returns (launch counts, volume, the
     chain's first model output)."""
     from ddpm3d_tpu_torch import ops
     from ddpm3d_tpu_torch.inference.pipeline import denoise_volume
@@ -962,7 +982,7 @@ def phase_denoise(model, sched, cfg, seed: int, phase: str = "denoise"):
     t0 = time.monotonic()
     result, stats = denoise_volume(
         model, sched, cfg, vol, seed=seed, patch_size=96, num_xy_patches=2,
-        batch_size=batch,
+        batch_size=batch, **sampler,
     )
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
@@ -977,6 +997,7 @@ def phase_denoise(model, sched, cfg, seed: int, phase: str = "denoise"):
     line = {
         "phase": phase, "volume_zhw": list(shape), "patches": n_patches,
         "patch": 96, "channels": 128, "dtype": "bfloat16", "steps": steps,
+        "sampler": sampler,
         "batch": batch, "wall_s": wall, "sample_wall_s": stats["sample_wall_s"],
         "ms_per_step": stats["sample_wall_s"] * 1e3 / steps,
         "ms_per_forward": stats["sample_wall_s"] * 1e3 / forwards,
@@ -1022,6 +1043,220 @@ def check_volumes(phase, volume, other, eps, other_eps, forward_tol,
                                for q in (0.5, 0.9, 0.99, 0.999)}})
     check(fwd_rel <= forward_tol, f"{phase}: first forward rel {fwd_rel}")
     check(mean_rel <= volume_tol, f"{phase}: volume mean rel {mean_rel}")
+
+
+# ------------------------------------------------------------- serving --
+
+# DPM-Solver++ order 1 against DDIM (eta 0) from the same x_T on the card,
+# mean |dpm1 - ddim| / mean |ddim| over the volume: the two are the same
+# update (x0 form and eps form), so they differ only by f32 rounding in the
+# update, which flips a few bf16 roundings of the next step's input; the
+# x0 recovery at early steps multiplies the model's difference by up to
+# sqrt(1/acp - 1) ~ 158 before clipping. A wrong coefficient or a step off
+# by one moves the volume as a different sampler does: order 2 against
+# order 1 is reported beside it as that scale. Measured on an H100 80GB
+# HBM3 at 700 W: 1.05e-3, and 3.0e-2 for order 2 against order 1. The first
+# forward sees the same input on both chains and must agree bit for bit.
+DPM_DDIM_TOL = 1e-2
+DPM_RESPACING = "ddim5"
+# the CLI phase: the production launch (test_DDPM_3d_tpu.sh) on a (96,
+# 200, 200) volume, 9 patches of 96^3, 6 draws each, with an explicit
+# 3-step chain (the odd positions of a 6-step one, as a distilled student's)
+CLI_FLAGS = [
+    "--large_size", "96", "--num_channels", "128", "--learn_sigma", "True",
+    "--use_fp16", "True", "--use_scale_shift_norm", "True",
+    "--resblock_updown", "True", "--attention_resolutions", "1000",
+    "--num_head_channels", "64", "--diffusion_steps", "1000",
+    "--noise_schedule", "linear", "--num_samples", "6", "--batch_size", "1",
+    "--timestep_respacing", "", "--use_dpm_solver", "True",
+]
+CLI_CHAIN = [167, 501, 835]
+CLI_TIMEOUT_S = 600
+
+
+def phase_dpm(model, seed: int) -> dict:
+    """The denoise phase's volume and weights through DPM-Solver++(2M) over
+    a 5-step respacing, with exact launches per forward; order 1 and DDIM
+    (eta 0) on the same x_T against each other; and the samplers' own
+    device time per step beyond the forward (a stub model that returns a
+    fixed output). Returns {path: launch counts}."""
+    from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
+
+    sched, cfg = create_gaussian_diffusion(
+        steps=1000, learn_sigma=True, noise_schedule="linear",
+        timestep_respacing=DPM_RESPACING)
+    counts, runs = {}, {}
+    for path, sampler in (("dpm", dict(use_dpm_solver=True)),
+                          ("dpm_order1", dict(use_dpm_solver=True,
+                                              dpm_order=1)),
+                          ("ddim", dict(use_ddim=True))):
+        counts[path], vol, eps = phase_denoise(model, sched, cfg, seed,
+                                               phase=path, **sampler)
+        runs[path] = (vol, eps)
+    d21 = np.abs(runs["dpm"][0] - runs["dpm_order1"][0])
+    emit({"phase": "dpm_order2_vs_order1",
+          "volume_mean_rel_diff":
+              float(d21.mean() / np.abs(runs["dpm_order1"][0]).mean())})
+    check_volumes("dpm_order1_vs_ddim", runs["ddim"][0],
+                  runs["dpm_order1"][0], runs["ddim"][1],
+                  runs["dpm_order1"][1], 0.0, DPM_DDIM_TOL)
+    phase_sampler_overhead(sched, cfg)
+    return counts
+
+
+def phase_sampler_overhead(sched, cfg) -> None:
+    """Device ms per step of each sampler's own work at batch 2 of 96^3 (the
+    model a stub returning a fixed learned-sigma output): p_mean_variance,
+    the update and, for DDPM/DDIM, the step noise; torch.profiler's device
+    time and CUDA events over the whole chain."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddpm3d_tpu_torch.diffusion import (
+        dpm_solver_pp_sample_loop, p_sample_loop)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((2, 96, 96, 96, 1), device="cuda", generator=gen)
+    out = torch.randn((2, 96, 96, 96, 2), device="cuda", generator=gen)
+
+    def stub(x, t, **kw):
+        return out
+
+    chains = {
+        "dpm_solver_2m": lambda: dpm_solver_pp_sample_loop(
+            stub, sched, cfg, x, device="cuda"),
+        "ddim": lambda: p_sample_loop(stub, sched, cfg, noise=x,
+                                      use_ddim=True, device="cuda"),
+        "ddpm": lambda: p_sample_loop(stub, sched, cfg, noise=x,
+                                      device="cuda"),
+    }
+    steps = sched.num_timesteps
+    line = {"phase": "sampler_overhead", "batch": 2, "patch": 96,
+            "steps": steps, "device_ms_per_step": {}, "ms_per_step": {}}
+    for name, run in chains.items():
+        line["ms_per_step"][name] = time_ms(run, reps=5, warmup=2) / steps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        _, other = device_breakdown(prof, {})
+        line["device_ms_per_step"][name] = sum(other.values()) / steps
+    emit(line)
+    check(all(v > 0 for v in line["device_ms_per_step"].values()),
+          "the profiler saw the samplers' device time")
+
+
+def phase_distributed(model, sched, cfg, seed: int, volume) -> dict:
+    """The denoise phase again through the patch split: an NCCL process
+    group of one rank (in this process, through a FileStore), so the rank's
+    slice goes through the all_gather; its volume must equal the denoise
+    phase's bit for bit. Then one all_gather of the phase's four 96^3 f32
+    patches, timed. Returns the launch counts."""
+    import torch.distributed as dist
+
+    from ddpm3d_tpu_torch.parallel import all_gather_rows, world
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            check(world() == (0, 1), "the process group is up")
+            # NCCL makes its communicator at the first collective: timed
+            # here, so that the phase's sampling time is the split path's
+            rows = torch.randn((4, 96, 96, 96), device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            all_gather_rows(rows[:1])
+            torch.cuda.synchronize()
+            first_s = time.monotonic() - t0
+            counts, split_volume, _ = phase_denoise(
+                model, sched, cfg, seed, phase="distributed")
+            gathered = all_gather_rows(rows)
+            check(torch.equal(gathered, rows), "all_gather of one rank")
+            ms = time_ms(lambda: all_gather_rows(rows), reps=10, warmup=3)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    equal = bool(np.array_equal(split_volume, volume))
+    emit({"phase": "distributed_gather", "backend": backend, "world_size": 1,
+          "volume_bit_equal_to_denoise": equal,
+          "volume_max_abs_diff": float(np.abs(split_volume - volume).max()),
+          "first_collective_s": first_s,
+          "all_gather_ms": ms, "all_gather_bytes": rows.numel() * 4,
+          "all_gather_gb_per_s": rows.numel() * 4 / ms / 1e6})
+    check(equal, "the split path's volume equals the denoise phase's")
+    return counts
+
+
+def phase_cli(model, seed: int) -> dict:
+    """The serving CLI under ``torchrun --standalone --nproc_per_node 1`` at
+    the production flags, with ``--timesteps_file`` (a 3-step chain) and
+    ``--use_dpm_solver``, on a synthetic (96, 200, 200) TIFF and a ``.pt``
+    of the phase's weights: exit 0, finite (200, 200, 96) outputs, the
+    uncertainty map of the 6 draws, and the kernel launches per forward
+    that the CLI logs. Returns those launch counts."""
+    from ddpm3d_tpu_torch.data import tiff_io
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        vol_path = os.path.join(tmp, "vol.tif")
+        tiff_io.imwrite(vol_path, np.random.default_rng(seed).gamma(
+            2.0, 0.5, (96, 200, 200)).astype(np.float32))
+        ckpt = os.path.join(tmp, "model000000.pt")
+        torch.save(model.state_dict(), ckpt)
+        ts_path = os.path.join(tmp, "distilled_3steps_ts.npy")
+        np.save(ts_path, np.asarray(CLI_CHAIN))
+        out = os.path.join(tmp, "out")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "ddpm3d_tpu_torch.scripts.test",
+               *CLI_FLAGS, "--base_samples", vol_path, "--model_path", ckpt,
+               "--timesteps_file", ts_path, "--save_dir", out,
+               "--seed", str(seed)]
+        t0 = time.monotonic()
+        proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                              timeout=CLI_TIMEOUT_S)
+        wall = time.monotonic() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+        check(proc.returncode == 0, f"the torchrun CLI exited {proc.returncode}")
+        result = np.load(os.path.join(out, "denoised_vol.npz"))["arr_0"]
+        tif = tiff_io.imread(os.path.join(out, "denoised_vol.tif"))
+        unc = tiff_io.imread(os.path.join(out, "uncertainty_vol.tif"))
+        log = open(os.path.join(out, "log.txt")).read().splitlines()
+        files = sorted(os.listdir(out))
+    launched = json.loads(next(
+        l for l in log if l.startswith("kernel launches on rank 0: "))
+        .split(": ", 1)[1])
+    sampling_s = float(next(l for l in log if l.startswith(
+        "Full image denoising:")).rsplit("(sampling ", 1)[1].split("s wall")[0])
+    forwards = 9 * 6 * len(CLI_CHAIN)  # patches x draws x steps, batch 1
+    counts = dict(launched["launches"], routes=launched["routes"])
+    per_forward = {k: v / forwards for k, v in launched["launches"].items()}
+    routes_per_forward = {k: v / forwards
+                          for k, v in launched["routes"].items()}
+    emit({"phase": "cli", "launcher": "torchrun --standalone "
+          "--nproc_per_node 1", "flags": " ".join(CLI_FLAGS),
+          "timesteps": CLI_CHAIN, "patches": 9, "draws": 6,
+          "result_shape": list(result.shape), "tif_shape": list(tif.shape),
+          "uncertainty_shape": list(unc.shape), "files": files,
+          "finite": bool(np.isfinite(result).all()),
+          "wall_s": wall, "sampling_s": sampling_s,
+          "ms_per_forward": sampling_s * 1e3 / forwards,
+          "launches_per_forward": per_forward,
+          "routes_per_forward": routes_per_forward,
+          "log_tail": log[-4:]})
+    check(result.shape == (200, 200, 96), f"CLI result shape {result.shape}")
+    check(tif.shape == (96, 200, 200), f"CLI TIFF shape {tif.shape}")
+    check(unc.shape == (96, 200, 200), f"uncertainty map shape {unc.shape}")
+    check(bool(np.isfinite(result).all()) and bool(np.isfinite(tif).all()),
+          "CLI outputs are finite")
+    check(float(np.abs(result).max()) > 0, "CLI result is non-trivial")
+    check(any("sampler: DPM-Solver++(2M), 3-step explicit chain" in l
+              for l in log), "the CLI ran DPM-Solver on the explicit chain")
+    check(per_forward == FORWARD_LAUNCHES["cli"],
+          f"cli launches per forward {per_forward}")
+    check(routes_per_forward == FORWARD_ROUTES["cli"],
+          f"cli conv routes per forward {routes_per_forward}")
+    return counts
 
 
 # kernel families of a profile, by substrings of the device kernels' names
@@ -1887,6 +2122,10 @@ def main() -> None:
     phase_model_int8(args.seed)
     denoise_counts, volume, eps = phase_denoise(model, sched, cfg, args.seed)
     phase_profile(model)
+    serving_counts = phase_dpm(model, args.seed)
+    serving_counts["distributed"] = phase_distributed(
+        model, sched, cfg, args.seed, volume)
+    serving_counts["cli"] = phase_cli(model, args.seed)
     fused_counts, fused_volume, fused_eps = phase_denoise(
         fused, sched, cfg, args.seed, phase="denoise_fused")
     check_volumes("denoise_fused_vs_unfused", volume, fused_volume, eps,
@@ -1914,7 +2153,8 @@ def main() -> None:
                    "denoise_fused": count(fused_counts),
                    "denoise_int8": count(int8_counts),
                    "denoise_int8_static": count(static_counts),
-                   "train": count(train["launches"])}
+                   "train": count(train["launches"]),
+                   **{path: count(c) for path, c in serving_counts.items()}}
         main_path = {"conv3d_fused": "denoise_fused",
                      "conv3d_s8": "denoise_int8"}.get(name, "train")
         extra = {}

@@ -1,5 +1,7 @@
 """Diffusion schedules, process math, training losses and the DDPM
-ancestral and DDIM samplers."""
+ancestral, DDIM and DPM-Solver++ samplers."""
+
+from .dpm_solver import dpm_solver_pp_sample_loop
 
 from .losses import calc_bpd_loop, training_losses, vb_terms_bpd
 from .process import (

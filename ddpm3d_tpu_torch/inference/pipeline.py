@@ -1,13 +1,15 @@
 """Whole-volume denoising: patch grid -> reverse chain per patch batch ->
 Hann blend -> .npz / .tif outputs.
 
-Port of ``ddpm3d_tpu/inference/pipeline.py`` for one GPU: the patches run
-in order, ``batch_size`` at a time, through the DDPM ancestral chain or,
-with ``use_ddim``, the DDIM chain. Each patch's noise is keyed by its global
-index (and the seed), so the result does not depend on the batch size. A
-model served in int8 (``model.int8``) is told each step's chain index, which
-picks its per-time-bin activation scales. Multi-GPU patch splitting and
-DPM-Solver wait for later slices (ROADMAP.md).
+Port of ``ddpm3d_tpu/inference/pipeline.py``: the patches run in order,
+``batch_size`` at a time, through the DDPM ancestral chain or, with
+``use_ddim``, the DDIM chain, or with ``use_dpm_solver`` DPM-Solver++(2M).
+Each patch's noise is keyed by its global index (and the seed), so the
+result does not depend on the batch size or the GPU count. Under
+``torchrun`` (a process group, :mod:`..parallel`) each rank samples a
+contiguous slice of the patches and the slices are gathered; rank 0 blends,
+logs and writes. A model served in int8 (``model.int8``) is told each
+step's chain index, which picks its per-time-bin activation scales.
 """
 
 from __future__ import annotations
@@ -31,9 +33,15 @@ from ..data.patches import (
     test_z_starts,
 )
 from ..diffusion import DiffusionConfig, Schedule
-from ..diffusion.sampling import p_sample_loop
+from ..diffusion.dpm_solver import dpm_solver_pp_sample_loop
+from ..diffusion.sampling import XT_STEP, p_sample_loop, step_noise
+from ..parallel import all_gather_rows, pad_to_multiple, world
 
 Log = Callable[[str], None]
+
+
+def _quiet(_msg: str) -> None:
+    pass
 
 
 def log_stage_stats(stage: str, arr: np.ndarray, log: Log = print) -> None:
@@ -88,25 +96,38 @@ def denoise_patches(
     device=None,
     use_ddim: bool = False,
     eta: float = 0.0,
+    use_dpm_solver: bool = False,
+    dpm_order: int = 2,
 ) -> np.ndarray:
     """Run the full reverse chain on conditioner patches [P, Z, X, Y] and
-    return the denoised [P, Z, X, Y] (f32, host).
+    return the denoised [P, Z, X, Y] (f32, host), on every rank.
 
     The chain runs on ``device``: ``cuda`` unless the caller passes
     ``"cpu"``. It raises when no card is there and when the model lies on
     another device, rather than moving anything.
 
+    With a process group of W ranks, rank r samples the r-th of W
+    contiguous slices of the patches, whose sizes differ by at most one,
+    ``batch_size`` at a time (the batch is per GPU). Each slice is padded
+    to ceil(P / W) rows (P padded to a multiple of W: the gather is never
+    ragged) and the slices are gathered in rank order; the pad rows are
+    zeros, not sampled, and dropped after the gather.
+
     ``noise`` [P, Z, X, Y] is x_T. ``noise_stream`` supplies every step's
     noise, ordered t = T-1 .. 0: an array [P, T, Z, X, Y] (with ``noise``),
     or a callable ``(lo, hi) -> (x_T [n, Z, X, Y], stream [n, T, Z, X, Y])``
     called for increasing patch ranges, so only one batch's noise exists at
-    a time. Without them, noise is drawn per (seed, patch index, t).
+    a time. Without them, noise is drawn per (seed, global patch index, t).
 
-    ``use_ddim`` runs DDIM steps with ``eta``. An int8 model's sites read
-    their scales for the bin of the chain index ``i`` (the respaced step,
-    ``clip(i * n_bins // chain_steps)``), set before each step on the host:
-    the JAX pipeline bins on the model's timestep ``timestep_map[i]``
-    instead, which agrees on an unspaced chain only."""
+    ``use_ddim`` runs DDIM steps with ``eta``; ``use_dpm_solver`` runs
+    DPM-Solver++ of ``dpm_order`` from x_T (``noise``, else drawn as the
+    other chains draw it). A noise stream with ``use_dpm_solver`` raises
+    (the JAX pipeline silently runs the stochastic chain then), as does an
+    int8 model. An int8 model's sites read their scales for the bin of the
+    chain index ``i`` (the respaced step, ``clip(i * n_bins //
+    chain_steps)``), set before each step on the host: the JAX pipeline
+    bins on the model's timestep ``timestep_map[i]`` instead, which agrees
+    on an unspaced chain only."""
     device = resolve_device(device)
     model_device = next(model.parameters()).device
     if model_device != device:
@@ -120,17 +141,34 @@ def denoise_patches(
     stream_fn = noise_stream if callable(noise_stream) else None
     if noise_stream is not None and stream_fn is None and noise is None:
         raise ValueError("noise_stream requires explicit x_T noise")
+    int8 = getattr(model, "int8", None)
+    if use_dpm_solver and noise_stream is not None:
+        raise ValueError(
+            "use_dpm_solver takes x_T only: a per-step noise stream drives "
+            "the stochastic chains")
+    if use_dpm_solver and int8 is not None:
+        raise ValueError(
+            "use_dpm_solver with an int8 model is refused: deterministic "
+            "chains accumulate quantization bias coherently")
 
     def model_fn(x, t, low_res):
         return model(x, t, low_res=low_res).float()
 
-    int8 = getattr(model, "int8", None)
     before_step = int8.set_chain_step if int8 is not None else None
 
+    # slices that differ by at most one patch: a rank that finishes early
+    # waits in the gather, for at most one batch's chain (NCCL aborts a
+    # collective that waits longer than its timeout, 10 min by default)
+    rank, world_size = world()
+    sizes = [P // world_size + (r < P % world_size)
+             for r in range(world_size)]
+    n = pad_to_multiple(P, world_size) // world_size  # the largest slice
+    first = sum(sizes[:rank])
+    last = first + sizes[rank]
     outs = []
     with torch.inference_mode():
-        for lo in range(0, P, batch_size):
-            hi = min(P, lo + batch_size)
+        for lo in range(first, last, batch_size):
+            hi = min(last, lo + batch_size)
             low = torch.from_numpy(
                 np.ascontiguousarray(low_patches[lo:hi])[..., None]).to(device)
             x_t = stream = None
@@ -150,19 +188,32 @@ def denoise_patches(
                 # [n, T, ...] -> [T, n, ..., 1], moved to the card step by step
                 stream = torch.from_numpy(
                     np.asarray(stream, np.float32)).movedim(1, 0)[..., None]
-            img = p_sample_loop(
-                model_fn, sched, cfg, shape=low.shape, noise=x_t,
-                noise_stream=stream, clip_denoised=clip_denoised,
-                model_kwargs={"low_res": low}, seed=seed,
-                sample_ids=range(lo, hi), device=device,
-                before_step=before_step, use_ddim=use_ddim, eta=eta,
-            )
-            outs.append(img[..., 0].cpu().numpy())
+            ids = range(lo, hi)  # global: the noise does not depend on W
+            if use_dpm_solver:
+                if x_t is None:
+                    x_t = step_noise(seed, ids, XT_STEP, low.shape[1:], device)
+                img = dpm_solver_pp_sample_loop(
+                    model_fn, sched, cfg, x_t, clip_denoised=clip_denoised,
+                    model_kwargs={"low_res": low}, order=dpm_order,
+                    device=device)
+            else:
+                img = p_sample_loop(
+                    model_fn, sched, cfg, shape=low.shape, noise=x_t,
+                    noise_stream=stream, clip_denoised=clip_denoised,
+                    model_kwargs={"low_res": low}, seed=seed,
+                    sample_ids=ids, device=device,
+                    before_step=before_step, use_ddim=use_ddim, eta=eta,
+                )
+            outs.append(img[..., 0])
             if progress_cb is not None:
-                progress_cb(hi, P)
+                progress_cb(hi - first, last - first)
     if int8 is not None:
         int8.set_chain_step(None)
-    return np.concatenate(outs)
+    pad = torch.zeros((n - sizes[rank],) + low_patches.shape[1:],
+                      device=device)
+    rows = all_gather_rows(torch.cat(outs + [pad]))
+    return torch.cat([rows[r * n:r * n + size]
+                      for r, size in enumerate(sizes)]).cpu().numpy()
 
 
 def denoise_volume(
@@ -185,7 +236,9 @@ def denoise_volume(
     device=None,
     use_ddim: bool = False,
     eta: float = 0.0,
-) -> Tuple[np.ndarray, Dict]:
+    use_dpm_solver: bool = False,
+    dpm_order: int = 2,
+) -> Tuple[Optional[np.ndarray], Dict]:
     """Denoise a whole (Z, H, W) volume; returns ((H, W, Z) result, stats).
 
     Fixed patch grid, full reverse chain per patch, 3-D Hann blending (or
@@ -194,8 +247,15 @@ def denoise_volume(
     ``num_samples > 1`` draws that many chains and returns their mean, with
     the per-voxel std in ``stats["uncertainty_hwz"]``. The chain runs on
     ``device`` as in :func:`denoise_patches`: ``cuda`` unless the caller
-    passes ``"cpu"``, and the model must lie there; ``use_ddim`` and ``eta``
-    choose the sampler as there."""
+    passes ``"cpu"``, and the model must lie there; ``use_ddim``, ``eta``,
+    ``use_dpm_solver`` and ``dpm_order`` choose the sampler as there.
+
+    Under a process group every rank samples its slice of the patches; rank
+    0 blends, logs and returns the result and all stats, the other ranks
+    return ``(None, {"sample_wall_s": ...})`` and log nothing."""
+    rank = world()[0]
+    if rank != 0:
+        log = _quiet
     Z, H, W = volume_zxy.shape
     if normalize_div4:
         volume_zxy = np.clip(volume_zxy, None, 4.0) / 4.0
@@ -232,8 +292,11 @@ def denoise_volume(
             f"denoised {done}/{total} patch-draws "
             f"[{time.monotonic() - t0:.1f}s]"),
         device=device, use_ddim=use_ddim, eta=eta,
+        use_dpm_solver=use_dpm_solver, dpm_order=dpm_order,
     )
     sample_wall_s = time.monotonic() - t0
+    if rank != 0:
+        return None, {"sample_wall_s": sample_wall_s}
     P = low.shape[0]
     draws = [blend_one(denoised_all[s * P:(s + 1) * P]) for s in range(S)]
     result = np.mean(draws, axis=0) if S > 1 else draws[0]
@@ -266,7 +329,10 @@ def save_outputs(
     out_dir: str, base_samples: str, result_hwz: np.ndarray, log: Log = print
 ) -> Tuple[str, Optional[str]]:
     """Write ``denoised_<name>.npz`` of the (H, W, Z) volume, and a (Z, H, W)
-    ``.tif`` for TIFF inputs."""
+    ``.tif`` for TIFF inputs, on rank 0; ``("", None)`` on the other ranks
+    writes nothing."""
+    if world()[0] != 0:
+        return "", None
     os.makedirs(out_dir, exist_ok=True)
     base = osp.basename(base_samples)
     for ext in (".tif", ".tiff", ".npz", ".npy"):

@@ -214,9 +214,9 @@ class UNetModel(nn.Module):
         stages = plan.input_blocks + (plan.middle_block,) + plan.output_blocks
         if any(isinstance(s, AttnSpec) for stage in stages for s in stage):
             raise NotImplementedError(
-                "attention blocks are not ported yet (ROADMAP.md Queue 1 "
-                "item 7); use middle_attention=False and no attention "
-                "resolutions"
+                "attention blocks are not ported yet (ROADMAP.md Queue 1, "
+                "attention and the model zoo); use middle_attention=False "
+                "and no attention resolutions"
             )
         self.model_channels = model_channels
         self.num_classes = num_classes
