@@ -87,7 +87,21 @@ Phases (each failure exits non-zero before the final line):
                pair: 6 bf16 steps at batch 1 with the launch counters zeroed
                just before; step time, peak memory, losses, launches per
                step, save time; the saved ``model*.pt`` loaded into a serving
-               model with ``strict=True``; then a profile of one step.
+               model with ``strict=True``; then a profile of one step;
+  9. train_ddp — ``TrainLoop`` under an in-process NCCL group of one rank
+               (DistributedDataParallel) against the plain loop, 3 steps at
+               the production flags on the same batches and seed: params
+               and EMA bit-equal, launches per step 72/71/71/71, both
+               loops' step ms, the all-reduce's device time and host ops;
+ 10. distill — the distill CLI under ``torchrun --nproc_per_node 1`` at the
+               production model flags on the train phase's pair, 8 -> 4 ->
+               2 steps, 3 optimizer steps a phase: the ``.pt`` and
+               ``_ts.npy`` of each phase (the halving ladder), finite
+               losses, moved students, launches per distill step exactly
+               216/213/213/71; ``distill_step``, the step in this process
+               (ms, by part, peak memory); ``distill_serve``, the 2-step
+               ``.pt`` served strict=True along its explicit 2-step DDIM
+               chain by ``denoise_volume`` (72/71/71 per forward).
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``.
 
@@ -1562,13 +1576,26 @@ def _read_progress(path: str) -> list:
                 for row in csv.DictReader(f)]
 
 
+def _write_pair(tmp: str, seed: int) -> str:
+    """A synthetic (2, 96, 200, 200) low/high pair (9 training patches of
+    96^3) in ``tmp/data``; returns that directory."""
+    from ddpm3d_tpu_torch.data import tiff_io
+
+    data_dir = os.path.join(tmp, "data")
+    os.makedirs(data_dir)
+    rng = np.random.default_rng(seed)
+    high = rng.gamma(2.0, 0.5, (96, 200, 200)).astype(np.float32)
+    low = high + rng.normal(0.0, 0.3, high.shape).astype(np.float32)
+    tiff_io.imwrite(os.path.join(data_dir, "pair.tif"), np.stack([low, high]))
+    return data_dir
+
+
 def phase_train(seed: int) -> dict:
     """The training CLI at the production flags on a synthetic volume pair:
     6 steps at batch 1, saved at steps 0 and 5 (``DIFFUSION_TRAINING_TEST``
     stops after the first save past step 0). Steps and saves are timed by
     wrapping ``TrainLoop.run_step`` / ``TrainLoop.save``."""
     from ddpm3d_tpu_torch import ops
-    from ddpm3d_tpu_torch.data import tiff_io
     from ddpm3d_tpu_torch.models.factory import sr_create_model_and_diffusion
     from ddpm3d_tpu_torch.models.nn import init_params
     from ddpm3d_tpu_torch.scripts import train as train_cli
@@ -1600,13 +1627,7 @@ def phase_train(seed: int) -> dict:
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
-        data_dir, run_dir = os.path.join(tmp, "data"), os.path.join(tmp, "run")
-        os.makedirs(data_dir)
-        rng = np.random.default_rng(seed)
-        high = rng.gamma(2.0, 0.5, (96, 200, 200)).astype(np.float32)
-        low = high + rng.normal(0.0, 0.3, high.shape).astype(np.float32)
-        tiff_io.imwrite(os.path.join(data_dir, "pair.tif"),
-                        np.stack([low, high]))  # (2, 96, 200, 200): 9 patches
+        data_dir, run_dir = _write_pair(tmp, seed), os.path.join(tmp, "run")
         argv = TRAIN_FLAGS + [
             "--data_dir", data_dir, "--result_folder", run_dir,
             "--save_interval", str(TRAIN_STEPS - 1), "--log_interval", "1",
@@ -2070,6 +2091,320 @@ def phase_train_profile(loop) -> None:
           "idle_share": max(0.0, 1 - device_ms / step_ms)})
 
 
+TRAIN_DDP_STEPS = 3
+# the distill phase: 8 -> 4 -> 2 steps, 3 optimizer steps a phase
+DISTILL_START, DISTILL_TARGET, DISTILL_STEPS = 8, 2, 3
+# a distill step: two teacher forwards and the student's forward (each the
+# train phase's 72/71/71) and the student's backward (71 dx)
+DISTILL_STEP_LAUNCHES = {"conv3d": 216, "conv3d_dx": 71, "conv3d_fused": 0,
+                         "conv3d_s8": 0, "gn_stats": 213, "gn_apply": 213}
+DISTILL_STEP_ROUTES = _routes(210, 3, 3, dx_sm90=70, dx_f32_narrow=1)
+DISTILL_TIMEOUT_S = 600
+FORWARD_LAUNCHES["distill_serve"] = FORWARD_LAUNCHES["denoise"]
+FORWARD_ROUTES["distill_serve"] = FORWARD_ROUTES["denoise"]
+
+
+def _train_loop(seed: int):
+    """A TrainLoop at the production flags and the training CLI's
+    defaults, its model initialised from ``seed``, on the card."""
+    from ddpm3d_tpu_torch.models.factory import sr_create_model_and_diffusion
+    from ddpm3d_tpu_torch.models.nn import init_params
+    from ddpm3d_tpu_torch.scripts import train as train_cli
+    from ddpm3d_tpu_torch.training import TrainLoop
+    from ddpm3d_tpu_torch.utils.config import (
+        args_to_dict, sr_model_and_diffusion_defaults)
+
+    args = train_cli.create_argparser().parse_args(
+        TRAIN_FLAGS + ["--data_dir", "unused"])
+    model, sched, cfg = sr_create_model_and_diffusion(
+        **args_to_dict(args, sr_model_and_diffusion_defaults().keys()))
+    init_params(model, seed=seed)
+    return TrainLoop(
+        model=model, sched=sched, cfg=cfg, data=iter(()),
+        batch_size=args.batch_size, microbatch=args.microbatch, lr=args.lr,
+        ema_rate=args.ema_rate, log_interval=args.log_interval,
+        save_interval=args.save_interval, weight_decay=args.weight_decay,
+        lr_anneal_steps=args.lr_anneal_steps, seed=seed, device="cuda")
+
+
+def _timed_steps(loop, batches) -> list:
+    ms = []
+    for x, low in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loop.run_step(x, {"low_res": low})
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return ms
+
+
+def phase_train_ddp(seed: int) -> dict:
+    """``TrainLoop`` under an in-process NCCL group of one rank (through a
+    FileStore), so DistributedDataParallel wraps the model, against the
+    plain ``TrainLoop``: 3 steps at the production flags (batch 1, bf16,
+    96^3) on the same batches and seed; params and EMA must be bit-equal
+    (DDP at world size 1 divides by 1), launches per step exactly the train
+    phase's, by route too. Then one more DDP step under torch.profiler for
+    the gradient all-reduce's device time (NCCL kernels) and its host ops.
+    Returns the DDP loop's launch counts (with routes)."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddpm3d_tpu_torch import ops
+    from ddpm3d_tpu_torch.utils import logger
+
+    rng = np.random.default_rng(seed)
+    batches = [(np.clip(rng.normal(0.0, 0.5, (1, 96, 96, 96, 1)), -1, 1)
+                .astype(np.float32),
+                rng.normal(0.0, 0.5, (1, 96, 96, 96, 1)).astype(np.float32))
+               for _ in range(TRAIN_DDP_STEPS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        logger.configure(os.path.join(tmp, "log"), format_strs=[])
+        loop = _train_loop(seed)
+        plain_ms = _timed_steps(loop, batches)
+        plain = [p.detach().cpu() for p in loop.model.parameters()]
+        plain_ema = [e.cpu() for e in loop.state.ema_params[0]]
+        del loop
+        torch.cuda.empty_cache()
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            loop = _train_loop(seed)
+            wrapper = type(loop.state.model).__name__
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            ddp_ms = _timed_steps(loop, batches)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            counts["routes"] = ops.route_counts()
+            params = [p.detach().cpu() for p in loop.model.parameters()]
+            ema = [e.cpu() for e in loop.state.ema_params[0]]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                loop.run_step(batches[0][0], {"low_res": batches[0][1]})
+                torch.cuda.synchronize()
+            by_family, other = device_breakdown(
+                prof, {"all_reduce": ("nccl", "Nccl", "NCCL")})
+            # the host side of DDP's bucket all-reduces (c10d's ops), from
+            # one more step
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                loop.run_step(batches[0][0], {"low_res": batches[0][1]})
+                torch.cuda.synchronize()
+            host_ar = [(ev.key, ev.count, ev.cpu_time_total / 1e3)
+                       for ev in prof.key_averages()
+                       if "allreduce" in ev.key.replace("_", "").lower()]
+            backend = dist.get_backend()
+            del loop  # the DDP wrapper before its process group
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    params_equal = all(torch.equal(a, b) for a, b in zip(params, plain))
+    ema_equal = all(torch.equal(a, b) for a, b in zip(ema, plain_ema))
+    steps = len(ddp_ms)
+    per_step = {k: v / steps for k, v in counts.items() if k != "routes"}
+    routes_per_step = {k: v / steps for k, v in counts["routes"].items()}
+    emit({"phase": "train_ddp", "backend": backend, "world_size": 1,
+          "wrapper": wrapper, "flags": " ".join(TRAIN_FLAGS), "batch": 1,
+          "steps": steps, "plain_step_ms": plain_ms, "ddp_step_ms": ddp_ms,
+          "plain_ms_per_step": statistics.median(plain_ms[1:]),
+          "ddp_ms_per_step": statistics.median(ddp_ms[1:]),
+          "params_bit_equal": params_equal, "ema_bit_equal": ema_equal,
+          "all_reduce_device_ms": by_family["all_reduce"],
+          "all_reduce_host_ops": host_ar,
+          "profiled_step_device_ms": sum(by_family.values())
+          + sum(other.values()),
+          "grad_bytes": sum(p.numel() for p in params) * 4,
+          "launches_per_step": per_step, "routes_per_step": routes_per_step})
+    check(wrapper == "DistributedDataParallel", f"the loop runs {wrapper}")
+    check(params_equal and ema_equal,
+          "DDP at world size 1: params and EMA bit-equal to the plain loop")
+    check(per_step == {"conv3d": 72, "conv3d_dx": 71, "conv3d_fused": 0,
+                       "conv3d_s8": 0, "gn_stats": 71, "gn_apply": 71},
+          f"train_ddp launches per step {per_step}")
+    check(routes_per_step == STEP_ROUTES,
+          f"train_ddp conv routes per step {routes_per_step}")
+    return counts
+
+
+def _chain(n: int) -> list:
+    """``n`` evenly spaced steps of the 1000-step chain (``--start_respacing
+    n``: one section, first and last step kept)."""
+    return sorted({round(i * 999 / (n - 1)) for i in range(n)})
+
+
+def _ladder(start: int, target: int) -> list:
+    """The kept timesteps of each halving from ``_chain(start)`` down to at
+    most ``target`` steps: the odd positions of the previous chain."""
+    ts = _chain(start)
+    out = []
+    while len(ts) > target:
+        ts = ts[1::2]
+        out.append(ts)
+    return out
+
+
+def phase_distill(seed: int) -> dict:
+    """The distill CLI under ``torchrun --standalone --nproc_per_node 1`` at
+    the production model flags, on the train phase's synthetic pair and a
+    ``.pt`` of this run's weights, 8 -> 4 -> 2 with 3 optimizer steps a
+    phase: exit 0, a ``.pt`` and a ``_ts.npy`` per phase (the halving
+    ladder, computed here), finite losses, grad_norm > 0, students that
+    moved, and exactly DISTILL_STEP_LAUNCHES per step (the counts the CLI
+    logs over its 6 steps). Then, in this process: 4 distill steps on the
+    same model, timed (the median after the first) by part, with the peak
+    memory; and the 2-step ``.pt`` loaded strict=True into a serving model
+    and run by ``denoise_volume`` along its explicit 2-step DDIM chain on the
+    denoise phase's volume (``phase_denoise``: finite, 72/71/71 per
+    forward). Returns the CLI's launch counts (with routes)."""
+    import copy
+
+    from ddpm3d_tpu_torch.diffusion import (
+        get_named_beta_schedule, make_spaced_schedule, process)
+    from ddpm3d_tpu_torch.training import distill as td
+    from ddpm3d_tpu_torch.training import train_loop as tl
+
+    ladder = _ladder(DISTILL_START, DISTILL_TARGET)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    teacher, sched, cfg = _model(use_fp16=True, seed=seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = _write_pair(tmp, seed)
+        ckpt = os.path.join(tmp, "model000000.pt")
+        torch.save(teacher.state_dict(), ckpt)
+        out = os.path.join(tmp, "distill")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "ddpm3d_tpu_torch.scripts.distill",
+               *TRAIN_FLAGS, "--data_dir", data_dir, "--model_path", ckpt,
+               "--result_folder", out, "--start_respacing",
+               str(DISTILL_START), "--target_steps", str(DISTILL_TARGET),
+               "--steps_per_phase", str(DISTILL_STEPS), "--seed", str(seed)]
+        t0 = time.monotonic()
+        proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                              timeout=DISTILL_TIMEOUT_S)
+        wall = time.monotonic() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+        check(proc.returncode == 0,
+              f"the torchrun distill CLI exited {proc.returncode}")
+        files = sorted(os.listdir(out))
+        log = open(os.path.join(out, "log.txt")).read().splitlines()
+        rows = _read_progress(os.path.join(out, "progress.csv"))
+        kept = {len(ts): np.load(os.path.join(out, f"distilled_{len(ts)}"
+                                              "steps_ts.npy")).tolist()
+                for ts in ladder}
+        students = {n: torch.load(os.path.join(out, f"distilled_{n}steps.pt"),
+                                  weights_only=True) for n in kept}
+    launched = json.loads(next(
+        l for l in log if l.startswith("kernel launches on rank 0: "))
+        .split(": ", 1)[1])
+    steps = DISTILL_STEPS * len(ladder)
+    per_step = {k: v / steps for k, v in launched["launches"].items()}
+    routes_per_step = {k: v / steps for k, v in launched["routes"].items()}
+    initial = teacher.state_dict()
+    moved = {n: sum(not torch.equal(v, initial[k]) for k, v in sd.items())
+             for n, sd in students.items()}
+    line = {"phase": "distill", "launcher": "torchrun --standalone "
+            "--nproc_per_node 1", "flags": " ".join(TRAIN_FLAGS),
+            "chain": [DISTILL_START] + [len(ts) for ts in ladder],
+            "steps_per_phase": DISTILL_STEPS, "files": files,
+            "kept_timesteps": kept, "wall_s": wall,
+            "loss": [r.get("distill/loss") for r in rows],
+            "mse": [r.get("distill/mse") for r in rows],
+            "grad_norm": [r.get("distill/grad_norm") for r in rows],
+            "skipped": [r.get("distill/skipped_nonfinite") for r in rows],
+            "tensors_moved": moved, "launches_per_step": per_step,
+            "routes_per_step": routes_per_step, "log_tail": log[-3:]}
+    emit(line)
+    check(kept == {len(ts): ts for ts in ladder},
+          f"the kept timesteps are the halving ladder {ladder}")
+    check(len(rows) == 2 * len(ladder), f"{len(rows)} logged distill rows")
+    for key in ("loss", "mse", "grad_norm"):
+        check(all(v is not None and np.isfinite(v) for v in line[key]),
+              f"distill {key} finite")
+    check(all(v > 0 for v in line["grad_norm"]), "distill grad_norm > 0")
+    check(all(v == 0 for v in line["skipped"]), "no distill step skipped")
+    check(all(m > 0 for m in moved.values()), "the students moved")
+    check(per_step == DISTILL_STEP_LAUNCHES,
+          f"distill launches per step {per_step}")
+    check(routes_per_step == DISTILL_STEP_ROUTES,
+          f"distill conv routes per step {routes_per_step}")
+    counts = dict(launched["launches"], routes=launched["routes"])
+
+    # the step in this process: distill_step timed whole (the median after
+    # the first), then by part: the teacher's two DDIM steps, the
+    # student's forward and loss, its backward, the update
+    betas = get_named_beta_schedule("linear", 1000)
+    t_sched, s_sched, _ = td.distill_schedules(betas, _chain(DISTILL_START))
+    t_sched, s_sched = t_sched.to("cuda"), s_sched.to("cuda")
+    teacher.cuda().eval().requires_grad_(False)
+    student = copy.deepcopy(teacher).requires_grad_(True)
+    params = list(student.parameters())
+    state = tl.TrainState(step=0, model=student,
+                          optimizer=tl.make_optimizer(params, 1e-4, 0.0),
+                          ema_params=[])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((1, 96, 96, 96, 1), device="cuda",
+                    generator=gen).clamp(-1, 1)
+    c = {"low_res": torch.randn(x.shape, device="cuda", generator=gen)}
+    draw = lambda k: (torch.tensor([k % s_sched.num_timesteps], device="cuda"),
+                      torch.randn(x.shape, device="cuda", generator=gen))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for k in range(4):
+        i, noise = draw(k)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        metrics = td.distill_step(state, teacher, t_sched, s_sched, cfg, x,
+                                  c, i, noise, lr=1e-4)
+        ev[1].record()
+        ev[1].synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+    peak = torch.cuda.max_memory_allocated()
+    parts = collections.defaultdict(list)
+    for k in range(3):
+        i, noise = draw(k)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        student.zero_grad(set_to_none=True)
+        ev[0].record()
+        x_t = process.q_sample(s_sched, x, i, noise)
+        x0 = td.distill_targets(teacher, t_sched, s_sched, cfg, x_t, i,
+                                model_kwargs=c)
+        target = td.target_to_model_space(s_sched, cfg.mean_type, x_t, i, x0)
+        ev[1].record()
+        out = student(x_t, process.model_timesteps(s_sched, cfg, i), **c)
+        loss = torch.mean((target.float() - out[..., :1].float()) ** 2)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        tl.apply_update(state, i, {"loss": loss.detach()[None]},
+                        torch.ones(1, device="cuda"), 1e-4, 0, ())
+        ev[4].record()
+        ev[4].synchronize()
+        for name, a, b in (("teacher_targets", 0, 1),
+                           ("student_forward_loss", 1, 2),
+                           ("backward", 2, 3), ("update", 3, 4)):
+            parts[name].append(ev[a].elapsed_time(ev[b]))
+    emit({"phase": "distill_step", "batch": 1, "step_ms": step_ms,
+          "ms_per_step": statistics.median(step_ms[1:]),
+          "parts_ms": {k: statistics.median(v) for k, v in parts.items()},
+          "loss": float(metrics["loss"]),
+          "max_memory_allocated_gb": peak / 2 ** 30})
+    check(bool(np.isfinite(float(metrics["loss"]))), "distill_step loss finite")
+    del state, student, params, out, loss
+    torch.cuda.empty_cache()
+
+    # the distilled 2-step student serves its explicit chain
+    teacher.load_state_dict(students[DISTILL_TARGET], strict=True)
+    chain = make_spaced_schedule(betas, kept[DISTILL_TARGET])
+    phase_denoise(teacher, chain, cfg, seed, phase="distill_serve",
+                  use_ddim=True)
+    del teacher
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2141,6 +2476,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     train = phase_train(args.seed)
     phase_train_profile(train.pop("loop"))
+    train_ddp_counts = phase_train_ddp(args.seed)
+    distill_counts = phase_distill(args.seed)
 
     summary["conv3d_dx"] = bwd["conv3d_dx"]
     summary["conv3d_head_dx"] = bwd["conv3d_head_dx"]
@@ -2154,6 +2491,8 @@ def main() -> None:
                    "denoise_int8": count(int8_counts),
                    "denoise_int8_static": count(static_counts),
                    "train": count(train["launches"]),
+                   "train_ddp": count(train_ddp_counts),
+                   "distill": count(distill_counts),
                    **{path: count(c) for path, c in serving_counts.items()}}
         main_path = {"conv3d_fused": "denoise_fused",
                      "conv3d_s8": "denoise_int8"}.get(name, "train")

@@ -19,10 +19,20 @@ device); dropout draws from the default generators, seeded from ``seed``
 too, because ``torch.utils.checkpoint`` replays only those. Metrics stay on
 the device and drain at log and save boundaries. Checkpoints are ``.pt``
 files under the reference's names (:mod:`..utils.checkpoint`).
+
+Data parallel under a process group (``torchrun``): ``batch_size`` is the
+global batch, as in the JAX package; each of W ranks takes its
+``batch_size / W`` rows (W must divide the batch) and DistributedDataParallel
+all-reduces the mean gradient, once per step. Every rank draws the global
+batch's t and noise from the shared generators and keeps its rows, so a
+seeded run draws the same whatever W is; the per-example terms and t are
+gathered in rank order for the loss-second-moment update and the logs, so
+every rank keeps the same state. Rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Any, Dict, List, Optional, Sequence
@@ -35,6 +45,15 @@ from .. import resolve_device
 from ..diffusion.losses import training_losses
 from ..diffusion.process import DiffusionConfig
 from ..diffusion.schedules import Schedule
+from ..parallel import (
+    all_gather_rows,
+    barrier,
+    data_parallel,
+    rank_batch,
+    rank_rows,
+    unwrap,
+    world,
+)
 from ..utils import checkpoint as ckpt
 from ..utils import logger
 from .resample import (
@@ -130,20 +149,24 @@ def compute_grads(
 ) -> Dict[str, torch.Tensor]:
     """Gradients of the batch loss in ``.grad`` (zeroed first). With
     ``0 < microbatch < B`` the batch runs in B / microbatch pieces whose
-    gradients are summed and averaged. Returns the per-example terms [B]."""
+    gradients are summed and averaged. Under DistributedDataParallel every
+    piece but the last runs in ``no_sync``: one all-reduce per call.
+    Returns the per-example terms [B]."""
     model.zero_grad(set_to_none=True)
     B = x.shape[0]
     m = microbatch if 0 < microbatch < B else B
     if B % m:
         raise ValueError(f"batch {B} not divisible by microbatch {m}")
+    no_sync = getattr(model, "no_sync", contextlib.nullcontext)
     parts = []
     for i in range(0, B, m):
         sl = slice(i, i + m)
-        parts.append(loss_for(
-            model, sched, cfg, x[sl], {k: v[sl] for k, v in cond.items()},
-            t[sl], weights[sl],
-            noise=None if noise is None else noise[sl],
-            generator=generator, loss_scale=loss_scale))
+        with contextlib.nullcontext() if i + m >= B else no_sync():
+            parts.append(loss_for(
+                model, sched, cfg, x[sl], {k: v[sl] for k, v in cond.items()},
+                t[sl], weights[sl],
+                noise=None if noise is None else noise[sl],
+                generator=generator, loss_scale=loss_scale))
     if len(parts) > 1:
         for p in model.parameters():
             if p.grad is not None:
@@ -215,7 +238,9 @@ def log_loss_dict(num_timesteps: int, ts, losses: Dict[str, Any]) -> None:
 class TrainLoop:
     """Host-side training loop: sample t, run the step, log, save,
     resume. Runs on ``device`` (``cuda`` unless the caller asks for the
-    CPU; raises when there is no card)."""
+    CPU; raises when there is no card); data parallel when a process group
+    is up (the module docstring), where ``data`` yields this rank's
+    ``batch_size / W`` rows."""
 
     def __init__(
         self,
@@ -243,6 +268,8 @@ class TrainLoop:
         if schedule_sampler not in ("uniform", "loss-second-moment"):
             raise NotImplementedError(f"unknown schedule sampler: {schedule_sampler}")
         self.device = resolve_device(device)
+        self.rank, self.world_size = world()
+        rank_batch(batch_size, self.world_size)  # W must divide the batch
         self.sched = sched.to(self.device)
         self.cfg = cfg
         self.data = data
@@ -276,6 +303,8 @@ class TrainLoop:
                 self.resume_checkpoint)
             logger.log(f"loading model from checkpoint: {self.resume_checkpoint}...")
             model.load_state_dict(self._load(self.resume_checkpoint), strict=True)
+        # every rank loaded the same weights; the wrapper broadcasts rank 0's
+        wrapped = data_parallel(model, self.device)
         params = list(model.parameters())
         optimizer = make_optimizer(params, lr, weight_decay)
         ema_params = []
@@ -299,7 +328,7 @@ class TrainLoop:
                 optimizer.load_state_dict(self._load(path))
         self.state = TrainState(
             step=self.resume_step,
-            model=model,
+            model=wrapped,
             optimizer=optimizer,
             ema_params=ema_params,
             sampler_state=(init_loss_second_moment(sched.num_timesteps)
@@ -315,7 +344,8 @@ class TrainLoop:
 
     @property
     def model(self) -> nn.Module:
-        return self.state.model
+        """The model itself (under the DDP wrapper of ``state.model``)."""
+        return unwrap(self.state.model)
 
     def sample_t(self, batch_size: int):
         """(t, weights) on the device from the configured sampler."""
@@ -345,21 +375,30 @@ class TrainLoop:
             self.save()
 
     def run_step(self, batch, cond, t=None, weights=None, noise=None):
-        """One training step on a host (numpy) or device batch. ``t``,
-        ``weights`` and ``noise`` may be given (else drawn)."""
+        """One training step on this rank's rows of a host (numpy) or device
+        batch. ``t``, ``weights`` and ``noise`` (this rank's rows) may be
+        given; else the global batch's are drawn and this rank's kept."""
         x = torch.as_tensor(batch).to(self.device, torch.float32)
         c = {k: torch.as_tensor(v).to(self.device, torch.float32)
              for k, v in cond.items()}
+        W = self.world_size
+        rows = lambda a: rank_rows(a, self.rank, W)
         if t is None:
-            t, weights = self.sample_t(x.shape[0])
+            t, weights = map(rows, self.sample_t(x.shape[0] * W))
+        if noise is None:
+            noise = rows(torch.randn(
+                (x.shape[0] * W,) + tuple(x.shape[1:]),
+                generator=self.noise_gen, device=self.device))
         scale = (1.0 if self.state.lg_loss_scale is None
                  else 2.0 ** self.state.lg_loss_scale)
         terms = compute_grads(
-            self.model, self.sched, self.cfg, x, c, t, weights,
-            microbatch=self.microbatch, noise=noise, generator=self.noise_gen,
-            loss_scale=scale)
+            self.state.model, self.sched, self.cfg, x, c, t, weights,
+            microbatch=self.microbatch, noise=noise, loss_scale=scale)
+        # the global batch's rows, in rank order, on every rank
         metrics = apply_update(
-            self.state, t, terms, weights, self.lr, self.lr_anneal_steps,
+            self.state, all_gather_rows(t),
+            {k: all_gather_rows(v) for k, v in terms.items()},
+            all_gather_rows(weights), self.lr, self.lr_anneal_steps,
             self.ema_rate, self.fp16_scale_growth)
         self._pending_metrics.append((self.step, metrics))
         return metrics
@@ -389,8 +428,15 @@ class TrainLoop:
                 for rate, ema in zip(self.ema_rate, self.state.ema_params)}
 
     def save(self) -> List[str]:
+        """Rank 0 writes the step's files (returns their paths; [] on the
+        other ranks); then every rank waits for it, so that none runs ahead
+        into the next all-reduce during a save."""
         step = self.step + self.resume_step
         logger.log(f"saving model at step {step}...")
-        return ckpt.save_train_checkpoint(
-            logger.get_dir(), step, self.model.state_dict(),
-            self.ema_state_dicts(), self.state.optimizer.state_dict())
+        paths = []
+        if self.rank == 0:
+            paths = ckpt.save_train_checkpoint(
+                logger.get_dir(), step, self.model.state_dict(),
+                self.ema_state_dicts(), self.state.optimizer.state_dict())
+        barrier()
+        return paths

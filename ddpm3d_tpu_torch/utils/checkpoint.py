@@ -5,7 +5,9 @@ checkpoint.py``, writing the reference's own ``.pt`` format:
 ``model{step:06d}.pt`` and ``ema_{rate}_{step:06d}.pt`` are f32 state dicts
 under the reference keys (:func:`..utils.convert.load_checkpoint`, the
 serving CLI and the JAX package's ``utils/torch_import`` read them), and
-``opt{step:06d}.pt`` is the optimizer's ``state_dict()``. Local paths only.
+``opt{step:06d}.pt`` is the optimizer's ``state_dict()``. A bare state dict
+(a distilled student's) goes through :func:`save_state_dict`. Under a
+process group the callers write on rank 0 only. Local paths only.
 """
 
 from __future__ import annotations
@@ -66,6 +68,14 @@ def _save(obj: Any, path: str) -> None:
     os.replace(tmp, path)
 
 
+def save_state_dict(path: str, state_dict: Dict[str, torch.Tensor]) -> str:
+    """Write ``state_dict`` (moved to the CPU) to ``path``; returns it."""
+    os.makedirs(osp.dirname(path) or ".", exist_ok=True)
+    _save({k: v.detach().cpu() if torch.is_tensor(v) else v
+           for k, v in state_dict.items()}, path)
+    return path
+
+
 def save_train_checkpoint(
     directory: str,
     step: int,
@@ -76,17 +86,11 @@ def save_train_checkpoint(
     """Write the model, one EMA file per rate string and the optimizer
     state for ``step``; tensors are moved to the CPU first. Returns the
     paths."""
-    os.makedirs(directory, exist_ok=True)
-
-    def cpu(sd):
-        return {k: v.detach().cpu() if torch.is_tensor(v) else v
-                for k, v in sd.items()}
-
-    written = [osp.join(directory, f"model{step:06d}.pt")]
-    _save(cpu(model_state), written[0])
+    written = [save_state_dict(osp.join(directory, f"model{step:06d}.pt"),
+                               model_state)]
     for rate, sd in ema_states.items():
-        written.append(osp.join(directory, f"ema_{rate}_{step:06d}.pt"))
-        _save(cpu(sd), written[-1])
+        written.append(save_state_dict(
+            osp.join(directory, f"ema_{rate}_{step:06d}.pt"), sd))
     written.append(osp.join(directory, f"opt{step:06d}.pt"))
     _save(opt_state, written[-1])
     return written

@@ -5,8 +5,10 @@ OpenAI-baselines logger API and file formats): ``logkv`` (last wins),
 ``logkv_mean`` (running mean), ``dumpkvs``, ``log`` lines, and the boxed
 human table, ``progress.json`` lines and the growing ``progress.csv``.
 Formats come from ``format_strs`` or ``$DDPM_LOG_FORMAT`` /
-``$OPENAI_LOG_FORMAT`` (default ``stdout,log,csv``). The port runs one
-process, so there are no per-rank files.
+``$OPENAI_LOG_FORMAT`` (default ``stdout,log,csv``). Under a process
+group only rank 0 writes: the CLIs configure the other ranks without
+formats, so there are no per-rank files. :func:`gather_weighted_means`
+combines host-local values over the ranks.
 """
 
 from __future__ import annotations
@@ -255,3 +257,28 @@ def log(*args, level=INFO):
 
 def get_dir():
     return _current().get_dir()
+
+
+def gather_weighted_means(local_kvs: Dict[str, float],
+                          local_counts: Optional[Dict[str, int]] = None
+                          ) -> Dict[str, float]:
+    """Cross-rank weighted mean of host-local kv dicts (the same keys on
+    every rank): sum over ranks of value x count, over the sum of counts.
+    The JAX package's ``gather_weighted_means`` on ``torch.distributed``;
+    the identity without a process group. A collective: every rank
+    calls it."""
+    import torch
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return dict(local_kvs)
+    keys = sorted(local_kvs)
+    counts = local_counts or {k: 1 for k in keys}
+    device = ("cuda" if dist.get_backend() == "nccl" else "cpu")
+    vals = torch.tensor(
+        [[local_kvs[k] * counts.get(k, 1) for k in keys],
+         [counts.get(k, 1) for k in keys]], dtype=torch.float64,
+        device=device)
+    dist.all_reduce(vals)
+    sums, cnts = vals.cpu().tolist()
+    return {k: float(s / max(c, 1e-12)) for k, s, c in zip(keys, sums, cnts)}

@@ -38,8 +38,9 @@ from ddpm3d_tpu_torch.models import SuperResModel, factory as tfactory
 from ddpm3d_tpu_torch.models.nn import init_params
 from ddpm3d_tpu_torch.ops import quant
 from ddpm3d_tpu_torch.scripts import test as cli
+from ddpm3d_tpu_torch.scripts import distill as distill_cli
 from ddpm3d_tpu_torch.scripts import train as train_cli
-from ddpm3d_tpu_torch.training import TrainLoop
+from ddpm3d_tpu_torch.training import TrainLoop, distill_phase, progressive_distill
 from ddpm3d_tpu_torch.utils.config import (
     args_to_dict,
     sr_model_and_diffusion_defaults,
@@ -385,9 +386,9 @@ def test_cli_refuses_noise_seed_with_dpm():
 
 
 def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny):
-    """With no card, the CLIs, the sampler, the pipeline and the trainer
-    raise unless the caller asks for the CPU; a model on another device
-    than the chain's is refused, not moved."""
+    """With no card, the CLIs, the sampler, the pipeline, the trainer and
+    the distiller raise unless the caller asks for the CPU; a model on
+    another device than the chain's is refused, not moved."""
     _, _, model = tiny
     ts, tcfg = tfactory.create_gaussian_diffusion(
         steps=1000, learn_sigma=True, timestep_respacing="2")
@@ -408,6 +409,16 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny):
         TrainLoop(model=model, sched=ts, cfg=tcfg, data=iter(()), batch_size=1,
                   microbatch=-1, lr=1e-4, ema_rate="0.9999", log_interval=1,
                   save_interval=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distill_cli.main(["--data_dir", "unused", "--model_path", "x.pt"])
+    student = copy.deepcopy(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distill_phase(model, student, np.linspace(1e-4, 2e-2, 1000),
+                      [0, 999], tcfg, iter(()), steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(progressive_distill(model, np.linspace(1e-4, 2e-2, 1000), tcfg,
+                                 iter(()), target_steps=1, steps_per_phase=1,
+                                 start_use_timesteps=[0, 999]))
     assert next(model.parameters()).device.type == "cpu"
     assert resolve_device("cpu").type == "cpu"
     elsewhere = SuperResModel(in_channels=1, **TINY).to("meta")
