@@ -102,6 +102,21 @@ Phases (each failure exits non-zero before the final line):
                (ms, by part, peak memory); ``distill_serve``, the 2-step
                ``.pt`` served strict=True along its explicit 2-step DDIM
                chain by ``denoise_volume`` (72/71/71 per forward).
+ (between 7 and 8)
+     attention — the production model with middle attention (8 heads over
+               96 x 6 x 6 = 3456 tokens at 512 channels), bf16: launches of
+               one forward 72/72/72 unfused and 18/54/33/18 fused
+               (conv3d/conv3d_fused/gn_stats/gn_apply), forward ms and peak
+               memory at batch 1 and 2, the middle AttentionBlock alone in
+               both qkv orders (ms, bound, card against CPU), the f32 model
+               card against CPU, ``profile_attention`` (host issue, device
+               busy and idle); ``attention_denoise``, the denoise phase's
+               volume on this model (72/72/72 per forward);
+     classifier_sample — the guided-sampling CLI at the JAX CLI's default
+               model and classifier (full widths), 10 steps, DDPM and DDIM:
+               exit 0, finite (4, 64, 64, 3) samples, 4 labels, launches per
+               guided step; a step's parts timed and the guidance gradient
+               (f32) on the card against the CPU.
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``.
 
@@ -226,6 +241,27 @@ FORWARD_LAUNCHES = {
                      "conv3d_s8": 88, "gn_stats": 71, "gn_apply": 71},
 }
 FORWARD_LAUNCHES["denoise_int8_static"] = FORWARD_LAUNCHES["denoise_int8"]
+# the production model with middle attention: the no-attention counts plus
+# the attention's one GroupNorm (its qkv and proj_out are 1x1 matmuls);
+# fused, also the stats of the ResBlock after the attention, which drops
+# the fused stats (tests/test_torch_port_attention.py counts the same on
+# the CPU)
+FORWARD_LAUNCHES["attention"] = {"conv3d": 72, "conv3d_dx": 0,
+                                 "conv3d_fused": 0, "conv3d_s8": 0,
+                                 "gn_stats": 72, "gn_apply": 72}
+FORWARD_LAUNCHES["attention_fused"] = {"conv3d": 18, "conv3d_dx": 0,
+                                       "conv3d_fused": 54, "conv3d_s8": 0,
+                                       "gn_stats": 33, "gn_apply": 18}
+FORWARD_LAUNCHES["attention_denoise"] = FORWARD_LAUNCHES["attention"]
+# one guided step of classifier_sample at the CLI defaults: the 2-D UNet's
+# 56 GroupNorms a forward (its convs, attention and denses are PyTorch
+# calls) and the classifier's 41 under the guidance gradient (its GN
+# backward is plain torch); tests/test_torch_port_classifier.py counts the
+# same on the CPU
+GUIDED_LAUNCHES = {"denoiser_forward": {"gn_stats": 56, "gn_apply": 56},
+                   "classifier_forward_backward": {"gn_stats": 41,
+                                                   "gn_apply": 41}}
+GUIDED_STEP_LAUNCHES = {"gn_stats": 97, "gn_apply": 97}
 # the serving phases on the unfused bf16 model: DPM-Solver++ (orders 2 and
 # 1), DDIM, the patch split under a process group, the CLI under torchrun
 SERVING_PATHS = ("dpm", "dpm_order1", "ddim", "distributed", "cli")
@@ -253,6 +289,8 @@ FORWARD_ROUTES = {
     "denoise_int8": _routes(0, 1, 1),
 }
 FORWARD_ROUTES["denoise_int8_static"] = FORWARD_ROUTES["denoise_int8"]
+FORWARD_ROUTES["attention"] = FORWARD_ROUTES["denoise"]
+FORWARD_ROUTES["attention_denoise"] = FORWARD_ROUTES["denoise"]
 for _path in SERVING_PATHS:
     FORWARD_ROUTES[_path] = FORWARD_ROUTES["denoise"]
 # per training step: the forward's, and the dx of every conv but the input
@@ -381,17 +419,10 @@ def phase_build(parent_s8=None, parent_conv=None, parent_gn=None) -> dict:
     return libs
 
 
-def main_path_shapes(model) -> tuple:
-    """Every distinct conv and GroupNorm call of one bf16 96^3 batch-1
-    forward, read by forward pre-hooks: conv (D, H, W, Cin, Cout, dtype)
-    and GN (N, C, dtype, film, silu)."""
-    from ddpm3d_tpu_torch.models.nn import Conv3x3x3, GroupNorm32
-
-    convs, gns = set(), set()
-
-    def conv_hook(mod, args):
-        _, D, H, W, cin = args[0].shape
-        convs.add((D, H, W, cin, mod.weight.shape[0], args[0].dtype))
+def _gn_hooks(model, gns: set) -> list:
+    """Forward pre-hooks on ``model``'s GroupNorm32s that add each call's
+    (N, C, dtype, film, silu) to ``gns``; returns the handles."""
+    from ddpm3d_tpu_torch.models.nn import GroupNorm32
 
     def gn_hook(mod, args, kwargs):
         x = args[0]
@@ -399,13 +430,26 @@ def main_path_shapes(model) -> tuple:
                  kwargs.get("film_scale") is not None,
                  bool(kwargs.get("apply_silu", False))))
 
-    handles = []
+    return [m.register_forward_pre_hook(gn_hook, with_kwargs=True)
+            for m in model.modules() if isinstance(m, GroupNorm32)]
+
+
+def main_path_shapes(model) -> tuple:
+    """Every distinct conv and GroupNorm call of one bf16 96^3 batch-1
+    forward, read by forward pre-hooks: conv (D, H, W, Cin, Cout, dtype)
+    and GN (N, C, dtype, film, silu)."""
+    from ddpm3d_tpu_torch.models.nn import Conv3x3x3
+
+    convs, gns = set(), set()
+
+    def conv_hook(mod, args):
+        _, D, H, W, cin = args[0].shape
+        convs.add((D, H, W, cin, mod.weight.shape[0], args[0].dtype))
+
+    handles = _gn_hooks(model, gns)
     for m in model.modules():
         if isinstance(m, Conv3x3x3):
             handles.append(m.register_forward_pre_hook(conv_hook))
-        elif isinstance(m, GroupNorm32):
-            handles.append(m.register_forward_pre_hook(gn_hook,
-                                                       with_kwargs=True))
     x = torch.randn((1, 96, 96, 96, 1), device="cuda")
     with torch.no_grad():
         model(x, torch.tensor([500], device="cuda"), low_res=x)
@@ -497,10 +541,11 @@ def _conv_tile(cv, x, cout, route):
 def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes,
                   conv_parent=None, gn_parent=None) -> dict:
     """Each kernel against its plain version at every distinct shape of the
-    main path; the shapes of CONV_TIMED / GN_TIMED are timed too, the f32
-    head also beside ``conv_parent`` (a build of the parent's
-    csrc/conv3d.cu, whose Cout <= 8 instance carried it) when given, K1
-    beside ``gn_parent`` (the parent's csrc/groupnorm.cu) when given. K1
+    main path (``gn_shapes`` also holds the guided-sampling path's); the
+    shapes of CONV_TIMED / GN_TIMED are timed too, the f32 head also beside
+    ``conv_parent`` (a build of the parent's csrc/conv3d.cu, whose Cout <= 8
+    instance carried it) when given, K1 beside ``gn_parent`` (the parent's
+    csrc/groupnorm.cu) when given. K1
     is also checked bit for bit between two runs and between a volume
     alone and in a batch of 2."""
     from ddpm3d_tpu_torch.ops import conv3d as cv
@@ -1322,30 +1367,41 @@ def phase_profile(model, phase: str = "profile",
     (torch.profiler), against the forward's CUDA-event time; and the host's
     time to issue the forward (the call returns before the card is done:
     near the forward's time, the host holds the card back)."""
-    from torch.profiler import ProfilerActivity, profile
-
     x = torch.randn((1, 96, 96, 96, 1), device="cuda")
     t = torch.tensor([500], device="cuda")
     with torch.no_grad():
-        fwd_ms = time_ms(lambda: model(x, t, low_res=x), reps=3, warmup=1)
-        host = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model(x, t, low_res=x)
-            host.append((time.perf_counter() - t0) * 1e3)
+        prof = time_and_profile(lambda: model(x, t, low_res=x), families,
+                                reps=3, warmup=1, host_reps=3, top=6)
+    emit({"phase": phase, "forward_ms": prof.pop("ms"), "batch": 1, **prof})
+
+
+def time_and_profile(fn, families, reps: int, warmup: int, host_reps: int,
+                     top: int) -> dict:
+    """``fn``'s CUDA-event ms (median of ``reps``), the host's time to
+    issue it (median of ``host_reps``; the call returns before the card is
+    done: near the event ms, the host holds the card back) and its device
+    ms (torch.profiler) by kernel family, the ``top`` other kernels beside."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = time_ms(fn, reps=reps, warmup=warmup)
+    host = []
+    for _ in range(host_reps):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            model(x, t, low_res=x)
-            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
     by_family, other = device_breakdown(prof, families)
-    top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])
     device_ms = sum(by_family.values()) + sum(other.values())
-    emit({"phase": phase, "forward_ms": fwd_ms, "batch": 1,
-          "host_issue_ms": statistics.median(host),
-          "device_ms": device_ms, "kernel_ms": by_family,
-          "other_ms": sum(other.values()), "top_other_ms": top,
-          "idle_share": max(0.0, 1 - device_ms / fwd_ms)})
+    return {"ms": ms, "host_issue_ms": statistics.median(host),
+            "device_ms": device_ms, "kernel_ms": by_family,
+            "other_ms": sum(other.values()),
+            "top_other_ms": dict(sorted(other.items(),
+                                        key=lambda kv: -kv[1])[:top]),
+            "idle_share": max(0.0, 1 - device_ms / ms)}
 
 
 def training_shapes(model, sched, cfg) -> tuple:
@@ -1856,7 +1912,7 @@ def _time_s8_site(case, xq, wq, wp, s_x, s_w, bias, dt, libs, ref) -> dict:
     skip also beside ``torch._int_mm`` (its s8 GEMM alone); the previous K5
     on its own 128-row tiles (``parent_ms``) when its build is given; a
     phase site also on the 27-tap build (``all_taps_ms``), both equal."""
-    from ddpm3d_tpu_torch.models.nn import upsample_nearest_hw
+    from ddpm3d_tpu_torch.models.nn import upsample_nearest
     from ddpm3d_tpu_torch.ops import conv3d as cv
     from ddpm3d_tpu_torch.ops import conv3d_s8 as s8
     from ddpm3d_tpu_torch.ops import quant
@@ -1885,7 +1941,7 @@ def _time_s8_site(case, xq, wq, wp, s_x, s_w, bias, dt, libs, ref) -> dict:
         check(out[key + "_equal"], f"{name} at {case} equals the plain K5")
         out[key + "_ms"] = time_ms(run)
     if taps == 27:
-        xk = upsample_nearest_hw(xb) if up else xb
+        xk = upsample_nearest(xb) if up else xb
         wk = cv.pack_weight(torch.randn((cout, cin, 3, 3, 3), device="cuda")
                             * (27 * cin) ** -0.5, torch.bfloat16)
         out["k3_bf16_ms"] = time_ms(lambda: cv.conv3d_kernel(xk, wk, bias))
@@ -2405,6 +2461,362 @@ def phase_distill(seed: int) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- attention
+# the middle attention block on the card against the CPU, bf16: the logits
+# and softmax are f32 on both; each bf16 rounding of the products may
+# differ by one ulp (2^-8), as TOL[bf16] allows the kernels
+ATTENTION_FAMILIES = dict(
+    FORWARD_FAMILIES,
+    softmax=("softmax", "SoftMax"),
+    matmul=("gemm", "Gemm", "xmma", "nvjet", "cutlass"),
+)
+
+
+def _attention_model(use_fp16: bool, seed: int, fused: bool = False):
+    """test_DDPM_3d_tpu.sh's model with ``middle_attention=True``, the
+    reference's SuperResModel with attention: 128 channels, (1,1,2,3,4), 2
+    res blocks, 64-channel heads (8 over 512 channels in the middle),
+    learned sigma, scale-shift norm, resblock up/down. Random weights from
+    ``seed``, heads included."""
+    from ddpm3d_tpu_torch.models import SuperResModel
+    from ddpm3d_tpu_torch.models.nn import init_params
+
+    model = SuperResModel(
+        in_channels=1, model_channels=128, out_channels=2, num_res_blocks=2,
+        channel_mult=(1, 1, 2, 3, 4), num_head_channels=64,
+        use_scale_shift_norm=True, resblock_updown=True,
+        middle_attention=True,
+        dtype=torch.bfloat16 if use_fp16 else torch.float32, fused=fused)
+    init_params(model, seed=seed, zero_heads=False)
+    return model.eval()
+
+
+def _one_forward_counts(model, x, t) -> dict:
+    """The launch counts (and routes) of one forward after a warm-up."""
+    from ddpm3d_tpu_torch import ops
+
+    with torch.no_grad():
+        model(x, t, low_res=x)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        model(x, t, low_res=x)
+        torch.cuda.synchronize()
+    return dict(ops.launch_counts(), routes=ops.route_counts())
+
+
+def phase_attention(seed: int):
+    """The attention model at 96^3, bf16: launches of one unfused forward
+    (72/72/72) and one fused forward (18/54/33/18); forward ms and peak
+    memory at batch 1 and 2; the middle AttentionBlock alone (both qkv
+    orders; T = 96 x 6 x 6 = 3456 tokens, C = 512, 8 heads) timed, beside
+    its bound and ``F.scaled_dot_product_attention`` on the same q, k, v
+    (timed only: it cannot keep f32 logits), and held against the CPU on
+    the same weights and input; the full-width f32 model on the card
+    against the CPU; a profile of one batch-1 forward. Returns (the
+    model, one unfused forward's counts)."""
+    from ddpm3d_tpu_torch.models.unet import qkv_attention
+
+    model = _attention_model(True, seed).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x1 = torch.randn((1, 96, 96, 96, 1), device="cuda", generator=gen)
+    t1 = torch.tensor([500], device="cuda")
+    counts = _one_forward_counts(model, x1, t1)
+    routes = counts["routes"]
+    launched = {k: v for k, v in counts.items() if k != "routes"}
+    check(launched == FORWARD_LAUNCHES["attention"],
+          f"attention launches per forward {launched}")
+    check(routes == FORWARD_ROUTES["attention"],
+          f"attention conv routes per forward {routes}")
+
+    by_batch = {}
+    with torch.no_grad():
+        for B in (1, 2):
+            x = torch.randn((B, 96, 96, 96, 1), device="cuda", generator=gen)
+            t = torch.full((B,), 500, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: model(x, t, low_res=x), reps=3, warmup=1)
+            by_batch[B] = {"forward_ms": ms, "max_memory_allocated_gb":
+                           torch.cuda.max_memory_allocated() / 2 ** 30}
+
+    fused = _attention_model(True, seed, fused=True)
+    fused.load_state_dict(model.state_dict(), strict=True)
+    fused.cuda()
+    fused_counts = _one_forward_counts(fused, x1, t1)
+    fused_launched = {k: v for k, v in fused_counts.items() if k != "routes"}
+    with torch.no_grad():
+        fused_ms = time_ms(lambda: fused(x1, t1, low_res=x1), reps=3,
+                           warmup=1)
+        out_f = fused(x1, t1, low_res=x1).float()
+        out_u = model(x1, t1, low_res=x1).float()
+    fused_rel = rel_err(out_f, out_u)[1]
+    del fused
+    check(fused_launched == FORWARD_LAUNCHES["attention_fused"],
+          f"fused attention launches per forward {fused_launched}")
+    check(fused_rel <= FUSED_FORWARD_TOL,
+          f"fused attention forward vs unfused rel {fused_rel}")
+
+    # the middle block's input, read by a hook from a batch-1 forward
+    captured = []
+    block = model.middle_block[1]
+    hook = block.register_forward_pre_hook(
+        lambda mod, args: captured.append(args[0].detach().clone()))
+    with torch.no_grad():
+        model(x1, t1, low_res=x1)
+    hook.remove()
+    xm = captured[0]
+    B, T, C = xm.shape[0], int(np.prod(xm.shape[1:-1])), xm.shape[-1]
+    heads, ch = block.num_heads, C // block.num_heads
+    flops = B * (2 * T * C * 3 * C + 4 * T * T * C + 2 * T * C * C)
+    nbytes = (2 * xm.numel() * xm.element_size()       # x in, out
+              + 4 * (4 * C * C + 4 * C) + 4 * 2 * C)   # f32 params, GN
+    bound_ms, bound_by = bound(flops, nbytes, torch.bfloat16)
+    # the materialized f32 logits, written once and read back once
+    logits_bound_ms = 2 * B * heads * T * T * 4 / H100_BYTES * 1e3
+    blocks = []
+    for new_order in (False, True):
+        blk = copy.deepcopy(block)
+        blk.use_new_attention_order = new_order
+        with torch.no_grad():
+            ms = time_ms(lambda: blk(xm), reps=10, warmup=2)
+            out = blk(xm).float().cpu()
+            ref = copy.deepcopy(blk).cpu()(xm.cpu()).float()
+            qkv = blk.qkv(blk.norm(xm.reshape(B, T, C)))
+            core_ms = time_ms(lambda: qkv_attention(qkv, heads, new_order),
+                              reps=10, warmup=2)
+            q, k, v = (a.reshape(B, T, heads, ch).transpose(1, 2)
+                       for a in qkv.chunk(3, dim=-1))
+            sdpa_ms = time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v), reps=10,
+                warmup=2)
+        err, rel = rel_err(out, ref)
+        blocks.append({"new_order": new_order, "ms": ms, "core_ms": core_ms,
+                       "sdpa_core_ms": sdpa_ms, "max_abs_err_vs_cpu": err,
+                       "rel_err_vs_cpu": rel, "tol": TOL[torch.bfloat16]})
+        check(bool(torch.isfinite(out).all()), "attention block finite")
+        check(rel <= TOL[torch.bfloat16],
+              f"attention block (new_order={new_order}) card vs CPU {rel}")
+        del blk, qkv, q, k, v
+
+    # the full-width f32 model, card against CPU (TF32 off), as phase_model
+    m32 = _attention_model(False, seed)
+    m32.load_state_dict(model.state_dict(), strict=True)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((1, 8, 32, 32, 1), np.float32))
+    low = torch.from_numpy(rng.standard_normal((1, 8, 32, 32, 1), np.float32))
+    t = torch.tensor([517])
+    with torch.no_grad():
+        ref = m32(x, t, low_res=low)
+        out = copy.deepcopy(m32).cuda()(x.cuda(), t.cuda(),
+                                        low_res=low.cuda()).cpu()
+    del m32
+    f32_rel = rel_err(out, ref)[1]
+    emit({"phase": "attention", "model": "SuperResModel, middle attention, "
+          "128 ch, (1,1,2,3,4), 64-channel heads", "patch": 96,
+          "dtype": "bfloat16", "launches_per_forward": launched,
+          "routes_per_forward": {k: v for k, v in routes.items() if v},
+          "fused_launches_per_forward": fused_launched,
+          "fused_forward_ms_batch1": fused_ms,
+          "fused_vs_unfused_rel": fused_rel, "by_batch": by_batch,
+          "middle_block": {"tokens": T, "channels": C, "heads": heads,
+                           "batch": B, "flops": flops, "bytes": nbytes,
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "logits_bound_ms": logits_bound_ms,
+                           "orders": blocks},
+          "f32_model": {"shape": list(x.shape), "rel_err_vs_cpu": f32_rel,
+                        "tol": MODEL_TOL, "ref_abs_max":
+                        ref.abs().max().item()}})
+    check(ref.abs().max().item() > 1e-3, "f32 attention model non-trivial")
+    check(f32_rel <= MODEL_TOL, f"f32 attention model card vs CPU {f32_rel}")
+    phase_profile(model, phase="profile_attention",
+                  families=ATTENTION_FAMILIES)
+    return model, counts
+
+
+# ---------------------------------------------------------------- guidance
+# the classifier_sample CLI at the JAX CLI's default model and classifier
+# (full widths) with a short chain
+CLASSIFIER_FLAGS = ["--timestep_respacing", "10", "--num_samples", "4",
+                    "--batch_size", "2"]
+CLASSIFIER_STEPS, CLASSIFIER_BATCHES = 10, 2
+CLASSIFIER_TIMEOUT_S = 300
+
+
+def _guided_models(seed: int):
+    """The classifier_sample CLI's default model and classifier, random
+    weights from ``seed`` (heads included), on the CPU."""
+    from ddpm3d_tpu_torch.models.factory import (
+        create_classifier, create_model_and_diffusion)
+    from ddpm3d_tpu_torch.models.nn import init_params
+    from ddpm3d_tpu_torch.utils.config import (
+        classifier_defaults, model_and_diffusion_defaults)
+
+    model = create_model_and_diffusion(**model_and_diffusion_defaults())[0]
+    classifier = create_classifier(**classifier_defaults())
+    init_params(model, seed=seed, zero_heads=False)
+    init_params(classifier, seed=seed + 1, zero_heads=False)
+    return model.eval(), classifier.eval().requires_grad_(False)
+
+
+def guided_path_gn_shapes(model, classifier) -> set:
+    """Every distinct GroupNorm call (N, C, dtype, film, silu) of one guided
+    step of classifier_sample at the CLI defaults (batch 2, 64x64, f32):
+    the denoiser's forward and the classifier's forward under the guidance
+    gradient, read by forward pre-hooks on card copies of the models."""
+    from ddpm3d_tpu_torch.scripts.classifier_sample import guidance
+
+    gns = set()
+    model_c = copy.deepcopy(model).cuda()
+    clf_c = copy.deepcopy(classifier).cuda()
+    handles = _gn_hooks(model_c, gns) + _gn_hooks(clf_c, gns)
+    x = torch.randn((2, 64, 64, 3), device="cuda")
+    t = torch.tensor([400, 800], device="cuda")
+    with torch.no_grad():
+        model_c(x, t)
+        guidance(clf_c, torch.tensor([1, 2], device="cuda"), 1.0)(x, t)
+    for h in handles:
+        h.remove()
+    del model_c, clf_c
+    return gns
+
+
+# a guided step's kernel families: the 2-D convs are cuDNN's (with its
+# layout transposes), the rest PyTorch's elementwise and GEMM kernels
+GUIDED_FAMILIES = dict(
+    gn_stats=FORWARD_FAMILIES["gn_stats"],
+    gn_apply=FORWARD_FAMILIES["gn_apply"],
+    cudnn_conv=("fprop", "dgrad", "nhwcToNchw", "nchwToNhwc"),
+)
+
+
+def phase_classifier_sample(seed: int, model, classifier) -> dict:
+    """``python -m ddpm3d_tpu_torch.scripts.classifier_sample`` at the JAX
+    CLI's default model and classifier flags, on ``.pt`` state dicts of
+    random weights, 10 respaced steps, 4 samples in batches of 2: once DDPM,
+    once ``--use_ddim True``. Each: exit 0, a finite (4, 64, 64, 3) npz with
+    4 labels, the launches it logs per guided step (97/97). Then in this
+    process on ``model`` and ``classifier`` (the CLI's weights, on the
+    CPU): one guided step's parts (denoiser forward, classifier forward +
+    backward) timed, with their host issue and device time, and their
+    launches (56/56, 41/41), and the denoiser's
+    forward and the guidance gradient (f32, TF32 off) on the card against
+    the CPU. Returns the two runs' launch counts."""
+    from ddpm3d_tpu_torch import ops
+    from ddpm3d_tpu_torch.scripts.classifier_sample import guidance
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    total = collections.Counter()
+    routes = collections.Counter()
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        mpath = os.path.join(tmp, "model.pt")
+        cpath = os.path.join(tmp, "classifier.pt")
+        torch.save(model.state_dict(), mpath)
+        torch.save(classifier.state_dict(), cpath)
+        for sampler, extra in (("ddpm", []), ("ddim", ["--use_ddim", "True"])):
+            out = os.path.join(tmp, sampler)
+            cmd = [sys.executable, "-m",
+                   "ddpm3d_tpu_torch.scripts.classifier_sample",
+                   *CLASSIFIER_FLAGS, *extra, "--model_path", mpath,
+                   "--classifier_path", cpath, "--seed", str(seed),
+                   "--save_dir", out]
+            t0 = time.monotonic()
+            proc = subprocess.run(cmd, cwd=repo, capture_output=True,
+                                  text=True, timeout=CLASSIFIER_TIMEOUT_S)
+            wall = time.monotonic() - t0
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:], proc.stderr[-4000:],
+                      file=sys.stderr)
+            check(proc.returncode == 0,
+                  f"classifier_sample ({sampler}) exited {proc.returncode}")
+            data = np.load(os.path.join(out, "samples_4x64x64x3.npz"))
+            arr, labels = data["arr_0"], data["arr_1"]
+            log = open(os.path.join(out, "log.txt")).read().splitlines()
+            launched = json.loads(next(
+                l for l in log if l.startswith("kernel launches: "))
+                .split(": ", 1)[1])
+            sampling_s = float(next(
+                l for l in log if l.startswith("sampling: "))
+                .split(": ", 1)[1].split(" s wall")[0])
+            # each batch's seconds; the first also pays the process's
+            # first calls (library loads, cuDNN's algorithm choice)
+            batch_s = [float(l.rsplit("(", 1)[1].split(" s)")[0])
+                       for l in log if l.startswith("created ")]
+            steps = CLASSIFIER_STEPS * CLASSIFIER_BATCHES
+            total.update(launched["launches"])
+            routes.update(launched["routes"])
+            run = {"sampler": sampler, "exit": proc.returncode,
+                   "wall_s": wall, "sampling_s": sampling_s,
+                   "ms_per_guided_step": sampling_s * 1e3 / steps,
+                   "batch_s": batch_s,
+                   "ms_per_guided_step_last_batch":
+                       batch_s[-1] * 1e3 / CLASSIFIER_STEPS,
+                   "samples_shape": list(arr.shape),
+                   "labels": labels.tolist(),
+                   "finite": bool(np.isfinite(arr).all()),
+                   "abs_max": float(np.abs(arr).max()),
+                   "launches_per_step": {k: v / steps for k, v in
+                                         launched["launches"].items() if v}}
+            runs.append(run)
+            check(arr.shape == (4, 64, 64, 3), f"samples shape {arr.shape}")
+            check(labels.shape == (4,), f"labels shape {labels.shape}")
+            check(run["finite"], f"{sampler} samples finite")
+            check(run["launches_per_step"] == GUIDED_STEP_LAUNCHES,
+                  f"{sampler} launches per guided step "
+                  f"{run['launches_per_step']}")
+
+    # one guided step's parts at batch 2, same weights
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((2, 64, 64, 3), generator=gen)
+    t = torch.tensor([400, 800])
+    y = torch.randint(0, 1000, (2,), generator=gen)
+    model_c = copy.deepcopy(model).cuda()
+    clf_c = copy.deepcopy(classifier).cuda()
+    xc, tc, yc = x.cuda(), t.cuda(), y.cuda()
+    cond_c = guidance(clf_c, yc, 1.0)
+    with torch.no_grad():
+        parts = {"batch": 2, **{
+            name: time_and_profile(fn, GUIDED_FAMILIES, reps=20, warmup=3,
+                                   host_reps=5, top=4)
+            for name, fn in (("denoiser_forward", lambda: model_c(xc, tc)),
+                             ("classifier_forward_backward",
+                              lambda: cond_c(xc, tc)))}}
+        ops.reset_launch_counts()
+        out_c = model_c(xc, tc).cpu()
+        fwd_counts = {k: v for k, v in ops.launch_counts().items() if v}
+        ops.reset_launch_counts()
+        grad_c = cond_c(xc, tc).cpu()
+        cond_counts = {k: v for k, v in ops.launch_counts().items() if v}
+        out_cpu = model(x, t)
+        grad_cpu = guidance(classifier, y, 1.0)(x, t)
+    del model_c, clf_c
+    f_err, f_rel = rel_err(out_c, out_cpu)
+    err, rel = rel_err(grad_c, grad_cpu)
+    emit({"phase": "classifier_sample", "flags": " ".join(CLASSIFIER_FLAGS),
+          "model": "UNet 64x64 2-D, 128 ch, (1,2,3,4), 4 heads, attention "
+          "at 16 and 8", "classifier": "encoder, width 128, attention at "
+          "32, 16 and 8, attention pool", "runs": runs,
+          "step_parts": parts,
+          "launches_denoiser_forward": fwd_counts,
+          "launches_classifier_forward_backward": cond_counts,
+          "denoiser_forward": {"dtype": "float32", "shape": list(x.shape),
+                               "max_abs_err": f_err, "rel_err_vs_cpu": f_rel,
+                               "tol": MODEL_TOL,
+                               "abs_max": out_cpu.abs().max().item()},
+          "guidance_grad": {"dtype": "float32", "max_abs_err": err,
+                            "rel_err_vs_cpu": rel, "tol": GRAD_TOL,
+                            "abs_max": grad_cpu.abs().max().item()}})
+    check(fwd_counts == GUIDED_LAUNCHES["denoiser_forward"],
+          f"denoiser forward launches {fwd_counts}")
+    check(cond_counts == GUIDED_LAUNCHES["classifier_forward_backward"],
+          f"classifier forward + backward launches {cond_counts}")
+    check(out_cpu.abs().max().item() > 1e-3, "denoiser forward non-trivial")
+    check(f_rel <= MODEL_TOL, f"denoiser forward card vs CPU rel {f_rel}")
+    check(grad_cpu.abs().max().item() > 0, "guidance gradient non-trivial")
+    check(rel <= GRAD_TOL, f"guidance gradient card vs CPU rel {rel}")
+    return dict(total, routes=dict(routes))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2442,7 +2854,13 @@ def main() -> None:
                    int8=quant.Int8Config())[0]
     int8m.load_state_dict(model.state_dict(), strict=True)
     int8m.cuda()
-    summary = phase_kernels(gen, *main_path_shapes(model),
+    # the guided-sampling path's GroupNorms are checked with the serving
+    # path's (its other work is PyTorch calls)
+    guided = _guided_models(args.seed)
+    conv_shapes, gn_shapes = main_path_shapes(model)
+    gn_shapes = sorted(set(gn_shapes) | guided_path_gn_shapes(*guided),
+                       key=str)
+    summary = phase_kernels(gen, conv_shapes, gn_shapes,
                             conv_parent=libs.get("conv_parent"),
                             gn_parent=libs.get("gn_parent"))
     summary["conv3d_fused"] = phase_fused_kernels(
@@ -2474,6 +2892,13 @@ def main() -> None:
     static_counts = phase_denoise_int8_static(int8m, args.seed)
     del model, fused, int8m
     torch.cuda.empty_cache()
+    attention, attention_counts = phase_attention(args.seed)
+    attention_denoise_counts = phase_denoise(
+        attention, sched, cfg, args.seed, phase="attention_denoise")[0]
+    del attention
+    torch.cuda.empty_cache()
+    classifier_counts = phase_classifier_sample(args.seed, *guided)
+    del guided
     train = phase_train(args.seed)
     phase_train_profile(train.pop("loop"))
     train_ddp_counts = phase_train_ddp(args.seed)
@@ -2493,6 +2918,9 @@ def main() -> None:
                    "train": count(train["launches"]),
                    "train_ddp": count(train_ddp_counts),
                    "distill": count(distill_counts),
+                   "attention": count(attention_counts),
+                   "attention_denoise": count(attention_denoise_counts),
+                   "classifier_sample": count(classifier_counts),
                    **{path: count(c) for path, c in serving_counts.items()}}
         main_path = {"conv3d_fused": "denoise_fused",
                      "conv3d_s8": "denoise_int8"}.get(name, "train")

@@ -1,5 +1,5 @@
-"""Diffusion schedules, process math, training losses and the DDPM
-ancestral, DDIM and DPM-Solver++ samplers."""
+"""Diffusion schedules, process math, training losses, classifier guidance
+and the DDPM ancestral, DDIM and DPM-Solver++ samplers."""
 
 from .dpm_solver import dpm_solver_pp_sample_loop
 
@@ -9,6 +9,8 @@ from .process import (
     LossType,
     MeanType,
     VarType,
+    condition_mean,
+    condition_score,
     p_mean_variance,
 )
 from .sampling import (

@@ -223,3 +223,33 @@ def p_mean_variance(
         "pred_xstart": pred_xstart,
         "model_output": model_output,
     }
+
+
+def condition_mean(cond_fn, sched: Schedule, cfg: DiffusionConfig,
+                   p_mean_var: Dict[str, torch.Tensor], x: torch.Tensor,
+                   t: torch.Tensor,
+                   model_kwargs: Optional[Dict[str, Any]] = None
+                   ) -> torch.Tensor:
+    """The reverse mean shifted by variance * grad log p(y | x): ``cond_fn(x,
+    model_timesteps(t), **model_kwargs)`` gives the gradient (classifier
+    guidance, ``ddpm3d_tpu/diffusion/process.py:condition_mean``)."""
+    gradient = cond_fn(x, model_timesteps(sched, cfg, t), **(model_kwargs or {}))
+    return p_mean_var["mean"].float() + p_mean_var["variance"] * gradient.float()
+
+
+def condition_score(cond_fn, sched: Schedule, cfg: DiffusionConfig,
+                    p_mean_var: Dict[str, torch.Tensor], x: torch.Tensor,
+                    t: torch.Tensor,
+                    model_kwargs: Optional[Dict[str, Any]] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Score conditioning (the DDIM form of guidance): eps moved by
+    ``-sqrt(1 - alpha_bar) * cond_fn(...)``, then x0-hat and the mean
+    re-derived from it (``process.py:condition_score``)."""
+    alpha_bar = extract(sched.alphas_cumprod, t, x.dim())
+    eps = predict_eps_from_xstart(sched, x, t, p_mean_var["pred_xstart"])
+    eps = eps - torch.sqrt(1.0 - alpha_bar) * cond_fn(
+        x, model_timesteps(sched, cfg, t), **(model_kwargs or {}))
+    out = dict(p_mean_var)
+    out["pred_xstart"] = predict_xstart_from_eps(sched, x, t, eps)
+    out["mean"], _, _ = q_posterior_mean_variance(sched, out["pred_xstart"], x, t)
+    return out

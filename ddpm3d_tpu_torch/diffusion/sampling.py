@@ -10,6 +10,14 @@ does not depend on how samples are batched — the property of the JAX
 package's ``_step_noise``. DDIM draws its step noise the same way whatever
 ``eta`` is (at ``eta = 0`` it is multiplied by 0), so a given noise stream
 lines up with the same steps on both samplers.
+
+Classifier guidance: ``cond_fn(x, t, **model_kwargs)`` returns grad_x log
+p(y | x) (times the guidance scale) at the model's timesteps; DDPM shifts
+the mean by it (:func:`.process.condition_mean`), DDIM the eps
+(:func:`.process.condition_score`). ``cond_fn`` takes its own gradient: a
+chain under ``torch.no_grad()`` runs it under ``torch.enable_grad()`` on a
+detached x (never under ``torch.inference_mode()``, whose tensors cannot
+enter autograd).
 """
 
 from __future__ import annotations
@@ -70,13 +78,18 @@ def p_sample(
     clip_denoised: bool = True,
     denoised_fn=None,
     model_kwargs: Optional[Dict[str, Any]] = None,
+    cond_fn=None,
 ) -> Dict[str, torch.Tensor]:
-    """One ancestral step x_t -> x_{t-1} with the given step noise."""
+    """One ancestral step x_t -> x_{t-1} with the given step noise; with
+    ``cond_fn``, its mean guided (:func:`.process.condition_mean`)."""
     out = process.p_mean_variance(
         model_fn, sched, cfg, x, t,
         clip_denoised=clip_denoised, denoised_fn=denoised_fn,
         model_kwargs=model_kwargs,
     )
+    if cond_fn is not None:
+        out["mean"] = process.condition_mean(
+            cond_fn, sched, cfg, out, x, t, model_kwargs=model_kwargs)
     nonzero_mask = (t != 0).float().reshape((-1,) + (1,) * (x.dim() - 1))
     sample = out["mean"] + nonzero_mask * torch.exp(0.5 * out["log_variance"]) * noise
     return {"sample": sample, "pred_xstart": out["pred_xstart"]}
@@ -93,14 +106,19 @@ def ddim_sample(
     denoised_fn=None,
     model_kwargs: Optional[Dict[str, Any]] = None,
     eta: float = 0.0,
+    cond_fn=None,
 ) -> Dict[str, torch.Tensor]:
     """One DDIM step x_t -> x_{t-1} with the given step noise (scaled by
-    ``eta``'s sigma; none at t = 0)."""
+    ``eta``'s sigma; none at t = 0); with ``cond_fn``, its eps guided
+    (:func:`.process.condition_score`)."""
     out = process.p_mean_variance(
         model_fn, sched, cfg, x, t,
         clip_denoised=clip_denoised, denoised_fn=denoised_fn,
         model_kwargs=model_kwargs,
     )
+    if cond_fn is not None:
+        out = process.condition_score(
+            cond_fn, sched, cfg, out, x, t, model_kwargs=model_kwargs)
     nd = x.dim()
     eps = process.predict_eps_from_xstart(sched, x, t, out["pred_xstart"])
     alpha_bar = process.extract(sched.alphas_cumprod, t, nd)
@@ -165,9 +183,11 @@ def p_sample_loop(
     before_step: Optional[Callable[[int], None]] = None,
     use_ddim: bool = False,
     eta: float = 0.0,
+    cond_fn=None,
 ) -> torch.Tensor:
     """Run the full reverse chain t = T-1 .. 0 and return x_0: DDPM
-    ancestral steps, or DDIM steps with ``use_ddim`` (and ``eta``).
+    ancestral steps, or DDIM steps with ``use_ddim`` (and ``eta``), guided
+    by ``cond_fn`` when given.
 
     The chain runs on ``device``: ``cuda`` unless the caller passes
     ``"cpu"``; with no card and no such request it raises. ``noise`` is x_T
@@ -207,7 +227,7 @@ def p_sample_loop(
         img = step_fn(
             model_fn, sched, cfg, img, t, eps,
             clip_denoised=clip_denoised, denoised_fn=denoised_fn,
-            model_kwargs=model_kwargs,
+            model_kwargs=model_kwargs, cond_fn=cond_fn,
         )["sample"]
         if step_cb is not None:
             step_cb(t_scalar, img)

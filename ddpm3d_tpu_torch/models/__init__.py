@@ -1,3 +1,14 @@
-"""The denoiser's modules: primitives, wiring plan, UNet and factories."""
+"""The model layer: primitives, wiring plan, the UNets, the classifier and
+the factories."""
 
-from .unet import ResBlock, SuperResModel, UNetModel
+from .plan import AttnSpec, ConvSpec, DownSpec, ResSpec, UpSpec, plan_unet
+from .unet import (
+    AttentionBlock,
+    AttentionPool,
+    Downsample,
+    EncoderUNetModel,
+    ResBlock,
+    SuperResModel,
+    UNetModel,
+    Upsample,
+)

@@ -1,12 +1,14 @@
-"""NN primitives of the 3-D UNet, channels-last ``[B, D, H, W, C]``.
+"""NN primitives of the 1-, 2- and 3-D UNets, channels-last ``[B, ..., C]``.
 
-Port of the parts of ``ddpm3d_tpu/models/nn.py`` the denoising and training
-paths use.
+Port of ``ddpm3d_tpu/models/nn.py``.
 Parameter names and shapes follow the reference torch modules (convs
-``(out, in, kd, kh, kw)``, GroupNorm ``weight``/``bias``), so reference
+``(out, in, *k)``, GroupNorm ``weight``/``bias``), so reference
 state dicts load with ``strict=True``. The 3x3x3 convs and the GroupNorms
-run the hand-written kernels of :mod:`ddpm3d_tpu_torch.ops` on the card,
-through autograd Functions whose backward is the same on both devices. The
+(of every rank) run the hand-written kernels of :mod:`ddpm3d_tpu_torch.ops`
+on the card, through autograd Functions whose backward is the same on both
+devices. The 1-D and 2-D convs, and every 1x1 conv, are PyTorch calls
+(``F.conv1d``/``F.conv2d``, ``F.linear``), as the JAX package runs them
+through ``flax.linen.Conv``: never int8 sites, never fused. The
 fused serving path (inference only) folds a GroupNorm into a [B, C] affine
 (``GroupNorm32(..., fold_only=True)``) that the next conv applies in its
 prologue (``Conv3x3x3(..., fused=True)``). The int8 serving path (inference
@@ -17,7 +19,7 @@ model attached an :class:`..ops.quant.Int8Config` that quantizes the site.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -161,7 +163,7 @@ class Conv3x3x3(_Int8Site, nn.Module):
         if self.int8_active():  # never fused: the model refuses both
             return self._int8(x, self.bias, upsample)
         if upsample:
-            x = upsample_nearest_hw(x)
+            x = upsample_nearest(x)
         packed = self._packed_weight(x, fused)
         if fused:
             return fused_ops.conv3d_fused(
@@ -185,23 +187,89 @@ class Conv1x1x1(_Int8Site, nn.Module):
         return F.linear(x, w, self.bias.to(x.dtype))
 
 
+class ConvNd(nn.Module):
+    """A ``dims``-D conv of channels-last x with a ``kernel_size`` (3 or 1)
+    window, ``stride`` and symmetric padding ``k // 2`` (torch's, not XLA's
+    "SAME": ``ddpm3d_tpu/models/nn.py:conv_nd``), computed in x's dtype or
+    the ``dtype`` given (f32 params cast, as flax's ``dtype=``). A 3-wide
+    window takes ``dims`` 1 or 2 (``F.conv1d``/``F.conv2d``; the 3-D convs
+    are :class:`Conv3x3x3`); a 1-wide one any ``dims`` (``F.linear``). On
+    the card, f32 3-wide convs run in full f32 (cuDNN without TF32, as the
+    3-D convs' plain path), whatever ``torch.backends.cudnn.allow_tf32``
+    says; their backward reads the flag when it runs, so a caller that
+    differentiates through them (:func:`..scripts.classifier_sample.guidance`)
+    holds the same guard. 1x1 ones follow
+    ``torch.backends.cuda.matmul.allow_tf32``, which PyTorch leaves off."""
+
+    def __init__(self, dims: int, in_ch: int, out_ch: int, kernel_size: int,
+                 stride: int = 1, zero_init: bool = False):
+        super().__init__()
+        if kernel_size == 3 and dims not in (1, 2):
+            raise ValueError(f"3-wide ConvNd takes dims 1 or 2, got {dims}")
+        if kernel_size not in (1, 3) or (kernel_size == 1 and stride != 1):
+            raise ValueError(f"kernel {kernel_size} stride {stride}")
+        self.dims, self.stride = dims, stride
+        self.zero_init = zero_init
+        self.weight = nn.Parameter(
+            torch.empty((out_ch, in_ch) + (kernel_size,) * dims))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, x: torch.Tensor, upsample: bool = False,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """``upsample=True`` convolves ``upsample_nearest(x)``."""
+        dtype = dtype or x.dtype
+        x = x.to(dtype)
+        if upsample:
+            x = upsample_nearest(x)
+        # as flax's Conv: the product rounded to ``dtype``, then the bias
+        # added (a second rounding; bf16 results then equal the JAX ones)
+        w, b = self.weight.to(dtype), self.bias.to(dtype)
+        if self.weight.shape[2] == 1:
+            return F.linear(x, w.reshape(w.shape[:2])) + b
+        conv = F.conv1d if self.dims == 1 else F.conv2d
+        with conv_ops._full_f32():
+            y = conv(x.movedim(-1, 1), w, stride=self.stride, padding=1)
+        return y.movedim(1, -1) + b
+
+
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``layer`` computed in ``dtype`` (f32 params cast, as flax's dtype=)."""
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
-def avg_pool_hw(x: torch.Tensor) -> torch.Tensor:
-    """2x2 average pooling over H and W of [B, D, H, W, C] (window = stride,
-    floor); depth is never resampled. Sums in f32."""
-    B, D, H, W, C = x.shape
-    xf = x[:, :, : H // 2 * 2, : W // 2 * 2].float()
-    pooled = xf.reshape(B, D, H // 2, 2, W // 2, 2, C).sum(dim=(3, 5)) * 0.25
+def _pooled_axes(x: torch.Tensor) -> Tuple[int, ...]:
+    """The axes a UNet resamples: H and W of [B, D, H, W, C] (depth never),
+    H and W of [B, H, W, C], L of [B, L, C] (``nn.py:downsample_stride``)."""
+    if x.dim() == 5:
+        return (2, 3)
+    if x.dim() in (3, 4):
+        return tuple(range(1, x.dim() - 1))
+    raise ValueError(f"unsupported rank {x.dim()}")
+
+
+def avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """x2 average pooling (window = stride, floor) of the axes a UNet
+    resamples (:func:`_pooled_axes`). Sums in f32."""
+    axes = _pooled_axes(x)
+    xf = x.float()
+    shape, summed = [], []
+    for ax, n in enumerate(x.shape):
+        if ax in axes:
+            xf = xf.narrow(ax, 0, n // 2 * 2)
+            shape += [n // 2, 2]
+            summed.append(len(shape) - 1)
+        else:
+            shape.append(n)
+    pooled = xf.reshape(shape).sum(dim=tuple(summed)) * (0.5 ** len(axes))
     return pooled.to(x.dtype)
 
 
-def upsample_nearest_hw(x: torch.Tensor) -> torch.Tensor:
-    """Nearest x2 upsampling of H and W of [B, D, H, W, C]; D is kept."""
-    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+def upsample_nearest(x: torch.Tensor) -> torch.Tensor:
+    """Nearest x2 upsampling of the axes a UNet resamples
+    (:func:`_pooled_axes`): H and W of a volume, both axes of an image."""
+    for ax in _pooled_axes(x):
+        x = x.repeat_interleave(2, dim=ax)
+    return x
 
 
 @torch.no_grad()
@@ -210,14 +278,15 @@ def init_params(model: nn.Module, seed: int = 0, zero_heads: bool = True) -> Non
     params: Kaiming-uniform (fan-in) convs, uniform(+-1/sqrt(fan_in))
     linears, zero biases, unit GroupNorm scales. Output convs marked
     ``zero_init`` start at 0 unless ``zero_heads`` is False (random heads
-    make a forward non-trivial for tests and smokes)."""
+    make a forward non-trivial for tests and smokes). An attention pool's
+    positional embedding is normal with std 1/sqrt(C)."""
     g = torch.Generator().manual_seed(seed)
 
     def uniform_(p, bound):
         p.copy_((torch.rand(p.shape, generator=g) * 2 - 1) * bound)
 
     for m in model.modules():
-        if isinstance(m, (Conv3x3x3, Conv1x1x1)):
+        if isinstance(m, (Conv3x3x3, Conv1x1x1, ConvNd)):
             fan_in = m.weight[0].numel()
             if getattr(m, "zero_init", False) and zero_heads:
                 m.weight.zero_()
@@ -232,3 +301,6 @@ def init_params(model: nn.Module, seed: int = 0, zero_heads: bool = True) -> Non
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.copy_(torch.randn(m.weight.shape, generator=g))
+        elif hasattr(m, "positional_embedding"):
+            pe = m.positional_embedding
+            pe.copy_(torch.randn(pe.shape, generator=g) / math.sqrt(pe.shape[0]))

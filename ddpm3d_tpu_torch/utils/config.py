@@ -23,6 +23,26 @@ def diffusion_defaults() -> Dict[str, Any]:
     )
 
 
+def classifier_defaults() -> Dict[str, Any]:
+    """The classifier's flags (``create_classifier``)."""
+    return dict(
+        image_size=64,
+        classifier_use_fp16=False,
+        classifier_width=128,
+        classifier_depth=2,
+        classifier_attention_resolutions="32,16,8",
+        classifier_use_scale_shift_norm=True,
+        classifier_resblock_updown=True,
+        classifier_pool="attention",
+    )
+
+
+def classifier_and_diffusion_defaults() -> Dict[str, Any]:
+    res = classifier_defaults()
+    res.update(diffusion_defaults())
+    return res
+
+
 def model_and_diffusion_defaults() -> Dict[str, Any]:
     res = dict(
         image_size=64,

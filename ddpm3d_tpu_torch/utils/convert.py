@@ -10,8 +10,20 @@ naming), for the model families the port builds:
   mid_{j}.<inner'>        -> middle_block.j.<inner>
   out{i}_{j}.<inner'>     -> output_blocks.i.j.<inner>
   head_norm / head_conv   -> out.0 / out.2
+  attention norm / qkv / proj -> norm / qkv / proj_out
   conv (*k, in, out) -> (out, in, *k); dense (in, out) -> (out, in);
   GroupNorm scale/bias -> weight/bias.
+
+The classifier's heads, which the JAX exporter does not map (it raises on
+them), take the names of the published guided-diffusion
+``EncoderUNetModel.out`` (the reference's source is not in this repository
+to check them against):
+
+  head_pool/pos           -> out.2.positional_embedding, transposed to
+                             the reference's (C, T + 1)
+  head_pool/qkv / proj    -> out.2.qkv_proj / out.2.c_proj
+  sp_fc1 / sp_fc2         -> out.0 / out.2 (spatial)
+  sp_fc1 / sp_norm / sp_fc2 -> out.0 / out.1 / out.3 (spatial_v2)
 
 :func:`jax_params_to_state_dict` turns a JAX ``params`` tree of numpy
 arrays into the port's state dict; :func:`load_checkpoint` reads the ``.pt``
@@ -26,7 +38,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-_NORM_MODULES = {"in_norm", "out_norm", "norm", "head_norm"}
+_NORM_MODULES = {"in_norm", "out_norm", "norm", "head_norm", "sp_norm"}
 _INNER = {
     "in_norm": "in_layers.0",
     "in_conv": "in_layers.2",
@@ -36,7 +48,11 @@ _INNER = {
     "skip": "skip_connection",
     "op": "op",
     "conv": "conv",
+    "norm": "norm",
+    "qkv": "qkv",
+    "proj": "proj_out",
 }
+_POOL = {"pos": "positional_embedding", "qkv": "qkv_proj", "proj": "c_proj"}
 _STAGES = (
     (re.compile(r"^in(\d+)_(\d+)$"), "input_blocks"),
     (re.compile(r"^out(\d+)_(\d+)$"), "output_blocks"),
@@ -54,6 +70,8 @@ def _leaf(module: str, leaf: str) -> str:
 
 
 def _value(leaf: str, value: np.ndarray) -> np.ndarray:
+    if leaf == "pos":  # (T + 1, C) -> (C, T + 1)
+        return value.T
     if leaf == "kernel":
         if value.ndim >= 3:  # conv (*k, in, out) -> (out, in, *k)
             return value.transpose(
@@ -63,9 +81,19 @@ def _value(leaf: str, value: np.ndarray) -> np.ndarray:
     return value
 
 
-def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
-    """A flax param path (module names then the leaf) -> the torch key."""
+def flax_path_to_torch_key(path: Tuple[str, ...],
+                           spatial_v2: bool = False) -> str:
+    """A flax param path (module names then the leaf) -> the torch key;
+    ``spatial_v2``: the tree holds ``sp_norm`` (its last dense is out.3)."""
     head, leaf = path[0], path[-1]
+    if head == "head_pool":
+        if len(path) == 2:
+            return f"out.2.{_POOL[leaf]}"
+        return f"out.2.{_POOL[path[1]]}.{_leaf(path[1], leaf)}"
+    if head in ("sp_fc1", "sp_norm", "sp_fc2"):
+        index = {"sp_fc1": 0, "sp_norm": 1,
+                 "sp_fc2": 3 if spatial_v2 else 2}[head]
+        return f"out.{index}.{_leaf(head, leaf)}"
     m = _TE_RE.match(head)
     if m:
         return f"time_embed.{m.group(1)}.{_leaf(head, leaf)}"
@@ -118,19 +146,20 @@ def torch_module_to_flax_path(name: str) -> str:
 
 def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX ``params`` tree (numpy leaves; with or without the ``params``
-    level and the SuperResModel ``unet`` wrapper) -> the port's state dict
-    of f32 tensors."""
+    level and the SuperResModel ``unet`` wrapper) of a UNet, SuperResModel
+    or EncoderUNetModel -> the port's state dict of f32 tensors."""
     tree = params.get("params", params)
     if set(tree.keys()) == {"unet"}:
         tree = tree["unet"]
     out: Dict[str, torch.Tensor] = {}
+    spatial_v2 = "sp_norm" in tree
 
     def walk(node, path):
         if isinstance(node, Mapping):
             for k, v in node.items():
                 walk(v, path + (k,))
             return
-        key = flax_path_to_torch_key(path)
+        key = flax_path_to_torch_key(path, spatial_v2)
         if key in out:
             raise KeyError(f"duplicate torch key {key} from {path}")
         arr = _value(path[-1], np.asarray(node, np.float32))

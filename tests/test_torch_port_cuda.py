@@ -779,3 +779,100 @@ def test_int8_model_matches_cpu(dev):
         if dtype == torch.float32:
             mean_rel = ((out - cpu).abs().mean() / cpu.abs().mean()).item()
             assert mean_rel <= 5e-2
+
+
+# f32 models through the kernels against the CPU's plain path (TF32 off):
+# sums reordered (chip_smoke.py MODEL_TOL); the guidance gradient goes
+# through a forward and a backward (chip_smoke.py GRAD_TOL)
+MODEL_TOL, GRAD_TOL = 1e-4, 1e-3
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_attention_models_match_cpu(dev, dims):
+    """A UNet with attention at every stage (2-D, both qkv orders over its
+    blocks' calls) and the 3-D SuperResModel with middle attention, f32,
+    card against CPU; the 3-D model's GroupNorms (the attention's among
+    them) launch the GN kernels."""
+    from ddpm3d_tpu_torch.models import UNetModel
+
+    rng = np.random.default_rng(21)
+    t = torch.tensor([10, 900])
+    if dims == 2:
+        model = UNetModel(
+            in_channels=3, model_channels=32, out_channels=3,
+            num_res_blocks=1, attention_resolutions=(1, 2),
+            channel_mult=(1, 2), dims=2, num_heads=2,
+            use_scale_shift_norm=True, use_new_attention_order=True).eval()
+        x = torch.from_numpy(rng.standard_normal((2, 16, 16, 3), np.float32))
+        kw = {}
+    else:
+        model = SuperResModel(
+            in_channels=1, model_channels=32, out_channels=2,
+            num_res_blocks=1, channel_mult=(1, 2), num_head_channels=16,
+            use_scale_shift_norm=True, resblock_updown=True,
+            middle_attention=True).eval()
+        x = torch.from_numpy(rng.standard_normal((2, 4, 16, 16, 1),
+                                                 np.float32))
+        kw = {"low_res": x}
+    init_params(model, seed=5, zero_heads=False)
+    with torch.no_grad():
+        ref = model(x, t, **kw)
+        ops.reset_launch_counts()
+        out = model.to(dev)(x.to(dev), t.to(dev),
+                            **{k: v.to(dev) for k, v in kw.items()}).cpu()
+    assert _rel(out, ref) <= MODEL_TOL
+    if dims == 3:
+        n_gn = sum(isinstance(m, type(model.out[0])) for m in model.modules())
+        assert ops.launch_counts()["gn_stats"] == n_gn
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("new_order", [False, True])
+def test_attention_block_matches_cpu(dev, dtype, new_order):
+    """The attention block at the production middle's width (512 channels,
+    8 heads) over 2 x 288 tokens, card against CPU: f32 logits and softmax
+    on both, so bf16 differs by the products' roundings only."""
+    from ddpm3d_tpu_torch.models import AttentionBlock
+
+    block = AttentionBlock(512, 8, new_order)
+    init_params(block, seed=6, zero_heads=False)
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((2, 8, 6, 6, 512), generator=g).to(dtype)
+    with torch.no_grad():
+        ref = block(x)
+        out = block.to(dev)(x.to(dev)).cpu()
+    assert out.dtype == dtype
+    assert _rel(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_guidance_gradient_matches_cpu(dev, dims):
+    """grad_x log p(y | x) through a frozen classifier (attention pool in
+    2-D; adaptive pool in 3-D, whose backward runs the conv dx kernel),
+    f32, card against CPU; no weight gradient is formed."""
+    from ddpm3d_tpu_torch.models import EncoderUNetModel
+    from ddpm3d_tpu_torch.scripts.classifier_sample import guidance
+
+    shape = (2, 16, 16, 3) if dims == 2 else (2, 4, 16, 16, 3)
+    clf = EncoderUNetModel(
+        in_channels=3, model_channels=64, out_channels=10, num_res_blocks=1,
+        attention_resolutions=(2,), channel_mult=(1, 2), dims=dims,
+        num_head_channels=32, use_scale_shift_norm=True,
+        resblock_updown=True,
+        pool="attention" if dims == 2 else "adaptive",
+        image_size=shape[1:-1]).eval()
+    init_params(clf, seed=8, zero_heads=False)
+    clf.requires_grad_(False)
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(shape, generator=g)
+    t, y = torch.tensor([100, 700]), torch.tensor([3, 8])
+    with torch.no_grad():
+        ref = guidance(clf, y, 2.0)(x, t)
+        clf.to(dev)
+        ops.reset_launch_counts()
+        out = guidance(clf, y.to(dev), 2.0)(x.to(dev), t.to(dev)).cpu()
+    assert ref.abs().max() > 0
+    assert _rel(out, ref) <= GRAD_TOL
+    assert all(p.grad is None for p in clf.parameters())
+    if dims == 3:
+        assert ops.launch_counts()["conv3d_dx"] > 0

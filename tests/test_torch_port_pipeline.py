@@ -37,6 +37,7 @@ from ddpm3d_tpu_torch.inference import denoise_volume
 from ddpm3d_tpu_torch.models import SuperResModel, factory as tfactory
 from ddpm3d_tpu_torch.models.nn import init_params
 from ddpm3d_tpu_torch.ops import quant
+from ddpm3d_tpu_torch.scripts import classifier_sample as classifier_cli
 from ddpm3d_tpu_torch.scripts import test as cli
 from ddpm3d_tpu_torch.scripts import distill as distill_cli
 from ddpm3d_tpu_torch.scripts import train as train_cli
@@ -386,9 +387,10 @@ def test_cli_refuses_noise_seed_with_dpm():
 
 
 def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny):
-    """With no card, the CLIs, the sampler, the pipeline, the trainer and
-    the distiller raise unless the caller asks for the CPU; a model on
-    another device than the chain's is refused, not moved."""
+    """With no card, the CLIs (classifier_sample among them), the sampler,
+    the pipeline, the trainer and the distiller raise unless the caller
+    asks for the CPU; a model on another device than the chain's is
+    refused, not moved."""
     _, _, model = tiny
     ts, tcfg = tfactory.create_gaussian_diffusion(
         steps=1000, learn_sigma=True, timestep_respacing="2")
@@ -411,6 +413,8 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny):
                   save_interval=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         distill_cli.main(["--data_dir", "unused", "--model_path", "x.pt"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        classifier_cli.main([])
     student = copy.deepcopy(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         distill_phase(model, student, np.linspace(1e-4, 2e-2, 1000),
@@ -442,6 +446,8 @@ def test_port_imports_no_jax():
     for root, _, names in os.walk(osp.join(REPO, "ddpm3d_tpu_torch")):
         files += [osp.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    assert osp.join(REPO, "ddpm3d_tpu_torch", "scripts",
+                    "classifier_sample.py") in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
