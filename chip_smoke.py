@@ -117,8 +117,28 @@ Phases (each failure exits non-zero before the final line):
                exit 0, finite (4, 64, 64, 3) samples, 4 labels, launches per
                guided step; a step's parts timed and the guidance gradient
                (f32) on the card against the CPU.
-Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
-as the last line ``{"ok": true, "device": {...}}``.
+     seg     — the three Seg models (add, cat_conv, midcat) at the
+               production flags, bf16, 96^3: parameter count, forward ms and
+               peak memory at batch 1 and 2, launches per forward by kernel
+               and route (101 K3 with the encoder's Cin = 1 input conv on
+               csrc/conv3d.cu's ndhwc route, 99 K1, 99 K2), the f32 model
+               card vs CPU; in int8 (add, cat_conv) the K5 launches (119,
+               134), every site equal to the plain int8 conv on its input,
+               the forward vs bf16; ``seg_denoise``, the denoise phase on the
+               add model; ``seg_train``, two TrainLoop steps of the midcat
+               model; ``calibrate``, the port's int8 calibration tool as a
+               subprocess on the production SuperResModel (90 sites, every
+               meta key), then ``denoise_int8_calibrated`` on its file (88
+               K5 a forward); ``eps_calibration``, the lambda table of the
+               production model; ``evaluate``, the evaluate CLI on the
+               denoise volume against the CPU metrics. The kernels phase
+               also checks K1/K2/K3/K5 at every Seg shape and times
+               csrc/conv3d.cu's rows (``phase_conv3d_cu``: the ndhwc route
+               in f32 at the torso shape and in bf16 at the Seg encoder's
+               input, the f32 fused instance).
+Then the whole run's seconds, the card's name and power limit, one
+``{"kernels": [...]}`` line, and as the last line
+``{"ok": true, "device": {...}}``.
 
 Weights are random, made from ``--seed``. Imports no JAX. The build
 phase fails on a spill in the Hopper kernels (the wgmma ones, the fused
@@ -150,6 +170,7 @@ H100_BF16_FLOPS = 989e12   # dense tensor-core bf16 (NVIDIA data sheet, SXM)
 H100_INT8_OPS = 1979e12    # dense tensor-core int8
 H100_F32_FLOPS = 67e12     # f32 on CUDA cores
 H100_BYTES = 3.35e12       # HBM3 bytes/s
+T_START = time.monotonic()
 
 KERNELS = {
     "conv3d": dict(
@@ -181,11 +202,21 @@ KERNELS = {
     "conv3d_head_dx": dict(
         route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_head.cu",
         replaces="ddpm3d_tpu/ops/conv3d_mxu.py:267"),
+    # csrc/conv3d.cu: K3's ndhwc route (the f32 torso convs; in bf16 the
+    # Seg encoder's Cin = 1 input conv) and K4's f32 instance (kFused)
+    "conv3d_ndhwc": dict(
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d.cu",
+        replaces="ddpm3d_tpu/ops/conv3d_mxu.py:203"),
+    "conv3d_fused_f32": dict(
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d.cu",
+        replaces="ddpm3d_tpu/ops/conv3d_fused.py:230"),
 }
 # the route (ops.route_counts) whose launches are each instance's
 ROUTE_OF = {"conv3d_narrow": "conv3d.sm90_narrow",
             "conv3d_head": "conv3d.f32_head",
-            "conv3d_head_dx": "conv3d_dx.f32_narrow"}
+            "conv3d_head_dx": "conv3d_dx.f32_narrow",
+            "conv3d_ndhwc": "conv3d.ndhwc",
+            "conv3d_fused_f32": "conv3d_fused.ndhwc"}
 TRAIN_KERNELS = ("conv3d", "conv3d_dx", "gn_stats", "gn_apply")
 
 # relative tolerance = max|kernel - plain| / max|plain|: bf16 outputs may
@@ -928,7 +959,10 @@ def _model(use_fp16: bool, seed: int, fused: bool = False, int8=None):
     return model.eval(), sched, cfg
 
 
-def phase_model(seed: int) -> None:
+def phase_model(seed: int) -> dict:
+    """The full-width f32 model on the card against the CPU: the forward,
+    the fused forward, one loss and its gradients. Returns the counts of
+    the forward ("model") and of the fused forward ("model_fused")."""
     from ddpm3d_tpu_torch import ops
     from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
     from ddpm3d_tpu_torch.training import train_loop as tl
@@ -943,6 +977,7 @@ def phase_model(seed: int) -> None:
         ops.reset_launch_counts()
         out = copy.deepcopy(model).cuda()(
             x.cuda(), t.cuda(), low_res=low.cuda()).cpu()
+    paths = {"model": dict(ops.launch_counts(), routes=ops.route_counts())}
     routes = {k: v for k, v in ops.route_counts().items() if v}
     err, rel = rel_err(out, ref)
     emit({"phase": "model", "shape": list(x.shape), "channels": 128,
@@ -964,6 +999,8 @@ def phase_model(seed: int) -> None:
         ref_fused = fused(x, t, low_res=low)
         ops.reset_launch_counts()
         out_fused = fused.cuda()(x.cuda(), t.cuda(), low_res=low.cuda()).cpu()
+    paths["model_fused"] = dict(ops.launch_counts(),
+                                routes=ops.route_counts())
     n_fused = ops.launch_counts()["conv3d_fused"]
     fused_routes = {k: v for k, v in ops.route_counts().items()
                     if k.startswith("conv3d_fused.") and v}
@@ -1013,6 +1050,7 @@ def phase_model(seed: int) -> None:
           "card gradients finite")
     check(loss_rel <= GRAD_TOL, f"training loss rel err {loss_rel}")
     check(worst <= GRAD_TOL, f"gradient {worst_name} rel err {worst}")
+    return paths
 
 
 def phase_denoise(model, sched, cfg, seed: int, phase: str = "denoise",
@@ -1992,68 +2030,56 @@ def phase_model_int8(seed: int) -> None:
     low = torch.from_numpy(rng.standard_normal((1, 8, 32, 32, 1), np.float32))
     t = torch.tensor([517])
     card = copy.deepcopy(model).cuda()
-    io = []
-    handles = [m.register_forward_hook(
-        lambda mod, args, kwargs, out: io.append(
-            (mod, args[0].cpu(), out.cpu(), bool(kwargs.get("upsample")))),
-        with_kwargs=True) for m in card.modules()
-        if getattr(m, "site", "") and m.int8_active()]
     with torch.no_grad():
         ref = model(x, t, low_res=low)
-        ops.reset_launch_counts()
-        out = card(x.cuda(), t.cuda(), low_res=low.cuda()).cpu()
-        n_s8 = ops.launch_counts()["conv3d_s8"]
-        for h in handles:
-            h.remove()
-        unequal = []
-        for mod, xin, yout, up in io:
-            cpu_mod = model.get_submodule(
-                next(n for n, m in card.named_modules() if m is mod))
-            y_cpu = cpu_mod(xin, upsample=up) if up else cpu_mod(xin)
-            if not torch.equal(y_cpu, yout):
-                unequal.append((mod.site, (y_cpu - yout).abs().max().item()))
+    ops.reset_launch_counts()
+    out, n_sites, unequal = _int8_sites_equal(card, model, x, low, t)
+    n_s8 = ops.launch_counts()["conv3d_s8"]
     err, rel = rel_err(out, ref)
     mean_rel = ((out - ref).abs().mean() / ref.abs().mean()).item()
     emit({"phase": "model_int8", "shape": list(x.shape), "channels": 128,
-          "dtype": "float32", "sites_checked": len(io),
+          "dtype": "float32", "sites_checked": n_sites,
           "sites_unequal": unequal, "max_abs_err": err, "rel_err": rel,
           "mean_rel_err": mean_rel, "mean_tol": INT8_MODEL_MEAN_TOL,
           "conv3d_s8_launches": n_s8})
     check(n_s8 == FORWARD_LAUNCHES["denoise_int8"]["conv3d_s8"],
           f"int8 model launched conv3d_s8 {n_s8} times")
-    check(len(io) == n_s8 and not unequal,
+    check(n_sites == n_s8 and not unequal,
           f"int8 sites unequal to the plain int8 conv: {unequal}")
     check(bool(torch.isfinite(out).all()), "int8 model output finite")
     check(mean_rel <= INT8_MODEL_MEAN_TOL,
           f"int8 model card vs CPU mean rel err {mean_rel}")
 
 
-def phase_denoise_int8_static(model, seed: int):
-    """The int8 model on per-time-bin static scales (the committed
-    INT8_SCALES_PROD.json, 25 bins over its 25-step respacing) through
-    ``denoise_volume``: 25 distinct bins, finite output, exact launches.
-    Random weights: no quality figure."""
+def phase_denoise_int8_static(model, seed: int, fname: str = "",
+                              schedule=None, n_bins: int = 25,
+                              phase: str = "denoise_int8_static"):
+    """The int8 model on per-time-bin static scales (``fname``, by default
+    the committed INT8_SCALES_PROD.json, 25 bins over its 25-step
+    respacing; ``schedule`` the (sched, cfg) of the file's chain) through
+    ``denoise_volume``: ``n_bins`` distinct bins, finite output, exact
+    launches. Random weights: no quality figure."""
     from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
     from ddpm3d_tpu_torch.ops import quant
 
-    fname = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "INT8_SCALES_PROD.json")
+    fname = fname or os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "INT8_SCALES_PROD.json")
     cfg8 = quant.Int8Config(scales=fname)
-    check(cfg8.has_time_bins, "INT8_SCALES_PROD.json has time bins")
+    check(cfg8.has_time_bins, f"{os.path.basename(fname)} has time bins")
     model.set_int8(cfg8)
-    sched, cfg = create_gaussian_diffusion(
+    sched, cfg = schedule or create_gaussian_diffusion(
         steps=1000, learn_sigma=True, noise_schedule="linear",
         timestep_respacing="25")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         counts, volume, _ = phase_denoise(model, sched, cfg, seed,
-                                          phase="denoise_int8_static")
-    emit({"phase": "denoise_int8_static_bins",
+                                          phase=phase)
+    emit({"phase": phase + "_bins",
           "bins_used": sorted(cfg8.bins_used),
           "distinct_bins": len(cfg8.bins_used),
           "warnings": sorted({str(w.message)[:80] for w in caught}),
           "volume_abs_mean": float(np.abs(volume).mean())})
-    check(len(cfg8.bins_used) == 25, f"bins used {sorted(cfg8.bins_used)}")
+    check(len(cfg8.bins_used) == n_bins, f"bins used {sorted(cfg8.bins_used)}")
     check(not caught, "every site has a scale in the file")
     return counts
 
@@ -2817,6 +2843,492 @@ def phase_classifier_sample(seed: int, model, classifier) -> dict:
     return dict(total, routes=dict(routes))
 
 
+# ------------------------------------------------------------------ Seg --
+# the Seg* family at the production flags: launches per forward, derived
+# on the CPU (tests/test_torch_port_seg_train.py:SEG_LAUNCHES): the main
+# branch's 72 convs / 71 GroupNorms plus the encoder's 29 / 28; the 1x1
+# convs are matmuls. In int8, the K5 sites: the main branch's 88, the
+# encoder's 31 (its Cin = 1 input conv excluded by "in0_0"), the fusion's
+# 1x1 sites (15 fuse{i} for cat_conv, the middle skip for midcat); the
+# input convs and the head stay K3
+SEG_FUSIONS = ("add", "cat_conv", "midcat")
+SEG_LAUNCHES = {"conv3d": 101, "conv3d_dx": 0, "conv3d_fused": 0,
+                "conv3d_s8": 0, "gn_stats": 99, "gn_apply": 99}
+SEG_ROUTES = dict(_routes(98, 1, 1), **{"conv3d.ndhwc": 1})
+SEG_INT8_S8 = {"add": 119, "cat_conv": 134, "midcat": 120}
+SEG_INT8_ROUTES = dict(_routes(0, 1, 1), **{"conv3d.ndhwc": 1})
+FORWARD_LAUNCHES["seg_denoise"] = SEG_LAUNCHES
+FORWARD_ROUTES["seg_denoise"] = SEG_ROUTES
+# a training step of the midcat model: its forward, and the dx of every
+# 3x3 conv but the two input convs (98 torso dx on sm90, the head's on
+# f32_narrow)
+SEG_STEP_LAUNCHES = dict(SEG_LAUNCHES, conv3d_dx=99)
+SEG_STEP_ROUTES = dict(SEG_ROUTES, **{"conv3d_dx.sm90": 98,
+                                      "conv3d_dx.f32_narrow": 1})
+SEG_TRAIN_STEPS = 2
+# the port's calibration tool on the production SuperResModel: every conv
+# site recorded (the excluded ones too), every meta key of the JAX tool
+CALIB_SITES = 90
+CALIB_META_KEYS = (
+    "sampler", "respacing", "margin", "n_volumes", "size", "model_channels",
+    "channel_mult", "num_res_blocks", "factory", "ckpt", "time_bins",
+    "chain_steps", "max_step_spread", "worst_spread_sites",
+    "per_site_step_spread")
+CALIB_FLAGS = ["--allow_random", "--factory", "--size", "96",
+               "--model_channels", "128", "--num_res_blocks", "2",
+               "--respacing", "3", "--time_bins", "3", "--n_volumes", "1"]
+CALIB_TIMEOUT_S = 300
+FORWARD_LAUNCHES["denoise_int8_calibrated"] = FORWARD_LAUNCHES["denoise_int8"]
+FORWARD_ROUTES["denoise_int8_calibrated"] = FORWARD_ROUTES["denoise_int8"]
+# the evaluate CLI's JSON against the same metrics on the CPU (float64 on
+# both; only the summation order differs)
+EVAL_TOL = 1e-9
+
+
+def _seg_model(fusion: str, use_fp16: bool, seed: int, int8=None):
+    """A Seg model at test_DDPM_3d_tpu.sh's flags (128 channels,
+    (1,1,2,3,4), 2 res blocks, learned sigma, scale-shift norm, resblock
+    up/down, no attention, Cin 1 + conditioner 1), random weights from
+    ``seed`` (heads included), on the CPU."""
+    from ddpm3d_tpu_torch.models import SegUNetModel
+    from ddpm3d_tpu_torch.models.nn import init_params
+
+    model = SegUNetModel(
+        in_channels=1, cond_channels=1, model_channels=128, out_channels=2,
+        num_res_blocks=2, channel_mult=(1, 1, 2, 3, 4),
+        use_scale_shift_norm=True, resblock_updown=True, fusion=fusion,
+        dtype=torch.bfloat16 if use_fp16 else torch.float32, int8=int8)
+    init_params(model, seed=seed, zero_heads=False)
+    return model.eval()
+
+
+def seg_path_shapes(seed: int) -> tuple:
+    """Every distinct conv and GroupNorm shape of one bf16 96^3 forward of
+    each Seg model, and every distinct int8 site of the add and cat_conv
+    int8 forwards (main_path_shapes / int8_path_shapes on each)."""
+    from ddpm3d_tpu_torch.ops import quant
+
+    convs, gns, s8 = set(), set(), set()
+    for fusion in SEG_FUSIONS:
+        model = _seg_model(fusion, True, seed).cuda()
+        c, g = main_path_shapes(model)
+        convs |= set(c)
+        gns |= set(g)
+        if fusion != "midcat":
+            model.set_int8(quant.Int8Config())
+            s8 |= set(int8_path_shapes(model))
+        del model
+    torch.cuda.empty_cache()
+    return convs, gns, s8
+
+
+# csrc/conv3d.cu's rows: the ndhwc route in f32 at the torso shape (the
+# f32 model checks' 70 torso convs) and in bf16 at the Seg encoder's
+# Cin = 1 input conv; its f32 fused instance (kFused) at the torso shape
+# with the prologue, the skip and the stats (the f32 fused model check)
+NDHWC_TIMED = [  # (D, H, W, Cin, Cout, dtype)
+    (96, 96, 96, 128, 128, torch.float32),
+    (96, 96, 96, 1, 128, torch.bfloat16),
+]
+
+
+def phase_conv3d_cu(gen: torch.Generator) -> dict:
+    """csrc/conv3d.cu's instances at NDHWC_TIMED and its f32 fused instance:
+    each against its plain version (TOL), timed beside it, beside
+    ``F.conv3d`` on the same inputs (TF32 off) and its bound. Returns the
+    kernels line's entries ``conv3d_ndhwc`` (the bf16 Cin = 1 row, the
+    Seg path's) and ``conv3d_fused_f32``."""
+    from ddpm3d_tpu_torch.ops import conv3d as cv
+    from ddpm3d_tpu_torch.ops import conv3d_fused as fo
+
+    dev = torch.device("cuda")
+    out_lines = {}
+    cases = [(c, False) for c in NDHWC_TIMED] + [(NDHWC_TIMED[0], True)]
+    for (D, H, W, cin, cout, dt), fused in cases:
+        B, vox = 1, D * H * W
+        x = torch.randn((B, D, H, W, cin), generator=gen, device=dev).to(dt)
+        w = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev)
+             * (27 * cin) ** -0.5)
+        b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+        wd = w.to(dt)
+        isz = x.element_size()
+        nbytes = vox * (cin + cout) * isz + 27 * cin * cout * isz + cout * 4
+        if fused:
+            kw = dict(prologue_g=0.5 * (1 + 0.1 * torch.randn(
+                          (B, cin), generator=gen, device=dev)),
+                      prologue_b=-0.25 + 0.1 * torch.randn(
+                          (B, cin), generator=gen, device=dev),
+                      prologue_silu=True, want_stats=True,
+                      skip=torch.randn((B, D, H, W, cout), generator=gen,
+                                       device=dev).to(dt))
+            wp = cv.pack_weight(w, dt)
+            check(fo.conv3d_fused_route(x.shape, dt) == "ndhwc",
+                  "the f32 fused conv runs csrc/conv3d.cu")
+            kfn = lambda: fo.conv3d_fused_kernel(x, wp, b, **kw)  # noqa: E731
+            pfn = lambda: fo.conv3d_fused_plain(x, wd, b, **kw)  # noqa: E731
+            out, ref = kfn()[0], pfn()[0]
+            nbytes += vox * cout * isz + 2 * B * cin * 4 + 2 * B * cout * 4
+            name, route = "conv3d_fused_f32", "conv3d_fused.ndhwc"
+        else:
+            wp = cv.pack_weight_kernel(w, dt)
+            check(cv.conv3d_route(x.shape, dt, cout) == "ndhwc",
+                  f"{(cin, dt)} runs csrc/conv3d.cu's ndhwc route")
+            kfn = lambda: cv.conv3d_kernel(x, wp, b)  # noqa: E731
+            pfn = lambda: cv.conv3d_plain(x, wd, b)  # noqa: E731
+            out, ref = kfn(), pfn()
+            name, route = "conv3d_ndhwc", "conv3d.ndhwc"
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        xn = x.permute(0, 4, 1, 2, 3)
+        flops = 2.0 * 27 * cin * cout * vox
+        bms, by = bound(flops, nbytes, dt)
+        line = dict(kernel=name, route=route, shape=[B, D, H, W, cin],
+                    cout=cout, dtype=str(dt).split(".")[-1],
+                    tile=list(cv.pick_tile(D, H, W)), max_abs_err=err,
+                    rel_err=rel, tol=TOL[dt], kernel_ms=time_ms(kfn),
+                    plain_ms=time_ms(pfn, reps=3, warmup=1),
+                    library_ms=time_ms(
+                        lambda: F.conv3d(xn, wd, b.to(dt), padding=1)),
+                    bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
+                    shapes_checked=1)
+        line["tflops"] = flops / line["kernel_ms"] / 1e9
+        emit(line)
+        check(bool(torch.isfinite(out.float()).all()), f"{name} finite")
+        check(rel <= TOL[dt], f"{name} {line['shape']} rel err {rel}")
+        # the kernels line takes the Seg path's row (bf16, Cin = 1)
+        if name == "conv3d_fused_f32" or dt == torch.bfloat16:
+            out_lines[name] = line
+        else:
+            out_lines["conv3d_ndhwc_f32"] = line
+        del x, out, ref
+    return out_lines
+
+
+def _int8_sites_equal(card, cpu, x, low, t):
+    """One forward of ``card`` (an int8 model on the card) with every
+    quantized site's input and output captured; each site's card output
+    against the same site of ``cpu`` (the same weights) on that input.
+    Returns (output, sites checked, [(site, max diff)] of unequal ones)."""
+    io = []
+    handles = [m.register_forward_hook(
+        lambda mod, args, kwargs, out: io.append(
+            (mod, args[0].cpu(), out.cpu(), bool(kwargs.get("upsample")))),
+        with_kwargs=True) for m in card.modules()
+        if getattr(m, "site", "") and m.int8_active()]
+    names = {m: n for n, m in card.named_modules()}
+    with torch.no_grad():
+        out = card(x.cuda(), t.cuda(), low_res=low.cuda()).cpu()
+        for h in handles:
+            h.remove()
+        unequal = []
+        for mod, xin, yout, up in io:
+            cpu_mod = cpu.get_submodule(names[mod])
+            y_cpu = cpu_mod(xin, upsample=up) if up else cpu_mod(xin)
+            if not torch.equal(y_cpu, yout):
+                unequal.append((mod.site, (y_cpu - yout).abs().max().item()))
+    return out, len(io), unequal
+
+
+def phase_seg(seed: int) -> dict:
+    """The three Seg models at full width, bf16, 96^3: parameter count,
+    forward ms and peak memory at batch 1 and 2, launches per forward by
+    kernel and route (exactly SEG_LAUNCHES / SEG_ROUTES); each f32 model
+    on the card against the CPU (MODEL_TOL); the add model's forward by
+    kernel family (``profile_seg``). Then int8 (add, cat_conv):
+    K5 launches per forward (the JAX-derived site count), every site's
+    output equal to the plain int8 conv on its own input (the f32 int8
+    model, card against CPU), the bf16 int8 forward against bf16
+    (INT8_FORWARD_TOL). Returns {path: one forward's counts} ("seg": add,
+    "seg_int8": add in int8)."""
+    from ddpm3d_tpu_torch import ops
+    from ddpm3d_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x1 = torch.randn((1, 96, 96, 96, 1), device="cuda", generator=gen)
+    t1 = torch.tensor([500], device="cuda")
+    rng = np.random.default_rng(seed)
+    xs = torch.from_numpy(rng.standard_normal((1, 8, 32, 32, 1), np.float32))
+    lows = torch.from_numpy(rng.standard_normal((1, 8, 32, 32, 1),
+                                                np.float32))
+    ts = torch.tensor([517])
+    paths = {}
+    for fusion in SEG_FUSIONS:
+        model = _seg_model(fusion, True, seed).cuda()
+        counts = _one_forward_counts(model, x1, t1)
+        routes = counts["routes"]
+        launched = {k: v for k, v in counts.items() if k != "routes"}
+        by_batch = {}
+        with torch.no_grad():
+            for B in (1, 2):
+                x = torch.randn((B, 96, 96, 96, 1), device="cuda",
+                                generator=gen)
+                t = torch.full((B,), 500, device="cuda")
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ms = time_ms(lambda: model(x, t, low_res=x), reps=3,
+                             warmup=1)
+                by_batch[B] = {"forward_ms": ms, "max_memory_allocated_gb":
+                               torch.cuda.max_memory_allocated() / 2 ** 30}
+            ref16 = model(x1, t1, low_res=x1).float()
+        m32 = _seg_model(fusion, False, seed)
+        with torch.no_grad():
+            ref = m32(xs, ts, low_res=lows)
+            out = copy.deepcopy(m32).cuda()(
+                xs.cuda(), ts.cuda(), low_res=lows.cuda()).cpu()
+        f32_rel = rel_err(out, ref)[1]
+        line = {"phase": "seg", "fusion": fusion, "model": "SegUNetModel, "
+                "128 ch, (1,1,2,3,4), 2 res blocks, bf16 torso",
+                "params": sum(p.numel() for p in model.parameters()),
+                "patch": 96, "launches_per_forward": launched,
+                "routes_per_forward": {k: v for k, v in routes.items() if v},
+                "by_batch": by_batch,
+                "f32_model": {"shape": list(xs.shape),
+                              "rel_err_vs_cpu": f32_rel, "tol": MODEL_TOL,
+                              "ref_abs_max": ref.abs().max().item()}}
+        check(launched == SEG_LAUNCHES,
+              f"seg {fusion} launches per forward {launched}")
+        check(routes == SEG_ROUTES, f"seg {fusion} conv routes {routes}")
+        check(ref.abs().max().item() > 1e-3, f"f32 seg {fusion} non-trivial")
+        check(f32_rel <= MODEL_TOL, f"f32 seg {fusion} card vs CPU {f32_rel}")
+        check(bool(torch.isfinite(ref16).all()), f"seg {fusion} finite")
+        if fusion == "add":
+            paths["seg"] = counts
+            # device time by kernel family (the encoder's Cin = 1 input
+            # conv is conv3d_bf16) and the host's issue time
+            phase_profile(model, phase="profile_seg")
+        if fusion != "midcat":
+            model.set_int8(quant.Int8Config())
+            counts8 = _one_forward_counts(model, x1, t1)
+            with torch.no_grad():
+                out8 = model(x1, t1, low_res=x1).float()
+                ms8 = time_ms(lambda: model(x1, t1, low_res=x1), reps=3,
+                              warmup=1)
+            int8_rel = rel_err(out8, ref16)[1]
+            m32.set_int8(quant.Int8Config())
+            card = copy.deepcopy(m32).cuda()
+            out32, n_sites, unequal = _int8_sites_equal(card, m32, xs, lows,
+                                                        ts)
+            del card
+            line["int8"] = {
+                "launches_per_forward": {k: v for k, v in counts8.items()
+                                         if k != "routes"},
+                "routes_per_forward": {k: v for k, v in
+                                       counts8["routes"].items() if v},
+                "forward_ms_batch1": ms8,
+                "forward_vs_bf16_rel": int8_rel, "tol": INT8_FORWARD_TOL,
+                "sites_checked": n_sites, "sites_unequal": unequal}
+            check(counts8["conv3d_s8"] == SEG_INT8_S8[fusion],
+                  f"seg {fusion} int8: {counts8['conv3d_s8']} K5 launches")
+            check(counts8["conv3d"] == 3 and counts8["routes"]
+                  == SEG_INT8_ROUTES, f"seg {fusion} int8 K3 {counts8}")
+            check(n_sites == SEG_INT8_S8[fusion] and not unequal,
+                  f"seg {fusion} int8 sites unequal: {unequal}")
+            check(bool(torch.isfinite(out8).all() and torch.isfinite(
+                out32).all()), f"seg {fusion} int8 finite")
+            check(int8_rel <= INT8_FORWARD_TOL,
+                  f"seg {fusion} int8 vs bf16 rel {int8_rel}")
+            if fusion == "add":
+                paths["seg_int8"] = counts8
+        emit(line)
+        del model, m32
+        torch.cuda.empty_cache()
+    return paths
+
+
+def phase_seg_train(seed: int) -> dict:
+    """Two TrainLoop steps at batch 1 on the bf16 midcat model (96^3, the
+    training CLI's defaults: AdamW lr 1e-4, EMA 0.9999, uniform t): step
+    ms, peak memory, finite loss/mse/vb, grad_norm > 0, launches per step
+    by kernel and route. Returns the last step's counts."""
+    from ddpm3d_tpu_torch import ops
+    from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
+    from ddpm3d_tpu_torch.training import TrainLoop
+
+    model = _seg_model("midcat", True, seed)
+    sched, cfg = create_gaussian_diffusion(
+        steps=1000, learn_sigma=True, noise_schedule="linear")
+    loop = TrainLoop(model=model, sched=sched, cfg=cfg, data=iter(()),
+                     batch_size=1, microbatch=-1, lr=1e-4,
+                     ema_rate="0.9999", log_interval=10, save_interval=10000,
+                     seed=seed, device="cuda")
+    rng = np.random.default_rng(seed)
+    steps, metrics = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(SEG_TRAIN_STEPS):
+        x = np.clip(rng.standard_normal((1, 96, 96, 96, 1), np.float32), -1,
+                    1)
+        low = rng.standard_normal((1, 96, 96, 96, 1), np.float32)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = loop.run_step(x, {"low_res": low})
+        end.record()
+        end.synchronize()
+        counts = dict(ops.launch_counts(), routes=ops.route_counts())
+        steps.append(start.elapsed_time(end))
+        metrics.append({k: float(v.float().mean()) for k, v in m.items()
+                        if k in ("loss", "mse", "vb", "grad_norm")})
+    launched = {k: v for k, v in counts.items() if k != "routes"}
+    emit({"phase": "seg_train", "fusion": "midcat", "batch": 1, "patch": 96,
+          "step_ms": steps, "metrics": metrics,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "launches_per_step": launched,
+          "routes_per_step": {k: v for k, v in counts["routes"].items()
+                              if v}})
+    check(all(np.isfinite(v) for m in metrics for v in m.values()),
+          "seg_train losses finite")
+    check(all(m["grad_norm"] > 0 for m in metrics), "seg_train grad_norm > 0")
+    check(launched == SEG_STEP_LAUNCHES, f"seg_train launches {launched}")
+    check(counts["routes"] == SEG_STEP_ROUTES,
+          f"seg_train routes {counts['routes']}")
+    del loop, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_calibrate(seed: int) -> dict:
+    """``python -m ddpm3d_tpu_torch.tools.calibrate_int8`` on the production
+    SuperResModel (the denoise phase's weights as a ``.pt``, CALIB_FLAGS):
+    exit 0, CALIB_SITES site scales, every meta key of the JAX tool, 3
+    time bins; its ms per step. Then the denoise phase in int8 on that file
+    (``denoise_int8_calibrated``: 3 bins used, exact launches). Returns that
+    run's counts."""
+    from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
+
+    model = _model(use_fp16=True, seed=seed)[0]
+    tmp = tempfile.mkdtemp(prefix="calib_")
+    ckpt = os.path.join(tmp, "model.pt")
+    out = os.path.join(tmp, "scales.json")
+    torch.save(model.state_dict(), ckpt)
+    cmd = [sys.executable, "-m", "ddpm3d_tpu_torch.tools.calibrate_int8",
+           *CALIB_FLAGS, "--load_ckpt", ckpt, "--seed", str(seed),
+           "--out", out]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=CALIB_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.monotonic() - t0
+    check(proc.returncode == 0,
+          f"calibrate_int8 exit {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(out) as f:
+        data = json.load(f)
+    ms = _ms_per_step(proc.stdout)
+    meta = data["meta"]
+    emit({"phase": "calibrate", "flags": CALIB_FLAGS, "wall_s": wall,
+          "ms_per_step_median": ms[0] if ms else None,
+          "first_step_ms": ms[1] if ms else None,
+          "sites": len(data["scales"]),
+          "binned_sites": len(data.get("scales_t", {})),
+          "meta_keys": list(meta), "chain_steps": meta["chain_steps"],
+          "max_step_spread": meta["max_step_spread"],
+          "stdout_tail": proc.stdout[-400:]})
+    check(len(data["scales"]) == CALIB_SITES and len(data["scales_t"])
+          == CALIB_SITES, f"calibrated {len(data['scales'])} sites")
+    check(tuple(meta) == CALIB_META_KEYS, f"meta keys {list(meta)}")
+    check(meta["chain_steps"] == 3 and meta["time_bins"] == 3,
+          "3 steps in 3 bins")
+    check(bool(ms), "the tool printed its ms per step")
+    schedule = create_gaussian_diffusion(
+        steps=1000, learn_sigma=True, noise_schedule="linear",
+        timestep_respacing="3")
+    counts = phase_denoise_int8_static(
+        model.cuda(), seed, fname=out, schedule=schedule, n_bins=3,
+        phase="denoise_int8_calibrated")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _ms_per_step(text: str) -> list:
+    """The tool's "(median M ms per step, first F)" as [M, F]."""
+    import re
+
+    m = re.search(r"\(median ([0-9.]+) ms per step, first ([0-9.]+)\)",
+                  text)
+    return [float(m.group(1)), float(m.group(2))] if m else []
+
+
+def phase_eps_calibration(seed: int) -> dict:
+    """``estimate_eps_scale`` on the production model (bf16, batch 1, a
+    96^3 patch of the synthetic volume as x0 and its conditioner), 3 t
+    points, 1 draw from a ``torch.Generator`` on the card: a finite
+    [1000] table; its ms. Returns the run's counts."""
+    from ddpm3d_tpu_torch import ops
+    from ddpm3d_tpu_torch.diffusion import estimate_eps_scale
+    from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
+
+    model = _model(use_fp16=True, seed=seed)[0].cuda()
+    sched, cfg = create_gaussian_diffusion(
+        steps=1000, learn_sigma=True, noise_schedule="linear")
+    rng = np.random.default_rng(seed)
+    x0 = torch.from_numpy(np.clip(rng.gamma(2.0, 0.5, (1, 96, 96, 96, 1))
+                                  .astype(np.float32) - 1, -1, 1)).cuda()
+    low = x0 + 0.3 * torch.randn(x0.shape, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t_points = [100, 500, 900]
+
+    def model_fn(x, t, **kw):
+        return model(x, t, **kw).float()
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    table = estimate_eps_scale(model_fn, sched, cfg, x0,
+                               model_kwargs={"low_res": low},
+                               t_points=t_points, draws=1, generator=gen)
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) * 1e3
+    counts = dict(ops.launch_counts(), routes=ops.route_counts())
+    emit({"phase": "eps_calibration", "t_points": t_points, "draws": 1,
+          "ms": ms, "lambda_at_points": [float(table[t]) for t in t_points],
+          "finite": bool(np.isfinite(table).all()),
+          "table_len": int(table.shape[0]),
+          "conv3d_launches": counts["conv3d"]})
+    check(table.shape == (1000,) and bool(np.isfinite(table).all()),
+          "eps-scale table finite")
+    check(counts["conv3d"] == 72 * len(t_points),
+          f"eps calibration ran {counts['conv3d']} convs")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_evaluate(seed: int, volume: np.ndarray) -> None:
+    """``python -m ddpm3d_tpu_torch.scripts.evaluate`` on the card: the
+    denoise phase's volume as the reference (.tif, (Z, H, W)) against a
+    perturbed copy (.npz, (H, W, Z): the auto layout); exit 0, and its JSON
+    equal to the same metrics on the CPU within EVAL_TOL."""
+    from ddpm3d_tpu_torch.data import tiff_io
+    from ddpm3d_tpu_torch.utils.metrics import volume_report
+
+    tmp = tempfile.mkdtemp(prefix="evaluate_")
+    ref = np.ascontiguousarray(volume.transpose(2, 0, 1), np.float32)
+    noise = np.random.default_rng(seed).normal(0, 0.05, volume.shape)
+    test = (volume + noise).astype(np.float32)
+    ref_path, test_path = (os.path.join(tmp, "ref.tif"),
+                           os.path.join(tmp, "test.npz"))
+    tiff_io.imwrite(ref_path, ref)
+    np.savez(test_path, test)
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ddpm3d_tpu_torch.scripts.evaluate",
+         "--reference", ref_path, "--test", test_path], capture_output=True,
+        text=True, timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.monotonic() - t0
+    check(proc.returncode == 0, f"evaluate exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = volume_report(ref, test.transpose(2, 0, 1))
+    diffs = {k: abs(got[k] - want[k]) / max(1.0, abs(want[k])) for k in want}
+    emit({"phase": "evaluate", "wall_s": wall, "report": got,
+          "cpu_report": want, "rel_diff": diffs, "tol": EVAL_TOL})
+    check(got["shape"] == list(ref.shape), f"evaluate shape {got['shape']}")
+    check(max(diffs.values()) <= EVAL_TOL, f"evaluate vs CPU {diffs}")
+
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2858,20 +3370,24 @@ def main() -> None:
     # path's (its other work is PyTorch calls)
     guided = _guided_models(args.seed)
     conv_shapes, gn_shapes = main_path_shapes(model)
-    gn_shapes = sorted(set(gn_shapes) | guided_path_gn_shapes(*guided),
-                       key=str)
+    # the Seg models' shapes join the main path's (K1/K2/K3/K5 at each)
+    seg_convs, seg_gns, seg_s8 = seg_path_shapes(args.seed)
+    conv_shapes = sorted(set(conv_shapes) | seg_convs, key=str)
+    gn_shapes = sorted(set(gn_shapes) | guided_path_gn_shapes(*guided)
+                       | seg_gns, key=str)
     summary = phase_kernels(gen, conv_shapes, gn_shapes,
                             conv_parent=libs.get("conv_parent"),
                             gn_parent=libs.get("gn_parent"))
+    summary.update(phase_conv3d_cu(gen))
     summary["conv3d_fused"] = phase_fused_kernels(
         gen, fused_path_shapes(fused), conv_parent=libs.get("conv_parent"))
-    summary["conv3d_s8"] = phase_s8_kernels(gen, int8_path_shapes(int8m),
-                                            libs)
+    summary["conv3d_s8"] = phase_s8_kernels(
+        gen, sorted(set(int8_path_shapes(int8m)) | seg_s8), libs)
     from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
     train_sched, train_cfg = create_gaussian_diffusion(
         steps=1000, learn_sigma=True, noise_schedule="linear")
     bwd = phase_backward(gen, *training_shapes(model, train_sched, train_cfg))
-    phase_model(args.seed)
+    model_counts = phase_model(args.seed)
     phase_model_int8(args.seed)
     denoise_counts, volume, eps = phase_denoise(model, sched, cfg, args.seed)
     phase_profile(model)
@@ -2899,6 +3415,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     classifier_counts = phase_classifier_sample(args.seed, *guided)
     del guided
+    torch.cuda.empty_cache()
+    seg_counts = phase_seg(args.seed)
+    seg_add = _seg_model("add", True, args.seed).cuda()
+    seg_counts["seg_denoise"] = phase_denoise(
+        seg_add, sched, cfg, args.seed, phase="seg_denoise")[0]
+    del seg_add
+    torch.cuda.empty_cache()
+    seg_counts["seg_train"] = phase_seg_train(args.seed)
+    seg_counts["denoise_int8_calibrated"] = phase_calibrate(args.seed)
+    seg_counts["eps_calibration"] = phase_eps_calibration(args.seed)
+    phase_evaluate(args.seed, volume)
     train = phase_train(args.seed)
     phase_train_profile(train.pop("loop"))
     train_ddp_counts = phase_train_ddp(args.seed)
@@ -2921,9 +3448,15 @@ def main() -> None:
                    "attention": count(attention_counts),
                    "attention_denoise": count(attention_denoise_counts),
                    "classifier_sample": count(classifier_counts),
-                   **{path: count(c) for path, c in serving_counts.items()}}
+                   **{path: count(c) for path, c in serving_counts.items()},
+                   **{path: count(c) for path, c in model_counts.items()},
+                   **{path: count(c) for path, c in seg_counts.items()}}
         main_path = {"conv3d_fused": "denoise_fused",
-                     "conv3d_s8": "denoise_int8"}.get(name, "train")
+                     "conv3d_s8": "denoise_int8",
+                     "conv3d_ndhwc": "seg",
+                     "conv3d_fused_f32": "model_fused"}.get(name, "train")
+        check(by_path[main_path] > 0,
+              f"{name} launched on its path {main_path}")
         extra = {}
         if name == "conv3d_fused":  # serving only: no single library call
             extra["unfused_sequence_ms"] = s["unfused_sequence_ms"]
@@ -2943,6 +3476,12 @@ def main() -> None:
             extra["parent_ms"] = s.get("parent_ms")
         if name in ("conv3d_narrow", "conv3d_head", "conv3d_head_dx"):
             extra["ndhwc_ms"] = s["ndhwc_ms"]  # the previous kernel
+        if name == "conv3d_ndhwc":  # this row is the bf16 Cin = 1 conv's
+            f32 = summary["conv3d_ndhwc_f32"]
+            extra["shape"] = s["shape"] + [s["cout"], s["dtype"]]
+            extra["f32_torso"] = {k: f32[k] for k in (
+                "shape", "cout", "max_abs_err", "kernel_ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by")}
         if name == "conv3d_head":  # the parent's head instance (or None)
             extra["parent_ms"] = s["parent_ms"]
         if name == "conv3d_head_dx":  # F.conv3d on the flipped weight
@@ -2967,6 +3506,7 @@ def main() -> None:
             bound_by=s["bound_by"], library_ms=s["library_ms"],
             shapes_checked=s["shapes_checked"], **extra,
         ))
+    emit({"phase": "total", "seconds": time.monotonic() - T_START})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -1,6 +1,8 @@
-"""Diffusion schedules, process math, training losses, classifier guidance
-and the DDPM ancestral, DDIM and DPM-Solver++ samplers."""
+"""Diffusion schedules, process math, training losses, classifier guidance,
+eps-scale calibration and the DDPM ancestral, DDIM and DPM-Solver++
+samplers."""
 
+from .calibration import eps_corrected_model_fn, estimate_eps_scale
 from .dpm_solver import dpm_solver_pp_sample_loop
 
 from .losses import calc_bpd_loop, training_losses, vb_terms_bpd

@@ -13,7 +13,9 @@ fused serving path (inference only) folds a GroupNorm into a [B, C] affine
 (``GroupNorm32(..., fold_only=True)``) that the next conv applies in its
 prologue (``Conv3x3x3(..., fused=True)``). The int8 serving path (inference
 only) runs a conv site through :func:`..ops.quant.conv3d_int8` when the
-model attached an :class:`..ops.quant.Int8Config` that quantizes the site.
+model attached an :class:`..ops.quant.Int8Config` that quantizes the site;
+the calibration mode records each site's input abs-max into the model's
+:class:`..ops.quant.ActCalibration`.
 """
 
 from __future__ import annotations
@@ -92,16 +94,23 @@ class GroupNorm32(nn.Module):
 
 
 class _Int8Site:
-    """A conv module's int8 mode: ``int8`` (the model's config, or None)
-    and ``site`` (its flax module path, as the scales files key it) are
-    attached by the model. The quantized weight (per output channel, or
-    per phase on the up route) and its packed layout on the card are
-    cached per parameter version: quantized once, not per step."""
+    """A conv module's int8 modes: ``int8`` (the model's config, or None),
+    ``calib`` (a :class:`..ops.quant.ActCalibration` that records the
+    site's input abs-max, or None) and ``site`` (its flax module path, as
+    the scales files key it) are attached by the model. The quantized
+    weight (per output channel, or per phase on the up route) and its
+    packed layout on the card are cached per parameter version: quantized
+    once, not per step."""
 
     int8: Optional[quant.Int8Config] = None
+    calib: Optional[quant.ActCalibration] = None
     site: str = ""
     _q_key = None
     _q = None
+
+    def _record(self, x: torch.Tensor) -> None:
+        if self.calib is not None:
+            self.calib.record(self.site, x)
 
     def int8_active(self) -> bool:
         return self.int8 is not None and self.int8.quantized(self.site)
@@ -160,6 +169,7 @@ class Conv3x3x3(_Int8Site, nn.Module):
 
     def forward(self, x: torch.Tensor, fused: bool = False,
                 upsample: bool = False, **fused_kw):
+        self._record(x)  # before the upsample, where JAX sows
         if self.int8_active():  # never fused: the model refuses both
             return self._int8(x, self.bias, upsample)
         if upsample:
@@ -181,6 +191,7 @@ class Conv1x1x1(_Int8Site, nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._record(x)
         if self.int8_active():
             return self._int8(x, self.bias)
         w = self.weight.reshape(self.weight.shape[:2]).to(x.dtype)

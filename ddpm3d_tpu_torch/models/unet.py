@@ -30,7 +30,9 @@ config quantizes run the int8 conv, the up blocks' ``in_conv`` and the
 (``ddpm3d_tpu/models/unet.py:197-211, 350-354``). Int8 and the fused path
 exclude each other. Int8 serves 3-D models only: the attention's ``qkv``
 and ``proj_out`` are 1-D convs, which the JAX package's int8 path (its
-folded 3-D convs) never quantizes, and neither does the port.
+folded 3-D convs) never quantizes, and neither does the port. The same
+sites record their inputs' abs-max in the calibration mode
+(``set_calibration``, :class:`ConvSites`), which int8 and fused refuse.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from ..ops.quant import Int8Config
+from ..ops.quant import ActCalibration, Int8Config
 from ..utils.convert import torch_module_to_flax_path
 from . import nn as prim
 from .plan import AttnSpec, ConvSpec, DownSpec, ResSpec, UpSpec, plan_unet
@@ -296,12 +298,62 @@ def _time_embed(model_channels: int) -> nn.Sequential:
                          nn.Linear(emb_ch, emb_ch))
 
 
-class UNetModel(nn.Module):
-    """The UNet with timestep (and optional class) conditioning, in ``dims``
-    1, 2 or 3, with attention at the stages the plan puts it."""
+class ConvSites:
+    """The serving modes of a 3-D model's conv sites (its
+    :class:`.nn.Conv3x3x3` and :class:`.nn.Conv1x1x1` modules, each named by
+    its flax module path after ``SITE_PREFIX``, as the scales files key
+    them): int8 serving and int8 calibration. A model that mixes this in
+    has ``dims`` and ``fused``."""
 
     # prefix of the conv sites' flax module paths
     SITE_PREFIX = ""
+    int8: Optional[Int8Config] = None
+    calib: Optional[ActCalibration] = None
+
+    def _sites(self):
+        for name, m in self.named_modules():
+            if isinstance(m, (prim.Conv3x3x3, prim.Conv1x1x1)):
+                m.site = self.SITE_PREFIX + torch_module_to_flax_path(name)
+                yield m
+
+    def set_int8(self, int8: Optional[Int8Config]) -> None:
+        """Serve the conv sites ``int8`` quantizes in int8 (None: none);
+        each conv module gets the config and its site name."""
+        if int8 is not None and self.fused:
+            raise ValueError(
+                "int8 and fused serving exclude each other (the JAX package "
+                "serves bf16 when both are asked for); choose one")
+        if int8 is not None and self.dims != 3:
+            raise ValueError(
+                "int8 serves 3-D models only (the JAX package quantizes its "
+                "3-D convs alone; a 1-D or 2-D model has no int8 site)")
+        if int8 is not None and self.calib is not None:
+            raise ValueError("int8 serving and calibration exclude each "
+                             "other: calibration records unquantized inputs")
+        self.int8 = int8
+        for m in self._sites():
+            m.int8 = int8
+
+    def set_calibration(self, calib: Optional[ActCalibration]) -> None:
+        """Record every conv site's input abs-max into ``calib`` (None:
+        stop), the calibration mode of :class:`..ops.quant.ActCalibration`.
+        Refused on an int8 or a fused model: the ranges are those of the
+        unquantized, unfused convs."""
+        if calib is not None and (self.int8 is not None or self.fused):
+            raise ValueError(
+                "calibration records the unquantized, unfused convs' inputs: "
+                "build the model without int8 and fused")
+        if calib is not None and self.dims != 3:
+            raise ValueError("calibration records 3-D conv sites; a 1-D or "
+                             "2-D model has none")
+        self.calib = calib
+        for m in self._sites():
+            m.calib = calib
+
+
+class UNetModel(ConvSites, nn.Module):
+    """The UNet with timestep (and optional class) conditioning, in ``dims``
+    1, 2 or 3, with attention at the stages the plan puts it."""
 
     def __init__(
         self,
@@ -340,6 +392,7 @@ class UNetModel(nn.Module):
             resblock_updown=resblock_updown, middle_attention=middle_attention,
         )
         self.model_channels = model_channels
+        self.channel_mult = tuple(channel_mult)
         self.num_classes = num_classes
         self.use_checkpoint = use_checkpoint
         self.dims = dims
@@ -383,23 +436,6 @@ class UNetModel(nn.Module):
         ])
         prim.init_params(self, seed=0)
         self.set_int8(int8)
-
-    def set_int8(self, int8: Optional[Int8Config]) -> None:
-        """Serve the conv sites ``int8`` quantizes in int8 (None: none);
-        each conv module gets the config and its site name."""
-        if int8 is not None and self.fused:
-            raise ValueError(
-                "int8 and fused serving exclude each other (the JAX package "
-                "serves bf16 when both are asked for); choose one")
-        if int8 is not None and self.dims != 3:
-            raise ValueError(
-                "int8 serves 3-D models only (the JAX package quantizes its "
-                "3-D convs alone; a 1-D or 2-D model has no int8 site)")
-        self.int8 = int8
-        for name, m in self.named_modules():
-            if isinstance(m, (prim.Conv3x3x3, prim.Conv1x1x1)):
-                m.int8 = int8
-                m.site = self.SITE_PREFIX + torch_module_to_flax_path(name)
 
     def forward(
         self,
@@ -545,7 +581,10 @@ class EncoderUNetModel(nn.Module):
 
     ``image_size`` (an int, or the spatial shape, e.g. an anisotropic
     (D, H, W)) sizes the attention pool's positional embedding: the JAX
-    package sizes it at ``init`` on the real input. The head's names
+    package sizes it at ``init`` on the real input. ``head=False`` builds
+    no head (the Seg models' encoder, which only returns features: the JAX
+    module makes its head's params on the first call that reaches it). The
+    head's names
     (:mod:`..utils.convert`): ``out.0`` its norm (spatial: the first
     dense), ``out.2`` its conv or pool (spatial: the last dense;
     spatial_v2: ``out.1`` its norm, ``out.3`` the last dense)."""
@@ -571,6 +610,7 @@ class EncoderUNetModel(nn.Module):
         use_checkpoint: bool = False,
         dtype: torch.dtype = torch.float32,
         image_size: Union[int, Sequence[int], None] = None,
+        head: bool = True,
     ):
         super().__init__()
         if dims not in (1, 2, 3):
@@ -603,33 +643,37 @@ class EncoderUNetModel(nn.Module):
         if include_middle:
             self.middle_block = stage_list(plan.middle_block)
         ch = plan.skip_chs[-1]
-        if pool == "adaptive":
-            self.out = nn.ModuleList([
-                prim.GroupNorm32(ch), nn.SiLU(),
-                prim.ConvNd(dims, ch, out_channels, 1, zero_init=True)])
-        elif pool == "attention":
-            if num_head_channels == -1:
-                raise ValueError("pool='attention' needs num_head_channels")
-            if image_size is None:
-                raise ValueError("pool='attention' needs image_size (the "
-                                 "input's spatial size)")
-            shape = list(_spatial_shape(image_size, dims))
-            # the (1,)2,2 pyramid: a stride-2 conv with padding 1 keeps
-            # ceil(n / 2), pooling floor(n / 2)
-            strided = conv_resample and not resblock_updown
-            for _ in range(len(channel_mult) - 1):
-                for ax in range(1 if dims == 3 else 0, dims):
-                    shape[ax] = (shape[ax] + strided) // 2
-            self.out = nn.ModuleList([
-                prim.GroupNorm32(ch), nn.SiLU(),
-                AttentionPool(ch, num_head_channels, out_channels,
-                              math.prod(shape), dtype=dtype)])
-        else:
-            n_feat = sum(plan.skip_chs) + (ch if include_middle else 0)
-            head = [nn.Linear(n_feat, 2048)]
-            head += ([prim.GroupNorm32(2048), nn.SiLU()]
-                     if pool == "spatial_v2" else [nn.ReLU()])
-            self.out = nn.ModuleList(head + [nn.Linear(2048, out_channels)])
+        self.head = head
+        if head:
+            if pool == "adaptive":
+                self.out = nn.ModuleList([
+                    prim.GroupNorm32(ch), nn.SiLU(),
+                    prim.ConvNd(dims, ch, out_channels, 1, zero_init=True)])
+            elif pool == "attention":
+                if num_head_channels == -1:
+                    raise ValueError(
+                        "pool='attention' needs num_head_channels")
+                if image_size is None:
+                    raise ValueError("pool='attention' needs image_size (the "
+                                     "input's spatial size)")
+                shape = list(_spatial_shape(image_size, dims))
+                # the (1,)2,2 pyramid: a stride-2 conv with padding 1 keeps
+                # ceil(n / 2), pooling floor(n / 2)
+                strided = conv_resample and not resblock_updown
+                for _ in range(len(channel_mult) - 1):
+                    for ax in range(1 if dims == 3 else 0, dims):
+                        shape[ax] = (shape[ax] + strided) // 2
+                self.out = nn.ModuleList([
+                    prim.GroupNorm32(ch), nn.SiLU(),
+                    AttentionPool(ch, num_head_channels, out_channels,
+                                  math.prod(shape), dtype=dtype)])
+            else:
+                n_feat = sum(plan.skip_chs) + (ch if include_middle else 0)
+                layers = [nn.Linear(n_feat, 2048)]
+                layers += ([prim.GroupNorm32(2048), nn.SiLU()]
+                           if pool == "spatial_v2" else [nn.ReLU()])
+                self.out = nn.ModuleList(
+                    layers + [nn.Linear(2048, out_channels)])
         prim.init_params(self, seed=0)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
@@ -663,6 +707,9 @@ class EncoderUNetModel(nn.Module):
                 means.append(spatial_mean(h))
         if return_features:
             return features, h
+        if not self.head:
+            raise ValueError("built without a head (head=False): call with "
+                             "return_features=True")
         if sp:
             h = torch.cat(means, dim=-1).float()
             h = F.linear(h, self.out[0].weight, self.out[0].bias)

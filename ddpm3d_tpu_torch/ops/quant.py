@@ -16,6 +16,11 @@ Port of ``ddpm3d_tpu/ops/quant.py`` for the int8 serving path:
   quantized per phase, the activation once at low resolution
   (:func:`conv3d_int8` with ``upsample``).
 
+Calibration (:class:`ActCalibration`, the JAX package's
+``DDPM3D_INT8_CALIB=1``): a model in its calibration mode
+(``model.set_calibration``) records each conv site's input abs-max, which
+``ddpm3d_tpu_torch/tools/calibrate_int8.py`` turns into a scales file.
+
 Inference only. The library reads no environment variable: the serving CLI
 reads ``DDPM3D_INT8_EXCLUDE`` and ``DDPM3D_INT8_NO_TIME_SCALES`` once and
 passes an :class:`Int8Config` to the model factory. The JAX package's
@@ -268,6 +273,38 @@ class Int8Config:
                 "falling back to dynamic abs-max for it (was the scales "
                 "file calibrated on this model config?)")
         return s
+
+
+class ActCalibration:
+    """The calibration mode of a model's conv sites (the counterpart of
+    ``DDPM3D_INT8_CALIB=1``, ``ddpm3d_tpu/ops/conv3d.py:269-287``), an
+    explicit state that ``model.set_calibration`` attaches: each 3-D conv
+    site records the f32 abs-max of its input (on an up site the
+    low-resolution input, before the phase upsample, as JAX sows it),
+    keeping the largest over calls. Nothing is quantized; the excluded
+    sites record too (JAX sows before it checks the exclusions). The maxima
+    stay on the input's device until :meth:`maxima` reads them all in one
+    transfer; :meth:`reset` starts anew."""
+
+    def __init__(self):
+        self._amax: Dict[str, torch.Tensor] = {}
+
+    def record(self, site: str, x: torch.Tensor) -> None:
+        m = torch.linalg.vector_norm(x.detach(), float("inf"),
+                                     dtype=torch.float32)
+        prev = self._amax.get(site)
+        self._amax[site] = m if prev is None else torch.maximum(prev, m)
+
+    def reset(self) -> None:
+        self._amax = {}
+
+    def maxima(self) -> Dict[str, float]:
+        """{site: max |x| over the calls since the last reset}."""
+        if not self._amax:
+            return {}
+        sites = list(self._amax)
+        values = torch.stack([self._amax[s] for s in sites]).cpu().tolist()
+        return dict(zip(sites, values))
 
 
 def quantize_weight(weight: torch.Tensor, upsample: bool = False):

@@ -10,6 +10,8 @@ naming), for the model families the port builds:
   mid_{j}.<inner'>        -> middle_block.j.<inner>
   out{i}_{j}.<inner'>     -> output_blocks.i.j.<inner>
   head_norm / head_conv   -> out.0 / out.2
+  fuse{i}                 -> conv_down.i   (the Seg cat_conv fusions)
+  encoder/<path>          -> encoder.<key> (the Seg models' encoder branch)
   attention norm / qkv / proj -> norm / qkv / proj_out
   conv (*k, in, out) -> (out, in, *k); dense (in, out) -> (out, in);
   GroupNorm scale/bias -> weight/bias.
@@ -59,6 +61,8 @@ _STAGES = (
     (re.compile(r"^mid_(\d+)$"), "middle_block"),
 )
 _TE_RE = re.compile(r"^time_embed_(\d+)$")
+_FUSE_RE = re.compile(r"^fuse(\d+)$")
+_CONV_DOWN_RE = re.compile(r"^conv_down\.(\d+)$")
 
 
 def _leaf(module: str, leaf: str) -> str:
@@ -86,6 +90,11 @@ def flax_path_to_torch_key(path: Tuple[str, ...],
     """A flax param path (module names then the leaf) -> the torch key;
     ``spatial_v2``: the tree holds ``sp_norm`` (its last dense is out.3)."""
     head, leaf = path[0], path[-1]
+    if head == "encoder":
+        return "encoder." + flax_path_to_torch_key(path[1:], spatial_v2)
+    m = _FUSE_RE.match(head)
+    if m:
+        return f"conv_down.{m.group(1)}.{_leaf(head, leaf)}"
     if head == "head_pool":
         if len(path) == 2:
             return f"out.2.{_POOL[leaf]}"
@@ -125,8 +134,14 @@ def torch_module_to_flax_path(name: str) -> str:
     """A module's torch name -> its flax module path (the inverse of
     :func:`flax_path_to_torch_key` without the leaf), e.g.
     ``input_blocks.1.0.in_layers.2`` -> ``in1_0/in_conv``, ``out.2`` ->
-    ``head_conv``: the conv site names the int8 scales files key on (under
-    the SuperResModel's ``unet/``)."""
+    ``head_conv``, ``encoder.input_blocks.0.0`` -> ``encoder/in0_0``,
+    ``conv_down.2`` -> ``fuse2``: the conv site names the int8 scales files
+    key on (under the SuperResModel's ``unet/``)."""
+    if name.startswith("encoder."):
+        return "encoder/" + torch_module_to_flax_path(name[len("encoder."):])
+    m = _CONV_DOWN_RE.match(name)
+    if m:
+        return f"fuse{m.group(1)}"
     if name in ("out.0", "out.2"):
         return {"out.0": "head_norm", "out.2": "head_conv"}[name]
     parts = name.split(".")
@@ -146,8 +161,9 @@ def torch_module_to_flax_path(name: str) -> str:
 
 def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX ``params`` tree (numpy leaves; with or without the ``params``
-    level and the SuperResModel ``unet`` wrapper) of a UNet, SuperResModel
-    or EncoderUNetModel -> the port's state dict of f32 tensors."""
+    level and the SuperResModel ``unet`` wrapper) of a UNet, SuperResModel,
+    EncoderUNetModel or SegUNetModel -> the port's state dict of f32
+    tensors."""
     tree = params.get("params", params)
     if set(tree.keys()) == {"unet"}:
         tree = tree["unet"]

@@ -876,3 +876,58 @@ def test_guidance_gradient_matches_cpu(dev, dims):
     assert all(p.grad is None for p in clf.parameters())
     if dims == 3:
         assert ops.launch_counts()["conv3d_dx"] > 0
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_ndhwc_conv_takes_bf16_cin1(dev, batch):
+    """The Seg encoder's input conv: bf16 with Cin = 1 (2-byte rows, the
+    scalar staging of csrc/conv3d.cu's ndhwc route) against conv3d_plain
+    at the full patch, batch 1 and 2."""
+    g = torch.Generator(device=dev).manual_seed(batch)
+    x = torch.randn((batch, 96, 96, 96, 1), generator=g,
+                    device=dev).bfloat16()
+    w = torch.randn((128, 1, 3, 3, 3), generator=g, device=dev) / 27 ** 0.5
+    b = torch.randn((128,), generator=g, device=dev) * 0.1
+    assert cv.conv3d_route(x.shape, x.dtype, 128) == "ndhwc"
+    ops.reset_launch_counts()
+    out = cv.conv3d_kernel(x, cv.pack_weight_kernel(w, x.dtype), b)
+    assert ops.route_counts()["conv3d.ndhwc"] == 1
+    ref = cv.conv3d_plain(x, w.bfloat16(), b)
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+
+
+def test_seg_forward_launches_by_route(dev):
+    """One bf16 forward of each production-depth Seg model (tests/
+    test_torch_port_seg_train.py:SEG_LAUNCHES, counted there on the plain
+    path) launches its kernels on the routes the CPU count says, and its
+    f32 forward on the card matches the CPU's."""
+    from ddpm3d_tpu_torch.models import SegUNetModel
+
+    want = {"conv3d": 101, "gn_stats": 99, "gn_apply": 99, "conv3d_s8": 0}
+    routes = {"conv3d.sm90": 98, "conv3d.sm90_narrow": 1, "conv3d.ndhwc": 1,
+              "conv3d.f32_head": 1}
+    x = torch.randn((1, 4, 32, 32, 1), generator=torch.Generator()
+                    .manual_seed(0))
+    t = torch.tensor([300])
+    for fusion in ("add", "cat_conv", "midcat"):
+        kw = dict(in_channels=1, cond_channels=1, model_channels=32,
+                  out_channels=2, num_res_blocks=2,
+                  channel_mult=(1, 1, 2, 3, 4), use_scale_shift_norm=True,
+                  resblock_updown=True, fusion=fusion)
+        model = SegUNetModel(dtype=torch.bfloat16, **kw).to(dev).eval()
+        init_params(model, seed=1, zero_heads=False)
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            model(x.to(dev), t.to(dev), low_res=x.to(dev))
+        counts = ops.launch_counts()
+        assert {k: counts[k] for k in want} == want, fusion
+        assert {k: v for k, v in ops.route_counts().items() if v} == routes
+        cpu = SegUNetModel(**kw).eval()
+        init_params(cpu, seed=1, zero_heads=False)
+        card = SegUNetModel(**kw).eval()
+        card.load_state_dict(cpu.state_dict())
+        card.to(dev)
+        with torch.no_grad():
+            ref = cpu(x, t, low_res=x)
+            out = card(x.to(dev), t.to(dev), low_res=x.to(dev)).cpu()
+        assert _rel(out, ref) <= 1e-4, fusion

@@ -40,7 +40,9 @@ from ddpm3d_tpu_torch.ops import quant
 from ddpm3d_tpu_torch.scripts import classifier_sample as classifier_cli
 from ddpm3d_tpu_torch.scripts import test as cli
 from ddpm3d_tpu_torch.scripts import distill as distill_cli
+from ddpm3d_tpu_torch.scripts import evaluate as evaluate_cli
 from ddpm3d_tpu_torch.scripts import train as train_cli
+from ddpm3d_tpu_torch.tools import calibrate_int8 as calibrate_cli
 from ddpm3d_tpu_torch.training import TrainLoop, distill_phase, progressive_distill
 from ddpm3d_tpu_torch.utils.config import (
     args_to_dict,
@@ -387,7 +389,8 @@ def test_cli_refuses_noise_seed_with_dpm():
 
 
 def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny):
-    """With no card, the CLIs (classifier_sample among them), the sampler,
+    """With no card, the CLIs (classifier_sample, the int8 calibration tool
+    and evaluate among them), the sampler,
     the pipeline, the trainer and the distiller raise unless the caller
     asks for the CPU; a model on another device than the chain's is
     refused, not moved."""
@@ -415,6 +418,10 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny):
         distill_cli.main(["--data_dir", "unused", "--model_path", "x.pt"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         classifier_cli.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calibrate_cli.main(["--allow_random"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_cli.main(["--reference", "a.npy", "--test", "b.npy"])
     student = copy.deepcopy(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         distill_phase(model, student, np.linspace(1e-4, 2e-2, 1000),
@@ -440,16 +447,19 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    """ddpm3d_tpu_torch and chip_smoke.py import no jax, flax or
-    ddpm3d_tpu (only the tests import both)."""
+    """ddpm3d_tpu_torch and chip_smoke.py import no jax, flax,
+    ddpm3d_tpu or the repository's tools/ (only the tests import both)."""
     files = [osp.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(osp.join(REPO, "ddpm3d_tpu_torch")):
         files += [osp.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
     assert osp.join(REPO, "ddpm3d_tpu_torch", "scripts",
                     "classifier_sample.py") in files
+    assert osp.join(REPO, "ddpm3d_tpu_torch", "tools",
+                    "calibrate_int8.py") in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "ddpm3d_tpu"), (
+            assert top not in ("jax", "jaxlib", "flax", "ddpm3d_tpu",
+                               "tools"), (
                 f"{osp.relpath(path, REPO)} imports {mod}")
