@@ -28,6 +28,16 @@ from ddpm3d_tpu_torch.ops import groupnorm as gn_ops
 from ddpm3d_tpu_torch.ops import quant
 from ddpm3d_tpu_torch.utils.convert import jax_params_to_state_dict
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads for this file's tests and fixtures (the suite's
+    workers share the cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
 # f32: as tests/test_torch_port_model.py (sums reordered against XLA)
 RTOL, ATOL = 1e-4, 1e-5
 # bf16 attention block: the port rounds where flax does (q, k scaled in

@@ -29,6 +29,16 @@ from ddpm3d_tpu_torch.scripts import classifier_sample as cli
 from ddpm3d_tpu_torch.utils import config as tconfig
 from ddpm3d_tpu_torch.utils.convert import jax_params_to_state_dict
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads for this file's tests and fixtures (the suite's
+    workers share the cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
 # f32: as tests/test_torch_port_model.py (sums reordered against XLA)
 RTOL, ATOL = 1e-4, 1e-5
 # the guidance gradient: a forward and a backward through the classifier

@@ -20,6 +20,16 @@ from ddpm3d_tpu_torch.models.nn import Conv3x3x3
 from ddpm3d_tpu_torch.ops import conv3d as cv
 from ddpm3d_tpu_torch.utils.config import sr_model_and_diffusion_defaults
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads for this file's tests and fixtures (the suite's
+    workers share the cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
 # the five volumes of the production model at 96^3 (D stays, H = W halve)
 VOLUMES = [(96, 96, 96), (96, 48, 48), (96, 24, 24), (96, 12, 12), (96, 6, 6)]
 SMALL_HW = 16  # the model is run at (1, 16, 16): H, W -> 96 * H / 16

@@ -16,6 +16,16 @@ from ddpm3d_tpu_torch.diffusion import (
     process as tprocess,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads for this file's tests and fixtures (the suite's
+    workers share the cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
 SHAPE = (2, 4, 6, 6, 1)
 T = 1000
 # max |port - JAX| / max |JAX|, f32 on both sides: the same updates round

@@ -29,6 +29,16 @@ from ddpm3d_tpu_torch.ops import conv3d as cv
 from ddpm3d_tpu_torch.ops import conv3d_fused as fo
 from ddpm3d_tpu_torch.ops import groupnorm as gn
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads for this file's tests and fixtures (the suite's
+    workers share the cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
 # the five volumes of the production model at 96^3 and the fused sites'
 # output widths there
 VOLUMES = [(96, 96, 96), (96, 48, 48), (96, 24, 24), (96, 12, 12), (96, 6, 6)]

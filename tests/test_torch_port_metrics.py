@@ -19,6 +19,16 @@ from ddpm3d_tpu_torch.scripts import evaluate
 from ddpm3d_tpu_torch.tools import calibrate_int8
 from ddpm3d_tpu_torch.utils import metrics
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads for this file's tests and fixtures (the suite's
+    workers share the cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = osp.abspath(osp.join(osp.dirname(__file__), ".."))
 # float64 in both packages: the same formulas, summed in other orders
 METRIC_TOL = 1e-10

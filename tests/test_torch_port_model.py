@@ -21,6 +21,16 @@ from ddpm3d_tpu_torch.models import factory as tfactory
 from ddpm3d_tpu_torch.models import nn as tnn
 from ddpm3d_tpu_torch.utils.convert import jax_params_to_state_dict
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads for this file's tests and fixtures (the suite's
+    workers share the cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
 TINY = dict(
     model_channels=32,
     out_channels=2,

@@ -18,6 +18,16 @@ from ddpm3d_tpu.ops.groupnorm import fused_group_norm_silu
 from ddpm3d_tpu_torch.ops import conv3d as cv
 from ddpm3d_tpu_torch.ops import groupnorm as gn
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads for this file's tests and fixtures (the suite's
+    workers share the cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
 # f32 sums over up to 27*128 terms in another order than XLA's
 CONV_RTOL, CONV_ATOL = 1e-5, 1e-5
 GN_RTOL, GN_ATOL = 1e-5, 1e-5

@@ -50,6 +50,16 @@ from ddpm3d_tpu_torch.utils.config import (
 )
 from ddpm3d_tpu_torch.utils.convert import jax_params_to_state_dict
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads for this file's tests and fixtures (the suite's
+    workers share the cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = osp.abspath(osp.join(osp.dirname(__file__), ".."))
 TINY = dict(
     model_channels=32, out_channels=2, num_res_blocks=1,

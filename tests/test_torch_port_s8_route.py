@@ -25,6 +25,16 @@ from ddpm3d_tpu_torch.ops import quant
 from ddpm3d_tpu_torch.ops.phase_up import phase_window_mask, stacked_phase_weight
 from ddpm3d_tpu_torch.utils.config import sr_model_and_diffusion_defaults
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads for this file's tests and fixtures (the suite's
+    workers share the cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
 SMALL_HW = 16  # the census runs the model at (1, 16, 16): H, W -> 96 * H / 16
 
 
