@@ -14,9 +14,10 @@ Phases (each failure exits non-zero before the final line):
                the bound; each conv on its route (``conv3d_route``: the
                bf16 torso on ``csrc/conv3d_sm90.cu``, the Cin = 2 input
                conv on ``csrc/conv3d_narrow.cu``, the f32 head on
-               ``csrc/conv3d_head.cu``), each timed beside the previous
-               kernel (``csrc/conv3d.cu``) on the same inputs; the head
-               also beside the parent's head instance when
+               ``csrc/conv3d_head.cu``), each timed beside the general
+               kernel of its dtype (``csrc/conv3d.cu`` in bf16,
+               ``csrc/conv3d_f32.cu`` in f32) on the same inputs; the head
+               also beside the parent's f32 instance when
                ``--parent-conv`` names a previous ``csrc/conv3d.cu``; K1
                (GN stats, one launch) also bit for bit twice and alone
                against in a batch of 2, timed beside ``torch.var_mean``
@@ -28,12 +29,17 @@ Phases (each failure exits non-zero before the final line):
                against their plain versions; each timed, and summed per step;
                at the main sites also the plain and library (cuDNN) times,
                the head's dx (f32 2 -> 128 on ``csrc/conv3d_head.cu``) also
-               beside ``F.conv3d`` and the previous kernel;
+               beside ``F.conv3d`` and the general f32 kernel;
   4. model   — the full-width model (128 ch, (1,1,2,3,4), 2 res blocks) in
                f32 at a small spatial size, kernel path on the card against
                the plain path on the CPU (its input conv and head on the
-               f32 routes of ``csrc/conv3d_head.cu``): the forward, then one
-               training loss and every parameter gradient;
+               f32 routes of ``csrc/conv3d_head.cu``, its 70 torso convs
+               and their dx on ``csrc/conv3d_f32.cu``): the forward, then
+               one training loss and every parameter gradient (the launch
+               counts of each, by route); ``model_f32_timed``, the same
+               model at 96^3: forward and forward + backward ms (with
+               ``--parent-conv`` also on the parent's f32 instance, in
+               turns);
   5. denoise — ``denoise_volume`` at 128 ch / 96^3 patches / bf16 on a
                synthetic volume with a short respaced chain; the launch
                counters are zeroed just before and read just after, and
@@ -57,8 +63,7 @@ Phases (each failure exits non-zero before the final line):
                hooks), with its stats checked as the next GroupNorm folds
                them, output and stats bit for bit twice and alone against
                in a batch of 2, and five sites timed beside the unfused
-               sequence they replace and, with ``--parent-conv``, the
-               previous kernel (the parent's bf16 fused ``csrc/conv3d.cu``);
+               sequence they replace;
                the full-width f32 fused model on the card against the CPU
                and the unfused card forward (in the model phase);
                ``denoise_fused``, the denoise phase again on the fused
@@ -121,7 +126,8 @@ Phases (each failure exits non-zero before the final line):
                production flags, bf16, 96^3: parameter count, forward ms and
                peak memory at batch 1 and 2, launches per forward by kernel
                and route (101 K3 with the encoder's Cin = 1 input conv on
-               csrc/conv3d.cu's ndhwc route, 99 K1, 99 K2), the f32 model
+               csrc/conv3d_narrow.cu's Cin = 1 instance, route sm90_cin1,
+               99 K1, 99 K2), the f32 model
                card vs CPU; in int8 (add, cat_conv) the K5 launches (119,
                134), every site equal to the plain int8 conv on its input,
                the forward vs bf16; ``seg_denoise``, the denoise phase on the
@@ -132,18 +138,26 @@ Phases (each failure exits non-zero before the final line):
                K5 a forward); ``eps_calibration``, the lambda table of the
                production model; ``evaluate``, the evaluate CLI on the
                denoise volume against the CPU metrics. The kernels phase
-               also checks K1/K2/K3/K5 at every Seg shape and times
-               csrc/conv3d.cu's rows (``phase_conv3d_cu``: the ndhwc route
-               in f32 at the torso shape and in bf16 at the Seg encoder's
-               input, the f32 fused instance).
+               also checks K1/K2/K3/K5 at every Seg shape. The redesigned
+               rows (``phase_conv3d_cu``): ``csrc/conv3d_f32.cu``'s plain,
+               fused and dx instances against their plain versions at
+               every distinct shape of the f32 model phase (forward, fused,
+               gradients) and of the f32 Seg models, the fused ones also
+               bit for bit twice and alone against in a batch of 2; the
+               Cin = 1 conv at batch 1 and 2 of the Seg input; each timed
+               at the torso shape (the Cin = 1 conv at the Seg input)
+               beside ``F.conv3d`` (TF32 off; cuDNN's data gradient for the
+               dx), its bound and PR 12's kernel on the same inputs
+               (``csrc/conv3d.cu``'s bf16 instance for the Cin = 1 conv;
+               the f32 ones with ``--parent-conv``).
 Then the whole run's seconds, the card's name and power limit, one
 ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
 
 Weights are random, made from ``--seed``. Imports no JAX. The build
 phase fails on a spill in the Hopper kernels (the wgmma ones, the fused
-K4's instances among them, ``csrc/conv3d_head.cu`` and
-``csrc/groupnorm.cu``), on a serialized wgmma and on an FFMA in K5's SASS
+K4's instances among them, ``csrc/conv3d_head.cu``, ``csrc/conv3d_f32.cu``
+and ``csrc/groupnorm.cu``), on a serialized wgmma and on an FFMA in K5's SASS
 (its epilogue must not contract the multiply and add).
 """
 
@@ -151,6 +165,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
 import csv
 import json
@@ -202,21 +217,30 @@ KERNELS = {
     "conv3d_head_dx": dict(
         route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_head.cu",
         replaces="ddpm3d_tpu/ops/conv3d_mxu.py:267"),
-    # csrc/conv3d.cu: K3's ndhwc route (the f32 torso convs; in bf16 the
-    # Seg encoder's Cin = 1 input conv) and K4's f32 instance (kFused)
-    "conv3d_ndhwc": dict(
-        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d.cu",
+    # the bf16 Cin = 1 input conv of the Seg encoder (conv3d_narrow.cu's
+    # Cin = 1 instance), and csrc/conv3d_f32.cu: K3's f32 torso convs, their
+    # dx and K4's f32 instance
+    "conv3d_cin1": dict(
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_narrow.cu",
         replaces="ddpm3d_tpu/ops/conv3d_mxu.py:203"),
+    "conv3d_f32": dict(
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_f32.cu",
+        replaces="ddpm3d_tpu/ops/conv3d_mxu.py:203"),
+    "conv3d_f32_dx": dict(
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_f32.cu",
+        replaces="ddpm3d_tpu/ops/conv3d_mxu.py:267"),
     "conv3d_fused_f32": dict(
-        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d.cu",
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_f32.cu",
         replaces="ddpm3d_tpu/ops/conv3d_fused.py:230"),
 }
 # the route (ops.route_counts) whose launches are each instance's
 ROUTE_OF = {"conv3d_narrow": "conv3d.sm90_narrow",
             "conv3d_head": "conv3d.f32_head",
             "conv3d_head_dx": "conv3d_dx.f32_narrow",
-            "conv3d_ndhwc": "conv3d.ndhwc",
-            "conv3d_fused_f32": "conv3d_fused.ndhwc"}
+            "conv3d_cin1": "conv3d.sm90_cin1",
+            "conv3d_f32": "conv3d.f32",
+            "conv3d_f32_dx": "conv3d_dx.f32",
+            "conv3d_fused_f32": "conv3d_fused.f32"}
 TRAIN_KERNELS = ("conv3d", "conv3d_dx", "gn_stats", "gn_apply")
 
 # relative tolerance = max|kernel - plain| / max|plain|: bf16 outputs may
@@ -301,13 +325,16 @@ for _path in SERVING_PATHS:
 # the conv3d launches per forward by kernel route (ops.route_counts): the
 # bf16 torso convs on csrc/conv3d_sm90.cu, the Cin = 2 input conv on
 # csrc/conv3d_narrow.cu, the f32 head conv on csrc/conv3d_head.cu, none on
-# csrc/conv3d.cu; fused: 8 up/down blocks x 2 on sm90, and every fused
-# conv on the sm90 fused instance (conv3d_fused.sm90), none on conv3d.cu
+# csrc/conv3d.cu or csrc/conv3d_f32.cu; fused: 8 up/down blocks x 2 on
+# sm90, and every fused conv on the sm90 fused instance (conv3d_fused.sm90)
+CONV_ROUTES = ("sm90", "sm90_narrow", "sm90_cin1", "f32_head", "f32_narrow",
+               "f32", "ndhwc")
+
+
 def _routes(sm90, narrow, head, dx_sm90=0, dx_f32_narrow=0, fused_sm90=0):
     counts = {f"{what}.{route}": 0 for what in ("conv3d", "conv3d_dx")
-              for route in ("sm90", "sm90_narrow", "f32_head", "f32_narrow",
-                            "ndhwc")}
-    counts.update({"conv3d_fused.sm90": fused_sm90, "conv3d_fused.ndhwc": 0})
+              for route in CONV_ROUTES}
+    counts.update({"conv3d_fused.sm90": fused_sm90, "conv3d_fused.f32": 0})
     counts.update({"conv3d.sm90": sm90, "conv3d.sm90_narrow": narrow,
                    "conv3d.f32_head": head, "conv3d_dx.sm90": dx_sm90,
                    "conv3d_dx.f32_narrow": dx_f32_narrow})
@@ -392,9 +419,9 @@ def check(ok: bool, what: str) -> None:
 
 # the wgmma sources (conv3d_sm90 holds K3 and the fused K4's instances)
 WGMMA_SOURCES = ("conv3d_sm90", "conv3d_s8", "conv3d_narrow")
-# sources whose kernels must not spill: the wgmma ones, the f32 head's and
-# the GroupNorm kernels
-NO_SPILL_SOURCES = WGMMA_SOURCES + ("conv3d_head", "groupnorm")
+# sources whose kernels must not spill: the wgmma ones, the f32 head's, the
+# f32 torso conv's and the GroupNorm kernels
+NO_SPILL_SOURCES = WGMMA_SOURCES + ("conv3d_head", "conv3d_f32", "groupnorm")
 # study builds compiled beside the package's sources (chip_smoke's own
 # names): K5 with every phase tile running all 27 taps, and the previous
 # K5 / csrc/conv3d.cu / csrc/groupnorm.cu when --parent-s8 / --parent-conv
@@ -506,27 +533,76 @@ GN_TIMED = [  # (N, C, dtype, film, silu)
 ]
 
 
-def _ndhwc_conv(x, wp, bias, lib=None):
-    """csrc/conv3d.cu's instance for x's dtype on the same inputs (``wp``
-    from ``pack_weight``): the kernel that carried every conv before the
-    sm90 and head routes (its bf16 and f32 BN = 64 instances are
-    unchanged), timed beside the new kernels in one run; with ``lib``, the
-    same entry point of another build (the parent's source)."""
+def _general_conv(x, w, bias, lib=None):
+    """The general kernel of x's dtype on the same inputs (``w`` the torch
+    layout): bf16 on ``csrc/conv3d.cu`` (the kernel that carried every bf16
+    conv before the sm90 and narrow routes, unchanged since), f32 on
+    ``csrc/conv3d_f32.cu``; timed beside the specialised kernels in one
+    run. With ``lib`` (a previous ``csrc/conv3d.cu``), that build's
+    ``conv3d_ndhwc_launch`` in x's dtype on its own [27, Cout, Cin] weight
+    and tiles: the parent's kernel."""
     from ddpm3d_tpu_torch.ops import _build
     from ddpm3d_tpu_torch.ops import conv3d as cv
 
     B, D, H, W, cin = x.shape
-    y = torch.empty((B, D, H, W, wp.shape[1]), dtype=x.dtype, device=x.device)
+    cout = w.shape[0]
+    y = torch.empty((B, D, H, W, cout), dtype=x.dtype, device=x.device)
+    b_ptr = None if bias is None else bias.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    if x.dtype == torch.float32 and lib is None:
+        wp = cv.pack_weight_f32(w)
+        err = _build.fn("conv3d_f32_launch")(
+            x.data_ptr(), wp.data_ptr(), b_ptr, y.data_ptr(), B, D, H, W,
+            cin, cout, *cv.pick_tile_f32(D, H, W), stream)
+        _build.check(err, "conv3d_f32_launch")
+        return y
+    wp = cv.pack_weight(w, x.dtype)
     launch = (_build.fn("conv3d_ndhwc_launch") if lib is None
               else _build.variant_fn(lib, "conv3d_ndhwc_launch"))
     err = launch(
-        x.data_ptr(), wp.data_ptr(),
-        None if bias is None else bias.data_ptr(), y.data_ptr(),
-        B, D, H, W, cin, wp.shape[1], *cv.pick_tile(D, H, W),
-        1 if x.dtype == torch.bfloat16 else 0,
-        torch.cuda.current_stream().cuda_stream)
+        x.data_ptr(), wp.data_ptr(), b_ptr, y.data_ptr(),
+        B, D, H, W, cin, cout, *cv.pick_tile(D, H, W),
+        1 if x.dtype == torch.bfloat16 else 0, stream)
     _build.check(err, "conv3d_ndhwc_launch")
     return y
+
+
+def _parent_fused_f32(lib, x, w, b, kw):
+    """The f32 fused instance of a previous ``csrc/conv3d.cu`` (its
+    ``conv3d_fused_launch``: [27, Cout, Cin] weight, the tiles of
+    ``pick_tile``, a two-level stats finish) on the same inputs: the kernel
+    ``csrc/conv3d_f32.cu``'s fused instance replaces."""
+    import ctypes
+
+    from ddpm3d_tpu_torch.ops import _build
+    from ddpm3d_tpu_torch.ops import conv3d as cv
+    from ddpm3d_tpu_torch.ops import conv3d_fused as fo
+
+    B, D, H, W, cin = x.shape
+    cout = w.shape[0]
+    wp = cv.pack_weight(w, torch.float32)
+    td, th, tw = cv.pick_tile(D, H, W)
+    tiles = -(-D // td) * -(-H // th) * -(-W // tw)
+    y = torch.empty((B, D, H, W, cout), device=x.device)
+    part = torch.empty((B * tiles * 2 * cout,), device=x.device)
+    part2 = torch.empty((B * -(-tiles // fo.STATS_GROUP) * 2 * cout,),
+                        device=x.device)
+    stats = torch.empty((B, 2, cout), device=x.device)
+    fn = lib.conv3d_fused_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    sk = kw.get("skip")
+    err = fn(x.data_ptr(), wp.data_ptr(), b.data_ptr(),
+             kw["prologue_g"].data_ptr(), kw["prologue_b"].data_ptr(),
+             int(kw.get("prologue_silu", True)),
+             None if sk is None else sk.data_ptr(), y.data_ptr(),
+             part.data_ptr(), part2.data_ptr(), stats.data_ptr(),
+             B, D, H, W, cin, cout, td, th, tw, 0,
+             torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "conv3d_fused_launch (parent)")
+    return y, stats
 
 
 def _parent_gn_stats(lib, x):
@@ -556,7 +632,8 @@ def _parent_gn_stats(lib, x):
 def _conv_tile(cv, x, cout, route):
     """The output tile the conv's launch uses (sm90: 256 or 128 rows; the
     head: its (H, W) window and D segments per volume; the narrow kernels
-    walk 64- or 128-row slices of the flattened voxels)."""
+    walk 64- or 128-row slices of the flattened voxels; f32: (TD, TH) of a
+    TD x TH x 8 tile)."""
     B, D, H, W, _ = x.shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if route == "sm90":
@@ -564,8 +641,10 @@ def _conv_tile(cv, x, cout, route):
     if route == "f32_head":
         return dict(window=list(cv.head_tile(cout)),
                     segments=cv.head_plan(D, H, W, cout, sms)[2])
-    if route in ("sm90_narrow", "f32_narrow"):
+    if route in ("sm90_narrow", "sm90_cin1", "f32_narrow"):
         return None
+    if route == "f32":
+        return list(cv.pick_tile_f32(D, H, W))
     return list(cv.pick_tile(D, H, W))
 
 
@@ -612,15 +691,14 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes,
                     max_abs_err=err, rel_err=rel, tol=TOL[dt])
         if case in CONV_TIMED:
             ms = time_ms(lambda: cv.conv3d_kernel(x, wp, b))
-            wo = cv.pack_weight(w, dt)
-            if route != "ndhwc":  # the same conv on the previous kernel
-                line["ndhwc_ms"] = time_ms(lambda: _ndhwc_conv(x, wo, b))
-            if route == "f32_head":  # and on the parent's head instance
+            # the same conv on the general kernel of its dtype
+            line["general_ms"] = time_ms(lambda: _general_conv(x, w, b))
+            if route == "f32_head":  # and on the parent's f32 instance
                 line["parent_ms"] = None
                 if conv_parent is not None:
                     line["parent_ms"] = time_ms(
-                        lambda: _ndhwc_conv(x, wo, b, conv_parent))
-                    p_err = rel_err(_ndhwc_conv(x, wo, b, conv_parent), ref)
+                        lambda: _general_conv(x, w, b, conv_parent))
+                    p_err = rel_err(_general_conv(x, w, b, conv_parent), ref)
                     line["parent_rel_err"] = p_err[1]
             plain_ms = time_ms(lambda: cv.conv3d_plain(x, wd, b), reps=3,
                                warmup=1)
@@ -767,39 +845,6 @@ FUSED_TIMED = [
 ]
 
 
-def _parent_fused(lib, x, wp, b, kw):
-    """The bf16 fused instance of a previous ``csrc/conv3d.cu`` (its
-    ``conv3d_fused_launch``: mma.sync, 128-row tiles of ``pick_tile``, a
-    two-level stats finish) on the same inputs: the kernel K4 replaces."""
-    from ddpm3d_tpu_torch.ops import _build
-    from ddpm3d_tpu_torch.ops import conv3d as cv
-    from ddpm3d_tpu_torch.ops import conv3d_fused as fo
-
-    B, D, H, W, cin = x.shape
-    cout = wp.shape[1]
-    td, th, tw = cv.pick_tile(D, H, W)
-    y = torch.empty((B, D, H, W, cout), dtype=x.dtype, device=x.device)
-    part = part2 = stats = None
-    if kw.get("want_stats"):
-        tiles = -(-D // td) * -(-H // th) * -(-W // tw)
-        groups = -(-tiles // fo.STATS_GROUP)
-        part = torch.empty((B * tiles * 2 * cout,), device=x.device)
-        part2 = torch.empty((B * groups * 2 * cout,), device=x.device)
-        stats = torch.empty((B, 2, cout), device=x.device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = _build.variant_fn(lib, "conv3d_fused_launch")(
-        x.data_ptr(), wp.data_ptr(), b.data_ptr(), ptr(kw.get("prologue_g")),
-        ptr(kw.get("prologue_b")), int(kw.get("prologue_silu", True)),
-        ptr(kw.get("skip")), y.data_ptr(), ptr(part), ptr(part2), ptr(stats),
-        B, D, H, W, cin, cout, td, th, tw, 1,
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "conv3d_fused_launch (parent)")
-    return (y, stats) if kw.get("want_stats") else y
-
-
 def _fused_exact(fo, x, wp, b, kw, gen) -> dict:
     """The sm90 fused conv repeats itself bit for bit, and volume 0 of a
     batch of 2 (the second volume other data) equals it alone: output and
@@ -822,16 +867,14 @@ def _fused_exact(fo, x, wp, b, kw, gen) -> dict:
                 batch_invariant=all(torch.equal(a, z[:1]) for a, _, z in pairs))
 
 
-def phase_fused_kernels(gen: torch.Generator, shapes, conv_parent=None) -> dict:
+def phase_fused_kernels(gen: torch.Generator, shapes) -> dict:
     """``conv3d_fused`` against its plain version at every distinct fused
     shape with the flags the model uses there: the output at TOL, the stats
     as the next GroupNorm folds them; at every distinct shape also bit for
     bit between two runs and between a volume alone and in a batch of 2.
     At the FUSED_TIMED sites also the kernel, plain and bound times, the
     unfused sequence the kernel replaces (K2 gn_apply + K3 conv + skip add
-    + K1 channel_stats; no single PyTorch call computes this function) and,
-    with ``conv_parent`` (a previous csrc/conv3d.cu), the kernel it
-    replaces (``previous_ms``)."""
+    + K1 channel_stats; no single PyTorch call computes this function)."""
     from ddpm3d_tpu_torch.ops import conv3d as cv
     from ddpm3d_tpu_torch.ops import conv3d_fused as fo
     from ddpm3d_tpu_torch.ops import groupnorm as gn
@@ -908,14 +951,7 @@ def phase_fused_kernels(gen: torch.Generator, shapes, conv_parent=None) -> dict:
             bms, by = bound(flops, nbytes, dt)
             line.update(kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms,
                         bound_by=by, unfused_sequence_ms=seq_ms,
-                        library_ms=None, tflops=flops / ms / 1e9,
-                        previous_ms=None)
-            if conv_parent is not None:
-                prev = _parent_fused(conv_parent, x, wp, b, kw)
-                prev = prev[0] if stats else prev
-                line["previous_rel_err"] = rel_err(prev, ref_out)[1]
-                line["previous_ms"] = time_ms(
-                    lambda: _parent_fused(conv_parent, x, wp, b, kw))
+                        library_ms=None, tflops=flops / ms / 1e9)
         emit(line)
         check(rel <= TOL[dt], f"conv3d_fused {line['shape']}->{cout} "
               f"{case[6:]} rel err {rel}")
@@ -962,7 +998,8 @@ def _model(use_fp16: bool, seed: int, fused: bool = False, int8=None):
 def phase_model(seed: int) -> dict:
     """The full-width f32 model on the card against the CPU: the forward,
     the fused forward, one loss and its gradients. Returns the counts of
-    the forward ("model") and of the fused forward ("model_fused")."""
+    the forward ("model"), of the fused forward ("model_fused") and of the
+    loss and its gradients ("model_grads")."""
     from ddpm3d_tpu_torch import ops
     from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
     from ddpm3d_tpu_torch.training import train_loop as tl
@@ -987,9 +1024,9 @@ def phase_model(seed: int) -> dict:
     check(ref.abs().max().item() > 1e-3, "model output is non-trivial")
     check(rel <= MODEL_TOL, f"full-width model kernel path rel err {rel}")
     # the f32 model: its Cin = 2 input conv and its head on csrc/
-    # conv3d_head.cu, the 70 torso convs on csrc/conv3d.cu
+    # conv3d_head.cu, the 70 torso convs on csrc/conv3d_f32.cu
     check(routes == {"conv3d.f32_narrow": 1, "conv3d.f32_head": 1,
-                     "conv3d.ndhwc": 70}, f"f32 model conv routes {routes}")
+                     "conv3d.f32": 70}, f"f32 model conv routes {routes}")
 
     # the same weights served fused: the card's kernels against the plain
     # fused path on the CPU, and against the unfused card forward
@@ -1012,8 +1049,8 @@ def phase_model(seed: int) -> dict:
           "conv3d_fused_launches": n_fused, "routes": fused_routes})
     check(n_fused == FORWARD_LAUNCHES["denoise_fused"]["conv3d_fused"],
           f"fused model launched conv3d_fused {n_fused} times")
-    # f32 fused convs stay on csrc/conv3d.cu's f32 instance
-    check(fused_routes == {"conv3d_fused.ndhwc": n_fused},
+    # f32 fused convs run csrc/conv3d_f32.cu's fused instance
+    check(fused_routes == {"conv3d_fused.f32": n_fused},
           f"f32 fused model routes {fused_routes}")
     check(rel_cpu <= MODEL_TOL, f"fused model card vs CPU rel err {rel_cpu}")
     check(rel_unfused <= MODEL_TOL,
@@ -1029,12 +1066,16 @@ def phase_model(seed: int) -> dict:
     for dev in ("cpu", "cuda"):
         m = model if dev == "cpu" else copy.deepcopy(model).cuda()
         m.train()
+        ops.reset_launch_counts()
         terms = tl.compute_grads(
             m, sched.to(dev), cfg, x0.to(dev), {"low_res": low.to(dev)},
             t.to(dev), torch.ones(1, device=dev), noise=noise.to(dev))
         losses.append(terms["loss"].cpu())
         grads.append({n: p.grad.cpu() for n, p in m.named_parameters()})
         del m
+    paths["model_grads"] = dict(ops.launch_counts(),
+                                routes=ops.route_counts())
+    grad_routes = {k: v for k, v in ops.route_counts().items() if v}
     loss_rel = rel_err(losses[1], losses[0])[1]
     worst, worst_name = 0.0, None
     for name, g_ref in grads[0].items():
@@ -1045,12 +1086,123 @@ def phase_model(seed: int) -> dict:
           "t": t.tolist(), "loss_cpu": losses[0].tolist(),
           "loss_card": losses[1].tolist(), "loss_rel_err": loss_rel,
           "tensors": len(grads[0]), "worst_grad_rel_err": worst,
-          "worst_grad_tensor": worst_name, "tol": GRAD_TOL})
+          "worst_grad_tensor": worst_name, "tol": GRAD_TOL,
+          "routes": grad_routes})
+    # the forward's routes, and the dx of the 70 torso convs on
+    # csrc/conv3d_f32.cu, the head's on csrc/conv3d_head.cu (the input conv
+    # has no dx)
+    check(grad_routes == {"conv3d.f32_narrow": 1, "conv3d.f32_head": 1,
+                          "conv3d.f32": 70, "conv3d_dx.f32": 70,
+                          "conv3d_dx.f32_narrow": 1},
+          f"f32 model gradient routes {grad_routes}")
     check(all(bool(torch.isfinite(g).all()) for g in grads[1].values()),
           "card gradients finite")
     check(loss_rel <= GRAD_TOL, f"training loss rel err {loss_rel}")
     check(worst <= GRAD_TOL, f"gradient {worst_name} rel err {worst}")
     return paths
+
+
+@contextlib.contextmanager
+def _parent_f32_route(lib):
+    """Inside: every conv (forward and dx) of the ``f32`` route runs on a
+    previous ``csrc/conv3d.cu``'s f32 instance (its ``conv3d_ndhwc_launch``
+    on its [27, Cout, Cin] weight, transposed from the packed [27, Cin,
+    Cout] per launch, and its tiles), counted on the same route: the f32
+    model as PR 12 ran it."""
+    from ddpm3d_tpu_torch.ops import _build
+    from ddpm3d_tpu_torch.ops import conv3d as cv
+
+    launch = _build.variant_fn(lib, "conv3d_ndhwc_launch")
+    own = cv._launch
+
+    def parent_launch(x, w_packed, bias, what):
+        route, cout = cv.check_kernel_inputs(x, w_packed, what)
+        if route != "f32":
+            return own(x, w_packed, bias, what)
+        B, D, H, W, cin = x.shape
+        wo = w_packed.transpose(1, 2).contiguous()
+        b = None if bias is None else bias.detach().float().contiguous()
+        y = torch.empty((B, D, H, W, cout), device=x.device)
+        _build.check(launch(
+            x.contiguous().data_ptr(), wo.data_ptr(),
+            None if b is None else b.data_ptr(), y.data_ptr(), B, D, H, W,
+            cin, cout, *cv.pick_tile(D, H, W), 0,
+            torch.cuda.current_stream().cuda_stream), "parent f32 conv")
+        key = f"{what}.{route}"
+        cv.route_launches[key] = cv.route_launches.get(key, 0) + 1
+        return y
+
+    cv._launch = parent_launch
+    try:
+        yield
+    finally:
+        cv._launch = own
+
+
+def phase_model_f32_timed(seed: int, conv_parent=None) -> dict:
+    """The full-width f32 model (phase_model's) at 96^3, batch 1, on the
+    card: one forward (no grad) and one training loss with every parameter
+    gradient (forward + backward, ``compute_grads``), ms by CUDA events
+    (median of 2 after 1 warm-up), launches by route. With ``conv_parent``
+    the same on PR 12's f32 conv (``_parent_f32_route``), in turns: this
+    PR's, the parent's, the parent's, this PR's. Returns the launch counts
+    of one forward + backward."""
+    from ddpm3d_tpu_torch import ops
+    from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
+    from ddpm3d_tpu_torch.training import train_loop as tl
+
+    model = _model(use_fp16=False, seed=seed)[0].cuda()
+    sched, cfg = create_gaussian_diffusion(
+        steps=1000, learn_sigma=True, noise_schedule="linear")
+    sched = sched.to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((1, 96, 96, 96, 1), generator=gen, device="cuda")
+    low = torch.randn((1, 96, 96, 96, 1), generator=gen, device="cuda")
+    noise = torch.randn(x.shape, generator=gen, device="cuda")
+    t = torch.tensor([517], device="cuda")
+    x0 = x.clamp(-1, 1)
+
+    def forward():
+        with torch.no_grad():
+            model.eval()
+            model(x, t, low_res=low)
+
+    def grads():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        tl.compute_grads(model, sched, cfg, x0, {"low_res": low}, t,
+                         torch.ones(1, device="cuda"), noise=noise)
+
+    def timed(fn):
+        return time_ms(fn, reps=2, warmup=1)
+
+    ops.reset_launch_counts()
+    grads()
+    torch.cuda.synchronize()
+    counts = dict(ops.launch_counts(), routes=ops.route_counts())
+    turns = ["pr"] + (["parent", "parent", "pr"] if conv_parent else [])
+    result = collections.defaultdict(list)
+    torch.cuda.reset_peak_memory_stats()
+    for turn in turns:
+        ctx = (_parent_f32_route(conv_parent) if turn == "parent"
+               else contextlib.nullcontext())
+        with ctx:
+            result[f"{turn}_forward_ms"].append(timed(forward))
+            result[f"{turn}_grads_ms"].append(timed(grads))
+    line = {"phase": "model_f32_timed", "shape": [1, 96, 96, 96, 1],
+            "channels": 128, "dtype": "float32",
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "routes": {k: v for k, v in counts["routes"].items() if v},
+            **{k: statistics.mean(v) for k, v in result.items()},
+            "turns": dict(result)}
+    emit(line)
+    check(line["routes"].get("conv3d.f32") == 70
+          and line["routes"].get("conv3d_dx.f32") == 70,
+          f"f32 model at 96^3 routes {line['routes']}")
+    model.zero_grad(set_to_none=True)
+    del model
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_denoise(model, sched, cfg, seed: int, phase: str = "denoise",
@@ -1366,6 +1518,8 @@ FORWARD_FAMILIES = {
                      "conv3d_sm90_kernelILi1ELb1E",
                      "conv3d_sm90_kernelILi2ELb1E", "fused_stats_finish"),
     "conv3d_sm90": ("conv3d_sm90_kernel",),
+    # the Cin = 1 instance first, so that the Cin = 2 one is conv3d_narrow
+    "conv3d_cin1": ("conv3d_narrow_kernel<1>", "conv3d_narrow_kernelILi1E"),
     "conv3d_narrow": ("conv3d_narrow_kernel",),
     "conv3d_bf16": ("conv3d_bf16_kernel",),
     "conv3d_head": ("conv3d_head_kernel",),
@@ -1562,10 +1716,10 @@ def phase_backward(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
             per_step["conv3d_dx_ms"] += line["kernel_ms"] * calls[case]
             if case in DX_TIMED:
                 wd = w.to(dt)
-                if route != "ndhwc":  # the same dx on the previous kernel
-                    wpo = cv.pack_weight(cv.flip_weight(w), dt)
-                    line["ndhwc_ms"] = time_ms(
-                        lambda: _ndhwc_conv(dy, wpo, None))
+                # the same dx on the general kernel of its dtype
+                wf = cv.flip_weight(w)
+                line["general_ms"] = time_ms(
+                    lambda: _general_conv(dy, wf, None))
                 line["plain_ms"] = time_ms(lambda: cv.conv3d_dx_plain(dy, w),
                                            reps=3, warmup=1)
                 line["library_ms"] = time_ms(lambda: _library_dx(dy, x, wd))
@@ -2854,9 +3008,9 @@ def phase_classifier_sample(seed: int, model, classifier) -> dict:
 SEG_FUSIONS = ("add", "cat_conv", "midcat")
 SEG_LAUNCHES = {"conv3d": 101, "conv3d_dx": 0, "conv3d_fused": 0,
                 "conv3d_s8": 0, "gn_stats": 99, "gn_apply": 99}
-SEG_ROUTES = dict(_routes(98, 1, 1), **{"conv3d.ndhwc": 1})
+SEG_ROUTES = dict(_routes(98, 1, 1), **{"conv3d.sm90_cin1": 1})
 SEG_INT8_S8 = {"add": 119, "cat_conv": 134, "midcat": 120}
-SEG_INT8_ROUTES = dict(_routes(0, 1, 1), **{"conv3d.ndhwc": 1})
+SEG_INT8_ROUTES = dict(_routes(0, 1, 1), **{"conv3d.sm90_cin1": 1})
 FORWARD_LAUNCHES["seg_denoise"] = SEG_LAUNCHES
 FORWARD_ROUTES["seg_denoise"] = SEG_ROUTES
 # a training step of the midcat model: its forward, and the dx of every
@@ -2922,85 +3076,259 @@ def seg_path_shapes(seed: int) -> tuple:
     return convs, gns, s8
 
 
-# csrc/conv3d.cu's rows: the ndhwc route in f32 at the torso shape (the
-# f32 model checks' 70 torso convs) and in bf16 at the Seg encoder's
-# Cin = 1 input conv; its f32 fused instance (kFused) at the torso shape
-# with the prologue, the skip and the stats (the f32 fused model check)
-NDHWC_TIMED = [  # (D, H, W, Cin, Cout, dtype)
-    (96, 96, 96, 128, 128, torch.float32),
-    (96, 96, 96, 1, 128, torch.bfloat16),
-]
+# the redesigned rows: csrc/conv3d_f32.cu's plain, fused and dx instances
+# at the torso shape ([1,96^3,128] -> 128: the f32 model's level-0 ResBlock
+# conv), the Cin = 1 conv at the Seg encoder's input; (D, H, W, Cin, Cout)
+F32_TIMED = (96, 96, 96, 128, 128)
+CIN1_TIMED = (96, 96, 96, 1, 128)
 
 
-def phase_conv3d_cu(gen: torch.Generator) -> dict:
-    """csrc/conv3d.cu's instances at NDHWC_TIMED and its f32 fused instance:
-    each against its plain version (TOL), timed beside it, beside
-    ``F.conv3d`` on the same inputs (TF32 off) and its bound. Returns the
-    kernels line's entries ``conv3d_ndhwc`` (the bf16 Cin = 1 row, the
-    Seg path's) and ``conv3d_fused_f32``."""
+def f32_path_shapes(seed: int) -> dict:
+    """Every distinct conv of ``csrc/conv3d_f32.cu`` on the f32 paths:
+    phase_model's forward, fused forward and gradients (the full-width f32
+    model at [1, 8, 32, 32, 1]) and phase_seg's f32 Seg forwards (the same
+    input). Read by hooks from card forwards with random weights:
+    {"conv": {(D, H, W, Cin, Cout)}, "dx": {(D, H, W, Cout, Cin)} (the dx
+    maps Cout -> Cin), "fused": {(D, H, W, Cin, Cout, prologue, silu, skip,
+    stats)}}."""
+    from ddpm3d_tpu_torch.models.nn import Conv3x3x3
+    from ddpm3d_tpu_torch.ops import conv3d as cv
+
+    out = {"conv": set(), "dx": set(), "fused": set()}
+    grads = [True]  # whether the model being read also runs a backward
+
+    def hook(mod, args, kwargs):
+        _, D, H, W, cin = args[0].shape
+        cout = mod.weight.shape[0]
+        if kwargs.get("fused"):
+            out["fused"].add((D, H, W, cin, cout,
+                              kwargs.get("prologue_g") is not None,
+                              bool(kwargs.get("prologue_silu", True)),
+                              kwargs.get("skip") is not None,
+                              bool(kwargs.get("want_stats", False))))
+            return
+        if cv.conv3d_route(args[0].shape, torch.float32, cout) == "f32":
+            out["conv"].add((D, H, W, cin, cout))
+        if grads[0] and cin != 2 and cv.conv3d_route(
+                (1, D, H, W, cout), torch.float32, cin) == "f32":
+            out["dx"].add((D, H, W, cout, cin))
+
+    x = torch.randn((1, 8, 32, 32, 1), device="cuda")
+    t = torch.tensor([517], device="cuda")
+    models = [_model(use_fp16=False, seed=seed)[0],
+              _model(use_fp16=False, seed=seed, fused=True)[0]]
+    models += [_seg_model(f, False, seed) for f in SEG_FUSIONS]
+    for i, model in enumerate(models):
+        grads[0] = i == 0  # phase_model's gradients; the rest forwards
+        model.cuda()
+        handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
+                   for m in model.modules() if isinstance(m, Conv3x3x3)]
+        with torch.no_grad():
+            model(x, t, low_res=x)
+        for h in handles:
+            h.remove()
+    del models
+    torch.cuda.empty_cache()
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def _fused_kw(gen, B, D, H, W, cin, cout, pro, silu, skip, stats):
+    """The fused conv's arguments for a site: a folded GroupNorm's affine
+    (x is ~N(0.5, 2)), the skip in f32."""
+    dev = torch.device("cuda")
+    kw = dict(prologue_silu=silu, want_stats=stats)
+    if pro:
+        kw["prologue_g"] = 0.5 * (1 + 0.1 * torch.randn(
+            (B, cin), generator=gen, device=dev))
+        kw["prologue_b"] = -0.25 + 0.1 * torch.randn(
+            (B, cin), generator=gen, device=dev)
+    if skip:
+        kw["skip"] = torch.randn((B, D, H, W, cout), generator=gen,
+                                 device=dev)
+    return kw
+
+
+def _stats_errs(gn, got, ref, N, cout) -> dict:
+    """The fused conv's stats as the next GroupNorm folds them (g, b
+    against the plain sums' fold, relative to the largest entry) and the
+    sum of squares per entry."""
+    ones = torch.ones(cout, device="cuda")
+    zeros = torch.zeros(cout, device="cuda")
+    gk, bk = gn.fold_gn_affine(got, N, ones, zeros)
+    gp, bp = gn.fold_gn_affine(ref, N, ones, zeros)
+    return dict(stats_fold_rel_err=max(rel_err(gk, gp)[1], rel_err(bk, bp)[1]),
+                stats_s2_rel_err=((got[:, 1] - ref[:, 1]).abs()
+                                  / ref[:, 1]).max().item(),
+                stats_fold_tol=STATS_FOLD_TOL, stats_s2_tol=STATS_S2_TOL)
+
+
+def phase_conv3d_cu(gen: torch.Generator, shapes: dict,
+                    conv_parent=None) -> dict:
+    """The redesigned kernels against their plain versions: the f32 conv
+    (``csrc/conv3d_f32.cu``) at every distinct shape of ``shapes``
+    (f32_path_shapes: plain, dx, fused with the site's flags; fused also
+    bit for bit twice and alone against in a batch of 2, its stats as the
+    next GroupNorm folds them) and the bf16 Cin = 1 conv
+    (``csrc/conv3d_narrow.cu``'s Cin = 1 instance) at the Seg input at
+    batch 1 and 2, each on its route. At F32_TIMED / CIN1_TIMED each is
+    timed beside its plain version, one library call (``F.conv3d``, TF32
+    off; cuDNN's data gradient for the dx), its bound and PR 12's kernel on
+    the same inputs: ``csrc/conv3d.cu``'s bf16 instance for the Cin = 1
+    conv (unchanged since), the f32 instances of ``conv_parent`` (a
+    previous ``csrc/conv3d.cu``) when given. Returns the kernels line's
+    entries ``conv3d_f32``, ``conv3d_f32_dx``, ``conv3d_fused_f32`` and
+    ``conv3d_cin1``."""
     from ddpm3d_tpu_torch.ops import conv3d as cv
     from ddpm3d_tpu_torch.ops import conv3d_fused as fo
+    from ddpm3d_tpu_torch.ops import groupnorm as gn
 
     dev = torch.device("cuda")
-    out_lines = {}
-    cases = [(c, False) for c in NDHWC_TIMED] + [(NDHWC_TIMED[0], True)]
-    for (D, H, W, cin, cout, dt), fused in cases:
-        B, vox = 1, D * H * W
+    f32 = torch.float32
+    check(any(c[3:] == F32_TIMED[3:] for c in shapes["conv"]),
+          "the timed f32 widths are on the f32 model's path")
+    out_lines, checked = {}, collections.Counter()
+    cases = ([("conv3d_f32", c, None) for c in shapes["conv"]]
+             + [("conv3d_f32_dx", c, None) for c in shapes["dx"]]
+             + [("conv3d_fused_f32", c[:5], c[5:]) for c in shapes["fused"]]
+             + [("conv3d_f32", F32_TIMED, None),
+                ("conv3d_f32_dx", F32_TIMED, None),
+                ("conv3d_fused_f32", F32_TIMED, (True, True, True, True))])
+    warm_card()
+    for name, (D, H, W, cin, cout), flags in cases:
+        timed = (D, H, W, cin, cout) == F32_TIMED
+        B, N = 1, D * H * W
+        x = torch.randn((B, D, H, W, cin), generator=gen, device=dev)
+        w = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev)
+             * (27 * cin) ** -0.5)
+        b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+        line = dict(kernel=name, shape=[B, D, H, W, cin], cout=cout,
+                    dtype="float32", tile=list(cv.pick_tile_f32(D, H, W)))
+        flops = 2.0 * 27 * cin * cout * B * N
+        nbytes = 4.0 * (B * N * (cin + cout) + 27 * cin * cout + cout)
+        if name == "conv3d_f32":
+            check(cv.conv3d_route(x.shape, f32, cout) == "f32",
+                  f"f32 {line['shape']}->{cout} runs csrc/conv3d_f32.cu")
+            wp = cv.pack_weight_kernel(w, f32)
+            kfn = lambda: cv.conv3d_kernel(x, wp, b)  # noqa: E731
+            pfn = lambda: cv.conv3d_plain(x, w, b)  # noqa: E731
+            out, ref = kfn(), pfn()
+            xn = x.permute(0, 4, 1, 2, 3)
+            lfn = lambda: F.conv3d(xn, w, b, padding=1)  # noqa: E731
+            parent = (lambda: _general_conv(x, w, b, conv_parent)) \
+                if conv_parent is not None else None
+        elif name == "conv3d_f32_dx":
+            # the dx conv maps Cout -> Cin: x here is dy, w the forward's
+            # weight with Cin = cout of the dx
+            dy, wf = x, w.transpose(0, 1).contiguous()  # (cin_fwd, cout_fwd)
+            route = cv.conv3d_route(dy.shape, f32, cout)
+            check(route == "f32", f"f32 dx {line['shape']}->{cout} runs "
+                  f"csrc/conv3d_f32.cu, not {route}")
+            wpd = cv.pack_weight_dx(wf, f32)
+            kfn = lambda: cv.conv3d_dx_kernel(dy, wpd)  # noqa: E731
+            pfn = lambda: cv.conv3d_dx_plain(dy, wf)  # noqa: E731
+            out, ref = kfn(), pfn()
+            xs = torch.empty((B, D, H, W, cout), device=dev)
+            lfn = lambda: _library_dx(dy, xs, wf)  # noqa: E731
+            parent = (lambda: _general_conv(
+                dy, cv.flip_weight(wf), None, conv_parent)) \
+                if conv_parent is not None else None
+            nbytes -= 4.0 * cout  # no bias
+        else:
+            pro, silu, use_skip, stats = flags
+            check(fo.conv3d_fused_route(x.shape, f32) == "f32",
+                  "the f32 fused conv runs csrc/conv3d_f32.cu")
+            x = x * 2 + 0.5
+            kw = _fused_kw(gen, B, D, H, W, cin, cout, pro, silu, use_skip,
+                           stats)
+            wp = fo.pack_weight_fused(w, f32)
+            kfn = lambda: fo.conv3d_fused_kernel(x, wp, b, **kw)  # noqa: E731
+            pfn = lambda: fo.conv3d_fused_plain(x, w, b, **kw)  # noqa: E731
+            got, want = kfn(), pfn()
+            out, ref = (got[0], want[0]) if stats else (got, want)
+            line.update(prologue=pro, silu=silu, skip=use_skip, stats=stats)
+            line.update(_fused_exact(fo, x, wp, b, kw, gen))
+            if stats:
+                line.update(_stats_errs(gn, got[1], want[1], N, cout))
+            xn = x.permute(0, 4, 1, 2, 3)
+            lfn = lambda: F.conv3d(xn, w, b, padding=1)  # noqa: E731
+            parent = (lambda: _parent_fused_f32(conv_parent, x, w, b, kw)) \
+                if conv_parent is not None and pro else None
+            nbytes += 4.0 * (B * N * cout * use_skip + 2 * B * cin
+                             + 2 * B * cout * stats)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        line.update(max_abs_err=err, rel_err=rel, tol=TOL[f32])
+        if timed:
+            bms, by = bound(flops, nbytes, f32)
+            line.update(kernel_ms=time_ms(kfn),
+                        plain_ms=time_ms(pfn, reps=3, warmup=1),
+                        library_ms=time_ms(lfn), bound_ms=bms, bound_by=by,
+                        bytes=nbytes, flops=flops, parent_ms=None)
+            line["tflops"] = flops / line["kernel_ms"] / 1e9
+            if parent is not None:
+                p_out = parent()
+                p_out = p_out[0] if isinstance(p_out, tuple) else p_out
+                line["parent_rel_err"] = rel_err(p_out, ref)[1]
+                line["parent_ms"] = time_ms(parent)
+        emit(line)
+        check(bool(torch.isfinite(out).all()), f"{name} finite")
+        check(rel <= TOL[f32], f"{name} {line['shape']}->{cout} rel err {rel}")
+        if flags is not None:
+            check(line["deterministic"] and line["batch_invariant"],
+                  f"{name} {line['shape']}->{cout} {flags} repeats exactly "
+                  f"and alone equals in a batch of 2")
+            if flags[3]:
+                check(line["stats_fold_rel_err"] <= STATS_FOLD_TOL
+                      and line["stats_s2_rel_err"] <= STATS_S2_TOL,
+                      f"{name} stats {line}")
+        checked[name] += 1
+        if timed:
+            out_lines[name] = line
+        del x, out, ref
+
+    # the Seg encoder's input conv, bf16 Cin = 1, at batch 1 (timed) and 2
+    D, H, W, cin, cout = CIN1_TIMED
+    for B in (1, 2):
+        dt = torch.bfloat16
         x = torch.randn((B, D, H, W, cin), generator=gen, device=dev).to(dt)
         w = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev)
              * (27 * cin) ** -0.5)
         b = torch.randn((cout,), generator=gen, device=dev) * 0.1
-        wd = w.to(dt)
-        isz = x.element_size()
-        nbytes = vox * (cin + cout) * isz + 27 * cin * cout * isz + cout * 4
-        if fused:
-            kw = dict(prologue_g=0.5 * (1 + 0.1 * torch.randn(
-                          (B, cin), generator=gen, device=dev)),
-                      prologue_b=-0.25 + 0.1 * torch.randn(
-                          (B, cin), generator=gen, device=dev),
-                      prologue_silu=True, want_stats=True,
-                      skip=torch.randn((B, D, H, W, cout), generator=gen,
-                                       device=dev).to(dt))
-            wp = cv.pack_weight(w, dt)
-            check(fo.conv3d_fused_route(x.shape, dt) == "ndhwc",
-                  "the f32 fused conv runs csrc/conv3d.cu")
-            kfn = lambda: fo.conv3d_fused_kernel(x, wp, b, **kw)  # noqa: E731
-            pfn = lambda: fo.conv3d_fused_plain(x, wd, b, **kw)  # noqa: E731
-            out, ref = kfn()[0], pfn()[0]
-            nbytes += vox * cout * isz + 2 * B * cin * 4 + 2 * B * cout * 4
-            name, route = "conv3d_fused_f32", "conv3d_fused.ndhwc"
-        else:
-            wp = cv.pack_weight_kernel(w, dt)
-            check(cv.conv3d_route(x.shape, dt, cout) == "ndhwc",
-                  f"{(cin, dt)} runs csrc/conv3d.cu's ndhwc route")
-            kfn = lambda: cv.conv3d_kernel(x, wp, b)  # noqa: E731
-            pfn = lambda: cv.conv3d_plain(x, wd, b)  # noqa: E731
-            out, ref = kfn(), pfn()
-            name, route = "conv3d_ndhwc", "conv3d.ndhwc"
+        check(cv.conv3d_route(x.shape, dt, cout) == "sm90_cin1",
+              "the bf16 Cin = 1 conv runs the narrow kernel's Cin = 1 instance")
+        wp, wd = cv.pack_weight_kernel(w, dt), w.to(dt)
+        kfn = lambda: cv.conv3d_kernel(x, wp, b)  # noqa: E731
+        out, ref = kfn(), cv.conv3d_plain(x, wd, b)
         torch.cuda.synchronize()
         err, rel = rel_err(out, ref)
-        xn = x.permute(0, 4, 1, 2, 3)
-        flops = 2.0 * 27 * cin * cout * vox
-        bms, by = bound(flops, nbytes, dt)
-        line = dict(kernel=name, route=route, shape=[B, D, H, W, cin],
-                    cout=cout, dtype=str(dt).split(".")[-1],
-                    tile=list(cv.pick_tile(D, H, W)), max_abs_err=err,
-                    rel_err=rel, tol=TOL[dt], kernel_ms=time_ms(kfn),
-                    plain_ms=time_ms(pfn, reps=3, warmup=1),
-                    library_ms=time_ms(
-                        lambda: F.conv3d(xn, wd, b.to(dt), padding=1)),
-                    bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
-                    shapes_checked=1)
-        line["tflops"] = flops / line["kernel_ms"] / 1e9
+        line = dict(kernel="conv3d_cin1", route="conv3d.sm90_cin1",
+                    shape=[B, D, H, W, cin], cout=cout, dtype="bfloat16",
+                    max_abs_err=err, rel_err=rel, tol=TOL[dt])
+        if B == 1:
+            vox = B * D * H * W
+            flops = 2.0 * 27 * cin * cout * vox
+            nbytes = 2.0 * (vox * (cin + cout) + 27 * cin * cout) + 4 * cout
+            bms, by = bound(flops, nbytes, dt)
+            xn = x.permute(0, 4, 1, 2, 3)
+            line.update(
+                kernel_ms=time_ms(kfn),
+                plain_ms=time_ms(lambda: cv.conv3d_plain(x, wd, b), reps=3,
+                                 warmup=1),
+                library_ms=time_ms(
+                    lambda: F.conv3d(xn, wd, b.to(dt), padding=1)),
+                bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
+                # PR 12's kernel: csrc/conv3d.cu's bf16 instance, unchanged
+                parent_ms=time_ms(lambda: _general_conv(x, w.to(dt), b)),
+                parent_rel_err=rel_err(_general_conv(x, w.to(dt), b), ref)[1])
+            out_lines["conv3d_cin1"] = line
         emit(line)
-        check(bool(torch.isfinite(out.float()).all()), f"{name} finite")
-        check(rel <= TOL[dt], f"{name} {line['shape']} rel err {rel}")
-        # the kernels line takes the Seg path's row (bf16, Cin = 1)
-        if name == "conv3d_fused_f32" or dt == torch.bfloat16:
-            out_lines[name] = line
-        else:
-            out_lines["conv3d_ndhwc_f32"] = line
+        check(bool(torch.isfinite(out.float()).all()), "conv3d_cin1 finite")
+        check(rel <= TOL[dt], f"conv3d_cin1 {line['shape']} rel err {rel}")
+        checked["conv3d_cin1"] += 1
         del x, out, ref
+    for name in out_lines:
+        out_lines[name]["shapes_checked"] = checked[name]
+    emit({"phase": "conv3d_cu", "shapes_checked": dict(checked)})
     return out_lines
 
 
@@ -3094,7 +3422,7 @@ def phase_seg(seed: int) -> dict:
         if fusion == "add":
             paths["seg"] = counts
             # device time by kernel family (the encoder's Cin = 1 input
-            # conv is conv3d_bf16) and the host's issue time
+            # conv is conv3d_cin1) and the host's issue time
             phase_profile(model, phase="profile_seg")
         if fusion != "midcat":
             model.set_int8(quant.Int8Config())
@@ -3336,10 +3664,11 @@ def main() -> None:
                     help="a previous csrc/conv3d_s8.cu (same C entry point) "
                          "to time beside K5 at the timed int8 sites")
     ap.add_argument("--parent-conv", metavar="FILE",
-                    help="a previous csrc/conv3d.cu (same C entry points) "
-                         "whose Cout <= 8 instance is timed beside the "
-                         "f32 head kernel and whose bf16 fused instance "
-                         "beside K4")
+                    help="a previous csrc/conv3d.cu (its conv3d_ndhwc_launch "
+                         "and conv3d_fused_launch) whose f32 instances are "
+                         "timed beside the f32 head kernel and "
+                         "csrc/conv3d_f32.cu's plain, fused and dx convs, "
+                         "and run the f32 model's 'before' timing")
     ap.add_argument("--parent-gn", metavar="FILE",
                     help="a previous csrc/groupnorm.cu whose two-launch "
                          "gn_stats_launch (x, part, stats, ...) is timed "
@@ -3378,9 +3707,10 @@ def main() -> None:
     summary = phase_kernels(gen, conv_shapes, gn_shapes,
                             conv_parent=libs.get("conv_parent"),
                             gn_parent=libs.get("gn_parent"))
-    summary.update(phase_conv3d_cu(gen))
+    summary.update(phase_conv3d_cu(gen, f32_path_shapes(args.seed),
+                                   conv_parent=libs.get("conv_parent")))
     summary["conv3d_fused"] = phase_fused_kernels(
-        gen, fused_path_shapes(fused), conv_parent=libs.get("conv_parent"))
+        gen, fused_path_shapes(fused))
     summary["conv3d_s8"] = phase_s8_kernels(
         gen, sorted(set(int8_path_shapes(int8m)) | seg_s8), libs)
     from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
@@ -3388,6 +3718,8 @@ def main() -> None:
         steps=1000, learn_sigma=True, noise_schedule="linear")
     bwd = phase_backward(gen, *training_shapes(model, train_sched, train_cfg))
     model_counts = phase_model(args.seed)
+    model_counts["model_f32_timed"] = phase_model_f32_timed(
+        args.seed, libs.get("conv_parent"))
     phase_model_int8(args.seed)
     denoise_counts, volume, eps = phase_denoise(model, sched, cfg, args.seed)
     phase_profile(model)
@@ -3453,15 +3785,15 @@ def main() -> None:
                    **{path: count(c) for path, c in seg_counts.items()}}
         main_path = {"conv3d_fused": "denoise_fused",
                      "conv3d_s8": "denoise_int8",
-                     "conv3d_ndhwc": "seg",
+                     "conv3d_cin1": "seg",
+                     "conv3d_f32": "model",
+                     "conv3d_f32_dx": "model_grads",
                      "conv3d_fused_f32": "model_fused"}.get(name, "train")
         check(by_path[main_path] > 0,
               f"{name} launched on its path {main_path}")
         extra = {}
         if name == "conv3d_fused":  # serving only: no single library call
             extra["unfused_sequence_ms"] = s["unfused_sequence_ms"]
-            # the kernel it replaces (the parent's csrc/conv3d.cu, or None)
-            extra["previous_ms"] = s["previous_ms"]
             extra["routes_by_path"] = {
                 path: {k: v for k, v in c["routes"].items()
                        if k.startswith("conv3d_fused.")}
@@ -3475,21 +3807,21 @@ def main() -> None:
             extra["k3_bf16_ms"] = s["k3_bf16_ms"]
             extra["parent_ms"] = s.get("parent_ms")
         if name in ("conv3d_narrow", "conv3d_head", "conv3d_head_dx"):
-            extra["ndhwc_ms"] = s["ndhwc_ms"]  # the previous kernel
-        if name == "conv3d_ndhwc":  # this row is the bf16 Cin = 1 conv's
-            f32 = summary["conv3d_ndhwc_f32"]
+            extra["general_ms"] = s["general_ms"]  # the general kernel
+        if name in ("conv3d_cin1", "conv3d_f32", "conv3d_f32_dx",
+                    "conv3d_fused_f32"):
+            # PR 12's kernel on the same inputs (the f32 ones only with
+            # --parent-conv)
             extra["shape"] = s["shape"] + [s["cout"], s["dtype"]]
-            extra["f32_torso"] = {k: f32[k] for k in (
-                "shape", "cout", "max_abs_err", "kernel_ms", "plain_ms",
-                "library_ms", "bound_ms", "bound_by")}
+            extra["parent_ms"] = s["parent_ms"]
         if name == "conv3d_head":  # the parent's head instance (or None)
             extra["parent_ms"] = s["parent_ms"]
         if name == "conv3d_head_dx":  # F.conv3d on the flipped weight
             extra["conv_call_ms"] = s["conv_call_ms"]
         if name in ("conv3d", "conv3d_dx"):
-            # the previous kernel (csrc/conv3d.cu) on the same inputs, and
+            # the general kernel (csrc/conv3d.cu) on the same inputs, and
             # each path's launches by route (ops.route_counts)
-            extra["ndhwc_ms"] = s["ndhwc_ms"]
+            extra["general_ms"] = s["general_ms"]
             extra["routes_by_path"] = {
                 path: {k: v for k, v in c["routes"].items()
                        if k.startswith(name + ".")}

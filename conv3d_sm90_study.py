@@ -1,13 +1,16 @@
 """On-card study of the port's conv kernels: the bf16 K3
 ``ddpm3d_tpu_torch/csrc/conv3d_sm90.cu``, with ``--s8`` the int8 K5
 ``ddpm3d_tpu_torch/csrc/conv3d_s8.cu``, with ``--head`` the f32 head conv
-and its dx ``ddpm3d_tpu_torch/csrc/conv3d_head.cu``.
+and its dx ``ddpm3d_tpu_torch/csrc/conv3d_head.cu``, with ``--f32`` the f32
+torso conv, its fused instance and its dx ``ddpm3d_tpu_torch/csrc/
+conv3d_f32.cu``.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 conv3d_sm90_study.py [--against OTHER.cu]
     python3 conv3d_sm90_study.py --s8 [--against OTHER_S8.cu]
     python3 conv3d_sm90_study.py --head [--against OLD_CONV3D.cu]
+    python3 conv3d_sm90_study.py --f32 [--against OLD_CONV3D.cu]
     python3 conv3d_sm90_study.py --fused [--against OLD_CONV3D.cu]
                                          [--against-gn OLD_GROUPNORM.cu]
 
@@ -59,10 +62,23 @@ window), beside
 Cout <= 8 instance carried the head); the dx dy [1,96^3,2] -> 128 as
 committed, ``nostore``, ``nogather`` (the A tile gathered for a block's
 first tile only) and ``t256`` (256-thread blocks, two per SM), beside cuDNN's data gradient,
-``F.conv3d`` on the flipped weight and the previous kernel (the f32
-instance of ``csrc/conv3d.cu``), and a plain 453 MB ``fill_`` (the bytes
-the dx writes); then the card's FFMA rate alone (independent register
+``F.conv3d`` on the flipped weight and the general f32 kernel
+(``csrc/conv3d_f32.cu``, ``general``), and a plain 453 MB ``fill_`` (the
+bytes the dx writes); then the card's FFMA rate alone (independent register
 chains, no memory traffic), the practical ceiling of both kernels.
+
+With ``--f32`` the f32 torso conv at [1,96^3,128] -> 128: the plain
+instance, the fused one (prologue, skip and stats on) and the dx (dy 128
+-> 128), each as committed, as ``nomath`` (``-DCONV3D_F32_NO_MATH``: the
+staging, transposes and epilogue alone) and ``nostage``
+(``-DCONV3D_F32_NO_STAGE``: the k loop alone, on whatever shared memory
+holds); the plain instance also as ``noloads`` (the k loop's FFMA from
+registers, its shared loads once per unit) and ``loadsonly`` (the k
+loop's shared loads, no FFMA), both without staging; beside ``F.conv3d``
+(TF32 off; cuDNN's data gradient for the dx)
+and ``--against`` (a previous ``csrc/conv3d.cu``, whose f32 instances
+carried these convs, on its own weight layout and tiles); then the card's
+FFMA rate alone.
 
 With ``--fused`` the bf16 fused ResBlock conv (K4, the fused instance of
 ``csrc/conv3d_sm90.cu``) in parts, each beside plain K3 on the same
@@ -450,7 +466,7 @@ def main_head(against) -> None:
     xs = torch.empty((B, D, H, W, cin), device="cuda")
     ref = cv.conv3d_dx_plain(dy, w)
     wd = cv.pack_weight_dx(w, torch.float32)
-    wo = cv.pack_weight(cv.flip_weight(w), torch.float32)
+    wg = cv.pack_weight_f32(cv.flip_weight(w))
     dx = torch.empty_like(ref)
     wf = cv.flip_weight(w).contiguous()
     dyn = dy.permute(0, 4, 1, 2, 3)
@@ -468,8 +484,8 @@ def main_head(against) -> None:
             line.setdefault(name, []).append(time_ms(narrow(fn)))
             line[name + "_rel_err"] = ((dx - ref).abs().max()
                                        / ref.abs().max()).item()
-        line.setdefault("previous", []).append(time_ms(lambda: launch_old(
-            _build.fn("conv3d_ndhwc_launch"), dy, wo, None, dx)))
+        line.setdefault("general", []).append(time_ms(lambda: launch_f32(
+            _build.fn("conv3d_f32_launch"), dy, wg, None, dx)))
         line.setdefault("cudnn_data_grad_ms", []).append(time_ms(
             lambda: torch.ops.aten.convolution_backward(
                 dyn, xs.permute(0, 4, 1, 2, 3), w, None, [1, 1, 1],
@@ -717,8 +733,8 @@ def main_fused(against, against_gn) -> None:
     fns.update({k: _build.variant_fn(libs[f"fused_{k}"],
                                      "conv3d_sm90_fused_launch")
                 for k in FUSED_BUILDS})
-    old = (_build.variant_fn(libs["fused_against"], "conv3d_fused_launch")
-           if "fused_against" in libs else None)
+    old = (old_fused_fn(libs["fused_against"]) if "fused_against" in libs
+           else None)
     gen = torch.Generator(device="cuda").manual_seed(0)
     warm(gen)
     for shape, cout, use_skip in FUSED_SHAPES:
@@ -756,13 +772,209 @@ def ffma_peak() -> dict:
     return {"ffma_peak_ms": ms, "ffma_tflops": flops / ms / 1e9}
 
 
+def old_fused_fn(lib):
+    """``conv3d_fused_launch`` of an older ``csrc/conv3d.cu`` (x, w, bias,
+    g, gb, silu, skip, y, part, part2, stats, B, D, H, W, Cin, Cout, TD, TH,
+    TW, dtype, stream)."""
+    fn = lib.conv3d_fused_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_f32(fn, x, wp, b, y):
+    """``conv3d_f32_launch`` (``csrc/conv3d_f32.cu``, weight from
+    ``pack_weight_f32``) into ``y``."""
+    B, D, H, W, cin = x.shape
+    err = fn(x.data_ptr(), wp.data_ptr(), None if b is None else b.data_ptr(),
+             y.data_ptr(), B, D, H, W, cin, wp.shape[2],
+             *cv.pick_tile_f32(D, H, W), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "conv3d_f32_launch")
+
+
 def launch_old(fn, x, wp, b, y):
-    """csrc/conv3d.cu's ``conv3d_ndhwc_launch`` (f32) into ``y``."""
+    """An older csrc/conv3d.cu's ``conv3d_ndhwc_launch`` (f32, its [27, Cout,
+    Cin] weight) into ``y``."""
     B, D, H, W, cin = x.shape
     err = fn(x.data_ptr(), wp.data_ptr(), None if b is None else b.data_ptr(),
              y.data_ptr(), B, D, H, W, cin, wp.shape[1],
              *cv.pick_tile(D, H, W), 0, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "conv3d_ndhwc_launch")
+
+
+F32_BUILDS = {"base": (), "nomath": ("-DCONV3D_F32_NO_MATH",),
+              "nostage": ("-DCONV3D_F32_NO_STAGE",)}
+# the plain instance's k loop (csrc/conv3d_f32.cu:unit_math), and two
+# study versions of it run without staging: ``noloads`` (A and B read once
+# per unit, then the 1536 FFMA of the unit from registers: the FFMA loop's
+# own ceiling) and ``loadsonly`` (every shared load of the loop, no FFMA:
+# what the 11 loads per k cost the shared-memory pipe)
+F32_LOOP = """#pragma unroll 1
+  for (int k = 0; k < kBK; ++k) {
+    float a[kHW];
+    load_a(a, hb, k);
+#pragma unroll
+    for (int kw = 0; kw < 3; ++kw) {
+      const float* wr = wb + (kw * kBK + k) * kBN;
+      ffma_row(acc, a + kw, *reinterpret_cast<const float4*>(wr),
+               *reinterpret_cast<const float4*>(wr + 16));
+    }
+  }"""
+F32_NOLOADS = """  float a[kHW];
+  load_a(a, hb, 0);
+  float4 b[3][2];
+#pragma unroll
+  for (int kw = 0; kw < 3; ++kw) {
+    b[kw][0] = *reinterpret_cast<const float4*>(wb + kw * kBK * kBN);
+    b[kw][1] = *reinterpret_cast<const float4*>(wb + kw * kBK * kBN + 16);
+  }
+#pragma unroll 1
+  for (int k = 0; k < kBK; ++k) {
+#pragma unroll
+    for (int kw = 0; kw < 3; ++kw) ffma_row(acc, a + kw, b[kw][0], b[kw][1]);
+  }"""
+F32_LOADSONLY = """#pragma unroll 1
+  for (int k = 0; k < kBK; ++k) {
+    float a[kHW];
+    load_a(a, hb, k);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kHW; ++j) sum += a[j];
+#pragma unroll
+    for (int kw = 0; kw < 3; ++kw) {
+      const float* wr = wb + (kw * kBK + k) * kBN;
+      const float4 b0 = *reinterpret_cast<const float4*>(wr);
+      const float4 b1 = *reinterpret_cast<const float4*>(wr + 16);
+      sum += b0.x + b0.y + b0.z + b0.w + b1.x + b1.y + b1.z + b1.w;
+    }
+    acc[k][0] += sum;
+  }"""
+
+
+def main_f32(against) -> None:
+    """The f32 torso conv, fused and dx at [1,96^3,128] -> 128 (see the
+    module note)."""
+    src = os.path.join(ROOT, "ddpm3d_tpu_torch", "csrc", "conv3d_f32.cu")
+    jobs = {f"f32_{k}": (src, flags) for k, flags in F32_BUILDS.items()}
+    with open(src) as f:
+        text = f.read()
+    _anchors(text, (F32_LOOP,))
+    os.makedirs(OUT, exist_ok=True)
+    texts = {"noloads": text.replace(F32_LOOP, F32_NOLOADS),
+             "loadsonly": text.replace(F32_LOOP, F32_LOADSONLY)}
+    if against is not None:
+        texts["against"] = against
+    for name, body in texts.items():
+        path = os.path.join(OUT, f"f32_{name}.cu")
+        with open(path, "w") as f:
+            f.write(body)
+        flags = ("-DCONV3D_F32_NO_STAGE",) if name != "against" else ()
+        jobs[f"f32_{name}"] = (path, flags)
+    libs = _build.build_variants(jobs)
+    for name in jobs:
+        with open(_build._lib_path(name, *jobs[name]) + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    print(f"ptxas[{name}]: {line.strip()}")
+    plain = {k: _build.variant_fn(libs[f"f32_{k}"], "conv3d_f32_launch")
+             for k in list(F32_BUILDS) + ["noloads", "loadsonly"]}
+    fused = {k: _build.variant_fn(libs[f"f32_{k}"], "conv3d_f32_fused_launch")
+             for k in F32_BUILDS}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    warm(gen)
+    st = torch.cuda.current_stream().cuda_stream
+    B, D, H, W, C = 1, 96, 96, 96, 128
+    x = torch.randn((B, D, H, W, C), generator=gen, device="cuda")
+    w = torch.randn((C, C, 3, 3, 3), generator=gen, device="cuda") \
+        * (27 * C) ** -0.5
+    b = torch.randn((C,), generator=gen, device="cuda")
+    pg = 0.5 + 0.05 * torch.randn((B, C), generator=gen, device="cuda")
+    pb = -0.25 + 0.1 * torch.randn((B, C), generator=gen, device="cuda")
+    skip = torch.randn_like(x)
+    wp, wo = cv.pack_weight_f32(w), cv.pack_weight(w, torch.float32)
+    y = torch.empty_like(x)
+    td, th = cv.pick_tile_f32(D, H, W)
+    T = -(-D // td) * -(-H // th) * -(-W // cv.F32_TW)
+    part = torch.empty((T * 2 * C,), device="cuda")
+    part2 = torch.empty((-(-T // fo.STATS_GROUP) * 2 * C,), device="cuda")
+    stats = torch.empty((B, 2, C), device="cuda")
+    flops = 2.0 * 27 * C * C * B * D * H * W
+    refs = {"plain": cv.conv3d_plain(x, w, b),
+            "fused": fo.conv3d_fused_plain(x, w, b, prologue_g=pg,
+                                           prologue_b=pb, skip=skip)}
+    xn = x.permute(0, 4, 1, 2, 3)
+
+    def fused_run(fn):
+        return lambda: _build.check(fn(
+            x.data_ptr(), wp.data_ptr(), b.data_ptr(), pg.data_ptr(),
+            pb.data_ptr(), 1, skip.data_ptr(), y.data_ptr(), part.data_ptr(),
+            part2.data_ptr(), stats.data_ptr(), B, D, H, W, C, C, td, th, st),
+            "conv3d_f32_fused_launch")
+
+    runs = {}
+    for k in plain:
+        runs[f"plain_{k}"] = ("plain", lambda fn=plain[k]: launch_f32(
+            fn, x, wp, b, y))
+        if k in fused:
+            runs[f"fused_{k}"] = ("fused", fused_run(fused[k]))
+    if against is not None:
+        lib = libs["f32_against"]
+        runs["plain_against"] = ("plain", lambda: launch_old(
+            _build.variant_fn(lib, "conv3d_ndhwc_launch"), x, wo, b, y))
+        ofn = old_fused_fn(lib)
+        tiles = cv.pick_tile(D, H, W)
+        ot = -(-D // tiles[0]) * -(-H // tiles[1]) * -(-W // tiles[2])
+        opart = torch.empty((ot * 2 * C,), device="cuda")
+        opart2 = torch.empty((-(-ot // fo.STATS_GROUP) * 2 * C,),
+                             device="cuda")
+        runs["fused_against"] = ("fused", lambda: _build.check(ofn(
+            x.data_ptr(), wo.data_ptr(), b.data_ptr(), pg.data_ptr(),
+            pb.data_ptr(), 1, skip.data_ptr(), y.data_ptr(), opart.data_ptr(),
+            opart2.data_ptr(), stats.data_ptr(), B, D, H, W, C, C, *tiles, 0,
+            st), "conv3d_fused_launch (against)"))
+    runs["library_ms"] = (None, lambda: F.conv3d(xn, w, b, padding=1))
+    line = dict(kernel="f32", shape=[B, D, H, W, C], cout=C,
+                bound_ms=flops / 67e12 * 1e3)
+    for name, (which, run) in runs.items():
+        if which is not None:
+            y.zero_()
+            run()
+            line[name + "_rel_err"] = ((y - refs[which]).abs().max()
+                                       / refs[which].abs().max()).item()
+    for _ in range(3):
+        for name, (_, run) in runs.items():
+            line.setdefault(name, []).append(time_ms(run, n=5))
+    print(json.dumps(line), flush=True)
+    del xn, skip, refs
+
+    # the dx: the same kernel on dy with the flipped, in/out-swapped weight
+    dy = torch.randn_like(x)
+    ref = cv.conv3d_dx_plain(dy, w)
+    wd = cv.pack_weight_dx(w, torch.float32)
+    wdo = cv.pack_weight(cv.flip_weight(w), torch.float32)
+    line = dict(kernel="f32_dx", shape=[B, D, H, W, C], cout=C,
+                bound_ms=flops / 67e12 * 1e3)
+    runs = {f"dx_{k}": lambda fn=plain[k]: launch_f32(fn, dy, wd, None, y)
+            for k in F32_BUILDS}
+    if against is not None:
+        runs["dx_against"] = lambda: launch_old(
+            _build.variant_fn(libs["f32_against"], "conv3d_ndhwc_launch"),
+            dy, wdo, None, y)
+    for name, run in runs.items():
+        y.zero_()
+        run()
+        line[name + "_rel_err"] = ((y - ref).abs().max()
+                                   / ref.abs().max()).item()
+    dyn, xs = dy.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3)
+    runs["cudnn_data_grad_ms"] = lambda: torch.ops.aten.convolution_backward(
+        dyn, xs, w, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0],
+        1, [True, False, False])
+    for _ in range(3):
+        for name, run in runs.items():
+            line.setdefault(name, []).append(time_ms(run, n=5))
+    print(json.dumps(line), flush=True)
 
 
 def warm(gen) -> None:
@@ -788,6 +1000,9 @@ def main() -> None:
     ap.add_argument("--fused", action="store_true",
                     help="study the bf16 fused conv (csrc/conv3d_sm90.cu's "
                          "fused instance) and GN stats (csrc/groupnorm.cu)")
+    ap.add_argument("--f32", action="store_true",
+                    help="study the f32 conv (csrc/conv3d_f32.cu): plain, "
+                         "fused and dx")
     ap.add_argument("--against-gn",
                     help="with --fused: a previous csrc/groupnorm.cu")
     args = ap.parse_args()
@@ -808,6 +1023,11 @@ def main() -> None:
             with open(args.against_gn) as f:
                 against_gn = f.read()
         main_fused(against, against_gn)
+        smi()
+        return
+    if args.f32:
+        main_f32(against)
+        print(json.dumps(ffma_peak()), flush=True)
         smi()
         return
     if args.head:

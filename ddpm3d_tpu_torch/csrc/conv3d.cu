@@ -1,23 +1,23 @@
-// Stride-1 SAME 3x3x3 convolution, channels-last (NDHWC activations), for
-// Hopper (sm_90a).
+// Stride-1 SAME 3x3x3 convolution in bf16, channels-last (NDHWC
+// activations), for Hopper (sm_90a): the bf16 convs that no other kernel
+// takes (Cin neither 1, 2 nor a multiple of 8, or rows that are not 16-byte
+// strided).
 //
 // Replaces the TPU kernel ddpm3d_tpu/ops/conv3d_mxu.py:_conv_kernel (reached
-// through conv3d_mxu). Same function:
+// through conv3d_mxu) at those shapes. Same function:
 //
 //   y[b,d,h,w,co] = bias[co] + sum_{kd,kh,kw,ci} x[b,d+kd-1,h+kh-1,w+kw-1,ci]
 //                                               * w[kd,kh,kw,ci,co]
 //
-// with zero padding, f32 accumulation and the result stored in x's dtype.
+// with zero padding, f32 accumulation and the result stored in bf16.
 //
-// Bound on the H100: operations. At the model's shapes the conv does
-// 54*Cin*Cout FLOP per voxel and moves (Cin+Cout)*2 bytes per voxel, i.e.
-// ~3500 FLOP/byte at Cin=Cout=128 against the card's ~295 FLOP/byte ridge.
+// Bound on the H100: operations at wide Cin (54*Cin*Cout FLOP per voxel
+// against (Cin+Cout)*2 bytes), bytes at narrow Cin.
 //
 // Design (implicit GEMM, M = output voxels, N = Cout, K = 27*Cin):
 //  * A block owns an output tile of TD x TH x TW voxels (<= 128 rows, the
 //    shape is picked per volume on the host so that ragged W = 6 or 12
-//    planes still fill the rows) and 128 (bf16) or 64 (f32) output
-//    channels.
+//    planes still fill the rows) and 128 output channels.
 //  * Per Cin chunk the block stages the HALOED input tile
 //    (TD+2)(TH+2)(TW+2) x chunk in shared memory once, then runs all 27
 //    taps out of it: every input element is read from device memory about
@@ -26,46 +26,14 @@
 //    of x is ever made.
 //  * The weight tile of one tap, [Cout-tile][Cin-chunk], is double-buffered
 //    with cp.async under the previous tap's math.
-//  * bf16: 8 warps, warp tile 64x32, mma.sync m16n8k16 bf16 -> f32 with
-//    operands fed by ldmatrix. Row addresses of ldmatrix are free per lane,
-//    which is what lets one staged halo tile serve all 27 shifted taps.
-//  * f32: the same staging with FFMA on CUDA cores (the torso convs of f32
-//    models; full f32 precision, no TF32). The f32 head conv (Cout <= 8) and
-//    the f32 convs with Cin = 2 run csrc/conv3d_head.cu.
+//  * 8 warps, warp tile 64x32, mma.sync m16n8k16 bf16 -> f32 with operands
+//    fed by ldmatrix. Row addresses of ldmatrix are free per lane, which is
+//    what lets one staged halo tile serve all 27 shifted taps.
 //  * Bias is added in f32 in the epilogue; rows outside the volume or the
 //    tile and columns past Cout are masked there.
-// wgmma/TMA and a persistent schedule are later work.
-//
-// The fused ResBlock conv in f32 (conv3d_fused_launch) replaces the TPU
-// kernel ddpm3d_tpu/ops/conv3d_fused.py:_fused_kernel (reached through
-// conv3d_fused) for f32 models (the f32 model checks); the bf16 fused conv
-// is the fused instance of csrc/conv3d_sm90.cu. It is the f32 kernel
-// template with kFused = true; the kFused = false instances are the plain
-// conv above, unchanged:
-//
-//   xn = silu?(x * g[b,ci] + b[b,ci])   f32, in-volume voxels only
-//                                       (padding stays 0)
-//   y  = conv(xn) + bias (+ skip)       f32
-//   stats[b] = (sum y, sum y^2)         of y, [B, 2, Cout]
-//
-// Bound on the H100: operations, as the plain conv (54*Cin*Cout FLOP per
-// output voxel; the prologue adds ~4 FLOP per staged input element and the
-// epilogue one skip read per output element). What the design does:
-//  * The prologue runs on the staged halo chunk in shared memory, at tap 0
-//    once the chunk has landed (tap 1's weights are already in flight): it
-//    rewrites the chunk in place (each thread owns one channel, so g and b
-//    sit in registers per chunk; which halo voxels lie in the volume is
-//    worked out once per block), and a barrier orders those writes before
-//    the first read. The normalized activation never goes to device
-//    memory. The affine is a multiply and an add, not an FMA, as in the
-//    plain version.
-//  * Skip and stats live in the epilogue: stats are summed over the
-//    thread's rows, then across a warp's row groups by shuffles, then
-//    across warps in shared memory, and each block writes one partial per
-//    (tile, column). Two launches of a small ordered sum (kStatsGroup
-//    tiles, then the groups) finish them. No atomics, and the order
-//    depends only on the volume's shape: the stats repeat exactly and do
-//    not depend on the batch.
+// The bf16 torso convs run csrc/conv3d_sm90.cu, the Cin = 1 and 2 input
+// convs csrc/conv3d_narrow.cu, the f32 convs csrc/conv3d_f32.cu and
+// csrc/conv3d_head.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,17 +56,6 @@ struct Tile {
   int b, d0, h0, w0;
   int HH, HW, halo, rows;
 };
-
-// The fused conv's extra operands (all NULL for the plain conv).
-struct Fused {
-  const float* g;      // [B, Cin] prologue gain, or NULL: no prologue
-  const float* b;      // [B, Cin] prologue shift
-  const void* skip;    // [B, D, H, W, Cout] in x's dtype, or NULL
-  float* part;         // [tiles][2][Cout] per-tile (sum y, sum y^2), or NULL
-  int silu;            // SiLU after the prologue's affine
-};
-
-constexpr int kStatsGroup = 64;  // tiles per first-level stats sum
 
 __device__ __forceinline__ Tile decode_tile(const Shape& s) {
   Tile t;
@@ -149,25 +106,6 @@ __device__ __forceinline__ int64_t halo_voxel(const Shape& s, const Tile& t,
   return ((static_cast<int64_t>(t.b) * s.D + d) * s.H + h) * s.W + w;
 }
 
-__device__ __forceinline__ float silu_f32(float h) {
-  return h * (1.f / (1.f + expf(-h)));
-}
-
-// x * g + b rounded twice (no FMA), then the optional SiLU
-__device__ __forceinline__ float prologue_f32_op(float x, float g, float b,
-                                                 int silu) {
-  const float h = __fadd_rn(__fmul_rn(x, g), b);
-  return silu ? silu_f32(h) : h;
-}
-
-// inside[v] = 1 where halo voxel v lies in the volume (fused prologue only;
-// the chunk loop's first barrier publishes it)
-__device__ __forceinline__ void mark_inside(const Shape& s, const Tile& t,
-                                            unsigned char* inside) {
-  for (int v = threadIdx.x; v < t.halo; v += kThreads)
-    inside[v] = halo_voxel(s, t, v) >= 0;
-}
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -182,8 +120,6 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
-
-// ----------------------------------------------------------------- bf16 --
 
 constexpr int kBN = 128;          // output channels per block
 constexpr int kBK = 32;           // Cin chunk
@@ -255,12 +191,6 @@ __device__ __forceinline__ void stage_weights_bf16(
               : __float2bfloat16_rn(0.f);
     }
   }
-}
-
-// the fused kernel's extra shared memory past the weight buffers: the stats
-// reduction (red floats), then the halo's inside mask
-constexpr size_t fused_smem(int red_floats) {
-  return red_floats * sizeof(float) + kMaxHalo;
 }
 
 template <bool kVec>
@@ -369,259 +299,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// ------------------------------------------------------------------ f32 --
-
-constexpr int kBKf = 16;
-constexpr int kLdaF = kBKf + 4;  // 80-byte rows keep 16-byte cp.async aligned
-
-template <bool kVec>
-__device__ __forceinline__ void stage_halo_f32(const Shape& s, const Tile& t,
-                                               const float* __restrict__ x,
-                                               float* sA, int ci0) {
-  if (kVec) {  // Cin % 4 == 0
-    for (int i = threadIdx.x; i < t.halo * (kBKf / 4); i += kThreads) {
-      const int v = i / (kBKf / 4), part = i % (kBKf / 4);
-      const int ci = ci0 + part * 4;
-      const int64_t vox = halo_voxel(s, t, v);
-      const bool ok = vox >= 0 && ci < s.Cin;
-      const float* src = ok ? x + vox * s.Cin + ci : x;
-      cp_async16(sA + v * kLdaF + part * 4, src, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < t.halo * kBKf; i += kThreads) {
-      const int v = i / kBKf, k = i % kBKf;
-      const int ci = ci0 + k;
-      const int64_t vox = halo_voxel(s, t, v);
-      sA[v * kLdaF + k] = (vox >= 0 && ci < s.Cin) ? x[vox * s.Cin + ci] : 0.f;
-    }
-  }
-}
-
-// f32 weight tile is stored [k][n] (n contiguous) for the FFMA inner loop.
-template <int BN>
-__device__ __forceinline__ void stage_weights_f32(const Shape& s,
-                                                  const float* __restrict__ w,
-                                                  float* sB, int tap, int n0,
-                                                  int ci0) {
-  constexpr int kLdb = BN + 4;
-  for (int i = threadIdx.x; i < BN * kBKf; i += kThreads) {
-    const int n = i / kBKf, k = i % kBKf;
-    const int co = n0 + n, ci = ci0 + k;
-    sB[k * kLdb + n] =
-        (co < s.Cout && ci < s.Cin)
-            ? w[(static_cast<int64_t>(tap) * s.Cout + co) * s.Cin + ci]
-            : 0.f;
-  }
-}
-
-// The fused prologue on the staged f32 chunk, in place: silu?(x * g + b)
-// for in-volume voxels; the padding and ragged Cin were zero-filled while
-// staging and stay 0 (conv after normalize: silu(0 * g + b) is not 0). Each thread owns one channel of the chunk.
-__device__ __forceinline__ void prologue_f32(const Shape& s, const Tile& t,
-                                             const Fused& f,
-                                             const unsigned char* inside,
-                                             float* sA, int ci0) {
-  const int k = threadIdx.x % kBKf;
-  const int ci = ci0 + k;
-  if (ci >= s.Cin) return;  // ragged Cin stays 0
-  const int64_t row = static_cast<int64_t>(t.b) * s.Cin;
-  const float gk = f.g[row + ci], bk = f.b[row + ci];
-  for (int v = threadIdx.x / kBKf; v < t.halo; v += kThreads / kBKf)
-    if (inside[v])
-      sA[v * kLdaF + k] = prologue_f32_op(sA[v * kLdaF + k], gk, bk, f.silu);
-}
-
-// the f32 kernel's stats reduction is [warp][2][BN] floats
-constexpr int kWarps = kThreads / 32;
-
-// BN output channels per block; each thread owns TM rows x TN columns.
-template <int BN, int TN, int TM, bool kVec, bool kFused>
-__global__ void __launch_bounds__(kThreads, 2)
-    conv3d_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ bias, float* __restrict__ y,
-                      Shape s, Fused f) {
-  constexpr int kCG = BN / TN;
-  constexpr int kRG = kThreads / kCG;
-  static_assert(kRG * TM == kMaxRows, "tile rows");
-  constexpr int kLdb = BN + 4;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Tile t = decode_tile(s);
-  float* sA = reinterpret_cast<float*>(smem_raw);
-  float* sB[2] = {sA + t.halo * kLdaF, sA + t.halo * kLdaF + kBKf * kLdb};
-
-  const int n0 = blockIdx.y * BN;
-  const int cg = threadIdx.x % kCG, rg = threadIdx.x / kCG;
-  int a_base[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) a_base[i] = row_base(s, t, rg + i * kRG);
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  // fused: [red floats][inside bytes] past the weight buffers
-  float* red = sB[0] + 2 * kBKf * kLdb;
-  unsigned char* inside = reinterpret_cast<unsigned char*>(red + kWarps * 2 * BN);
-  if constexpr (kFused) {
-    if (f.g != nullptr) mark_inside(s, t, inside);
-  }
-
-  for (int ci0 = 0; ci0 < s.Cin; ci0 += kBKf) {
-    __syncthreads();
-    stage_halo_f32<kVec>(s, t, x, sA, ci0);
-    stage_weights_f32<BN>(s, w, sB[0], 0, n0, ci0);
-    cp_async_commit();
-    for (int tap = 0; tap < kTaps; ++tap) {
-      if (tap + 1 < kTaps) {
-        stage_weights_f32<BN>(s, w, sB[(tap + 1) & 1], tap + 1, n0, ci0);
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-      if constexpr (kFused) {
-        if (tap == 0 && f.g != nullptr) {  // the chunk has landed
-          prologue_f32(s, t, f, inside, sA, ci0);
-          __syncthreads();  // normalized before any thread reads it
-        }
-      }
-      const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
-      const int toff = (kd * t.HH + kh) * t.HW + kw;
-      const float* tB = sB[tap & 1] + cg * TN;
-#pragma unroll
-      for (int k = 0; k < kBKf; ++k) {
-        float a[TM], bv[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = sA[(a_base[i] + toff) * kLdaF + k];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) bv[j] = tB[k * kLdb + j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  float s1[TN] = {}, s2[TN] = {};
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t vox = row_voxel(s, t, rg + i * kRG);
-    if (vox < 0) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = n0 + cg * TN + j;
-      if constexpr (kFused) {
-        if (col >= s.Cout) continue;
-        float v = acc[i][j] + (bias ? bias[col] : 0.f);
-        if (f.skip != nullptr)
-          v += static_cast<const float*>(f.skip)[vox * s.Cout + col];
-        s1[j] += v;
-        s2[j] += v * v;
-        y[vox * s.Cout + col] = v;
-      } else {
-        if (col < s.Cout)
-          y[vox * s.Cout + col] = acc[i][j] + (bias ? bias[col] : 0.f);
-      }
-    }
-  }
-  if constexpr (kFused) {
-    if (f.part != nullptr) {
-      // reduce over the row groups of a warp (lanes kCG apart), then over
-      // the warps in shared memory, in a fixed order
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-#pragma unroll
-        for (int off = kCG; off < 32; off <<= 1) {
-          s1[j] += __shfl_xor_sync(0xffffffffu, s1[j], off);
-          s2[j] += __shfl_xor_sync(0xffffffffu, s2[j], off);
-        }
-      const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-      if (lane < kCG) {
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          red[(warp * 2) * BN + cg * TN + j] = s1[j];
-          red[(warp * 2 + 1) * BN + cg * TN + j] = s2[j];
-        }
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < 2 * BN; i += kThreads) {
-        const int q = i / BN, c = i % BN;
-        if (n0 + c >= s.Cout) continue;
-        float sum = 0.f;
-        for (int wp = 0; wp < kWarps; ++wp) sum += red[(wp * 2 + q) * BN + c];
-        f.part[(static_cast<int64_t>(blockIdx.x) * 2 + q) * s.Cout + n0 + c] =
-            sum;
-      }
-    }
-  }
-}
-
-// out[b][grp][c] = sum of in[b][r][c] over the rows r of group grp (group
-// rows each, the last one ragged), in row order: the deterministic finish
-// of the fused conv's per-tile stats. grid (ceil(cols/256), groups, B).
-__global__ void __launch_bounds__(kThreads)
-    stats_sum_kernel(const float* __restrict__ in, float* __restrict__ out,
-                     int rows, int group, int cols) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= cols) return;
-  const int grp = blockIdx.y, groups = gridDim.y, b = blockIdx.z;
-  const int r0 = grp * group, r1 = min(rows, r0 + group);
-  const float* src = in + static_cast<int64_t>(b) * rows * cols + c;
-  float sum = 0.f;
-  for (int r = r0; r < r1; ++r) sum += src[static_cast<int64_t>(r) * cols];
-  out[(static_cast<int64_t>(b) * groups + grp) * cols + c] = sum;
-}
-
-// Launch the conv (kFused = false: the plain conv, f all NULL) on a
-// validated shape. Returns a cudaError_t.
-template <bool kFused>
-cudaError_t launch_conv(const void* x, const void* w, const float* bias,
-                        void* y, const Fused& f, const Shape& s, int dtype,
-                        cudaStream_t stream) {
-  const int halo = (s.TD + 2) * (s.TH + 2) * (s.TW + 2);
-  const int64_t tiles = static_cast<int64_t>(s.B) * s.nD * s.nH * s.nW;
-  const bool aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-                       (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-  cudaError_t err;
-  if (dtype == 1 && !kFused) {  // (the bf16 fused conv: csrc/conv3d_sm90.cu)
-    const dim3 grid(static_cast<unsigned>(tiles), (s.Cout + kBN - 1) / kBN);
-    const size_t smem = (static_cast<size_t>(halo) + 2 * kBN) * kLds *
-                        sizeof(__nv_bfloat16);
-    const bool vec = aligned && s.Cin % 8 == 0;
-    auto kernel = vec ? conv3d_bf16_kernel<true> : conv3d_bf16_kernel<false>;
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), bias,
-        static_cast<__nv_bfloat16*>(y), s);
-  } else if (dtype == 0) {
-    const bool vec = aligned && s.Cin % 4 == 0;
-    constexpr int BN = 64;
-    const dim3 grid(static_cast<unsigned>(tiles), (s.Cout + BN - 1) / BN);
-    const size_t smem = (static_cast<size_t>(halo) * kLdaF +
-                         2 * kBKf * (BN + 4)) * sizeof(float) +
-                        (kFused ? fused_smem(kWarps * 2 * BN) : 0);
-    auto kernel = vec ? conv3d_f32_kernel<BN, 4, 8, true, kFused>
-                      : conv3d_f32_kernel<BN, 4, 8, false, kFused>;
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), bias,
-        static_cast<float*>(y), s, f);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-// The shape of a launch, or false if the kernels do not take it.
+// The shape of a launch, or false if the kernel does not take it.
 bool make_shape(Shape* s, int B, int D, int H, int W, int Cin, int Cout,
                 int TD, int TH, int TW) {
   if (B <= 0 || D <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 ||
@@ -637,51 +315,31 @@ bool make_shape(Shape* s, int B, int D, int H, int W, int Cin, int Cout,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and y share it; bias is f32 or
-// NULL). w is packed [27][Cout][Cin]. Returns a cudaError_t.
+// x, w and y bf16 (dtype must be 1, the bfloat16 code; the f32 convs run
+// csrc/conv3d_f32.cu), bias f32 or NULL. w is packed [27][Cout][Cin].
+// Returns a cudaError_t.
 int conv3d_ndhwc_launch(const void* x, const void* w, const float* bias,
                         void* y, int B, int D, int H, int W, int Cin, int Cout,
                         int TD, int TH, int TW, int dtype, void* stream_ptr) {
   Shape s;
-  if (!make_shape(&s, B, D, H, W, Cin, Cout, TD, TH, TW))
+  if (dtype != 1 || !make_shape(&s, B, D, H, W, Cin, Cout, TD, TH, TW))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_conv<false>(
-      x, w, bias, y, Fused{}, s, dtype, static_cast<cudaStream_t>(stream_ptr)));
-}
-
-// The fused conv in f32 (dtype must be 0; the bf16 fused conv is
-// conv3d_sm90_fused_launch in csrc/conv3d_sm90.cu). x, w, skip and y are
-// f32; bias is f32 or NULL; g and gb are the [B, Cin] f32 prologue (both
-// NULL for none); skip is [B, D, H, W, Cout] or NULL. With stats,
-// part holds B*T*2*Cout floats and part2 B*ceil(T/64)*2*Cout floats of
-// scratch (T = tiles per volume) and stats receives [B, 2, Cout] f32; all
-// three NULL for no stats. Returns a cudaError_t.
-int conv3d_fused_launch(const void* x, const void* w, const float* bias,
-                        const float* g, const float* gb, int silu,
-                        const void* skip, void* y, float* part, float* part2,
-                        float* stats, int B, int D, int H, int W, int Cin,
-                        int Cout, int TD, int TH, int TW, int dtype,
-                        void* stream_ptr) {
-  Shape s;
-  const bool want_stats = part != nullptr;
-  if (!make_shape(&s, B, D, H, W, Cin, Cout, TD, TH, TW) ||
-      (g == nullptr) != (gb == nullptr) ||
-      (part2 == nullptr) != !want_stats || (stats == nullptr) != !want_stats ||
-      reinterpret_cast<uintptr_t>(skip) % 4 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const Fused f{g, gb, skip, part, silu};
-  cudaError_t err = launch_conv<true>(x, w, bias, y, f, s, dtype, stream);
-  if (err != cudaSuccess || !want_stats) return static_cast<int>(err);
-  const int T = s.nD * s.nH * s.nW, cols = 2 * Cout;
-  const int groups = (T + kStatsGroup - 1) / kStatsGroup;
-  const unsigned cblocks = (cols + kThreads - 1) / kThreads;
-  stats_sum_kernel<<<dim3(cblocks, groups, B), kThreads, 0, stream>>>(
-      part, part2, T, kStatsGroup, cols);
-  err = cudaGetLastError();
+  const int halo = (TD + 2) * (TH + 2) * (TW + 2);
+  const int64_t tiles = static_cast<int64_t>(B) * s.nD * s.nH * s.nW;
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0 && Cin % 8 == 0;
+  const dim3 grid(static_cast<unsigned>(tiles), (Cout + kBN - 1) / kBN);
+  const size_t smem =
+      (static_cast<size_t>(halo) + 2 * kBN) * kLds * sizeof(__nv_bfloat16);
+  auto kernel = vec ? conv3d_bf16_kernel<true> : conv3d_bf16_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  stats_sum_kernel<<<dim3(cblocks, 1, B), kThreads, 0, stream>>>(
-      part2, stats, groups, groups, cols);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), bias,
+      static_cast<__nv_bfloat16*>(y), s);
   return static_cast<int>(cudaGetLastError());
 }
 

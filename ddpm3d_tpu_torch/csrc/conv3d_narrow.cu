@@ -1,29 +1,36 @@
-// Stride-1 SAME 3x3x3 convolution in bf16 with Cin = 2, channels-last, for
-// Hopper (sm_90a): the model's input conv, [x_t, low_res] -> the model's
-// channels, on wgmma with the 27 taps folded into K.
+// Stride-1 SAME 3x3x3 convolution in bf16 with Cin = 1 or 2, channels-last,
+// for Hopper (sm_90a): the model's input conv, [x_t, low_res] -> the
+// model's channels (Cin = 2), and the Seg encoder's input conv (Cin = 1),
+// on wgmma with the 27 taps folded into K.
 //
 // Replaces the TPU kernel ddpm3d_tpu/ops/conv3d_mxu.py:_conv_kernel at Cin =
-// 2 (the conv3d_mxu call of the model's first layer). Same function as
+// 1 and 2 (the conv3d_mxu calls of those first layers). Same function as
 // csrc/conv3d_sm90.cu: zero padding, bf16 products summed in f32, the f32
 // bias, one rounding to bf16.
 //
 // Bound on the H100: bytes, and almost all of them stored. Per voxel the
-// conv reads 4 bytes and writes 2 * Cout (256 at Cout = 128); its 108 *
-// Cout FLOP are ~0.5 FLOP per byte. The torso kernel cannot take it (TMA
-// needs 16-byte strides; a voxel is 4 bytes), and padding Cin to a 64-wide
-// chunk per tap would run 27 x 64 K for 54 useful. So:
-//  1. K = tap * 2 + ci, 54 of one 64-wide chunk (k >= 54 are zeros). The
-//     weight, packed [Cout][64] bf16 (ops/conv3d.py:pack_weight_narrow), is
-//     one [128][64] tile (16 KB) per column tile, loaded once per block into
-//     shared memory with the 128-byte swizzle, read by wgmma as B.
+// conv reads 2 * Cin bytes and writes 2 * Cout (256 at Cout = 128); its
+// 54 * Cin * Cout FLOP are ~0.5 FLOP per byte or less. The torso kernel
+// cannot take it (TMA needs 16-byte strides; a voxel is 2 or 4 bytes), and
+// padding Cin to a chunk per tap would run 27 x 32 or more K for 27 * Cin
+// useful. So:
+//  1. K = tap * Cin + ci: 54 of one 64-wide chunk at Cin = 2, 27 of one
+//     32-wide chunk at Cin = 1 (the rest zeros). The weight, packed
+//     [Cout][32 * Cin] bf16 (ops/conv3d.py:pack_weight_narrow), is one [128][64]
+//     tile (16 KB; at Cin = 1 its k >= 32 are zero and never read) per
+//     column tile, loaded once per block into shared memory with the
+//     128-byte swizzle, read by wgmma as B.
 //  2. A from registers, gathered straight from device memory: a wgmma A
-//     fragment register holds k = 2j, 2j + 1 of a row, which at Cin = 2 is
-//     tap j of that voxel, one aligned 4-byte word. Each thread loads 16
-//     words per 64-row slice (its 2 rows x 8 taps), zero outside the volume
-//     (the SAME padding); neighbouring rows share them through L1.
-//  3. Four wgmma.mma_async m64n128k16 (RS) per 64-row slice, one warpgroup
-//     per block, several blocks per SM, each walking slices of the flattened
-//     voxels (grid-stride), so one block's loads overlap another's stores.
+//     fragment register holds k = 2j, 2j + 1 of a row. At Cin = 2 that is
+//     tap j of that voxel, one aligned 4-byte word; at Cin = 1 it is taps
+//     2j and 2j + 1, two voxels apart in memory, so two 2-byte loads packed
+//     into one word (low half tap 2j). Each thread loads its 2 rows x 8
+//     registers per 64-row slice, zero outside the volume (the SAME
+//     padding); neighbouring rows share them through L1.
+//  3. 2 * Cin wgmma.mma_async m64n128k16 (RS) per 64-row slice (four at
+//     Cin = 2, two at Cin = 1), one warpgroup per block, several blocks per
+//     SM, each walking slices of the flattened voxels (grid-stride), so one
+//     block's loads overlap another's stores.
 //  4. Epilogue: + f32 bias (the block's 128 values kept in shared memory
 //     from the start, so no device-memory load waits in the epilogue), one
 //     bf16 rounding, each warp stages its 16 rows
@@ -37,7 +44,7 @@
 namespace {
 
 constexpr int kBN = 128;                // output channels per tile (N)
-constexpr int kK = 64;                  // the folded reduction, padded
+constexpr int kK = 64;                  // K of the staged weight tile
 constexpr int kTaps = 27;
 constexpr int kThreads = 128;           // one warpgroup
 constexpr int kRows = 64;               // rows per slice (one m64 tile)
@@ -106,22 +113,42 @@ __device__ __forceinline__ RowAt row_at(const Shape& s, int64_t m) {
   return r;
 }
 
-// Tap t of row r as one word: channels 0 and 1 of the shifted voxel.
+// Offset of tap t from the row's voxel, in voxels.
+__device__ __forceinline__ int64_t tap_offset(const Shape& s, int t) {
+  return (static_cast<int64_t>(t / 9 - 1) * s.H + ((t / 3) % 3 - 1)) * s.W +
+         (t % 3 - 1);
+}
+
+// Cin = 2: tap t of row r as one word, channels 0 and 1 of the voxel.
 __device__ __forceinline__ unsigned tap_word(const Shape& s,
                                              const uint32_t* __restrict__ x,
                                              const RowAt& r, int t) {
   if (t >= kTaps || !((r.ok >> t) & 1u)) return 0u;
-  const int64_t off =
-      (static_cast<int64_t>(t / 9 - 1) * s.H + ((t / 3) % 3 - 1)) * s.W +
-      (t % 3 - 1);
-  return __ldg(x + r.m + off);
+  return __ldg(x + r.m + tap_offset(s, t));
 }
 
+// Cin = 1: tap t of row r, the voxel's one bf16 value (its bits).
+__device__ __forceinline__ unsigned tap_half(const Shape& s,
+                                             const uint16_t* __restrict__ x,
+                                             const RowAt& r, int t) {
+  if (t >= kTaps || !((r.ok >> t) & 1u)) return 0u;
+  return __ldg(x + r.m + tap_offset(s, t));
+}
+
+// Cin = 1: k = t, t + 1 of row r as one word (t even: low half k = t).
+__device__ __forceinline__ unsigned tap_pair(const Shape& s,
+                                             const uint16_t* __restrict__ x,
+                                             const RowAt& r, int t) {
+  return tap_half(s, x, r, t) | (tap_half(s, x, r, t + 1) << 16);
+}
+
+template <int kCin>
 __global__ void __launch_bounds__(kThreads)
-    conv3d_narrow_kernel(const uint32_t* __restrict__ x,
+    conv3d_narrow_kernel(const void* __restrict__ xv,
                          const __nv_bfloat16* __restrict__ w,
                          const float* __restrict__ bias,
                          __nv_bfloat16* __restrict__ y, const Shape s) {
+  constexpr int kKC = 32 * kCin;  // the packed weight's row: K, padded
   extern __shared__ unsigned char smem_raw[];
   const uint32_t wt = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -136,12 +163,13 @@ __global__ void __launch_bounds__(kThreads)
                  : "memory");
   }
 
-  // the weight tile: row n (column n0 + n) at n * 128, piece j at j ^ (n & 7)
+  // the weight tile: row n (column n0 + n) at n * 128, piece j at j ^ (n &
+  // 7); pieces past the packed row (Cin = 1: j >= 4) are zero
   for (int i = threadIdx.x; i < kBN * 8; i += kThreads) {
     const int n = i >> 3, j = i & 7;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (n0 + n < s.Cout)
-      v = __ldg(reinterpret_cast<const uint4*>(w + (n0 + n) * kK) + j);
+    if (n0 + n < s.Cout && j < kKC / 8)
+      v = __ldg(reinterpret_cast<const uint4*>(w + (n0 + n) * kKC) + j);
     asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
                      wt + n * 128 + ((j ^ (n & 7)) << 4)),
                  "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
@@ -157,23 +185,34 @@ __global__ void __launch_bounds__(kThreads)
   for (int sl = blockIdx.x; sl < s.slices; sl += gridDim.x) {
     const int64_t m0 = static_cast<int64_t>(sl) * kRows + warp * 16;
     const RowAt r0 = row_at(s, m0 + g), r1 = row_at(s, m0 + g + 8);
-    // fragment ks: a0 / a1 = tap 8ks + tq of rows g / g + 8, a2 / a3 the
-    // tap 4 further (k = 2 * tap + ci)
-    unsigned a[4][4];
+    // fragment ks: a0 / a1 = k 16ks + 2tq, +1 of rows g / g + 8, a2 / a3
+    // the k 8 further. Cin = 2: k = 2 * tap + ci, one word per tap; Cin =
+    // 1: k = tap, two taps per word
+    unsigned a[kKC / 16][4];
 #pragma unroll
-    for (int ks = 0; ks < kK / 16; ++ks) {
-      const int t = 8 * ks + tq;
-      a[ks][0] = tap_word(s, x, r0, t);
-      a[ks][1] = tap_word(s, x, r1, t);
-      a[ks][2] = tap_word(s, x, r0, t + 4);
-      a[ks][3] = tap_word(s, x, r1, t + 4);
+    for (int ks = 0; ks < kKC / 16; ++ks) {
+      if constexpr (kCin == 2) {
+        const uint32_t* x = static_cast<const uint32_t*>(xv);
+        const int t = 8 * ks + tq;
+        a[ks][0] = tap_word(s, x, r0, t);
+        a[ks][1] = tap_word(s, x, r1, t);
+        a[ks][2] = tap_word(s, x, r0, t + 4);
+        a[ks][3] = tap_word(s, x, r1, t + 4);
+      } else {
+        const uint16_t* x = static_cast<const uint16_t*>(xv);
+        const int t = 16 * ks + 2 * tq;
+        a[ks][0] = tap_pair(s, x, r0, t);
+        a[ks][1] = tap_pair(s, x, r1, t);
+        a[ks][2] = tap_pair(s, x, r0, t + 8);
+        a[ks][3] = tap_pair(s, x, r1, t + 8);
+      }
     }
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
     fence_acc(acc);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < kK / 16; ++ks)
+    for (int ks = 0; ks < kKC / 16; ++ks)
       wgmma_m64n128k16_rs(acc, a[ks], db + 2 * ks);
     wgmma_commit();
     wgmma_wait<0>();
@@ -233,14 +272,15 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// x [B, D, H, W, 2] bf16 (4-byte aligned), w packed [Cout][64] bf16
-// (16-byte aligned), bias f32 [Cout] or NULL, y [B, D, H, W, Cout] bf16.
-// Returns a cudaError_t.
+// x [B, D, H, W, Cin] bf16 with Cin = 1 (2-byte aligned) or 2 (4-byte
+// aligned), w packed [Cout][32 * Cin] bf16 (16-byte aligned), bias f32
+// [Cout] or NULL, y [B, D, H, W, Cout] bf16. Returns a cudaError_t.
 int conv3d_narrow_launch(const void* x, const void* w, const float* bias,
-                         void* y, int B, int D, int H, int W, int Cout,
-                         void* stream_ptr) {
+                         void* y, int B, int D, int H, int W, int Cin,
+                         int Cout, void* stream_ptr) {
   if (B <= 0 || D <= 0 || H <= 0 || W <= 0 || Cout <= 0 ||
-      reinterpret_cast<uintptr_t>(x) % 4 != 0 ||
+      (Cin != 1 && Cin != 2) ||
+      reinterpret_cast<uintptr_t>(x) % (2 * Cin) != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Shape s;
@@ -249,23 +289,22 @@ int conv3d_narrow_launch(const void* x, const void* w, const float* bias,
   const int64_t slices = (s.M + kRows - 1) / kRows;
   if (slices > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   s.slices = static_cast<int>(slices);
+  auto kernel = Cin == 2 ? conv3d_narrow_kernel<2> : conv3d_narrow_kernel<1>;
   cudaError_t err = cudaFuncSetAttribute(
-      conv3d_narrow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, conv3d_narrow_kernel, kThreads, kSmem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int sms = sm_count(&err);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t fill = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   const dim3 grid(static_cast<unsigned>(s.slices < fill ? s.slices : fill),
                   (Cout + kBN - 1) / kBN);
-  conv3d_narrow_kernel<<<grid, kThreads, kSmem,
-                         static_cast<cudaStream_t>(stream_ptr)>>>(
-      static_cast<const uint32_t*>(x), static_cast<const __nv_bfloat16*>(w),
-      bias, static_cast<__nv_bfloat16*>(y), s);
+  kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream_ptr)>>>(
+      x, static_cast<const __nv_bfloat16*>(w), bias,
+      static_cast<__nv_bfloat16*>(y), s);
   return static_cast<int>(cudaGetLastError());
 }
 

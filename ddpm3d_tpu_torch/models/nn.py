@@ -162,7 +162,8 @@ class Conv3x3x3(_Int8Site, nn.Module):
                fused)
         if key != self._packed_key:
             # the fused kernel takes the tap-major layout at every Cin
-            pack = conv_ops.pack_weight if fused else conv_ops.pack_weight_kernel
+            pack = (fused_ops.pack_weight_fused if fused
+                    else conv_ops.pack_weight_kernel)
             self._packed = pack(self.weight, x.dtype)
             self._packed_key = key
         return self._packed

@@ -2,14 +2,15 @@
 
 * :mod:`.conv3d` — stride-1 SAME 3x3x3 conv, forward and the dx of its
   backward: ``csrc/conv3d_sm90.cu`` (bf16, wgmma/TMA),
-  ``csrc/conv3d_narrow.cu`` (bf16, Cin = 2: the input conv),
+  ``csrc/conv3d_narrow.cu`` (bf16, Cin = 1 or 2: the input convs),
   ``csrc/conv3d_head.cu`` (f32 with Cout <= 8: the head conv; f32 with Cin
-  = 2: the head's dx) or ``csrc/conv3d.cu`` (the other f32 convs and bf16
-  with another narrow Cin), by :func:`.conv3d.conv3d_route`;
+  = 2: the head's dx), ``csrc/conv3d_f32.cu`` (the other f32 convs, FFMA)
+  or ``csrc/conv3d.cu`` (bf16 with another narrow Cin), by
+  :func:`.conv3d.conv3d_route`;
 * :mod:`.conv3d_fused` — the fused ResBlock conv (GN/FiLM/SiLU prologue,
   bias/skip epilogue, next-GN stats): bf16 on the fused instance of
-  ``csrc/conv3d_sm90.cu`` (wgmma/TMA), f32 on that of ``csrc/conv3d.cu``,
-  by :func:`.conv3d_fused.conv3d_fused_route`;
+  ``csrc/conv3d_sm90.cu`` (wgmma/TMA), f32 on that of
+  ``csrc/conv3d_f32.cu``, by :func:`.conv3d_fused.conv3d_fused_route`;
 * :mod:`.groupnorm` — GroupNorm stats and fused normalize/FiLM/SiLU
   (``csrc/groupnorm.cu``);
 * :mod:`.conv3d_s8` — the int8 (s8 x s8 -> s32) conv with its dequantize

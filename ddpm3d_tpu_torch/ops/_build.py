@@ -24,8 +24,8 @@ from typing import Dict
 _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SRC_DIR = osp.join(_PKG, "csrc")
 BUILD_DIR = osp.join(_PKG, "_build")
-SOURCES = ("conv3d", "conv3d_head", "conv3d_narrow", "conv3d_s8", "conv3d_sm90",
-           "groupnorm")
+SOURCES = ("conv3d", "conv3d_f32", "conv3d_head", "conv3d_narrow", "conv3d_s8",
+           "conv3d_sm90", "groupnorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -37,8 +37,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "conv3d_ndhwc_launch": (
         "conv3d", [_P, _P, _P, _P] + [_I] * 10 + [_P]),
-    "conv3d_fused_launch": (
-        "conv3d", [_P] * 5 + [_I] + [_P] * 5 + [_I] * 10 + [_P]),
+    "conv3d_f32_launch": (
+        "conv3d_f32", [_P, _P, _P, _P] + [_I] * 8 + [_P]),
+    "conv3d_f32_fused_launch": (
+        "conv3d_f32", [_P] * 5 + [_I] + [_P] * 5 + [_I] * 8 + [_P]),
     "conv3d_sm90_launch": (
         "conv3d_sm90", [_P, _P, _P, _P] + [_I] * 9 + [_P]),
     "conv3d_sm90_fused_launch": (
@@ -48,7 +50,7 @@ _SIGNATURES = {
     "conv3d_f32_narrow_launch": (
         "conv3d_head", [_P, _P, _P, _P] + [_I] * 5 + [_P]),
     "conv3d_narrow_launch": (
-        "conv3d_narrow", [_P, _P, _P, _P] + [_I] * 5 + [_P]),
+        "conv3d_narrow", [_P, _P, _P, _P] + [_I] * 6 + [_P]),
     "conv3d_s8_launch": (
         "conv3d_s8", [_P] * 6 + [_I] * 12 + [_P]),
     "gn_stats_launch": ("groupnorm", [_P] * 4 + [_I] * 5 + [_P]),

@@ -1,8 +1,8 @@
 """Stride-1 SAME 3x3x3 convolution on channels-last volumes.
 
 Counterpart of ``ddpm3d_tpu/ops/conv3d_mxu.py:conv3d_mxu`` (the Pallas TPU
-kernel ``_conv_kernel``). Five Hopper kernels compute it, chosen by
-:func:`conv3d_route`:
+kernel ``_conv_kernel``). Hand-written Hopper kernels compute it, on the
+route :func:`conv3d_route` picks:
   * ``"sm90"``, ``csrc/conv3d_sm90.cu``: bf16 with Cin % 8 == 0, every conv
     of the model's torso. A warp-specialised implicit GEMM: TMA stages a
     haloed input tile once per 64-channel Cin chunk and the weights of each
@@ -12,6 +12,9 @@ kernel ``_conv_kernel``). Five Hopper kernels compute it, chosen by
     model's input conv. The 27 taps fold into one 64-wide K (k = 2 * tap +
     ci, :func:`pack_weight_narrow`), A is gathered into registers straight
     from device memory, four ``wgmma`` per 64 rows;
+  * ``"sm90_cin1"``, the same source's Cin = 1 instance: the Seg encoder's
+    input conv. K = tap, 27 of one 32-wide chunk, two ``wgmma`` per 64
+    rows; a register of A pairs taps 2j and 2j + 1 of one voxel;
   * ``"f32_head"``, ``csrc/conv3d_head.cu``: f32 with Cout <= 8, the model's
     head conv (128 -> 2). FFMA; a block walks a segment of D under a 32 x TW
     window of (H, W), staging each input plane once and keeping rolling
@@ -20,8 +23,12 @@ kernel ``_conv_kernel``). Five Hopper kernels compute it, chosen by
   * ``"f32_narrow"``, ``csrc/conv3d_head.cu``: f32 with Cin = 2, the head's
     dx (2 -> 128) and an f32 model's input conv. FFMA with the taps folded
     into K = 54 (:func:`pack_weight_f32_narrow`);
-  * ``"ndhwc"``, ``csrc/conv3d.cu``: the other f32 convs (the torso of f32
-    models) and bf16 with any other Cin, ``mma.sync`` or FFMA.
+  * ``"f32"``, ``csrc/conv3d_f32.cu``: the other f32 convs (the torso of
+    f32 models and their dx). FFMA on 16 x 8-voxel tiles of 128 channels,
+    the halo staged once per 8-channel chunk, the weights
+    (:func:`pack_weight_f32`, [27, Cin, Cout]) streamed in tap rows through
+    a ring of cp.async stages (:func:`pick_tile_f32`);
+  * ``"ndhwc"``, ``csrc/conv3d.cu``: bf16 with any other Cin, ``mma.sync``.
 Each source note says what bounds its kernel and what its design does about
 that (the narrow bf16 conv is bound by the bytes it stores, the others by
 operations).
@@ -60,7 +67,8 @@ dx_launches = 0
 # the same launches by route (see ops.route_counts): "conv3d.<route>" and
 # "conv3d_dx.<route>" for each of ROUTES
 route_launches: Dict[str, int] = {}
-ROUTES = ("sm90", "sm90_narrow", "f32_head", "f32_narrow", "ndhwc")
+ROUTES = ("sm90", "sm90_narrow", "sm90_cin1", "f32_head", "f32_narrow",
+          "f32", "ndhwc")
 
 MAX_ROWS = 128   # output voxels per block (csrc/conv3d.cu kMaxRows)
 MAX_HALO = 640   # staged halo voxels per block (kMaxHalo)
@@ -75,8 +83,21 @@ SM90_BN = 128          # output channels per tile (kBN)
 SM90_STAGES = 4        # weight ring (kStages)
 SM90_SMEM_LIMIT = 232448  # dynamic shared memory a block may use (H100)
 
-# csrc/conv3d_narrow.cu: the taps folded into one K chunk (kK)
+# csrc/conv3d_narrow.cu: the taps folded into one K chunk (the packed
+# weight's row, 32 * Cin): Cin = 2 and Cin = 1
 NARROW_K = 64
+NARROW_K1 = 32
+
+# csrc/conv3d_f32.cu
+F32_THREADS = 256     # threads per block, two blocks per SM
+F32_BN = 128          # output channels per tile (kBN)
+F32_BK = 8            # Cin chunk (kBK)
+F32_TW = 8            # tile voxels along W, a thread's rows (kTW)
+F32_LINES = 16        # (d, h) lines per tile, TD * TH (kLines)
+F32_STAGES = 3        # weight ring, in units of one tap row (kStages)
+F32_MAX_HALO = 540    # (TD+2)(TH+2)(TW+2), at most (kMaxHalo)
+F32_HALO_PITCH = 548  # the transposed halo's row per channel (kHP)
+F32_WARPS = F32_THREADS // 32
 
 # csrc/conv3d_head.cu
 HEAD_MAX_COUT = 8     # the head kernel's widest instance (COP)
@@ -98,13 +119,42 @@ def pack_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     )
 
 
+def narrow_k(cin: int) -> int:
+    """The narrow kernel's folded K for Cin = 1 or 2 (its packed row)."""
+    return NARROW_K if cin == 2 else NARROW_K1
+
+
 def pack_weight_narrow(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(Cout, 2, 3, 3, 3) -> the narrow kernel's [Cout, NARROW_K] layout in
-    ``dtype``: column k = 2 * tap + ci with tap = 9 kd + 3 kh + kw, zeros
-    from k = 54 on."""
+    """(Cout, Cin, 3, 3, 3) with Cin = 1 or 2 -> the narrow kernel's [Cout,
+    narrow_k(Cin)] layout in ``dtype``: column k = Cin * tap + ci with tap =
+    9 kd + 3 kh + kw, zeros from k = 27 * Cin on."""
     cout, cin = weight.shape[:2]
     w = weight.detach().to(dtype).permute(0, 2, 3, 4, 1).reshape(cout, 27 * cin)
-    return F.pad(w, (0, NARROW_K - 27 * cin)).contiguous()
+    return F.pad(w, (0, narrow_k(cin) - 27 * cin)).contiguous()
+
+
+def narrow_fragment_taps(cin: int, ks: int, tq: int, reg: int):
+    """What ``csrc/conv3d_narrow.cu`` loads into register ``reg`` (0..3) of
+    A fragment ``ks`` for lane position ``tq`` (lane % 4): the (tap, ci) of
+    its low and high bf16 halves. Cin = 2: tap 8 ks + tq (+ 4 for reg 2,
+    3), channels 0 and 1 (one word); Cin = 1: taps 16 ks + 2 tq and the
+    next (+ 8 for reg 2, 3), two voxels apart (two 2-byte loads). Rows:
+    reg 0 and 2 hold row g, 1 and 3 row g + 8 (g = lane / 4)."""
+    if cin == 2:
+        t = 8 * ks + tq + (4 if reg >= 2 else 0)
+        return (t, 0), (t, 1)
+    t = 16 * ks + 2 * tq + (8 if reg >= 2 else 0)
+    return (t, 0), (t + 1, 0)
+
+
+def pack_weight_f32(weight: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 3, 3, 3) -> the f32 kernel's [27, Cin, Cout] f32 layout
+    (tap = 9 kd + 3 kh + kw, Cout contiguous): one tap's [Cin chunk][128
+    columns] tile is the [k][n] the kernel's inner loop reads, so it streams
+    by 16-byte copies without a transpose."""
+    cout, cin = weight.shape[:2]
+    return (weight.detach().float().permute(2, 3, 4, 1, 0)
+            .reshape(27, cin, cout).contiguous())
 
 
 def pack_weight_f32_narrow(weight: torch.Tensor) -> torch.Tensor:
@@ -133,8 +183,10 @@ def pack_weight_kernel(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     """The layout that the kernel of :func:`conv3d_route` takes for a conv
     with this (Cout, Cin, 3, 3, 3) weight in ``dtype``."""
     route = conv3d_route(weight.shape[1:2], dtype, weight.shape[0])
-    if route == "sm90_narrow":
+    if route in ("sm90_narrow", "sm90_cin1"):
         return pack_weight_narrow(weight, dtype)
+    if route == "f32":
+        return pack_weight_f32(weight)
     if route == "f32_narrow":
         return pack_weight_f32_narrow(weight)
     if route == "f32_head":
@@ -144,12 +196,13 @@ def pack_weight_kernel(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
 
 def packed_cout(w_packed: torch.Tensor) -> int:
     """Cout of a weight in any kernel layout: [27, Cout, Cin]
-    (:func:`pack_weight`), [Cout, K] (the two narrow layouts) or [Cin / 4,
-    27, 4, Cout] (:func:`pack_weight_head`)."""
+    (:func:`pack_weight`, bf16), [27, Cin, Cout] (:func:`pack_weight_f32`,
+    f32), [Cout, K] (the narrow layouts) or [Cin / 4, 27, 4, Cout]
+    (:func:`pack_weight_head`)."""
     if w_packed.dim() == 2:
         return w_packed.shape[0]
     if w_packed.dim() == 3:
-        return w_packed.shape[1]
+        return w_packed.shape[2 if w_packed.dtype == torch.float32 else 1]
     if w_packed.dim() == 4:
         return w_packed.shape[3]
     raise ValueError(f"not a packed conv weight: {tuple(w_packed.shape)}")
@@ -186,6 +239,73 @@ def pick_tile(D: int, H: int, W: int) -> Tuple[int, int, int]:
     return best[1]
 
 
+@functools.lru_cache(maxsize=64)
+def pick_tile_f32(D: int, H: int, W: int) -> Tuple[int, int]:
+    """(TD, TH) of ``csrc/conv3d_f32.cu``'s TD x TH x 8 output tile (TD * TH
+    = 16 lines, one per 16 threads) for a DxHxW volume: fewest tiles first
+    (every tile costs 128 rows of math), then the smallest halo (input
+    bytes staged per chunk). A function of the volume alone, so a volume's
+    per-tile stats do not depend on the batch."""
+    best = None
+    for th in (1, 2, 4, 8, 16):
+        td = F32_LINES // th
+        halo = (td + 2) * (th + 2) * (F32_TW + 2)
+        tiles = -(-D // td) * -(-H // th) * -(-W // F32_TW)
+        key = (tiles, halo, th)
+        if best is None or key < best[0]:
+            best = (key, (td, th))
+    return best[1]
+
+
+def f32_tiles(B: int, D: int, H: int, W: int,
+              tile: Tuple[int, int]) -> int:
+    """Spatial tiles of one f32 launch (``gridDim.x``; the 128-column tiles
+    are ``gridDim.y``)."""
+    td, th = tile
+    return B * -(-D // td) * -(-H // th) * -(-W // F32_TW)
+
+
+def f32_tile_origin(q: int, B: int, D: int, H: int, W: int,
+                    tile: Tuple[int, int]) -> Tuple[int, int, int, int]:
+    """Spatial tile q -> (b, d0, h0, w0), as the kernel's ``decode_tile``:
+    W fastest, then H, D, batch."""
+    td, th = tile
+    nD, nH, nW = -(-D // td), -(-H // th), -(-W // F32_TW)
+    q, iw = divmod(q, nW)
+    q, ih = divmod(q, nH)
+    b, idd = divmod(q, nD)
+    return b, idd * td, ih * th, iw * F32_TW
+
+
+def f32_thread_rows(tid: int, tile: Tuple[int, int]):
+    """The output rows of thread ``tid`` in its tile, as (dz, hy, wx) for
+    its 8 rows (one line of 8 voxels along W), and its 8 columns of the
+    128-column tile: the kernel's mapping. A warp covers 8 lines x 32
+    columns: line 8 (warp / 4) + lane / 4, columns c..c+3 and c+16..c+19
+    with c = 32 (warp % 4) + 4 (lane % 4)."""
+    _, th = tile
+    warp, lane = divmod(tid, 32)
+    line = (warp // 4) * 8 + lane // 4
+    c = (warp % 4) * 32 + (lane % 4) * 4
+    rows = [(line // th, line % th, i) for i in range(F32_TW)]
+    cols = [c + j for j in range(4)] + [c + 16 + j for j in range(4)]
+    return rows, cols
+
+
+def f32_smem_bytes(fused: bool) -> int:
+    """Dynamic shared memory of one f32 block (``kSmemPlain`` /
+    ``kSmemFused``): the staged halo (F32_MAX_HALO voxels x 8 floats), the
+    transposed one (8 rows of F32_HALO_PITCH floats), the ring of
+    F32_STAGES units of 3 taps x 8 x 128 floats and the halo's voxel table
+    (one int a voxel); fused, also the [warp][2][128] stats sums (its
+    epilogue's [128][132] tile reuses the halo and the ring)."""
+    plain = 4 * (F32_MAX_HALO * F32_BK + F32_BK * F32_HALO_PITCH
+                 + F32_STAGES * 3 * F32_BK * F32_BN + F32_MAX_HALO)
+    if not fused:
+        return plain
+    return plain + 4 * F32_WARPS * 2 * F32_BN
+
+
 def head_cop(cout: int) -> int:
     """The head kernel's instance for ``cout`` output channels: Cout padded
     to 1, 2, 4 or 8 (COP)."""
@@ -215,24 +335,29 @@ def conv3d_route(x_shape, dtype: torch.dtype, cout: int) -> str:
     """Which kernel takes a conv of x [..., Cin] to ``cout`` channels in
     ``dtype``: ``"sm90"`` (``csrc/conv3d_sm90.cu``) for bf16 with Cin % 8 ==
     0, whose rows TMA can stage (16-byte strides); ``"sm90_narrow"``
-    (``csrc/conv3d_narrow.cu``) for bf16 with Cin = 2, the input conv;
-    ``"f32_narrow"`` (``csrc/conv3d_head.cu``) for f32 with Cin = 2, the
-    head's dx; ``"f32_head"`` (``csrc/conv3d_head.cu``) for f32 with Cout <=
-    8, Cin % 4 == 0 (16-byte rows) and a weight that fits the block's
-    shared memory, the head conv; ``"ndhwc"`` (``csrc/conv3d.cu``) for the
-    rest."""
+    (``csrc/conv3d_narrow.cu``) for bf16 with Cin = 2, the input conv, and
+    ``"sm90_cin1"`` (its Cin = 1 instance) for bf16 with Cin = 1, the Seg
+    encoder's input conv; ``"f32_narrow"`` (``csrc/conv3d_head.cu``) for f32
+    with Cin = 2, the head's dx; ``"f32_head"`` (``csrc/conv3d_head.cu``)
+    for f32 with Cout <= 8, Cin % 4 == 0 (16-byte rows) and a weight that
+    fits the block's shared memory, the head conv; ``"f32"``
+    (``csrc/conv3d_f32.cu``) for the other f32 convs; ``"ndhwc"``
+    (``csrc/conv3d.cu``) for bf16 with any other Cin."""
     cin = x_shape[-1]
     if dtype == torch.bfloat16:
         if cin % 8 == 0:
             return "sm90"
         if cin == 2:
             return "sm90_narrow"
+        if cin == 1:
+            return "sm90_cin1"
     elif dtype == torch.float32:
         if cin == 2:
             return "f32_narrow"
         if (cout <= HEAD_MAX_COUT and cin % 4 == 0
                 and head_smem_bytes(cin, cout) <= SM90_SMEM_LIMIT):
             return "f32_head"
+        return "f32"
     return "ndhwc"
 
 
@@ -379,7 +504,8 @@ def check_kernel_inputs(x: torch.Tensor, w_packed: torch.Tensor, what: str,
     """Raise unless the conv kernels take ``x`` [B, D, H, W, Cin] (a CUDA
     tensor, bf16 or f32) with ``w_packed`` in the layout of ``route``
     (default: :func:`conv3d_route`'s, as :func:`pack_weight_kernel` packs;
-    ``"ndhwc"`` for :func:`pack_weight`'s); returns (route, Cout)."""
+    ``"ndhwc"`` for :func:`pack_weight`'s, ``"f32"`` for
+    :func:`pack_weight_f32`'s); returns (route, Cout)."""
     if x.device.type != "cuda":
         raise RuntimeError(f"{what} kernel takes CUDA tensors, got {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -393,8 +519,10 @@ def check_kernel_inputs(x: torch.Tensor, w_packed: torch.Tensor, what: str,
     route = route or conv3d_route(x.shape, x.dtype, cout)
     expect = {
         "sm90_narrow": (cout, NARROW_K),
+        "sm90_cin1": (cout, NARROW_K1),
         "f32_narrow": (cout, F32_NARROW_K),
         "f32_head": (cin // 4, 27, 4, cout),
+        "f32": (27, cin, cout),
     }.get(route, (27, cout, cin))
     if tuple(w_packed.shape) != expect:
         raise ValueError(
@@ -429,14 +557,14 @@ def _launch(
         err = _build.fn(name)(
             x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
             B, D, H, W, cin, cout, *sm90_tile(B, D, H, W, cout, sms), stream)
-    elif route == "sm90_narrow":
-        if x.data_ptr() % 4 or w_packed.data_ptr() % 16:
-            raise ValueError("conv3d_narrow takes 4-byte-aligned x and a "
-                             "16-byte-aligned weight")
+    elif route in ("sm90_narrow", "sm90_cin1"):
+        if x.data_ptr() % (2 * cin) or w_packed.data_ptr() % 16:
+            raise ValueError(f"conv3d_narrow takes {2 * cin}-byte-aligned x "
+                             "and a 16-byte-aligned weight")
         name = "conv3d_narrow_launch"
         err = _build.fn(name)(
             x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
-            B, D, H, W, cout, stream)
+            B, D, H, W, cin, cout, stream)
     elif route == "f32_head":
         if x.data_ptr() % 16:
             raise ValueError("conv3d_head takes 16-byte-aligned x")
@@ -451,12 +579,16 @@ def _launch(
         err = _build.fn(name)(
             x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
             B, D, H, W, cout, stream)
+    elif route == "f32":
+        name = "conv3d_f32_launch"
+        err = _build.fn(name)(
+            x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
+            B, D, H, W, cin, cout, *pick_tile_f32(D, H, W), stream)
     else:
         name = "conv3d_ndhwc_launch"
         err = _build.fn(name)(
             x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
-            B, D, H, W, cin, cout, *pick_tile(D, H, W),
-            1 if x.dtype == torch.bfloat16 else 0, stream)
+            B, D, H, W, cin, cout, *pick_tile(D, H, W), 1, stream)
     _build.check(err, name)
     key = f"{what}.{route}"
     route_launches[key] = route_launches.get(key, 0) + 1

@@ -18,8 +18,10 @@ Two Hopper kernels compute it, chosen by :func:`conv3d_fused_route`:
     fused instance of ``csrc/conv3d_sm90.cu`` (``conv3d_sm90_fused_launch``;
     wgmma fed by TMA, the prologue in the producer warpgroup), on the tile
     of :func:`fused_tile`, and its stats finish;
-  * ``"ndhwc"``, f32: the fused instance of ``csrc/conv3d.cu``'s FFMA conv
-    (``conv3d_fused_launch``).
+  * ``"f32"``, f32: the fused instance of ``csrc/conv3d_f32.cu``'s FFMA
+    conv (``conv3d_f32_fused_launch``; weight :func:`.conv3d.
+    pack_weight_f32`, tile :func:`.conv3d.pick_tile_f32`), and its stats
+    finish.
 bf16 with another Cin raises. Each source note says what bounds its kernel
 and what the design does about that. Inference only, like the JAX kernel
 (no VJP): :func:`conv3d_fused` raises when autograd would record it. A CPU
@@ -38,17 +40,18 @@ import torch.nn.functional as F
 
 from . import _build
 from .conv3d import (
-    SM90_MAX_HALO, SM90_MAX_ROWS, SM90_SMS, _full_f32, _ncdhw,
-    check_kernel_inputs, pack_weight, pick_tile, sm90_halo, sm90_tile,
-    sm90_tiles)
+    F32_TW, SM90_MAX_HALO, SM90_MAX_ROWS, SM90_SMS, _full_f32, _ncdhw,
+    check_kernel_inputs, pack_weight, pack_weight_f32, pick_tile_f32,
+    sm90_halo, sm90_tile, sm90_tiles)
 
 # kernel launches on the main path (see ops.launch_counts), and the same
 # launches by route (see ops.route_counts): "conv3d_fused.<route>"
 launches = 0
 route_launches: Dict[str, int] = {}
-ROUTES = ("sm90", "ndhwc")
+ROUTES = ("sm90", "f32")
 
-STATS_GROUP = 64  # tiles per first-level stats sum (csrc/conv3d.cu kStatsGroup)
+STATS_GROUP = 64  # tiles per first-level stats sum (csrc/conv3d_f32.cu
+                  # kStatsGroup)
 # the sm90 route's stats pass the 8 consumer warps' sums through the
 # output's halo stage, past the tile's staged rows (256 bytes a row)
 FUSED_STATS_BYTES = 8 * 2 * 128 * 4
@@ -64,8 +67,8 @@ def fused_stage_fits(tile: Tuple[int, int, int]) -> bool:
 def conv3d_fused_route(x_shape, dtype: torch.dtype) -> str:
     """Which kernel takes a fused conv of x [..., Cin] in ``dtype``:
     ``"sm90"`` (``csrc/conv3d_sm90.cu``) for bf16 with Cin % 8 == 0, whose
-    rows TMA can stage; ``"ndhwc"`` (``csrc/conv3d.cu``) for f32. Raises for
-    bf16 with another Cin (no fused kernel takes it)."""
+    rows TMA can stage; ``"f32"`` (``csrc/conv3d_f32.cu``) for f32. Raises
+    for bf16 with another Cin (no fused kernel takes it)."""
     cin = x_shape[-1]
     if dtype == torch.bfloat16:
         if cin % 8:
@@ -73,7 +76,7 @@ def conv3d_fused_route(x_shape, dtype: torch.dtype) -> str:
                 f"the bf16 fused conv takes Cin % 8 == 0, got Cin={cin}")
         return "sm90"
     if dtype == torch.float32:
-        return "ndhwc"
+        return "f32"
     raise TypeError(f"conv3d_fused takes bf16 or f32, got {dtype}")
 
 
@@ -112,6 +115,16 @@ def fused_tile(D: int, H: int, W: int, cout: int,
                     continue
                 best = min(best, ((halo, 1), tile))
     return best[1]
+
+
+def pack_weight_fused(weight: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """The layout the fused kernel of ``dtype`` takes: [27, Cout, Cin]
+    (:func:`.conv3d.pack_weight`) in bf16, [27, Cin, Cout]
+    (:func:`.conv3d.pack_weight_f32`) in f32."""
+    if dtype == torch.float32:
+        return pack_weight_f32(weight)
+    return pack_weight(weight, dtype)
 
 
 def conv3d_fused_plain(
@@ -162,11 +175,12 @@ def conv3d_fused_kernel(
     want_stats: bool = False,
 ):
     """Launch the fused kernel on CUDA tensors. ``w_packed`` comes from
-    :func:`.conv3d.pack_weight` in x's dtype; bias, g and b are cast to
-    f32, skip to x's dtype."""
+    :func:`pack_weight_fused` in x's dtype; bias, g and b are cast to f32,
+    skip to x's dtype."""
     global launches
-    _, cout = check_kernel_inputs(x, w_packed, "conv3d_fused", "ndhwc")
     route = conv3d_fused_route(x.shape, x.dtype)
+    _, cout = check_kernel_inputs(
+        x, w_packed, "conv3d_fused", "f32" if route == "f32" else "ndhwc")
     B, D, H, W, cin = x.shape
 
     def f32(t, shape, what):
@@ -220,10 +234,10 @@ def conv3d_fused_kernel(
             int(prologue_silu), ptr(sk), y.data_ptr(), ptr(part), ptr(stats),
             B, D, H, W, cin, cout, td, th, tw, stream)
     else:
-        td, th, tw = pick_tile(D, H, W)
+        td, th = pick_tile_f32(D, H, W)
         part = part2 = stats = None
         if want_stats:
-            tiles = -(-D // td) * -(-H // th) * -(-W // tw)
+            tiles = -(-D // td) * -(-H // th) * -(-W // F32_TW)
             groups = -(-tiles // STATS_GROUP)
             part = torch.empty((B * tiles * 2 * cout,), dtype=torch.float32,
                                device=x.device)
@@ -231,11 +245,11 @@ def conv3d_fused_kernel(
                                 device=x.device)
             stats = torch.empty((B, 2, cout), dtype=torch.float32,
                                 device=x.device)
-        name = "conv3d_fused_launch"
+        name = "conv3d_f32_fused_launch"
         err = _build.fn(name)(
             x.data_ptr(), w_packed.data_ptr(), ptr(b), ptr(g), ptr(gb),
             int(prologue_silu), ptr(sk), y.data_ptr(), ptr(part), ptr(part2),
-            ptr(stats), B, D, H, W, cin, cout, td, th, tw, 0, stream)
+            ptr(stats), B, D, H, W, cin, cout, td, th, stream)
     _build.check(err, name)
     launches += 1
     key = f"conv3d_fused.{route}"
@@ -281,5 +295,5 @@ def conv3d_fused(
     if x.device.type != "cuda":
         raise RuntimeError(f"conv3d_fused: unsupported device {x.device}")
     if w_packed is None:
-        w_packed = pack_weight(weight, x.dtype)
+        w_packed = pack_weight_fused(weight, x.dtype)
     return conv3d_fused_kernel(x, w_packed, bias, **kw)

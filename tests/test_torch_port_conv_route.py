@@ -105,16 +105,17 @@ def test_training_dx_takes_the_sm90_kernel(main_path_convs):
     ((2, 5, 7, 9, 8), torch.bfloat16, 16, "sm90"),  # smallest aligned Cin
     ((1, 4, 8, 8, 128), torch.bfloat16, 2, "sm90"),  # a bf16 head
     ((1, 4, 8, 8, 2), torch.bfloat16, 128, "sm90_narrow"),  # the input conv
+    ((1, 4, 8, 8, 1), torch.bfloat16, 128, "sm90_cin1"),  # Seg encoder input
     ((1, 4, 8, 8, 2), torch.float32, 128, "f32_narrow"),  # f32 input conv
     ((1, 4, 8, 8, 2), torch.float32, 2, "f32_narrow"),  # Cin = 2 goes first
     ((1, 4, 8, 8, 128), torch.float32, 2, "f32_head"),  # the head conv
     ((1, 4, 8, 8, 40), torch.float32, 8, "f32_head"),  # widest instance
-    ((1, 4, 8, 8, 40), torch.float32, 9, "ndhwc"),  # past the head's Cout
-    ((1, 4, 8, 8, 6), torch.float32, 2, "ndhwc"),  # rows not 16-byte strided
-    ((1, 4, 8, 8, 1024), torch.float32, 8, "ndhwc"),  # weight past the smem
+    ((1, 4, 8, 8, 40), torch.float32, 9, "f32"),  # past the head's Cout
+    ((1, 4, 8, 8, 6), torch.float32, 2, "f32"),  # rows not 16-byte strided
+    ((1, 4, 8, 8, 1024), torch.float32, 8, "f32"),  # weight past the smem
     ((1, 4, 8, 8, 3), torch.bfloat16, 8, "ndhwc"),  # other narrow Cin
     ((1, 4, 8, 8, 130), torch.bfloat16, 8, "ndhwc"),  # rows not 16-byte strided
-    ((1, 4, 8, 8, 128), torch.float32, 128, "ndhwc"),  # f32 models' torso
+    ((1, 4, 8, 8, 128), torch.float32, 128, "f32"),  # f32 models' torso
 ])
 def test_conv3d_route(shape, dtype, cout, route):
     assert cv.conv3d_route(shape, dtype, cout) == route

@@ -880,20 +880,171 @@ def test_guidance_gradient_matches_cpu(dev, dims):
 
 @pytest.mark.parametrize("batch", [1, 2])
 def test_ndhwc_conv_takes_bf16_cin1(dev, batch):
-    """The Seg encoder's input conv: bf16 with Cin = 1 (2-byte rows, the
-    scalar staging of csrc/conv3d.cu's ndhwc route) against conv3d_plain
-    at the full patch, batch 1 and 2."""
+    """The Seg encoder's input conv: bf16 with Cin = 1 (2-byte rows: the
+    Cin = 1 instance of csrc/conv3d_narrow.cu, route sm90_cin1, a register
+    of A pairing taps 2j and 2j + 1) against conv3d_plain at the full
+    patch, batch 1 and 2; batch-invariant."""
     g = torch.Generator(device=dev).manual_seed(batch)
     x = torch.randn((batch, 96, 96, 96, 1), generator=g,
                     device=dev).bfloat16()
     w = torch.randn((128, 1, 3, 3, 3), generator=g, device=dev) / 27 ** 0.5
     b = torch.randn((128,), generator=g, device=dev) * 0.1
-    assert cv.conv3d_route(x.shape, x.dtype, 128) == "ndhwc"
+    assert cv.conv3d_route(x.shape, x.dtype, 128) == "sm90_cin1"
+    wp = cv.pack_weight_kernel(w, x.dtype)
+    assert wp.shape == (128, 32)
     ops.reset_launch_counts()
-    out = cv.conv3d_kernel(x, cv.pack_weight_kernel(w, x.dtype), b)
-    assert ops.route_counts()["conv3d.ndhwc"] == 1
+    out = cv.conv3d_kernel(x, wp, b)
+    assert ops.route_counts()["conv3d.sm90_cin1"] == 1
+    assert ops.route_counts()["conv3d.ndhwc"] == 0
     ref = cv.conv3d_plain(x, w.bfloat16(), b)
     assert _rel(out, ref) <= TOL[torch.bfloat16]
+    assert torch.equal(out[-1:], cv.conv3d_kernel(x[-1:].contiguous(), wp, b))
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 5, 7, 9, 1), 40),      # ragged volume, batch 2, Cout < 128
+    ((1, 4, 8, 8, 1), 130),     # Cout past one 128-column tile, ragged
+    ((1, 1, 1, 3, 1), 16),      # every tap but a few in the padding
+])
+def test_conv3d_cin1_matches_plain(dev, shape, cout):
+    """The Cin = 1 instance at ragged shapes: one bf16 rounding of the
+    plain version, the same bits on a repeat."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    x = torch.randn(shape, generator=g, device=dev).bfloat16()
+    w = torch.randn((cout, 1, 3, 3, 3), generator=g, device=dev) / 27 ** 0.5
+    b = torch.randn((cout,), generator=g, device=dev)
+    wp = cv.pack_weight_kernel(w, torch.bfloat16)
+    out = cv.conv3d_kernel(x, wp, b)
+    ref = cv.conv3d_plain(x, w.bfloat16(), b)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+    assert torch.equal(out, cv.conv3d_kernel(x, wp, b))
+
+
+@pytest.fixture(scope="module")
+def f32_model_shapes():
+    """The distinct convs of the full-width f32 model at [1, 8, 32, 32, 1]
+    (chip_smoke.py's model phase): forward convs and dx (Cout -> Cin) on
+    the f32 route, and the fused sites with their flags."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
+    from ddpm3d_tpu_torch.models.nn import Conv3x3x3
+
+    shapes = {"conv": set(), "dx": set(), "fused": set()}
+
+    def hook(mod, args, kwargs):
+        _, D, H, W, cin = args[0].shape
+        cout = mod.weight.shape[0]
+        if kwargs.get("fused"):
+            shapes["fused"].add((D, H, W, cin, cout,
+                                 kwargs.get("prologue_g") is not None,
+                                 bool(kwargs.get("prologue_silu", True)),
+                                 kwargs.get("skip") is not None,
+                                 bool(kwargs.get("want_stats", False))))
+            return
+        if cv.conv3d_route(args[0].shape, torch.float32, cout) == "f32":
+            shapes["conv"].add((D, H, W, cin, cout))
+        if cin != 2 and cv.conv3d_route((1, D, H, W, cout), torch.float32,
+                                        cin) == "f32":
+            shapes["dx"].add((D, H, W, cout, cin))
+
+    x = torch.zeros((1, 8, 32, 32, 1), device="cuda")
+    for fused in (False, True):
+        model = _production_f32(fused).cuda()
+        for m in model.modules():
+            if isinstance(m, Conv3x3x3):
+                m.register_forward_pre_hook(hook, with_kwargs=True)
+        with torch.no_grad():
+            model(x, torch.tensor([500], device="cuda"), low_res=x)
+        del model
+    torch.cuda.empty_cache()
+    return {k: sorted(v) for k, v in shapes.items()}
+
+
+def _production_f32(fused):
+    """test_DDPM_3d_tpu.sh's model in f32 (weights random from a seed)."""
+    from ddpm3d_tpu_torch.utils.config import sr_model_and_diffusion_defaults
+
+    args = sr_model_and_diffusion_defaults()
+    args.update(large_size=96, num_channels=128, num_res_blocks=2,
+                learn_sigma=True, use_fp16=False, use_scale_shift_norm=True,
+                resblock_updown=True, attention_resolutions="1000",
+                num_head_channels=64, diffusion_steps=1000,
+                noise_schedule="linear")
+    model = factory.sr_create_model_and_diffusion(**args, fused=fused)[0]
+    init_params(model, seed=0, zero_heads=False)
+    return model.eval()
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_conv3d_f32_at_the_f32_model_shapes(dev, f32_model_shapes, batch):
+    """csrc/conv3d_f32.cu at every distinct forward and dx shape of the f32
+    model, batch 1 and 2, against the plain version (f32, 1e-5), counted on
+    the f32 route; the dx through conv3d_dx with the flipped weight."""
+    g = torch.Generator(device=dev).manual_seed(21 + batch)
+    assert f32_model_shapes["conv"] and f32_model_shapes["dx"]
+    for what, cases in (("conv3d", f32_model_shapes["conv"]),
+                        ("conv3d_dx", f32_model_shapes["dx"])):
+        for D, H, W, cin, cout in cases:
+            x = torch.randn((batch, D, H, W, cin), generator=g, device=dev)
+            before = ops.route_counts()[f"{what}.f32"]
+            if what == "conv3d":
+                w = torch.randn((cout, cin, 3, 3, 3), generator=g,
+                                device=dev) / (27 * cin) ** 0.5
+                b = torch.randn((cout,), generator=g, device=dev)
+                out = cv.conv3d_kernel(x, cv.pack_weight_kernel(
+                    w, torch.float32), b)
+                ref = cv.conv3d_plain(x, w, b)
+            else:  # x is dy (the forward's Cout = cin here)
+                w = torch.randn((cin, cout, 3, 3, 3), generator=g,
+                                device=dev) / (27 * cout) ** 0.5
+                out = cv.conv3d_dx(x, w)
+                ref = cv.conv3d_dx_plain(x, w)
+            assert ops.route_counts()[f"{what}.f32"] == before + 1
+            torch.cuda.synchronize()
+            assert out.shape == ref.shape
+            assert _rel(out, ref) <= TOL[torch.float32], (what, D, H, W,
+                                                          cin, cout)
+
+
+def test_conv3d_fused_f32_at_the_f32_model_sites(dev, f32_model_shapes):
+    """The f32 fused instance at every distinct fused site of the f32
+    model with the site's flags: output (1e-5), stats as the next GroupNorm
+    folds them (1e-4), bit for bit twice and alone against in a batch of 2
+    (the second volume other data)."""
+    assert f32_model_shapes["fused"]
+    for i, (D, H, W, cin, cout, pro, silu, use_skip, stats) in enumerate(
+            f32_model_shapes["fused"]):
+        x, w, b, pg, pb, skip = _fused_inputs(dev, 30 + i, (2, D, H, W, cin),
+                                              cout, torch.float32)
+        kw2 = dict(prologue_silu=silu, want_stats=stats,
+                   skip=skip if use_skip else None)
+        if pro:
+            kw2.update(prologue_g=pg, prologue_b=pb)
+        kw1 = {k: (v[:1].contiguous() if torch.is_tensor(v) else v)
+               for k, v in kw2.items()}
+        x1 = x[:1].contiguous()
+        before = ops.route_counts()["conv3d_fused.f32"]
+        got = fo.conv3d_fused(x1, w, b, **kw1)
+        again = fo.conv3d_fused(x1, w, b, **kw1)
+        both = fo.conv3d_fused(x, w, b, **kw2)
+        assert ops.route_counts()["conv3d_fused.f32"] == before + 3
+        ref = fo.conv3d_fused_plain(x1, w, b, **kw1)
+        torch.cuda.synchronize()
+        if not stats:
+            got, again, both, ref = ((t,) for t in (got, again, both, ref))
+        assert _rel(got[0], ref[0]) <= TOL[torch.float32]
+        for a, c, z in zip(got, again, both):
+            assert torch.equal(a, c) and torch.equal(a, z[:1])
+        if stats:
+            _check_fused_stats(got[1], ref[1], ref[0])
+            ones = torch.ones(cout, device=dev)
+            zeros = torch.zeros(cout, device=dev)
+            N = D * H * W
+            fold = gn.fold_gn_affine(got[1], N, ones, zeros)
+            fold_ref = gn.fold_gn_affine(ref[1], N, ones, zeros)
+            for k_, r_ in zip(fold, fold_ref):
+                assert _rel(k_, r_) <= 1e-4
 
 
 def test_seg_forward_launches_by_route(dev):
@@ -904,8 +1055,8 @@ def test_seg_forward_launches_by_route(dev):
     from ddpm3d_tpu_torch.models import SegUNetModel
 
     want = {"conv3d": 101, "gn_stats": 99, "gn_apply": 99, "conv3d_s8": 0}
-    routes = {"conv3d.sm90": 98, "conv3d.sm90_narrow": 1, "conv3d.ndhwc": 1,
-              "conv3d.f32_head": 1}
+    routes = {"conv3d.sm90": 98, "conv3d.sm90_narrow": 1,
+              "conv3d.sm90_cin1": 1, "conv3d.f32_head": 1}
     x = torch.randn((1, 4, 32, 32, 1), generator=torch.Generator()
                     .manual_seed(0))
     t = torch.tensor([300])

@@ -80,14 +80,14 @@ def test_seg_training_step_matches_jax_grad(fusion):
 # the same routes: every width is a multiple of 8, the head still fits
 # f32_head):
 # the main branch's 72 convs and 71 GroupNorms plus the encoder's 29 convs
-# (its Cin = 1 input conv on the ndhwc route) and 28 GroupNorms; the 1x1
+# (its Cin = 1 input conv on the sm90_cin1 route) and 28 GroupNorms; the 1x1
 # convs (skips, fuse{i}) are matmuls. In int8, the K5 sites: the main
 # branch's 88, the encoder's 28 3x3 + 3 skips, and the fusion's 1x1 sites
 # (15 fuse{i} for cat_conv, the middle block's skip for midcat)
 SEG_LAUNCHES = {
     fusion: {"conv3d": 101, "conv3d_s8": 0, "gn_stats": 99, "gn_apply": 99}
     for fusion in FUSIONS}
-SEG_ROUTES = {"sm90": 98, "sm90_narrow": 1, "ndhwc": 1, "f32_head": 1}
+SEG_ROUTES = {"sm90": 98, "sm90_narrow": 1, "sm90_cin1": 1, "f32_head": 1}
 SEG_INT8_LAUNCHES = {
     "add": {"conv3d": 3, "conv3d_s8": 119, "gn_stats": 99, "gn_apply": 99},
     "cat_conv": {"conv3d": 3, "conv3d_s8": 134, "gn_stats": 99,
@@ -95,7 +95,7 @@ SEG_INT8_LAUNCHES = {
     "midcat": {"conv3d": 3, "conv3d_s8": 120, "gn_stats": 99,
                "gn_apply": 99},
 }
-SEG_INT8_ROUTES = {"sm90_narrow": 1, "ndhwc": 1, "f32_head": 1}
+SEG_INT8_ROUTES = {"sm90_narrow": 1, "sm90_cin1": 1, "f32_head": 1}
 
 
 def production_seg(fusion, model_channels=128, **kw) -> SegUNetModel:
