@@ -147,7 +147,7 @@ Phases (each failure exits non-zero before the final line):
                Cin = 1 conv at batch 1 and 2 of the Seg input; each timed
                at the torso shape (the Cin = 1 conv at the Seg input)
                beside ``F.conv3d`` (TF32 off; cuDNN's data gradient for the
-               dx), its bound and PR 12's kernel on the same inputs
+               dx), its bound and the previous kernel on the same inputs
                (``csrc/conv3d.cu``'s bf16 instance for the Cin = 1 conv;
                the f32 ones with ``--parent-conv``).
 Then the whole run's seconds, the card's name and power limit, one
@@ -1108,7 +1108,7 @@ def _parent_f32_route(lib):
     previous ``csrc/conv3d.cu``'s f32 instance (its ``conv3d_ndhwc_launch``
     on its [27, Cout, Cin] weight, transposed from the packed [27, Cin,
     Cout] per launch, and its tiles), counted on the same route: the f32
-    model as PR 12 ran it."""
+    model as the parent's conv ran it."""
     from ddpm3d_tpu_torch.ops import _build
     from ddpm3d_tpu_torch.ops import conv3d as cv
 
@@ -1144,8 +1144,8 @@ def phase_model_f32_timed(seed: int, conv_parent=None) -> dict:
     card: one forward (no grad) and one training loss with every parameter
     gradient (forward + backward, ``compute_grads``), ms by CUDA events
     (median of 2 after 1 warm-up), launches by route. With ``conv_parent``
-    the same on PR 12's f32 conv (``_parent_f32_route``), in turns: this
-    PR's, the parent's, the parent's, this PR's. Returns the launch counts
+    the same on the parent's f32 conv (``_parent_f32_route``), in turns:
+    this tree's, the parent's, the parent's, this tree's. Returns the launch counts
     of one forward + backward."""
     from ddpm3d_tpu_torch import ops
     from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
@@ -1180,7 +1180,7 @@ def phase_model_f32_timed(seed: int, conv_parent=None) -> dict:
     grads()
     torch.cuda.synchronize()
     counts = dict(ops.launch_counts(), routes=ops.route_counts())
-    turns = ["pr"] + (["parent", "parent", "pr"] if conv_parent else [])
+    turns = ["new"] + (["parent", "parent", "new"] if conv_parent else [])
     result = collections.defaultdict(list)
     torch.cuda.reset_peak_memory_stats()
     for turn in turns:
@@ -3172,7 +3172,7 @@ def phase_conv3d_cu(gen: torch.Generator, shapes: dict,
     (``csrc/conv3d_narrow.cu``'s Cin = 1 instance) at the Seg input at
     batch 1 and 2, each on its route. At F32_TIMED / CIN1_TIMED each is
     timed beside its plain version, one library call (``F.conv3d``, TF32
-    off; cuDNN's data gradient for the dx), its bound and PR 12's kernel on
+    off; cuDNN's data gradient for the dx), its bound and the previous kernel on
     the same inputs: ``csrc/conv3d.cu``'s bf16 instance for the Cin = 1
     conv (unchanged since), the f32 instances of ``conv_parent`` (a
     previous ``csrc/conv3d.cu``) when given. Returns the kernels line's
@@ -3317,7 +3317,7 @@ def phase_conv3d_cu(gen: torch.Generator, shapes: dict,
                 library_ms=time_ms(
                     lambda: F.conv3d(xn, wd, b.to(dt), padding=1)),
                 bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
-                # PR 12's kernel: csrc/conv3d.cu's bf16 instance, unchanged
+                # the previous kernel: csrc/conv3d.cu's bf16 instance, unchanged
                 parent_ms=time_ms(lambda: _general_conv(x, w.to(dt), b)),
                 parent_rel_err=rel_err(_general_conv(x, w.to(dt), b), ref)[1])
             out_lines["conv3d_cin1"] = line
@@ -3810,7 +3810,7 @@ def main() -> None:
             extra["general_ms"] = s["general_ms"]  # the general kernel
         if name in ("conv3d_cin1", "conv3d_f32", "conv3d_f32_dx",
                     "conv3d_fused_f32"):
-            # PR 12's kernel on the same inputs (the f32 ones only with
+            # the previous kernel on the same inputs (the f32 ones only with
             # --parent-conv)
             extra["shape"] = s["shape"] + [s["cout"], s["dtype"]]
             extra["parent_ms"] = s["parent_ms"]
