@@ -130,8 +130,15 @@ Phases (each failure exits non-zero before the final line):
                99 K1, 99 K2), the f32 model
                card vs CPU; in int8 (add, cat_conv) the K5 launches (119,
                134), every site equal to the plain int8 conv on its input,
-               the forward vs bf16; ``seg_denoise``, the denoise phase on the
-               add model; ``seg_train``, two TrainLoop steps of the midcat
+               the forward vs bf16; ``seg_6c``, the two 6-channel aliases
+               (SegModelv2_6c add, SegModelv3_6c cat_conv: a 3-channel
+               conditioner, so input convs of Cin 4 and 3) at the same
+               flags: params, forward ms and peak at batch 1 and 2, 101 /
+               99 / 99 a forward with routes 98 sm90 + 2 sm90_smallcin + 1
+               f32_head (0 ndhwc), the f32 model card vs CPU, int8 119 /
+               134 K5 with every site equal, ``profile_seg_6c`` (the
+               v2_6c forward by family); ``seg_denoise``, the denoise
+               phase on the add model; ``seg_train``, two TrainLoop steps of the midcat
                model; ``calibrate``, the port's int8 calibration tool as a
                subprocess on the production SuperResModel (90 sites, every
                meta key), then ``denoise_int8_calibrated`` on its file (88
@@ -144,7 +151,13 @@ Phases (each failure exits non-zero before the final line):
                every distinct shape of the f32 model phase (forward, fused,
                gradients) and of the f32 Seg models, the fused ones also
                bit for bit twice and alone against in a batch of 2; the
-               Cin = 1 conv at batch 1 and 2 of the Seg input; each timed
+               Cin = 1 conv at batch 1 and 2 of the Seg input; the small-Cin
+               instances (route sm90_smallcin) at every Cin 3 to 7 -> 128
+               at the full patch, batch 1 and 2 (batch 2's first volume
+               bit-equal to batch 1), at ragged shapes and in a dx, timed
+               at Cin 3 and 4 beside F.conv3d and csrc/conv3d.cu's ndhwc
+               kernel (which carried them before), and ndhwc timed at a
+               shape it still takes ([1,96^3,12] -> 128); each timed
                at the torso shape (the Cin = 1 conv at the Seg input)
                beside ``F.conv3d`` (TF32 off; cuDNN's data gradient for the
                dx), its bound and the previous kernel on the same inputs
@@ -232,12 +245,18 @@ KERNELS = {
     "conv3d_fused_f32": dict(
         route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_f32.cu",
         replaces="ddpm3d_tpu/ops/conv3d_fused.py:230"),
+    # the bf16 Cin = 3 to 7 input convs of the 6-channel Seg models
+    # (conv3d_narrow.cu's small-Cin instances)
+    "conv3d_smallcin": dict(
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_narrow.cu",
+        replaces="ddpm3d_tpu/ops/conv3d_mxu.py:203"),
 }
 # the route (ops.route_counts) whose launches are each instance's
 ROUTE_OF = {"conv3d_narrow": "conv3d.sm90_narrow",
             "conv3d_head": "conv3d.f32_head",
             "conv3d_head_dx": "conv3d_dx.f32_narrow",
             "conv3d_cin1": "conv3d.sm90_cin1",
+            "conv3d_smallcin": "conv3d.sm90_smallcin",
             "conv3d_f32": "conv3d.f32",
             "conv3d_f32_dx": "conv3d_dx.f32",
             "conv3d_fused_f32": "conv3d_fused.f32"}
@@ -327,8 +346,8 @@ for _path in SERVING_PATHS:
 # csrc/conv3d_narrow.cu, the f32 head conv on csrc/conv3d_head.cu, none on
 # csrc/conv3d.cu or csrc/conv3d_f32.cu; fused: 8 up/down blocks x 2 on
 # sm90, and every fused conv on the sm90 fused instance (conv3d_fused.sm90)
-CONV_ROUTES = ("sm90", "sm90_narrow", "sm90_cin1", "f32_head", "f32_narrow",
-               "f32", "ndhwc")
+CONV_ROUTES = ("sm90", "sm90_narrow", "sm90_cin1", "sm90_smallcin",
+               "f32_head", "f32_narrow", "f32", "ndhwc")
 
 
 def _routes(sm90, narrow, head, dx_sm90=0, dx_f32_narrow=0, fused_sm90=0):
@@ -641,7 +660,7 @@ def _conv_tile(cv, x, cout, route):
     if route == "f32_head":
         return dict(window=list(cv.head_tile(cout)),
                     segments=cv.head_plan(D, H, W, cout, sms)[2])
-    if route in ("sm90_narrow", "sm90_cin1", "f32_narrow"):
+    if route in cv.NARROW_ROUTES + ("f32_narrow",):
         return None
     if route == "f32":
         return list(cv.pick_tile_f32(D, H, W))
@@ -1518,8 +1537,11 @@ FORWARD_FAMILIES = {
                      "conv3d_sm90_kernelILi1ELb1E",
                      "conv3d_sm90_kernelILi2ELb1E", "fused_stats_finish"),
     "conv3d_sm90": ("conv3d_sm90_kernel",),
-    # the Cin = 1 instance first, so that the Cin = 2 one is conv3d_narrow
+    # the Cin = 1 and Cin = 3 to 7 instances first, so that the Cin = 2
+    # one is conv3d_narrow
     "conv3d_cin1": ("conv3d_narrow_kernel<1>", "conv3d_narrow_kernelILi1E"),
+    "conv3d_smallcin": tuple(f"conv3d_narrow_kernel<{c}>" for c in range(3, 8))
+    + tuple(f"conv3d_narrow_kernelILi{c}E" for c in range(3, 8)),
     "conv3d_narrow": ("conv3d_narrow_kernel",),
     "conv3d_bf16": ("conv3d_bf16_kernel",),
     "conv3d_head": ("conv3d_head_kernel",),
@@ -1554,15 +1576,18 @@ def device_breakdown(prof, families) -> tuple:
 
 
 def phase_profile(model, phase: str = "profile",
-                  families=FORWARD_FAMILIES) -> None:
+                  families=FORWARD_FAMILIES, cond_channels: int = 1) -> None:
     """Device time of one bf16 96^3 forward at batch 1, by kernel family
     (torch.profiler), against the forward's CUDA-event time; and the host's
     time to issue the forward (the call returns before the card is done:
-    near the forward's time, the host holds the card back)."""
+    near the forward's time, the host holds the card back). The
+    conditioner is x itself, or ``cond_channels`` channels of its own."""
     x = torch.randn((1, 96, 96, 96, 1), device="cuda")
+    low = x if cond_channels == 1 else torch.randn(
+        (1, 96, 96, 96, cond_channels), device="cuda")
     t = torch.tensor([500], device="cuda")
     with torch.no_grad():
-        prof = time_and_profile(lambda: model(x, t, low_res=x), families,
+        prof = time_and_profile(lambda: model(x, t, low_res=low), families,
                                 reps=3, warmup=1, host_reps=3, top=6)
     emit({"phase": phase, "forward_ms": prof.pop("ms"), "batch": 1, **prof})
 
@@ -2671,15 +2696,17 @@ def _attention_model(use_fp16: bool, seed: int, fused: bool = False):
     return model.eval()
 
 
-def _one_forward_counts(model, x, t) -> dict:
-    """The launch counts (and routes) of one forward after a warm-up."""
+def _one_forward_counts(model, x, t, low=None) -> dict:
+    """The launch counts (and routes) of one forward after a warm-up (the
+    conditioner ``low``, default x)."""
     from ddpm3d_tpu_torch import ops
 
+    low = x if low is None else low
     with torch.no_grad():
-        model(x, t, low_res=x)
+        model(x, t, low_res=low)
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        model(x, t, low_res=x)
+        model(x, t, low_res=low)
         torch.cuda.synchronize()
     return dict(ops.launch_counts(), routes=ops.route_counts())
 
@@ -3011,6 +3038,14 @@ SEG_LAUNCHES = {"conv3d": 101, "conv3d_dx": 0, "conv3d_fused": 0,
 SEG_ROUTES = dict(_routes(98, 1, 1), **{"conv3d.sm90_cin1": 1})
 SEG_INT8_S8 = {"add": 119, "cat_conv": 134, "midcat": 120}
 SEG_INT8_ROUTES = dict(_routes(0, 1, 1), **{"conv3d.sm90_cin1": 1})
+# the 6-channel aliases (a 3-channel conditioner): the same launches, both
+# input convs (the main branch's Cin = 4, the encoder's Cin = 3) on the
+# small-Cin instances, none on ndhwc; in int8 both stay K3 (in0_0), K5 as
+# the 1-channel model of their fusion
+SEG_6C_MODELS = ("SegModelv2_6c", "SegModelv3_6c")  # add, cat_conv
+SEG_6C_COND = 3
+SEG_6C_ROUTES = dict(_routes(98, 0, 1), **{"conv3d.sm90_smallcin": 2})
+SEG_6C_INT8_ROUTES = dict(_routes(0, 0, 1), **{"conv3d.sm90_smallcin": 2})
 FORWARD_LAUNCHES["seg_denoise"] = SEG_LAUNCHES
 FORWARD_ROUTES["seg_denoise"] = SEG_ROUTES
 # a training step of the midcat model: its forward, and the dx of every
@@ -3056,6 +3091,22 @@ def _seg_model(fusion: str, use_fp16: bool, seed: int, int8=None):
     return model.eval()
 
 
+def _seg_6c_model(name: str, use_fp16: bool, seed: int):
+    """A 6-channel Seg alias (``SegModelv2_6c``, ``SegModelv3_6c``: its
+    default 3-channel conditioner) at _seg_model's flags, random weights
+    from ``seed``, on the CPU."""
+    from ddpm3d_tpu_torch import models
+    from ddpm3d_tpu_torch.models.nn import init_params
+
+    model = getattr(models, name)(
+        in_channels=1, model_channels=128, out_channels=2,
+        num_res_blocks=2, channel_mult=(1, 1, 2, 3, 4),
+        use_scale_shift_norm=True, resblock_updown=True,
+        dtype=torch.bfloat16 if use_fp16 else torch.float32)
+    init_params(model, seed=seed, zero_heads=False)
+    return model.eval()
+
+
 def seg_path_shapes(seed: int) -> tuple:
     """Every distinct conv and GroupNorm shape of one bf16 96^3 forward of
     each Seg model, and every distinct int8 site of the add and cat_conv
@@ -3081,6 +3132,19 @@ def seg_path_shapes(seed: int) -> tuple:
 # conv), the Cin = 1 conv at the Seg encoder's input; (D, H, W, Cin, Cout)
 F32_TIMED = (96, 96, 96, 128, 128)
 CIN1_TIMED = (96, 96, 96, 1, 128)
+# the small-Cin instances: every Cin 3 to 7 -> 128 at the full patch, the
+# 6-channel Seg models' input convs (the encoder's Cin = 3, the main
+# branch's Cin = 4) timed; ragged volumes, Cout < 128 and past one column
+# tile ((B, D, H, W, Cin), Cout); a dx through the route (dy [B, D, H, W,
+# Cin] of a conv Cout -> Cin, Cout); ndhwc timed at a bf16 shape it still
+# takes (Cin > 8, not a multiple of 8)
+SMALLCIN_VOLUME = (96, 96, 96, 128)
+SMALLCIN_TIMED = (3, 4)
+SMALLCIN_RAGGED = (((2, 5, 7, 9, 3), 40), ((1, 4, 8, 8, 5), 130),
+                   ((1, 1, 1, 3, 7), 16), ((2, 3, 5, 6, 6), 128),
+                   ((1, 6, 12, 12, 4), 3))
+SMALLCIN_DX = ((1, 96, 48, 48, 4), 128)
+NDHWC_TIMED = (96, 96, 96, 12, 128)
 
 
 def f32_path_shapes(seed: int) -> dict:
@@ -3175,9 +3239,10 @@ def phase_conv3d_cu(gen: torch.Generator, shapes: dict,
     off; cuDNN's data gradient for the dx), its bound and the previous kernel on
     the same inputs: ``csrc/conv3d.cu``'s bf16 instance for the Cin = 1
     conv (unchanged since), the f32 instances of ``conv_parent`` (a
-    previous ``csrc/conv3d.cu``) when given. Returns the kernels line's
-    entries ``conv3d_f32``, ``conv3d_f32_dx``, ``conv3d_fused_f32`` and
-    ``conv3d_cin1``."""
+    previous ``csrc/conv3d.cu``) when given. Then the small-Cin instances
+    (``_smallcin_rows``). Returns the kernels line's entries
+    ``conv3d_f32``, ``conv3d_f32_dx``, ``conv3d_fused_f32``,
+    ``conv3d_cin1`` and ``conv3d_smallcin``."""
     from ddpm3d_tpu_torch.ops import conv3d as cv
     from ddpm3d_tpu_torch.ops import conv3d_fused as fo
     from ddpm3d_tpu_torch.ops import groupnorm as gn
@@ -3326,10 +3391,145 @@ def phase_conv3d_cu(gen: torch.Generator, shapes: dict,
         check(rel <= TOL[dt], f"conv3d_cin1 {line['shape']} rel err {rel}")
         checked["conv3d_cin1"] += 1
         del x, out, ref
+    out_lines["conv3d_smallcin"] = _smallcin_rows(gen, checked)
     for name in out_lines:
         out_lines[name]["shapes_checked"] = checked[name]
     emit({"phase": "conv3d_cu", "shapes_checked": dict(checked)})
     return out_lines
+
+
+def _bf16_conv_times(x, w, b, cout) -> dict:
+    """A bf16 conv's kernel (its route), plain and ``F.conv3d`` ms on the
+    same inputs, its bytes, FLOP and bound."""
+    from ddpm3d_tpu_torch.ops import conv3d as cv
+
+    dt = torch.bfloat16
+    B, D, H, W, cin = x.shape
+    wp, wd, xn = cv.pack_weight_kernel(w, dt), w.to(dt), x.permute(0, 4, 1, 2, 3)
+    vox = B * D * H * W
+    flops = 2.0 * 27 * cin * cout * vox
+    nbytes = 2.0 * (vox * (cin + cout) + 27 * cin * cout) + 4 * cout
+    bms, by = bound(flops, nbytes, dt)
+    return dict(
+        kernel_ms=time_ms(lambda: cv.conv3d_kernel(x, wp, b)),
+        plain_ms=time_ms(lambda: cv.conv3d_plain(x, wd, b), reps=3,
+                         warmup=1),
+        library_ms=time_ms(lambda: F.conv3d(xn, wd, b.to(dt), padding=1)),
+        bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
+
+
+def _smallcin_rows(gen: torch.Generator, checked) -> dict:
+    """The small-Cin instances (``csrc/conv3d_narrow.cu``, route
+    sm90_smallcin) against ``conv3d_plain``: every Cin 3 to 7 -> 128 at the
+    full patch at batch 1 and 2 (batch 2's first volume is batch 1's: the
+    same bits), the ragged SMALLCIN_RAGGED and the dx SMALLCIN_DX; at
+    SMALLCIN_TIMED each timed beside its plain version, ``F.conv3d`` and
+    ``csrc/conv3d.cu``'s ndhwc kernel on the same inputs (the kernel that
+    carried them before, ``parent_ms``); ndhwc timed again at NDHWC_TIMED,
+    a shape it still takes. Returns the kernels line's entry (the Cin = 4
+    row, the Cin = 3 row and the ndhwc row beside)."""
+    from ddpm3d_tpu_torch import ops
+    from ddpm3d_tpu_torch.ops import conv3d as cv
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    D, H, W, cout = SMALLCIN_VOLUME
+
+    def inputs(shape, cout):
+        cin = shape[-1]
+        x = torch.randn(shape, generator=gen, device=dev).to(dt)
+        w = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev)
+             * (27 * cin) ** -0.5)
+        b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+        return x, w, b
+
+    timed = {}
+    for cin in range(3, cv.NARROW_MAX_CIN + 1):
+        x, w, b = inputs((1, D, H, W, cin), cout)
+        check(cv.conv3d_route(x.shape, dt, cout) == "sm90_smallcin",
+              f"bf16 Cin = {cin} runs the narrow kernel's small-Cin instance")
+        wp, wd = cv.pack_weight_kernel(w, dt), w.to(dt)
+        x2 = torch.cat([x, torch.randn(x.shape, generator=gen,
+                                       device=dev).to(dt)])
+        ops.reset_launch_counts()
+        out, out2 = cv.conv3d_kernel(x, wp, b), cv.conv3d_kernel(x2, wp, b)
+        routes = {k: v for k, v in ops.route_counts().items() if v}
+        ref, ref2 = cv.conv3d_plain(x, wd, b), cv.conv3d_plain(x2, wd, b)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        err2, rel2 = rel_err(out2, ref2)
+        line = dict(kernel="conv3d_smallcin", route="conv3d.sm90_smallcin",
+                    shape=[1, D, H, W, cin], cout=cout, dtype="bfloat16",
+                    max_abs_err=max(err, err2), rel_err=rel,
+                    rel_err_batch2=rel2, tol=TOL[dt],
+                    batch2_equal=bool(torch.equal(out2[:1], out)),
+                    routes=routes)
+        if cin in SMALLCIN_TIMED:
+            line.update(_bf16_conv_times(x, w, b, cout))
+            # the previous kernel: csrc/conv3d.cu's ndhwc, unchanged
+            line["parent_ms"] = time_ms(lambda: _general_conv(x, wd, b))
+            line["parent_rel_err"] = rel_err(_general_conv(x, wd, b), ref)[1]
+            timed[cin] = line
+        emit(line)
+        check(routes == {"conv3d.sm90_smallcin": 2},
+              f"smallcin Cin = {cin} routes {routes}")
+        check(bool(torch.isfinite(out2.float()).all()),
+              f"conv3d_smallcin Cin = {cin} finite")
+        check(max(rel, rel2) <= TOL[dt],
+              f"conv3d_smallcin Cin = {cin} rel err {rel}, batch 2 {rel2}")
+        check(line["batch2_equal"],
+              f"conv3d_smallcin Cin = {cin}: batch 2 equals batch 1")
+        checked["conv3d_smallcin"] += 2
+        del x, x2, out, out2, ref, ref2
+
+    for shape, n in SMALLCIN_RAGGED:
+        x, w, b = inputs(shape, n)
+        wp = cv.pack_weight_kernel(w, dt)
+        out = cv.conv3d_kernel(x, wp, b)
+        err, rel = rel_err(out, cv.conv3d_plain(x, w.to(dt), b))
+        repeat = bool(torch.equal(out, cv.conv3d_kernel(x, wp, b)))
+        emit(dict(kernel="conv3d_smallcin", shape=list(shape), cout=n,
+                  dtype="bfloat16", max_abs_err=err, rel_err=rel,
+                  tol=TOL[dt], repeat_equal=repeat))
+        check(rel <= TOL[dt] and repeat,
+              f"conv3d_smallcin {list(shape)}->{n} rel err {rel}, "
+              f"repeat equal {repeat}")
+        checked["conv3d_smallcin"] += 1
+
+    shape, n = SMALLCIN_DX  # dy of a conv n -> Cin, Cin on the route
+    dy, w, _ = inputs(shape, n)  # w: (n, Cin, ...), the dx's (out, in)
+    wf = w.transpose(0, 1).contiguous()  # the forward's (Cin, n) weight
+    check(cv.conv3d_route(dy.shape, dt, n) == "sm90_smallcin",
+          "the dx of a conv to Cin = 4 runs the small-Cin instance")
+    ops.reset_launch_counts()
+    dx = cv.conv3d_dx_kernel(dy, cv.pack_weight_dx(wf, dt))
+    dx_routes = {k: v for k, v in ops.route_counts().items() if v}
+    err, rel = rel_err(dx, cv.conv3d_dx_plain(dy, wf))
+    emit(dict(kernel="conv3d_smallcin_dx", shape=list(shape), cout=n,
+              dtype="bfloat16", max_abs_err=err, rel_err=rel, tol=TOL[dt],
+              routes=dx_routes))
+    check(dx_routes == {"conv3d_dx.sm90_smallcin": 1} and rel <= TOL[dt],
+          f"conv3d_smallcin dx rel err {rel}, routes {dx_routes}")
+    checked["conv3d_smallcin"] += 1
+    del dy, dx
+
+    # what ndhwc costs now, at a shape no other kernel takes
+    Dn, Hn, Wn, cin, n = NDHWC_TIMED
+    x, w, b = inputs((1, Dn, Hn, Wn, cin), n)
+    check(cv.conv3d_route(x.shape, dt, n) == "ndhwc",
+          f"bf16 Cin = {cin} stays on ndhwc")
+    err, rel = rel_err(cv.conv3d_kernel(x, cv.pack_weight_kernel(w, dt), b),
+                       cv.conv3d_plain(x, w.to(dt), b))
+    ndhwc = dict(kernel="conv3d_ndhwc", route="conv3d.ndhwc",
+                 shape=[1, Dn, Hn, Wn, cin], cout=n, dtype="bfloat16",
+                 max_abs_err=err, rel_err=rel, tol=TOL[dt],
+                 **_bf16_conv_times(x, w, b, n))
+    emit(ndhwc)
+    check(rel <= TOL[dt], f"ndhwc Cin = {cin} rel err {rel}")
+    del x
+    keep = ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "parent_ms", "rel_err")
+    return dict(timed[4], cin3={k: timed[3][k] for k in keep},
+                ndhwc=ndhwc)
 
 
 def _int8_sites_equal(card, cpu, x, low, t):
@@ -3357,32 +3557,45 @@ def _int8_sites_equal(card, cpu, x, low, t):
     return out, len(io), unequal
 
 
-def phase_seg(seed: int) -> dict:
-    """The three Seg models at full width, bf16, 96^3: parameter count,
-    forward ms and peak memory at batch 1 and 2, launches per forward by
-    kernel and route (exactly SEG_LAUNCHES / SEG_ROUTES); each f32 model
-    on the card against the CPU (MODEL_TOL); the add model's forward by
-    kernel family (``profile_seg``). Then int8 (add, cat_conv):
-    K5 launches per forward (the JAX-derived site count), every site's
-    output equal to the plain int8 conv on its own input (the f32 int8
-    model, card against CPU), the bf16 int8 forward against bf16
-    (INT8_FORWARD_TOL). Returns {path: one forward's counts} ("seg": add,
-    "seg_int8": add in int8)."""
-    from ddpm3d_tpu_torch import ops
+def phase_seg(seed: int, phase: str = "seg") -> dict:
+    """The three Seg models (``phase`` "seg") or the two 6-channel aliases
+    (``phase`` "seg_6c": SegModelv2_6c, SegModelv3_6c with a 3-channel
+    conditioner, so input convs of Cin 4 and 3) at full width, bf16, 96^3:
+    parameter count, forward ms and peak memory at batch 1 and 2, launches
+    per forward by kernel and route (exactly SEG_LAUNCHES and SEG_ROUTES /
+    SEG_6C_ROUTES); each f32 model on the card against the CPU
+    (MODEL_TOL); the first model's forward by kernel family
+    (``profile_<phase>``). Then int8 (all but midcat): K5 launches per
+    forward (the JAX-derived site count of the fusion), K3 on
+    SEG_INT8_ROUTES / SEG_6C_INT8_ROUTES, every site's output equal to the
+    plain int8 conv on its own input (the f32 int8 model, card against
+    CPU), the bf16 int8 forward against bf16 (INT8_FORWARD_TOL). Returns
+    {path: one forward's counts} (``phase``: the first model,
+    ``<phase>_int8``: it in int8)."""
     from ddpm3d_tpu_torch.ops import quant
 
+    if phase == "seg_6c":
+        models, cond = SEG_6C_MODELS, SEG_6C_COND
+        routes_want, int8_routes_want = SEG_6C_ROUTES, SEG_6C_INT8_ROUTES
+        build = _seg_6c_model
+    else:
+        models, cond = SEG_FUSIONS, 1
+        routes_want, int8_routes_want = SEG_ROUTES, SEG_INT8_ROUTES
+        build = _seg_model
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x1 = torch.randn((1, 96, 96, 96, 1), device="cuda", generator=gen)
+    low1 = x1 if cond == 1 else torch.randn(
+        (1, 96, 96, 96, cond), device="cuda", generator=gen)
     t1 = torch.tensor([500], device="cuda")
     rng = np.random.default_rng(seed)
     xs = torch.from_numpy(rng.standard_normal((1, 8, 32, 32, 1), np.float32))
-    lows = torch.from_numpy(rng.standard_normal((1, 8, 32, 32, 1),
+    lows = torch.from_numpy(rng.standard_normal((1, 8, 32, 32, cond),
                                                 np.float32))
     ts = torch.tensor([517])
     paths = {}
-    for fusion in SEG_FUSIONS:
-        model = _seg_model(fusion, True, seed).cuda()
-        counts = _one_forward_counts(model, x1, t1)
+    for i, name in enumerate(models):
+        model = build(name, True, seed).cuda()
+        counts = _one_forward_counts(model, x1, t1, low1)
         routes = counts["routes"]
         launched = {k: v for k, v in counts.items() if k != "routes"}
         by_batch = {}
@@ -3390,46 +3603,54 @@ def phase_seg(seed: int) -> dict:
             for B in (1, 2):
                 x = torch.randn((B, 96, 96, 96, 1), device="cuda",
                                 generator=gen)
+                low = x if cond == 1 else torch.randn(
+                    (B, 96, 96, 96, cond), device="cuda", generator=gen)
                 t = torch.full((B,), 500, device="cuda")
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                ms = time_ms(lambda: model(x, t, low_res=x), reps=3,
+                ms = time_ms(lambda: model(x, t, low_res=low), reps=3,
                              warmup=1)
                 by_batch[B] = {"forward_ms": ms, "max_memory_allocated_gb":
                                torch.cuda.max_memory_allocated() / 2 ** 30}
-            ref16 = model(x1, t1, low_res=x1).float()
-        m32 = _seg_model(fusion, False, seed)
+            del x, low
+            ref16 = model(x1, t1, low_res=low1).float()
+        m32 = build(name, False, seed)
         with torch.no_grad():
             ref = m32(xs, ts, low_res=lows)
             out = copy.deepcopy(m32).cuda()(
                 xs.cuda(), ts.cuda(), low_res=lows.cuda()).cpu()
         f32_rel = rel_err(out, ref)[1]
-        line = {"phase": "seg", "fusion": fusion, "model": "SegUNetModel, "
-                "128 ch, (1,1,2,3,4), 2 res blocks, bf16 torso",
+        kind = "SegUNetModel" if phase == "seg" else name
+        line = {"phase": phase, "fusion": model.fusion, "model": f"{kind}, "
+                f"128 ch, (1,1,2,3,4), 2 res blocks, {cond}-channel "
+                "conditioner, bf16 torso",
                 "params": sum(p.numel() for p in model.parameters()),
                 "patch": 96, "launches_per_forward": launched,
                 "routes_per_forward": {k: v for k, v in routes.items() if v},
                 "by_batch": by_batch,
                 "f32_model": {"shape": list(xs.shape),
+                              "cond_shape": list(lows.shape),
                               "rel_err_vs_cpu": f32_rel, "tol": MODEL_TOL,
                               "ref_abs_max": ref.abs().max().item()}}
         check(launched == SEG_LAUNCHES,
-              f"seg {fusion} launches per forward {launched}")
-        check(routes == SEG_ROUTES, f"seg {fusion} conv routes {routes}")
-        check(ref.abs().max().item() > 1e-3, f"f32 seg {fusion} non-trivial")
-        check(f32_rel <= MODEL_TOL, f"f32 seg {fusion} card vs CPU {f32_rel}")
-        check(bool(torch.isfinite(ref16).all()), f"seg {fusion} finite")
-        if fusion == "add":
-            paths["seg"] = counts
-            # device time by kernel family (the encoder's Cin = 1 input
-            # conv is conv3d_cin1) and the host's issue time
-            phase_profile(model, phase="profile_seg")
-        if fusion != "midcat":
+              f"{phase} {name} launches per forward {launched}")
+        check(routes == routes_want, f"{phase} {name} conv routes {routes}")
+        check(ref.abs().max().item() > 1e-3,
+              f"f32 {phase} {name} non-trivial")
+        check(f32_rel <= MODEL_TOL,
+              f"f32 {phase} {name} card vs CPU {f32_rel}")
+        check(bool(torch.isfinite(ref16).all()), f"{phase} {name} finite")
+        if i == 0:
+            paths[phase] = counts
+            # device time by kernel family and the host's issue time
+            phase_profile(model, phase=f"profile_{phase}",
+                          cond_channels=cond)
+        if model.fusion != "midcat":
             model.set_int8(quant.Int8Config())
-            counts8 = _one_forward_counts(model, x1, t1)
+            counts8 = _one_forward_counts(model, x1, t1, low1)
             with torch.no_grad():
-                out8 = model(x1, t1, low_res=x1).float()
-                ms8 = time_ms(lambda: model(x1, t1, low_res=x1), reps=3,
+                out8 = model(x1, t1, low_res=low1).float()
+                ms8 = time_ms(lambda: model(x1, t1, low_res=low1), reps=3,
                               warmup=1)
             int8_rel = rel_err(out8, ref16)[1]
             m32.set_int8(quant.Int8Config())
@@ -3437,6 +3658,7 @@ def phase_seg(seed: int) -> dict:
             out32, n_sites, unequal = _int8_sites_equal(card, m32, xs, lows,
                                                         ts)
             del card
+            n_s8 = SEG_INT8_S8[model.fusion]
             line["int8"] = {
                 "launches_per_forward": {k: v for k, v in counts8.items()
                                          if k != "routes"},
@@ -3445,18 +3667,18 @@ def phase_seg(seed: int) -> dict:
                 "forward_ms_batch1": ms8,
                 "forward_vs_bf16_rel": int8_rel, "tol": INT8_FORWARD_TOL,
                 "sites_checked": n_sites, "sites_unequal": unequal}
-            check(counts8["conv3d_s8"] == SEG_INT8_S8[fusion],
-                  f"seg {fusion} int8: {counts8['conv3d_s8']} K5 launches")
+            check(counts8["conv3d_s8"] == n_s8,
+                  f"{phase} {name} int8: {counts8['conv3d_s8']} K5 launches")
             check(counts8["conv3d"] == 3 and counts8["routes"]
-                  == SEG_INT8_ROUTES, f"seg {fusion} int8 K3 {counts8}")
-            check(n_sites == SEG_INT8_S8[fusion] and not unequal,
-                  f"seg {fusion} int8 sites unequal: {unequal}")
+                  == int8_routes_want, f"{phase} {name} int8 K3 {counts8}")
+            check(n_sites == n_s8 and not unequal,
+                  f"{phase} {name} int8 sites unequal: {unequal}")
             check(bool(torch.isfinite(out8).all() and torch.isfinite(
-                out32).all()), f"seg {fusion} int8 finite")
+                out32).all()), f"{phase} {name} int8 finite")
             check(int8_rel <= INT8_FORWARD_TOL,
-                  f"seg {fusion} int8 vs bf16 rel {int8_rel}")
-            if fusion == "add":
-                paths["seg_int8"] = counts8
+                  f"{phase} {name} int8 vs bf16 rel {int8_rel}")
+            if i == 0:
+                paths[f"{phase}_int8"] = counts8
         emit(line)
         del model, m32
         torch.cuda.empty_cache()
@@ -3749,6 +3971,7 @@ def main() -> None:
     del guided
     torch.cuda.empty_cache()
     seg_counts = phase_seg(args.seed)
+    seg_counts.update(phase_seg(args.seed, phase="seg_6c"))
     seg_add = _seg_model("add", True, args.seed).cuda()
     seg_counts["seg_denoise"] = phase_denoise(
         seg_add, sched, cfg, args.seed, phase="seg_denoise")[0]
@@ -3786,6 +4009,7 @@ def main() -> None:
         main_path = {"conv3d_fused": "denoise_fused",
                      "conv3d_s8": "denoise_int8",
                      "conv3d_cin1": "seg",
+                     "conv3d_smallcin": "seg_6c",
                      "conv3d_f32": "model",
                      "conv3d_f32_dx": "model_grads",
                      "conv3d_fused_f32": "model_fused"}.get(name, "train")
@@ -3808,8 +4032,13 @@ def main() -> None:
             extra["parent_ms"] = s.get("parent_ms")
         if name in ("conv3d_narrow", "conv3d_head", "conv3d_head_dx"):
             extra["general_ms"] = s["general_ms"]  # the general kernel
+        if name == "conv3d_smallcin":  # the Cin = 3 row, ndhwc at Cin = 12
+            extra["cin3"] = s["cin3"]
+            extra["ndhwc"] = {k: s["ndhwc"][k] for k in (
+                "shape", "cout", "kernel_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "rel_err")}
         if name in ("conv3d_cin1", "conv3d_f32", "conv3d_f32_dx",
-                    "conv3d_fused_f32"):
+                    "conv3d_fused_f32", "conv3d_smallcin"):
             # the previous kernel on the same inputs (the f32 ones only with
             # --parent-conv)
             extra["shape"] = s["shape"] + [s["cout"], s["dtype"]]

@@ -3,7 +3,8 @@
 ``ddpm3d_tpu_torch/csrc/conv3d_s8.cu``, with ``--head`` the f32 head conv
 and its dx ``ddpm3d_tpu_torch/csrc/conv3d_head.cu``, with ``--f32`` the f32
 torso conv, its fused instance and its dx ``ddpm3d_tpu_torch/csrc/
-conv3d_f32.cu``.
+conv3d_f32.cu``, with ``--smallcin`` the bf16 Cin = 3 to 7 instances of
+``ddpm3d_tpu_torch/csrc/conv3d_narrow.cu``.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -13,6 +14,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 conv3d_sm90_study.py --f32 [--against OLD_CONV3D.cu]
     python3 conv3d_sm90_study.py --fused [--against OLD_CONV3D.cu]
                                          [--against-gn OLD_GROUPNORM.cu]
+    python3 conv3d_sm90_study.py --smallcin
 
 Writes the committed source's ablations (and ``--against`` another version
 of the source, same C entry point, for an A/B in one run on one card) to
@@ -103,6 +105,15 @@ flight per thread), rows per split halved and doubled, beside
 ``torch.var_mean`` and ``--against-gn`` (a previous
 ``csrc/groupnorm.cu``, two launches), and a plain 16-byte read of the same
 bytes (``torch.sum`` over the tensor) as the practical read rate.
+
+With ``--smallcin`` the small-Cin instances at [1,96^3,Cin] -> 128 for
+Cin 3, 4, 5 and 7: as committed (``base``: K = Cin * tap + ci, folded),
+``tappad`` (each tap padded to an even width with a zero weight column,
+K = (Cin + 1) * tap + ci: more K at odd Cin, the same 2-byte loads),
+``noglobal`` (A from the k table's offsets, no device-memory gather) and
+``nostore`` (the epilogue stages its rows but stores nothing), beside
+``F.conv3d``, csrc/conv3d.cu's ndhwc kernel on the same inputs and a
+``fill_`` of the output's bytes (the card's practical store rate).
 Imports no JAX.
 """
 
@@ -149,6 +160,16 @@ S8_STAGE = "if (r >= rows) continue;  // only the tile's rows fit the stage"
 S8_STORE = "if (r >= rows || n >= s.N) continue;"
 S8_TMA_STORE = "if (threadIdx.x == 128 && nc < s.N) {"
 NEVER = " || acc[0][0] != 0x7fffffff)"  # a condition the compiler keeps
+
+# the same of csrc/conv3d_narrow.cu's small-Cin instances
+NARROW_KPAD = "  static constexpr int kKpad = (kTaps * kCin + 15) / 16 * 16;"
+NARROW_TABLE = """      if (k < kTaps * kCin) {
+        tap = k / kCin;
+        off = static_cast<int>(tap_offset(s, tap)) * kCin + k % kCin;
+      }"""
+NARROW_HALF = "  return __ldg(x + r.m * kCin + off);"
+NARROW_WORD = "  return __ldg(x + ((r.m * kCin + off) >> 1));"
+NARROW_STORE = "      if (m >= s.M || col >= s.Cout) continue;"
 
 
 def _anchors(src: str, parts) -> None:
@@ -977,6 +998,82 @@ def main_f32(against) -> None:
     print(json.dumps(line), flush=True)
 
 
+def variants_smallcin(src: str) -> dict:
+    """{name: source text} of the small-Cin study (see the module note)."""
+    _anchors(src, (NARROW_KPAD, NARROW_TABLE, NARROW_HALF, NARROW_WORD,
+                   NARROW_STORE))
+    tappad = src.replace(NARROW_KPAD, (
+        "  static constexpr int kCinK = kCin >= 3 && kCin % 2 ? kCin + 1 "
+        ": kCin;\n  static constexpr int kKpad = (kTaps * kCinK + 15) / 16 "
+        "* 16;")).replace(NARROW_TABLE, """      if (k < kTaps * N::kCinK && k % N::kCinK < kCin) {
+        tap = k / N::kCinK;
+        off = static_cast<int>(tap_offset(s, tap)) * kCin + k % N::kCinK;
+      }""")
+    offsets = "  return static_cast<unsigned>(off);"
+    return {
+        "smallcin_base": src,
+        "smallcin_tappad": tappad,
+        "smallcin_noglobal": src.replace(NARROW_HALF, offsets).replace(
+            NARROW_WORD, offsets),
+        "smallcin_nostore": src.replace(NARROW_STORE, NARROW_STORE.replace(
+            ") continue;", " ||\n          acc[0] != 1.2345e-30f) continue;")),
+    }
+
+
+def main_smallcin() -> None:
+    """The small-Cin instances at [1,96^3,Cin] -> 128 (see the module
+    note)."""
+    with open(os.path.join(ROOT, "ddpm3d_tpu_torch", "csrc",
+                           "conv3d_narrow.cu")) as f:
+        fns = build(variants_smallcin(f.read()), "conv3d_narrow_launch")
+    ndhwc = _build.fn("conv3d_ndhwc_launch")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    warm(gen)
+    stream = torch.cuda.current_stream().cuda_stream
+    for cin in (3, 4, 5, 7):
+        shape, cout = (1, 96, 96, 96, cin), 128
+        x, w, b = inputs(gen, shape, cout)
+        wd = w.bfloat16()
+        y = torch.empty(shape[:-1] + (cout,), dtype=x.dtype, device="cuda")
+        packed = {name: cv.pack_weight_narrow(w, torch.bfloat16)
+                  for name in fns}
+        packed["smallcin_tappad"] = cv.pack_weight_narrow(
+            F.pad(w, (0, 0, 0, 0, 0, 0, 0, cin % 2)), torch.bfloat16)
+
+        def run(name):
+            err = fns[name](x.data_ptr(), packed[name].data_ptr(),
+                            b.data_ptr(), y.data_ptr(), *shape[:4], cin,
+                            cout, stream)
+            _build.check(err, "conv3d_narrow_launch")
+            return y
+
+        def run_ndhwc():
+            wp = cv.pack_weight(wd, torch.bfloat16)
+            err = ndhwc(x.data_ptr(), wp.data_ptr(), b.data_ptr(),
+                        y.data_ptr(), *shape[:4], cin, cout,
+                        *cv.pick_tile(*shape[1:4]), 1, stream)
+            _build.check(err, "conv3d_ndhwc_launch")
+            return y
+
+        ref = cv.conv3d_plain(x, wd, b).float()
+        line = dict(shape=list(shape), cout=cout, kpad=cv.narrow_k(cin),
+                    store_bound_ms=2.0 * y.numel() / 3.35e12 * 1e3)
+        for name in fns:  # the ablations compute wrong results
+            out = run(name).float()
+            line[f"{name}_rel_err"] = ((out - ref).abs().max()
+                                       / ref.abs().max()).item()
+        xn = x.permute(0, 4, 1, 2, 3)
+        runs = {**{name: (lambda n=name: run(n)) for name in fns},
+                "ndhwc": run_ndhwc,
+                "F.conv3d": lambda: F.conv3d(xn, wd, b.bfloat16(),
+                                             padding=1),
+                "fill": lambda: y.fill_(1.0)}
+        for _ in range(3):  # rounds, in turns
+            for name, fn in runs.items():
+                line.setdefault(name, []).append(time_ms(fn))
+        print(json.dumps(line), flush=True)
+
+
 def warm(gen) -> None:
     x, w, _ = inputs(gen, (1, 96, 96, 96, 128), 128)
     for _ in range(50):  # warm the card to its loaded clock
@@ -1003,6 +1100,9 @@ def main() -> None:
     ap.add_argument("--f32", action="store_true",
                     help="study the f32 conv (csrc/conv3d_f32.cu): plain, "
                          "fused and dx")
+    ap.add_argument("--smallcin", action="store_true",
+                    help="study the bf16 Cin = 3 to 7 instances of "
+                         "csrc/conv3d_narrow.cu")
     ap.add_argument("--against-gn",
                     help="with --fused: a previous csrc/groupnorm.cu")
     args = ap.parse_args()
@@ -1015,6 +1115,10 @@ def main() -> None:
             against = f.read()
     if args.s8:
         main_s8(against)
+        smi()
+        return
+    if args.smallcin:
+        main_smallcin()
         smi()
         return
     if args.fused:

@@ -1,7 +1,9 @@
 // Stride-1 SAME 3x3x3 convolution in bf16, channels-last (NDHWC
 // activations), for Hopper (sm_90a): the bf16 convs that no other kernel
-// takes (Cin neither 1, 2 nor a multiple of 8, or rows that are not 16-byte
-// strided).
+// takes, Cin above 8 and not a multiple of 8 (rows that are not 16-byte
+// strided, so TMA cannot stage them). No model of the port or of the JAX
+// package runs such a conv: every bf16 Cin of 1 to 7 runs
+// csrc/conv3d_narrow.cu, every multiple of 8 csrc/conv3d_sm90.cu.
 //
 // Replaces the TPU kernel ddpm3d_tpu/ops/conv3d_mxu.py:_conv_kernel (reached
 // through conv3d_mxu) at those shapes. Same function:
@@ -31,7 +33,7 @@
 //    what lets one staged halo tile serve all 27 shifted taps.
 //  * Bias is added in f32 in the epilogue; rows outside the volume or the
 //    tile and columns past Cout are masked there.
-// The bf16 torso convs run csrc/conv3d_sm90.cu, the Cin = 1 and 2 input
+// The bf16 torso convs run csrc/conv3d_sm90.cu, the Cin = 1 to 7 input
 // convs csrc/conv3d_narrow.cu, the f32 convs csrc/conv3d_f32.cu and
 // csrc/conv3d_head.cu.
 
@@ -155,7 +157,7 @@ __device__ __forceinline__ void stage_halo_bf16(
       const __nv_bfloat16* src = ok ? x + vox * s.Cin + ci : x;
       cp_async16(sA + v * kLds + part * 8, src, ok);
     }
-  } else {  // narrow Cin (the 2-channel input conv)
+  } else {  // Cin not a multiple of 8: one element at a time
     for (int i = threadIdx.x; i < t.halo * kBK; i += kThreads) {
       const int v = i / kBK, k = i % kBK;
       const int ci = ci0 + k;

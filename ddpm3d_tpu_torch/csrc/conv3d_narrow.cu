@@ -1,34 +1,49 @@
-// Stride-1 SAME 3x3x3 convolution in bf16 with Cin = 1 or 2, channels-last,
+// Stride-1 SAME 3x3x3 convolution in bf16 with Cin = 1 to 7, channels-last,
 // for Hopper (sm_90a): the model's input conv, [x_t, low_res] -> the
-// model's channels (Cin = 2), and the Seg encoder's input conv (Cin = 1),
-// on wgmma with the 27 taps folded into K.
+// model's channels (Cin = 2), the Seg encoder's input conv (Cin = 1) and,
+// in the 6-channel Seg models (a 3-channel conditioner), the main branch's
+// (Cin = 4) and the encoder's (Cin = 3) input convs, on wgmma with the 27
+// taps folded into K.
 //
 // Replaces the TPU kernel ddpm3d_tpu/ops/conv3d_mxu.py:_conv_kernel at Cin =
-// 1 and 2 (the conv3d_mxu calls of those first layers). Same function as
+// 1 to 7 (the conv3d_mxu calls of those first layers). Same function as
 // csrc/conv3d_sm90.cu: zero padding, bf16 products summed in f32, the f32
 // bias, one rounding to bf16.
 //
 // Bound on the H100: bytes, and almost all of them stored. Per voxel the
 // conv reads 2 * Cin bytes and writes 2 * Cout (256 at Cout = 128); its
-// 54 * Cin * Cout FLOP are ~0.5 FLOP per byte or less. The torso kernel
-// cannot take it (TMA needs 16-byte strides; a voxel is 2 or 4 bytes), and
-// padding Cin to a chunk per tap would run 27 x 32 or more K for 27 * Cin
-// useful. So:
-//  1. K = tap * Cin + ci: 54 of one 64-wide chunk at Cin = 2, 27 of one
-//     32-wide chunk at Cin = 1 (the rest zeros). The weight, packed
-//     [Cout][32 * Cin] bf16 (ops/conv3d.py:pack_weight_narrow), is one [128][64]
-//     tile (16 KB; at Cin = 1 its k >= 32 are zero and never read) per
-//     column tile, loaded once per block into shared memory with the
-//     128-byte swizzle, read by wgmma as B.
+// 54 * Cin * Cout FLOP are 53 FLOP per byte at Cin = 2 and 179 at Cin = 7
+// (Cout = 128), under the ~295 the card's bf16 rate needs. The torso kernel
+// cannot take it (TMA needs 16-byte strides; a voxel is 2 to 14 bytes),
+// and padding Cin to a chunk per tap would run 27 x 16 or more K for 27 *
+// Cin useful (csrc/conv3d.cu's mma.sync kernel does: 75-80 % of its K are
+// zeros at Cin = 3 and 4). So:
+//  1. K = tap * Cin + ci, padded with zeros to Kpad, a multiple of 16: 32
+//     at Cin = 1, 64 at Cin = 2, then 96, 112, 144, 176 and 192 for Cin =
+//     3 to 7. The weight, packed [Cout][Kpad] bf16
+//     (ops/conv3d.py:pack_weight_narrow), is staged as [128][64] tiles (16
+//     KB each, one per 64 of K, at most 48 KB) per column tile, loaded once
+//     per block into shared memory with the 128-byte swizzle, read by wgmma
+//     as B (k >= Kpad of the last tile are zero and never read).
 //  2. A from registers, gathered straight from device memory: a wgmma A
 //     fragment register holds k = 2j, 2j + 1 of a row. At Cin = 2 that is
 //     tap j of that voxel, one aligned 4-byte word; at Cin = 1 it is taps
 //     2j and 2j + 1, two voxels apart in memory, so two 2-byte loads packed
-//     into one word (low half tap 2j). Each thread loads its 2 rows x 8
-//     registers per 64-row slice, zero outside the volume (the SAME
-//     padding); neighbouring rows share them through L1.
-//  3. 2 * Cin wgmma.mma_async m64n128k16 (RS) per 64-row slice (four at
-//     Cin = 2, two at Cin = 1), one warpgroup per block, several blocks per
+//     into one word (low half tap 2j). At Cin = 3 to 7 a table in shared
+//     memory, built once per block, gives each k its offset from the row's
+//     voxel (in elements) and its tap (27 for the padding k). At even Cin
+//     (4, 6) k = 2j and 2j + 1 are two channels of one tap, one aligned
+//     4-byte load; at odd Cin (3, 5, 7) the voxel is not word-aligned and a
+//     tap's last channel pairs with the next tap's first, so two 2-byte
+//     loads. Padding each tap to an even width instead (Cin = 3 -> 4, K =
+//     108 -> 112) would not save a load at odd Cin (a voxel of 3 channels
+//     starts at an odd element every other voxel, so the pair is still not
+//     a word) and would add wgmma K (at Cin = 5: 176 -> 192), so K stays
+//     folded. Each thread loads its 2 rows x Kpad / 8 registers per 64-row
+//     slice, zero outside the volume (the SAME padding); neighbouring rows
+//     share them through L1.
+//  3. Kpad / 16 wgmma.mma_async m64n128k16 (RS) per 64-row slice (2 at Cin
+//     = 1 up to 12 at Cin = 7), one warpgroup per block, several blocks per
 //     SM, each walking slices of the flattened voxels (grid-stride), so one
 //     block's loads overlap another's stores.
 //  4. Epilogue: + f32 bias (the block's 128 values kept in shared memory
@@ -50,7 +65,18 @@ constexpr int kThreads = 128;           // one warpgroup
 constexpr int kRows = 64;               // rows per slice (one m64 tile)
 constexpr int kWBytes = kBN * kK * 2;   // the weight tile, 16 KB
 constexpr int kStageRow = kBN * 2;      // staged output row, 256 bytes
-constexpr int kSmem = 1024 + kWBytes + kRows * kStageRow + kBN * 4;
+
+// The instance for Cin: its K padded to a multiple of 16, its weight tiles
+// and its dynamic shared memory (alignment slack, weight tiles, staged
+// output rows, bias and, at Cin >= 3, the k table of 8 bytes a k)
+template <int kCin>
+struct Narrow {
+  static constexpr int kKpad = (kTaps * kCin + 15) / 16 * 16;
+  static constexpr int kTiles = (kKpad + kK - 1) / kK;
+  static constexpr int kTable = kCin >= 3 ? kKpad * 8 : 0;
+  static constexpr int kSmem =
+      1024 + kTiles * kWBytes + kRows * kStageRow + kBN * 4 + kTable;
+};
 
 struct Shape {
   int D, H, W, Cout;
@@ -95,21 +121,36 @@ struct RowAt {
   unsigned ok;  // bit kd*9 + kh*3 + kw: tap inside the volume
 };
 
+// The coordinates by 32-bit division while the voxels fit (64-bit division
+// is a long software sequence, paid twice a slice per thread), and the 27
+// tap bits as the AND of three masks: the taps of depth offset kd are bits
+// 9 kd .. 9 kd + 8 (kD << 9 kd), of row offset kh bits 3 kh + 9 i (kH <<
+// 3 kh), of column offset kw bits kw + 3 i (kW << kw).
 __device__ __forceinline__ RowAt row_at(const Shape& s, int64_t m) {
   RowAt r{-1, 0u};
   if (m >= s.M) return r;
   r.m = m;
-  const int w = static_cast<int>(m % s.W);
-  const int h = static_cast<int>((m / s.W) % s.H);
-  const int d = static_cast<int>((m / (static_cast<int64_t>(s.W) * s.H)) % s.D);
-  // per axis, bit k set when offset k - 1 stays inside
-  const unsigned vd = 2u | (d > 0 ? 1u : 0u) | (d + 1 < s.D ? 4u : 0u);
-  const unsigned vh = 2u | (h > 0 ? 1u : 0u) | (h + 1 < s.H ? 4u : 0u);
-  const unsigned vw = 2u | (w > 0 ? 1u : 0u) | (w + 1 < s.W ? 4u : 0u);
-#pragma unroll
-  for (int t = 0; t < kTaps; ++t)
-    if ((vd >> (t / 9)) & (vh >> ((t / 3) % 3)) & (vw >> (t % 3)) & 1u)
-      r.ok |= 1u << t;
+  int w, h, d;
+  if (s.M <= 0xffffffffll) {
+    const uint32_t mm = static_cast<uint32_t>(m);
+    const uint32_t q = mm / static_cast<uint32_t>(s.W);
+    w = static_cast<int>(mm - q * s.W);
+    const uint32_t q2 = q / static_cast<uint32_t>(s.H);
+    h = static_cast<int>(q - q2 * s.H);
+    d = static_cast<int>(q2 % static_cast<uint32_t>(s.D));
+  } else {
+    w = static_cast<int>(m % s.W);
+    h = static_cast<int>((m / s.W) % s.H);
+    d = static_cast<int>((m / (static_cast<int64_t>(s.W) * s.H)) % s.D);
+  }
+  constexpr unsigned kD = 0x1ffu, kH = 0x1c0e07u, kW = 0x1249249u;
+  const unsigned md =
+      (d > 0 ? kD : 0u) | kD << 9 | (d + 1 < s.D ? kD << 18 : 0u);
+  const unsigned mh =
+      (h > 0 ? kH : 0u) | kH << 3 | (h + 1 < s.H ? kH << 6 : 0u);
+  const unsigned mw =
+      (w > 0 ? kW : 0u) | kW << 1 | (w + 1 < s.W ? kW << 2 : 0u);
+  r.ok = md & mh & mw;
   return r;
 }
 
@@ -142,18 +183,40 @@ __device__ __forceinline__ unsigned tap_pair(const Shape& s,
   return tap_half(s, x, r, t) | (tap_half(s, x, r, t + 1) << 16);
 }
 
+// Cin >= 3: the element at offset `off` from row r's voxel (its bf16 bits)
+// if tap `tap` of the row lies inside the volume (tap 27, a padding k,
+// never does), else 0.
+template <int kCin>
+__device__ __forceinline__ unsigned k_half(const uint16_t* __restrict__ x,
+                                           const RowAt& r, int off, int tap) {
+  if (!((r.ok >> tap) & 1u)) return 0u;
+  return __ldg(x + r.m * kCin + off);
+}
+
+// Cin >= 3, even: k and k + 1 (channels ci, ci + 1 of one tap, ci even) of
+// row r as one aligned word.
+template <int kCin>
+__device__ __forceinline__ unsigned k_word(const uint32_t* __restrict__ x,
+                                           const RowAt& r, int off, int tap) {
+  if (!((r.ok >> tap) & 1u)) return 0u;
+  return __ldg(x + ((r.m * kCin + off) >> 1));
+}
+
 template <int kCin>
 __global__ void __launch_bounds__(kThreads)
     conv3d_narrow_kernel(const void* __restrict__ xv,
                          const __nv_bfloat16* __restrict__ w,
                          const float* __restrict__ bias,
                          __nv_bfloat16* __restrict__ y, const Shape s) {
-  constexpr int kKC = 32 * kCin;  // the packed weight's row: K, padded
+  using N = Narrow<kCin>;
+  constexpr int kKC = N::kKpad;  // the packed weight's row: K, padded
   extern __shared__ unsigned char smem_raw[];
   const uint32_t wt = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const uint32_t stage = wt + kWBytes + warp * 16 * kStageRow;
-  const uint32_t btab = wt + kWBytes + kRows * kStageRow;  // bias, f32
+  const uint32_t rows = wt + N::kTiles * kWBytes;  // the staged output
+  const uint32_t stage = rows + warp * 16 * kStageRow;
+  const uint32_t btab = rows + kRows * kStageRow;  // bias, f32
+  const uint32_t ktab = btab + kBN * 4;  // Cin >= 3: (offset, tap) per k
   const int n0 = blockIdx.y * kBN;
   {
     const int n = n0 + threadIdx.x;  // kThreads == kBN
@@ -163,17 +226,34 @@ __global__ void __launch_bounds__(kThreads)
                  : "memory");
   }
 
-  // the weight tile: row n (column n0 + n) at n * 128, piece j at j ^ (n &
-  // 7); pieces past the packed row (Cin = 1: j >= 4) are zero
-  for (int i = threadIdx.x; i < kBN * 8; i += kThreads) {
-    const int n = i >> 3, j = i & 7;
+  // the weight tiles: tile tt holds k = 64 tt .. 64 tt + 63, row n (column
+  // n0 + n) at n * 128, piece j at j ^ (n & 7); pieces past the packed row
+  // (Cin = 1: j >= 4 of the one tile) are zero
+  for (int i = threadIdx.x; i < N::kTiles * kBN * 8; i += kThreads) {
+    const int tt = i / (kBN * 8), n = (i >> 3) % kBN, j = i & 7;
+    const int k = tt * kK + j * 8;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (n0 + n < s.Cout && j < kKC / 8)
-      v = __ldg(reinterpret_cast<const uint4*>(w + (n0 + n) * kKC) + j);
+    if (n0 + n < s.Cout && k < kKC)
+      v = __ldg(reinterpret_cast<const uint4*>(
+          w + static_cast<int64_t>(n0 + n) * kKC + k));
     asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                     wt + n * 128 + ((j ^ (n & 7)) << 4)),
+                     wt + tt * kWBytes + n * 128 + ((j ^ (n & 7)) << 4)),
                  "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
                  : "memory");
+  }
+  if constexpr (kCin >= 3) {
+    // k = Cin * tap + ci -> (offset of (tap, ci) from a row's voxel in
+    // elements, tap); the padding k -> (0, 27)
+    for (int k = threadIdx.x; k < kKC; k += kThreads) {
+      int off = 0, tap = kTaps;
+      if (k < kTaps * kCin) {
+        tap = k / kCin;
+        off = static_cast<int>(tap_offset(s, tap)) * kCin + k % kCin;
+      }
+      asm volatile("st.shared.v2.s32 [%0], {%1, %2};\n" ::"r"(ktab + 8 * k),
+                   "r"(off), "r"(tap)
+                   : "memory");
+    }
   }
   // generic-proxy writes, read by wgmma through the async proxy
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -187,11 +267,36 @@ __global__ void __launch_bounds__(kThreads)
     const RowAt r0 = row_at(s, m0 + g), r1 = row_at(s, m0 + g + 8);
     // fragment ks: a0 / a1 = k 16ks + 2tq, +1 of rows g / g + 8, a2 / a3
     // the k 8 further. Cin = 2: k = 2 * tap + ci, one word per tap; Cin =
-    // 1: k = tap, two taps per word
+    // 1: k = tap, two taps per word; Cin >= 3: k = Cin * tap + ci by the
+    // table, one word (even Cin) or two halves (odd Cin) per register
     unsigned a[kKC / 16][4];
 #pragma unroll
     for (int ks = 0; ks < kKC / 16; ++ks) {
-      if constexpr (kCin == 2) {
+      if constexpr (kCin >= 3 && kCin % 2 == 0) {
+        const uint32_t* x = static_cast<const uint32_t*>(xv);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int off, tap;
+          asm volatile("ld.shared.v2.s32 {%0, %1}, [%2];\n"
+                       : "=r"(off), "=r"(tap)
+                       : "r"(ktab + 8 * (16 * ks + 2 * tq + 8 * h)));
+          a[ks][2 * h] = k_word<kCin>(x, r0, off, tap);
+          a[ks][2 * h + 1] = k_word<kCin>(x, r1, off, tap);
+        }
+      } else if constexpr (kCin >= 3) {
+        const uint16_t* x = static_cast<const uint16_t*>(xv);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int off0, tap0, off1, tap1;  // k and k + 1
+          asm volatile("ld.shared.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=r"(off0), "=r"(tap0), "=r"(off1), "=r"(tap1)
+                       : "r"(ktab + 8 * (16 * ks + 2 * tq + 8 * h)));
+          a[ks][2 * h] = k_half<kCin>(x, r0, off0, tap0) |
+                         (k_half<kCin>(x, r0, off1, tap1) << 16);
+          a[ks][2 * h + 1] = k_half<kCin>(x, r1, off0, tap0) |
+                             (k_half<kCin>(x, r1, off1, tap1) << 16);
+        }
+      } else if constexpr (kCin == 2) {
         const uint32_t* x = static_cast<const uint32_t*>(xv);
         const int t = 8 * ks + tq;
         a[ks][0] = tap_word(s, x, r0, t);
@@ -212,8 +317,9 @@ __global__ void __launch_bounds__(kThreads)
     fence_acc(acc);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < kKC / 16; ++ks)
-      wgmma_m64n128k16_rs(acc, a[ks], db + 2 * ks);
+    for (int ks = 0; ks < kKC / 16; ++ks)  // tile ks / 4, 32 bytes a step
+      wgmma_m64n128k16_rs(acc, a[ks],
+                          db + (kWBytes >> 4) * (ks >> 2) + 2 * (ks & 3));
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc);
@@ -272,16 +378,18 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// x [B, D, H, W, Cin] bf16 with Cin = 1 (2-byte aligned) or 2 (4-byte
-// aligned), w packed [Cout][32 * Cin] bf16 (16-byte aligned), bias f32
+// x [B, D, H, W, Cin] bf16 with Cin = 1 to 7 (4-byte aligned at even Cin,
+// 2-byte at odd), w packed [Cout][Kpad] bf16 (16-byte aligned), bias f32
 // [Cout] or NULL, y [B, D, H, W, Cout] bf16. Returns a cudaError_t.
 int conv3d_narrow_launch(const void* x, const void* w, const float* bias,
                          void* y, int B, int D, int H, int W, int Cin,
                          int Cout, void* stream_ptr) {
-  if (B <= 0 || D <= 0 || H <= 0 || W <= 0 || Cout <= 0 ||
-      (Cin != 1 && Cin != 2) ||
-      reinterpret_cast<uintptr_t>(x) % (2 * Cin) != 0 ||
+  if (B <= 0 || D <= 0 || H <= 0 || W <= 0 || Cout <= 0 || Cin < 1 ||
+      Cin > 7 || reinterpret_cast<uintptr_t>(x) % (Cin % 2 ? 2 : 4) != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the k table's offsets are ints: (H W + W + 1) Cin must fit
+  if ((static_cast<int64_t>(H) * W + W + 1) * Cin > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   Shape s;
   s.D = D; s.H = H; s.W = W; s.Cout = Cout;
@@ -289,20 +397,32 @@ int conv3d_narrow_launch(const void* x, const void* w, const float* bias,
   const int64_t slices = (s.M + kRows - 1) / kRows;
   if (slices > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   s.slices = static_cast<int>(slices);
-  auto kernel = Cin == 2 ? conv3d_narrow_kernel<2> : conv3d_narrow_kernel<1>;
+  void (*kernel)(const void*, const __nv_bfloat16*, const float*,
+                 __nv_bfloat16*, const Shape) = nullptr;
+  int smem = 0;
+  switch (Cin) {
+#define NARROW_CASE(c)                                  \
+  case c:                                               \
+    kernel = conv3d_narrow_kernel<c>;                   \
+    smem = Narrow<c>::kSmem;                            \
+    break;
+    NARROW_CASE(1) NARROW_CASE(2) NARROW_CASE(3) NARROW_CASE(4)
+    NARROW_CASE(5) NARROW_CASE(6) NARROW_CASE(7)
+#undef NARROW_CASE
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, kSmem);
+                                                      kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int sms = sm_count(&err);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t fill = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   const dim3 grid(static_cast<unsigned>(s.slices < fill ? s.slices : fill),
                   (Cout + kBN - 1) / kBN);
-  kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream_ptr)>>>(
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
       x, static_cast<const __nv_bfloat16*>(w), bias,
       static_cast<__nv_bfloat16*>(y), s);
   return static_cast<int>(cudaGetLastError());

@@ -2,10 +2,10 @@
 
 * :mod:`.conv3d` — stride-1 SAME 3x3x3 conv, forward and the dx of its
   backward: ``csrc/conv3d_sm90.cu`` (bf16, wgmma/TMA),
-  ``csrc/conv3d_narrow.cu`` (bf16, Cin = 1 or 2: the input convs),
+  ``csrc/conv3d_narrow.cu`` (bf16, Cin = 1 to 7: the input convs),
   ``csrc/conv3d_head.cu`` (f32 with Cout <= 8: the head conv; f32 with Cin
   = 2: the head's dx), ``csrc/conv3d_f32.cu`` (the other f32 convs, FFMA)
-  or ``csrc/conv3d.cu`` (bf16 with another narrow Cin), by
+  or ``csrc/conv3d.cu`` (bf16 with Cin > 8 not a multiple of 8), by
   :func:`.conv3d.conv3d_route`;
 * :mod:`.conv3d_fused` — the fused ResBlock conv (GN/FiLM/SiLU prologue,
   bias/skip epilogue, next-GN stats): bf16 on the fused instance of

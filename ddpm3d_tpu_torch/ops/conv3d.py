@@ -15,6 +15,11 @@ route :func:`conv3d_route` picks:
   * ``"sm90_cin1"``, the same source's Cin = 1 instance: the Seg encoder's
     input conv. K = tap, 27 of one 32-wide chunk, two ``wgmma`` per 64
     rows; a register of A pairs taps 2j and 2j + 1 of one voxel;
+  * ``"sm90_smallcin"``, the same source's Cin = 3 to 7 instances: the
+    6-channel Seg models' input convs (Cin = 4 and 3). K = Cin * tap + ci
+    padded to a multiple of 16 (:func:`narrow_k`), Kpad / 16 ``wgmma`` per
+    64 rows; A is gathered through a per-block table of each k's offset
+    and tap (:func:`narrow_fragment_taps`);
   * ``"f32_head"``, ``csrc/conv3d_head.cu``: f32 with Cout <= 8, the model's
     head conv (128 -> 2). FFMA; a block walks a segment of D under a 32 x TW
     window of (H, W), staging each input plane once and keeping rolling
@@ -28,7 +33,9 @@ route :func:`conv3d_route` picks:
     the halo staged once per 8-channel chunk, the weights
     (:func:`pack_weight_f32`, [27, Cin, Cout]) streamed in tap rows through
     a ring of cp.async stages (:func:`pick_tile_f32`);
-  * ``"ndhwc"``, ``csrc/conv3d.cu``: bf16 with any other Cin, ``mma.sync``.
+  * ``"ndhwc"``, ``csrc/conv3d.cu``: bf16 with Cin > 8 and not a multiple
+    of 8 (rows TMA cannot stride), ``mma.sync``; no model of the port or of
+    the JAX package runs such a conv.
 Each source note says what bounds its kernel and what its design does about
 that (the narrow bf16 conv is bound by the bytes it stores, the others by
 operations).
@@ -67,8 +74,8 @@ dx_launches = 0
 # the same launches by route (see ops.route_counts): "conv3d.<route>" and
 # "conv3d_dx.<route>" for each of ROUTES
 route_launches: Dict[str, int] = {}
-ROUTES = ("sm90", "sm90_narrow", "sm90_cin1", "f32_head", "f32_narrow",
-          "f32", "ndhwc")
+ROUTES = ("sm90", "sm90_narrow", "sm90_cin1", "sm90_smallcin", "f32_head",
+          "f32_narrow", "f32", "ndhwc")
 
 MAX_ROWS = 128   # output voxels per block (csrc/conv3d.cu kMaxRows)
 MAX_HALO = 640   # staged halo voxels per block (kMaxHalo)
@@ -83,10 +90,13 @@ SM90_BN = 128          # output channels per tile (kBN)
 SM90_STAGES = 4        # weight ring (kStages)
 SM90_SMEM_LIMIT = 232448  # dynamic shared memory a block may use (H100)
 
-# csrc/conv3d_narrow.cu: the taps folded into one K chunk (the packed
-# weight's row, 32 * Cin): Cin = 2 and Cin = 1
+# csrc/conv3d_narrow.cu: the taps folded into K = 27 * Cin, padded to a
+# multiple of 16 (the packed weight's row, narrow_k): Cin = 2 and Cin = 1;
+# Cin = 3 to 7 (the sm90_smallcin route) take 96 to 192
 NARROW_K = 64
 NARROW_K1 = 32
+NARROW_MAX_CIN = 7
+NARROW_ROUTES = ("sm90_narrow", "sm90_cin1", "sm90_smallcin")
 
 # csrc/conv3d_f32.cu
 F32_THREADS = 256     # threads per block, two blocks per SM
@@ -120,12 +130,13 @@ def pack_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def narrow_k(cin: int) -> int:
-    """The narrow kernel's folded K for Cin = 1 or 2 (its packed row)."""
-    return NARROW_K if cin == 2 else NARROW_K1
+    """The narrow kernel's folded K for Cin = 1 to 7 (its packed row): 27 *
+    Cin padded to a multiple of 16 (32, 64, 96, 112, 144, 176, 192)."""
+    return -(-27 * cin // 16) * 16
 
 
 def pack_weight_narrow(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(Cout, Cin, 3, 3, 3) with Cin = 1 or 2 -> the narrow kernel's [Cout,
+    """(Cout, Cin, 3, 3, 3) with Cin = 1 to 7 -> the narrow kernel's [Cout,
     narrow_k(Cin)] layout in ``dtype``: column k = Cin * tap + ci with tap =
     9 kd + 3 kh + kw, zeros from k = 27 * Cin on."""
     cout, cin = weight.shape[:2]
@@ -136,15 +147,15 @@ def pack_weight_narrow(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
 def narrow_fragment_taps(cin: int, ks: int, tq: int, reg: int):
     """What ``csrc/conv3d_narrow.cu`` loads into register ``reg`` (0..3) of
     A fragment ``ks`` for lane position ``tq`` (lane % 4): the (tap, ci) of
-    its low and high bf16 halves. Cin = 2: tap 8 ks + tq (+ 4 for reg 2,
-    3), channels 0 and 1 (one word); Cin = 1: taps 16 ks + 2 tq and the
-    next (+ 8 for reg 2, 3), two voxels apart (two 2-byte loads). Rows:
+    its low and high bf16 halves, k = 16 ks + 2 tq (+ 8 for reg 2, 3) and k
+    + 1 with k = Cin * tap + ci. Cin = 2: one tap's channels 0 and 1 (one
+    word); Cin = 1: taps k and k + 1, two voxels apart (two 2-byte loads);
+    Cin = 3 to 7 through the kernel's k table: one word at even Cin, two
+    2-byte loads at odd Cin (a tap's last channel pairs with the next
+    tap's first). A tap from 27 on is a padding k, loaded as zero. Rows:
     reg 0 and 2 hold row g, 1 and 3 row g + 8 (g = lane / 4)."""
-    if cin == 2:
-        t = 8 * ks + tq + (4 if reg >= 2 else 0)
-        return (t, 0), (t, 1)
-    t = 16 * ks + 2 * tq + (8 if reg >= 2 else 0)
-    return (t, 0), (t + 1, 0)
+    k = 16 * ks + 2 * tq + (8 if reg >= 2 else 0)
+    return divmod(k, cin), divmod(k + 1, cin)
 
 
 def pack_weight_f32(weight: torch.Tensor) -> torch.Tensor:
@@ -183,7 +194,7 @@ def pack_weight_kernel(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     """The layout that the kernel of :func:`conv3d_route` takes for a conv
     with this (Cout, Cin, 3, 3, 3) weight in ``dtype``."""
     route = conv3d_route(weight.shape[1:2], dtype, weight.shape[0])
-    if route in ("sm90_narrow", "sm90_cin1"):
+    if route in NARROW_ROUTES:
         return pack_weight_narrow(weight, dtype)
     if route == "f32":
         return pack_weight_f32(weight)
@@ -337,12 +348,15 @@ def conv3d_route(x_shape, dtype: torch.dtype, cout: int) -> str:
     0, whose rows TMA can stage (16-byte strides); ``"sm90_narrow"``
     (``csrc/conv3d_narrow.cu``) for bf16 with Cin = 2, the input conv, and
     ``"sm90_cin1"`` (its Cin = 1 instance) for bf16 with Cin = 1, the Seg
-    encoder's input conv; ``"f32_narrow"`` (``csrc/conv3d_head.cu``) for f32
+    encoder's input conv, and ``"sm90_smallcin"`` (its Cin = 3 to 7
+    instances) for bf16 with Cin 3 to 7, the 6-channel Seg models' input
+    convs; ``"f32_narrow"`` (``csrc/conv3d_head.cu``) for f32
     with Cin = 2, the head's dx; ``"f32_head"`` (``csrc/conv3d_head.cu``)
     for f32 with Cout <= 8, Cin % 4 == 0 (16-byte rows) and a weight that
     fits the block's shared memory, the head conv; ``"f32"``
     (``csrc/conv3d_f32.cu``) for the other f32 convs; ``"ndhwc"``
-    (``csrc/conv3d.cu``) for bf16 with any other Cin."""
+    (``csrc/conv3d.cu``) for bf16 with any other Cin (above 8 and not a
+    multiple of 8)."""
     cin = x_shape[-1]
     if dtype == torch.bfloat16:
         if cin % 8 == 0:
@@ -351,6 +365,8 @@ def conv3d_route(x_shape, dtype: torch.dtype, cout: int) -> str:
             return "sm90_narrow"
         if cin == 1:
             return "sm90_cin1"
+        if 3 <= cin <= NARROW_MAX_CIN:
+            return "sm90_smallcin"
     elif dtype == torch.float32:
         if cin == 2:
             return "f32_narrow"
@@ -518,8 +534,7 @@ def check_kernel_inputs(x: torch.Tensor, w_packed: torch.Tensor, what: str,
     cout = packed_cout(w_packed)
     route = route or conv3d_route(x.shape, x.dtype, cout)
     expect = {
-        "sm90_narrow": (cout, NARROW_K),
-        "sm90_cin1": (cout, NARROW_K1),
+        **{r: (cout, narrow_k(cin)) for r in NARROW_ROUTES},
         "f32_narrow": (cout, F32_NARROW_K),
         "f32_head": (cin // 4, 27, 4, cout),
         "f32": (27, cin, cout),
@@ -557,9 +572,10 @@ def _launch(
         err = _build.fn(name)(
             x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
             B, D, H, W, cin, cout, *sm90_tile(B, D, H, W, cout, sms), stream)
-    elif route in ("sm90_narrow", "sm90_cin1"):
-        if x.data_ptr() % (2 * cin) or w_packed.data_ptr() % 16:
-            raise ValueError(f"conv3d_narrow takes {2 * cin}-byte-aligned x "
+    elif route in NARROW_ROUTES:
+        x_align = 4 if cin % 2 == 0 else 2  # a word of two channels, or one
+        if x.data_ptr() % x_align or w_packed.data_ptr() % 16:
+            raise ValueError(f"conv3d_narrow takes {x_align}-byte-aligned x "
                              "and a 16-byte-aligned weight")
         name = "conv3d_narrow_launch"
         err = _build.fn(name)(

@@ -1,6 +1,6 @@
 """Host-side rules of the port's 3x3x3 conv (ddpm3d_tpu_torch.ops.conv3d):
 which kernel takes which conv (``csrc/conv3d_sm90.cu`` for the torso,
-``csrc/conv3d_narrow.cu`` for the bf16 Cin = 2 input conv,
+``csrc/conv3d_narrow.cu`` for the bf16 input convs of Cin 1 to 7,
 ``csrc/conv3d_head.cu`` for the f32 head conv and its dx), the tiles and
 work items of the Hopper kernel ``csrc/conv3d_sm90.cu``, and the windows
 and D segments of the head kernel. Pure Python, on the CPU; the kernels
@@ -113,7 +113,8 @@ def test_training_dx_takes_the_sm90_kernel(main_path_convs):
     ((1, 4, 8, 8, 40), torch.float32, 9, "f32"),  # past the head's Cout
     ((1, 4, 8, 8, 6), torch.float32, 2, "f32"),  # rows not 16-byte strided
     ((1, 4, 8, 8, 1024), torch.float32, 8, "f32"),  # weight past the smem
-    ((1, 4, 8, 8, 3), torch.bfloat16, 8, "ndhwc"),  # other narrow Cin
+    ((1, 4, 8, 8, 3), torch.bfloat16, 8, "sm90_smallcin"),  # Cin 3 to 7
+    ((1, 4, 8, 8, 12), torch.bfloat16, 8, "ndhwc"),  # Cin > 8, not 8k
     ((1, 4, 8, 8, 130), torch.bfloat16, 8, "ndhwc"),  # rows not 16-byte strided
     ((1, 4, 8, 8, 128), torch.float32, 128, "f32"),  # f32 models' torso
 ])

@@ -879,7 +879,7 @@ def test_guidance_gradient_matches_cpu(dev, dims):
 
 
 @pytest.mark.parametrize("batch", [1, 2])
-def test_ndhwc_conv_takes_bf16_cin1(dev, batch):
+def test_sm90_cin1_conv_takes_bf16_cin1(dev, batch):
     """The Seg encoder's input conv: bf16 with Cin = 1 (2-byte rows: the
     Cin = 1 instance of csrc/conv3d_narrow.cu, route sm90_cin1, a register
     of A pairing taps 2j and 2j + 1) against conv3d_plain at the full
@@ -919,6 +919,99 @@ def test_conv3d_cin1_matches_plain(dev, shape, cout):
     torch.cuda.synchronize()
     assert _rel(out, ref) <= TOL[torch.bfloat16]
     assert torch.equal(out, cv.conv3d_kernel(x, wp, b))
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("cin", [3, 4, 5, 6, 7])
+def test_conv3d_smallcin_matches_plain(dev, cin, batch):
+    """bf16 Cin 3 to 7 (the 6-channel Seg models' input convs are Cin 4 and
+    3) on csrc/conv3d_narrow.cu's small-Cin instances, route
+    sm90_smallcin, none on ndhwc, against conv3d_plain at the full patch
+    within one bf16 rounding; the last volume alone gives the same bits."""
+    g = torch.Generator(device=dev).manual_seed(10 * cin + batch)
+    x = torch.randn((batch, 96, 96, 96, cin), generator=g,
+                    device=dev).bfloat16()
+    w = (torch.randn((128, cin, 3, 3, 3), generator=g, device=dev)
+         / (27 * cin) ** 0.5)
+    b = torch.randn((128,), generator=g, device=dev) * 0.1
+    assert cv.conv3d_route(x.shape, x.dtype, 128) == "sm90_smallcin"
+    wp = cv.pack_weight_kernel(w, x.dtype)
+    assert wp.shape == (128, cv.narrow_k(cin))
+    ops.reset_launch_counts()
+    out = cv.conv3d_kernel(x, wp, b)
+    assert ops.route_counts()["conv3d.sm90_smallcin"] == 1
+    assert ops.route_counts()["conv3d.ndhwc"] == 0
+    ref = cv.conv3d_plain(x, w.bfloat16(), b)
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+    assert torch.equal(out[-1:], cv.conv3d_kernel(x[-1:].contiguous(), wp, b))
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 5, 7, 9, 3), 40),      # ragged volume, batch 2, Cout < 128
+    ((1, 4, 8, 8, 5), 130),     # Cout past one 128-column tile, ragged
+    ((1, 1, 1, 3, 7), 16),      # every tap but a few in the padding
+    ((2, 3, 5, 6, 6), 128),
+    ((1, 6, 12, 12, 4), 3),     # Cout 3: a narrow output too
+])
+def test_conv3d_smallcin_ragged_matches_plain(dev, shape, cout):
+    """The small-Cin instances at ragged shapes: one bf16 rounding of the
+    plain version, the same bits on a repeat."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    cin = shape[-1]
+    x = torch.randn(shape, generator=g, device=dev).bfloat16()
+    w = torch.randn((cout, cin, 3, 3, 3), generator=g,
+                    device=dev) / (27 * cin) ** 0.5
+    b = torch.randn((cout,), generator=g, device=dev)
+    wp = cv.pack_weight_kernel(w, torch.bfloat16)
+    out = cv.conv3d_kernel(x, wp, b)
+    ref = cv.conv3d_plain(x, w.bfloat16(), b)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+    assert torch.equal(out, cv.conv3d_kernel(x, wp, b))
+
+
+@pytest.mark.parametrize("cout", [3, 4, 7])
+def test_conv3d_smallcin_dx_matches_plain(dev, cout):
+    """The dx of a bf16 conv with Cout 3 to 7 runs the small-Cin instance
+    on dy (Cin = Cout), through the autograd Function too."""
+    g = torch.Generator(device=dev).manual_seed(22 + cout)
+    x = torch.randn((2, 6, 10, 12, 16), generator=g, device=dev).bfloat16()
+    w = torch.randn((cout, 16, 3, 3, 3), generator=g, device=dev) / 432 ** 0.5
+    dy = torch.randn((2, 6, 10, 12, cout), generator=g,
+                     device=dev).bfloat16()
+    assert cv.conv3d_route(dy.shape, dy.dtype, 16) == "sm90_smallcin"
+    ops.reset_launch_counts()
+    dx = cv.conv3d_dx(dy, w)
+    assert ops.route_counts()["conv3d_dx.sm90_smallcin"] == 1
+    ref = cv.conv3d_dx_plain(dy, w)
+    assert dx.shape == x.shape
+    assert _rel(dx, ref) <= TOL[torch.bfloat16]
+    xg = x.clone().requires_grad_(True)
+    cv.conv3d(xg, w).backward(dy)
+    assert ops.route_counts()["conv3d_dx.sm90_smallcin"] == 2
+    assert torch.equal(xg.grad, dx)
+
+
+def test_conv3d_smallcin_alignment(dev):
+    """At even Cin a register's two channels are one 4-byte load: a view
+    one element in (2-byte aligned) raises; at odd Cin every load is 2
+    bytes, so the same view runs and matches the plain version."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    for cin in (4, 3):
+        flat = torch.randn((1 + 2 * 4 * 5 * 6 * cin,), generator=g,
+                           device=dev).bfloat16()
+        xu = flat[1:].view(2, 4, 5, 6, cin)
+        assert xu.data_ptr() % 4 == 2
+        w = torch.randn((32, cin, 3, 3, 3), generator=g, device=dev) * 0.1
+        wp = cv.pack_weight_kernel(w, torch.bfloat16)
+        if cin % 2 == 0:
+            with pytest.raises(ValueError, match="4-byte"):
+                cv.conv3d_kernel(xu, wp)
+            cv.conv3d_kernel(xu.contiguous().clone(), wp)  # aligned: runs
+        else:
+            out = cv.conv3d_kernel(xu, wp)
+            ref = cv.conv3d_plain(xu, w.bfloat16())
+            assert _rel(out, ref) <= TOL[torch.bfloat16]
 
 
 @pytest.fixture(scope="module")
@@ -1082,3 +1175,41 @@ def test_seg_forward_launches_by_route(dev):
             ref = cpu(x, t, low_res=x)
             out = card(x.to(dev), t.to(dev), low_res=x.to(dev)).cpu()
         assert _rel(out, ref) <= 1e-4, fusion
+
+
+@pytest.mark.parametrize("name", ["SegModelv2_6c", "SegModelv3_6c"])
+def test_seg_6c_forward_launches_by_route(dev, name):
+    """One bf16 forward of each production-depth 6-channel Seg model
+    (tests/test_torch_port_conv_smallcin.py:SEG_6C_LAUNCHES, counted there
+    on the plain path): both input convs (Cin 4 and 3) on sm90_smallcin,
+    none on ndhwc; its f32 forward on the card matches the CPU's."""
+    from ddpm3d_tpu_torch import models
+
+    want = {"conv3d": 101, "gn_stats": 99, "gn_apply": 99, "conv3d_s8": 0}
+    routes = {"conv3d.sm90": 98, "conv3d.sm90_smallcin": 2,
+              "conv3d.f32_head": 1}
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((1, 4, 32, 32, 1), generator=g)
+    low = torch.randn((1, 4, 32, 32, 3), generator=g)
+    t = torch.tensor([300])
+    kw = dict(in_channels=1, model_channels=32, out_channels=2,
+              num_res_blocks=2, channel_mult=(1, 1, 2, 3, 4),
+              use_scale_shift_norm=True, resblock_updown=True)
+    ctor = getattr(models, name)
+    model = ctor(dtype=torch.bfloat16, **kw).to(dev).eval()
+    init_params(model, seed=1, zero_heads=False)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        model(x.to(dev), t.to(dev), low_res=low.to(dev))
+    counts = ops.launch_counts()
+    assert {k: counts[k] for k in want} == want
+    assert {k: v for k, v in ops.route_counts().items() if v} == routes
+    cpu = ctor(**kw).eval()
+    init_params(cpu, seed=1, zero_heads=False)
+    card = ctor(**kw).eval()
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    with torch.no_grad():
+        ref = cpu(x, t, low_res=low)
+        out = card(x.to(dev), t.to(dev), low_res=low.to(dev)).cpu()
+    assert _rel(out, ref) <= 1e-4
