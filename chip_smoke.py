@@ -15,10 +15,9 @@ Phases (each failure exits non-zero before the final line):
                bf16 torso on ``csrc/conv3d_sm90.cu``, the Cin = 2 input
                conv on ``csrc/conv3d_narrow.cu``, the f32 head on
                ``csrc/conv3d_head.cu``), each timed beside the general
-               kernel of its dtype (``csrc/conv3d.cu`` in bf16,
-               ``csrc/conv3d_f32.cu`` in f32) on the same inputs; the head
-               also beside the parent's f32 instance when
-               ``--parent-conv`` names a previous ``csrc/conv3d.cu``; K1
+               kernel of its dtype (in bf16 the gather instance of
+               ``csrc/conv3d_narrow.cu``, any Cin; ``csrc/conv3d_f32.cu``
+               in f32) on the same inputs; K1
                (GN stats, one launch) also bit for bit twice and alone
                against in a batch of 2, timed beside ``torch.var_mean``
                and, with ``--parent-gn``, a previous
@@ -37,9 +36,7 @@ Phases (each failure exits non-zero before the final line):
                and their dx on ``csrc/conv3d_f32.cu``): the forward, then
                one training loss and every parameter gradient (the launch
                counts of each, by route); ``model_f32_timed``, the same
-               model at 96^3: forward and forward + backward ms (with
-               ``--parent-conv`` also on the parent's f32 instance, in
-               turns);
+               model at 96^3: forward and forward + backward ms;
   5. denoise — ``denoise_volume`` at 128 ch / 96^3 patches / bf16 on a
                synthetic volume with a short respaced chain; the launch
                counters are zeroed just before and read just after, and
@@ -135,7 +132,7 @@ Phases (each failure exits non-zero before the final line):
                conditioner, so input convs of Cin 4 and 3) at the same
                flags: params, forward ms and peak at batch 1 and 2, 101 /
                99 / 99 a forward with routes 98 sm90 + 2 sm90_smallcin + 1
-               f32_head (0 ndhwc), the f32 model card vs CPU, int8 119 /
+               f32_head (0 sm90_gather), the f32 model card vs CPU, int8 119 /
                134 K5 with every site equal, ``profile_seg_6c`` (the
                v2_6c forward by family); ``seg_denoise``, the denoise
                phase on the add model; ``seg_train``, two TrainLoop steps of the midcat
@@ -151,18 +148,18 @@ Phases (each failure exits non-zero before the final line):
                every distinct shape of the f32 model phase (forward, fused,
                gradients) and of the f32 Seg models, the fused ones also
                bit for bit twice and alone against in a batch of 2; the
-               Cin = 1 conv at batch 1 and 2 of the Seg input; the small-Cin
-               instances (route sm90_smallcin) at every Cin 3 to 7 -> 128
-               at the full patch, batch 1 and 2 (batch 2's first volume
-               bit-equal to batch 1), at ragged shapes and in a dx, timed
-               at Cin 3 and 4 beside F.conv3d and csrc/conv3d.cu's ndhwc
-               kernel (which carried them before), and ndhwc timed at a
-               shape it still takes ([1,96^3,12] -> 128); each timed
-               at the torso shape (the Cin = 1 conv at the Seg input)
-               beside ``F.conv3d`` (TF32 off; cuDNN's data gradient for the
-               dx), its bound and the previous kernel on the same inputs
-               (``csrc/conv3d.cu``'s bf16 instance for the Cin = 1 conv;
-               the f32 ones with ``--parent-conv``).
+               Cin = 1 conv at batch 1 and 2 of the Seg input; the narrow
+               kernel's small-Cin instances (route sm90_smallcin) at every
+               Cin 3 to 7 and 9 to 15 and its gather instance (route
+               sm90_gather) at Cin 17, 20, 36 and 130 -> 128 at the full
+               patch, batch 1 and 2 (batch 2's first volume bit-equal to
+               batch 1), at ten ragged shapes and in three dx, timed at
+               Cin 3, 4, 9, 12, 15, 20 and 130; each timed at the torso
+               shape (the Cin = 1 conv at the Seg input) beside
+               ``F.conv3d`` (TF32 off; cuDNN's data gradient for the dx)
+               and its bound, the bf16 ones also beside the retired
+               ``mma.sync`` conv of a previous ``csrc/conv3d.cu`` on the
+               same inputs when ``--parent-conv`` names it.
 Then the whole run's seconds, the card's name and power limit, one
 ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -178,7 +175,6 @@ from __future__ import annotations
 
 import argparse
 import collections
-import contextlib
 import copy
 import csv
 import json
@@ -344,10 +340,11 @@ for _path in SERVING_PATHS:
 # the conv3d launches per forward by kernel route (ops.route_counts): the
 # bf16 torso convs on csrc/conv3d_sm90.cu, the Cin = 2 input conv on
 # csrc/conv3d_narrow.cu, the f32 head conv on csrc/conv3d_head.cu, none on
-# csrc/conv3d.cu or csrc/conv3d_f32.cu; fused: 8 up/down blocks x 2 on
-# sm90, and every fused conv on the sm90 fused instance (conv3d_fused.sm90)
+# the narrow kernel's gather instance or csrc/conv3d_f32.cu; fused: 8
+# up/down blocks x 2 on sm90, and every fused conv on the sm90 fused
+# instance (conv3d_fused.sm90)
 CONV_ROUTES = ("sm90", "sm90_narrow", "sm90_cin1", "sm90_smallcin",
-               "f32_head", "f32_narrow", "f32", "ndhwc")
+               "sm90_gather", "f32_head", "f32_narrow", "f32")
 
 
 def _routes(sm90, narrow, head, dx_sm90=0, dx_f32_narrow=0, fused_sm90=0):
@@ -443,8 +440,8 @@ WGMMA_SOURCES = ("conv3d_sm90", "conv3d_s8", "conv3d_narrow")
 NO_SPILL_SOURCES = WGMMA_SOURCES + ("conv3d_head", "conv3d_f32", "groupnorm")
 # study builds compiled beside the package's sources (chip_smoke's own
 # names): K5 with every phase tile running all 27 taps, and the previous
-# K5 / csrc/conv3d.cu / csrc/groupnorm.cu when --parent-s8 / --parent-conv
-# / --parent-gn names its source
+# K5 / csrc/conv3d.cu (the retired mma.sync conv) / csrc/groupnorm.cu when
+# --parent-s8 / --parent-conv / --parent-gn names its source
 VARIANTS = {"s8_all_taps": ("ddpm3d_tpu_torch/csrc/conv3d_s8.cu",
                             ("-DCONV3D_S8_ALL_TAPS",))}
 
@@ -552,14 +549,11 @@ GN_TIMED = [  # (N, C, dtype, film, silu)
 ]
 
 
-def _general_conv(x, w, bias, lib=None):
+def _general_conv(x, w, bias):
     """The general kernel of x's dtype on the same inputs (``w`` the torch
-    layout): bf16 on ``csrc/conv3d.cu`` (the kernel that carried every bf16
-    conv before the sm90 and narrow routes, unchanged since), f32 on
-    ``csrc/conv3d_f32.cu``; timed beside the specialised kernels in one
-    run. With ``lib`` (a previous ``csrc/conv3d.cu``), that build's
-    ``conv3d_ndhwc_launch`` in x's dtype on its own [27, Cout, Cin] weight
-    and tiles: the parent's kernel."""
+    layout): bf16 on ``csrc/conv3d_narrow.cu``'s gather instance (any Cin,
+    the weight streamed), f32 on ``csrc/conv3d_f32.cu``; timed beside the
+    specialised kernels in one run."""
     from ddpm3d_tpu_torch.ops import _build
     from ddpm3d_tpu_torch.ops import conv3d as cv
 
@@ -568,60 +562,65 @@ def _general_conv(x, w, bias, lib=None):
     y = torch.empty((B, D, H, W, cout), dtype=x.dtype, device=x.device)
     b_ptr = None if bias is None else bias.data_ptr()
     stream = torch.cuda.current_stream().cuda_stream
-    if x.dtype == torch.float32 and lib is None:
+    if x.dtype == torch.float32:
         wp = cv.pack_weight_f32(w)
         err = _build.fn("conv3d_f32_launch")(
             x.data_ptr(), wp.data_ptr(), b_ptr, y.data_ptr(), B, D, H, W,
             cin, cout, *cv.pick_tile_f32(D, H, W), stream)
         _build.check(err, "conv3d_f32_launch")
         return y
-    wp = cv.pack_weight(w, x.dtype)
-    launch = (_build.fn("conv3d_ndhwc_launch") if lib is None
-              else _build.variant_fn(lib, "conv3d_ndhwc_launch"))
-    err = launch(
-        x.data_ptr(), wp.data_ptr(), b_ptr, y.data_ptr(),
-        B, D, H, W, cin, cout, *cv.pick_tile(D, H, W),
-        1 if x.dtype == torch.bfloat16 else 0, stream)
-    _build.check(err, "conv3d_ndhwc_launch")
+    wp = cv.pack_weight_narrow(w, x.dtype)
+    err = _build.fn("conv3d_gather_launch")(
+        x.data_ptr(), wp.data_ptr(), b_ptr, y.data_ptr(), B, D, H, W, cin,
+        cout, stream)
+    _build.check(err, "conv3d_gather_launch")
     return y
 
 
-def _parent_fused_f32(lib, x, w, b, kw):
-    """The f32 fused instance of a previous ``csrc/conv3d.cu`` (its
-    ``conv3d_fused_launch``: [27, Cout, Cin] weight, the tiles of
-    ``pick_tile``, a two-level stats finish) on the same inputs: the kernel
-    ``csrc/conv3d_f32.cu``'s fused instance replaces."""
+def _ndhwc_tile(D: int, H: int, W: int) -> tuple:
+    """The output tile (TD, TH, TW) that the retired ``mma.sync`` conv
+    (``conv3d_ndhwc_launch`` of a previous ``csrc/conv3d.cu``) takes: at
+    most 128 voxels and a 640-voxel halo; fewest tiles, then the smallest
+    halo, then the widest TW."""
+    best = None
+    for tw in range(1, min(W, 128) + 1):
+        for th in range(1, min(H, 128 // tw) + 1):
+            td = min(D, 128 // (tw * th))
+            halo = (td + 2) * (th + 2) * (tw + 2)
+            if halo > 640:
+                continue
+            tiles = -(-D // td) * -(-H // th) * -(-W // tw)
+            key = (tiles, halo, -tw)
+            if best is None or key < best[0]:
+                best = (key, (td, th, tw))
+    return best[1]
+
+
+def _parent_ndhwc(lib, x, w, bias):
+    """The bf16 ``mma.sync`` conv of a previous ``csrc/conv3d.cu`` (its
+    ``conv3d_ndhwc_launch``: [27, Cout, Cin] weight, the tiles of
+    ``_ndhwc_tile``) on the same inputs: the kernel that carried every bf16
+    Cin above 2 that is not a multiple of 8 before the narrow kernel's
+    instances."""
     import ctypes
 
     from ddpm3d_tpu_torch.ops import _build
     from ddpm3d_tpu_torch.ops import conv3d as cv
-    from ddpm3d_tpu_torch.ops import conv3d_fused as fo
 
     B, D, H, W, cin = x.shape
     cout = w.shape[0]
-    wp = cv.pack_weight(w, torch.float32)
-    td, th, tw = cv.pick_tile(D, H, W)
-    tiles = -(-D // td) * -(-H // th) * -(-W // tw)
-    y = torch.empty((B, D, H, W, cout), device=x.device)
-    part = torch.empty((B * tiles * 2 * cout,), device=x.device)
-    part2 = torch.empty((B * -(-tiles // fo.STATS_GROUP) * 2 * cout,),
-                        device=x.device)
-    stats = torch.empty((B, 2, cout), device=x.device)
-    fn = lib.conv3d_fused_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
-                   + [ctypes.c_void_p])
+    wp = cv.pack_weight(w, x.dtype)
+    y = torch.empty((B, D, H, W, cout), dtype=x.dtype, device=x.device)
+    fn = lib.conv3d_ndhwc_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    sk = kw.get("skip")
-    err = fn(x.data_ptr(), wp.data_ptr(), b.data_ptr(),
-             kw["prologue_g"].data_ptr(), kw["prologue_b"].data_ptr(),
-             int(kw.get("prologue_silu", True)),
-             None if sk is None else sk.data_ptr(), y.data_ptr(),
-             part.data_ptr(), part2.data_ptr(), stats.data_ptr(),
-             B, D, H, W, cin, cout, td, th, tw, 0,
-             torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "conv3d_fused_launch (parent)")
-    return y, stats
+    _build.check(fn(x.data_ptr(), wp.data_ptr(),
+                    None if bias is None else bias.data_ptr(), y.data_ptr(),
+                    B, D, H, W, cin, cout, *_ndhwc_tile(D, H, W), 1,
+                    torch.cuda.current_stream().cuda_stream),
+                 "conv3d_ndhwc_launch (parent)")
+    return y
 
 
 def _parent_gn_stats(lib, x):
@@ -660,20 +659,17 @@ def _conv_tile(cv, x, cout, route):
     if route == "f32_head":
         return dict(window=list(cv.head_tile(cout)),
                     segments=cv.head_plan(D, H, W, cout, sms)[2])
-    if route in cv.NARROW_ROUTES + ("f32_narrow",):
-        return None
     if route == "f32":
         return list(cv.pick_tile_f32(D, H, W))
-    return list(cv.pick_tile(D, H, W))
+    return None
 
 
 def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes,
-                  conv_parent=None, gn_parent=None) -> dict:
+                  gn_parent=None) -> dict:
     """Each kernel against its plain version at every distinct shape of the
     main path (``gn_shapes`` also holds the guided-sampling path's); the
-    shapes of CONV_TIMED / GN_TIMED are timed too, the f32 head also beside
-    ``conv_parent`` (a build of the parent's csrc/conv3d.cu, whose Cout <= 8
-    instance carried it) when given, K1 beside ``gn_parent`` (the parent's
+    shapes of CONV_TIMED / GN_TIMED are timed too, each conv beside the
+    general kernel of its dtype, K1 beside ``gn_parent`` (the parent's
     csrc/groupnorm.cu) when given. K1
     is also checked bit for bit between two runs and between a volume
     alone and in a batch of 2."""
@@ -712,13 +708,6 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes,
             ms = time_ms(lambda: cv.conv3d_kernel(x, wp, b))
             # the same conv on the general kernel of its dtype
             line["general_ms"] = time_ms(lambda: _general_conv(x, w, b))
-            if route == "f32_head":  # and on the parent's f32 instance
-                line["parent_ms"] = None
-                if conv_parent is not None:
-                    line["parent_ms"] = time_ms(
-                        lambda: _general_conv(x, w, b, conv_parent))
-                    p_err = rel_err(_general_conv(x, w, b, conv_parent), ref)
-                    line["parent_rel_err"] = p_err[1]
             plain_ms = time_ms(lambda: cv.conv3d_plain(x, wd, b), reps=3,
                                warmup=1)
             xn = x.permute(0, 4, 1, 2, 3)  # NCDHW view of the same bytes
@@ -1121,51 +1110,12 @@ def phase_model(seed: int) -> dict:
     return paths
 
 
-@contextlib.contextmanager
-def _parent_f32_route(lib):
-    """Inside: every conv (forward and dx) of the ``f32`` route runs on a
-    previous ``csrc/conv3d.cu``'s f32 instance (its ``conv3d_ndhwc_launch``
-    on its [27, Cout, Cin] weight, transposed from the packed [27, Cin,
-    Cout] per launch, and its tiles), counted on the same route: the f32
-    model as the parent's conv ran it."""
-    from ddpm3d_tpu_torch.ops import _build
-    from ddpm3d_tpu_torch.ops import conv3d as cv
-
-    launch = _build.variant_fn(lib, "conv3d_ndhwc_launch")
-    own = cv._launch
-
-    def parent_launch(x, w_packed, bias, what):
-        route, cout = cv.check_kernel_inputs(x, w_packed, what)
-        if route != "f32":
-            return own(x, w_packed, bias, what)
-        B, D, H, W, cin = x.shape
-        wo = w_packed.transpose(1, 2).contiguous()
-        b = None if bias is None else bias.detach().float().contiguous()
-        y = torch.empty((B, D, H, W, cout), device=x.device)
-        _build.check(launch(
-            x.contiguous().data_ptr(), wo.data_ptr(),
-            None if b is None else b.data_ptr(), y.data_ptr(), B, D, H, W,
-            cin, cout, *cv.pick_tile(D, H, W), 0,
-            torch.cuda.current_stream().cuda_stream), "parent f32 conv")
-        key = f"{what}.{route}"
-        cv.route_launches[key] = cv.route_launches.get(key, 0) + 1
-        return y
-
-    cv._launch = parent_launch
-    try:
-        yield
-    finally:
-        cv._launch = own
-
-
-def phase_model_f32_timed(seed: int, conv_parent=None) -> dict:
+def phase_model_f32_timed(seed: int) -> dict:
     """The full-width f32 model (phase_model's) at 96^3, batch 1, on the
     card: one forward (no grad) and one training loss with every parameter
     gradient (forward + backward, ``compute_grads``), ms by CUDA events
-    (median of 2 after 1 warm-up), launches by route. With ``conv_parent``
-    the same on the parent's f32 conv (``_parent_f32_route``), in turns:
-    this tree's, the parent's, the parent's, this tree's. Returns the launch counts
-    of one forward + backward."""
+    (median of 2 after 1 warm-up), launches by route. Returns the launch
+    counts of one forward + backward."""
     from ddpm3d_tpu_torch import ops
     from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
     from ddpm3d_tpu_torch.training import train_loop as tl
@@ -1199,21 +1149,13 @@ def phase_model_f32_timed(seed: int, conv_parent=None) -> dict:
     grads()
     torch.cuda.synchronize()
     counts = dict(ops.launch_counts(), routes=ops.route_counts())
-    turns = ["new"] + (["parent", "parent", "new"] if conv_parent else [])
-    result = collections.defaultdict(list)
     torch.cuda.reset_peak_memory_stats()
-    for turn in turns:
-        ctx = (_parent_f32_route(conv_parent) if turn == "parent"
-               else contextlib.nullcontext())
-        with ctx:
-            result[f"{turn}_forward_ms"].append(timed(forward))
-            result[f"{turn}_grads_ms"].append(timed(grads))
+    forward_ms, grads_ms = timed(forward), timed(grads)
     line = {"phase": "model_f32_timed", "shape": [1, 96, 96, 96, 1],
             "channels": 128, "dtype": "float32",
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "routes": {k: v for k, v in counts["routes"].items() if v},
-            **{k: statistics.mean(v) for k, v in result.items()},
-            "turns": dict(result)}
+            "forward_ms": forward_ms, "grads_ms": grads_ms}
     emit(line)
     check(line["routes"].get("conv3d.f32") == 70
           and line["routes"].get("conv3d_dx.f32") == 70,
@@ -1537,13 +1479,14 @@ FORWARD_FAMILIES = {
                      "conv3d_sm90_kernelILi1ELb1E",
                      "conv3d_sm90_kernelILi2ELb1E", "fused_stats_finish"),
     "conv3d_sm90": ("conv3d_sm90_kernel",),
-    # the Cin = 1 and Cin = 3 to 7 instances first, so that the Cin = 2
+    # the Cin = 1 and Cin = 3 to 15 instances first, so that the Cin = 2
     # one is conv3d_narrow
     "conv3d_cin1": ("conv3d_narrow_kernel<1>", "conv3d_narrow_kernelILi1E"),
     "conv3d_smallcin": tuple(f"conv3d_narrow_kernel<{c}>" for c in range(3, 8))
-    + tuple(f"conv3d_narrow_kernelILi{c}E" for c in range(3, 8)),
+    + tuple(f"conv3d_narrow_kernelILi{c}E" for c in range(3, 8))
+    + ("conv3d_wide_kernel",),
     "conv3d_narrow": ("conv3d_narrow_kernel",),
-    "conv3d_bf16": ("conv3d_bf16_kernel",),
+    "conv3d_gather": ("conv3d_gather_kernel",),
     "conv3d_head": ("conv3d_head_kernel",),
     "conv3d_f32_narrow": ("conv3d_f32_narrow_kernel",),
     "conv3d_f32": ("conv3d_f32_kernel",),
@@ -2127,7 +2070,7 @@ def _time_s8_site(case, xq, wq, wp, s_x, s_w, bias, dt, libs, ref) -> dict:
     upsampled input for the phase route) times at one site, the quantize
     glue on a bf16 activation of the site's shape, and the bound; the 1x1
     skip also beside ``torch._int_mm`` (its s8 GEMM alone); the previous K5
-    on its own 128-row tiles (``parent_ms``) when its build is given; a
+    on the same tiles (``parent_ms``) when its build is given; a
     phase site also on the 27-tap build (``all_taps_ms``), both equal."""
     from ddpm3d_tpu_torch.models.nn import upsample_nearest
     from ddpm3d_tpu_torch.ops import conv3d as cv
@@ -2145,7 +2088,7 @@ def _time_s8_site(case, xq, wq, wp, s_x, s_w, bias, dt, libs, ref) -> dict:
     out = {"kernel_ms": ms, "plain_ms": plain_ms, "quantize_act_ms": quant_ms,
            "library_ms": None}
     for key, name, tile in (
-            ("parent", "s8_parent", cv.pick_tile(D, H, W)),
+            ("parent", "s8_parent", s8.s8_tile(1, D, H, W, n, taps, dt)),
             ("all_taps", "s8_all_taps", s8.s8_tile(1, D, H, W, n, taps,
                                                    dt))):
         if name not in libs or (key == "all_taps" and not up):
@@ -3040,7 +2983,7 @@ SEG_INT8_S8 = {"add": 119, "cat_conv": 134, "midcat": 120}
 SEG_INT8_ROUTES = dict(_routes(0, 1, 1), **{"conv3d.sm90_cin1": 1})
 # the 6-channel aliases (a 3-channel conditioner): the same launches, both
 # input convs (the main branch's Cin = 4, the encoder's Cin = 3) on the
-# small-Cin instances, none on ndhwc; in int8 both stay K3 (in0_0), K5 as
+# small-Cin instances, none on sm90_gather; in int8 both stay K3 (in0_0), K5 as
 # the 1-channel model of their fusion
 SEG_6C_MODELS = ("SegModelv2_6c", "SegModelv3_6c")  # add, cat_conv
 SEG_6C_COND = 3
@@ -3132,19 +3075,23 @@ def seg_path_shapes(seed: int) -> tuple:
 # conv), the Cin = 1 conv at the Seg encoder's input; (D, H, W, Cin, Cout)
 F32_TIMED = (96, 96, 96, 128, 128)
 CIN1_TIMED = (96, 96, 96, 1, 128)
-# the small-Cin instances: every Cin 3 to 7 -> 128 at the full patch, the
-# 6-channel Seg models' input convs (the encoder's Cin = 3, the main
-# branch's Cin = 4) timed; ragged volumes, Cout < 128 and past one column
-# tile ((B, D, H, W, Cin), Cout); a dx through the route (dy [B, D, H, W,
-# Cin] of a conv Cout -> Cin, Cout); ndhwc timed at a bf16 shape it still
-# takes (Cin > 8, not a multiple of 8)
+# the narrow kernel from Cin = 3: every Cin 3 to 7 and 9 to 15 (route
+# sm90_smallcin; the 6-channel Seg models' input convs are Cin 4 and 3) and
+# SMALLCIN_GATHER (route sm90_gather) -> 128 at the full patch, batch 1 and
+# 2; SMALLCIN_TIMED timed; ragged volumes, Cout < 128 and past one column
+# tile ((B, D, H, W, Cin), Cout), five for Cin <= 7 and five above; dx
+# through the route (dy [B, D, H, W, Cin] of a conv Cout -> Cin, Cout)
 SMALLCIN_VOLUME = (96, 96, 96, 128)
-SMALLCIN_TIMED = (3, 4)
+SMALLCIN_GATHER = (17, 20, 36, 130)
+SMALLCIN_TIMED = (3, 4, 9, 12, 15, 20, 130)
 SMALLCIN_RAGGED = (((2, 5, 7, 9, 3), 40), ((1, 4, 8, 8, 5), 130),
                    ((1, 1, 1, 3, 7), 16), ((2, 3, 5, 6, 6), 128),
-                   ((1, 6, 12, 12, 4), 3))
-SMALLCIN_DX = ((1, 96, 48, 48, 4), 128)
-NDHWC_TIMED = (96, 96, 96, 12, 128)
+                   ((1, 6, 12, 12, 4), 3),
+                   ((2, 5, 7, 9, 9), 40), ((1, 4, 8, 8, 13), 130),
+                   ((1, 1, 1, 3, 15), 16), ((2, 3, 5, 6, 17), 128),
+                   ((1, 6, 12, 12, 130), 3))
+SMALLCIN_DX = (((1, 96, 48, 48, 4), 128), ((1, 96, 96, 96, 12), 128),
+               ((1, 48, 48, 48, 20), 128))
 
 
 def f32_path_shapes(seed: int) -> dict:
@@ -3236,10 +3183,10 @@ def phase_conv3d_cu(gen: torch.Generator, shapes: dict,
     (``csrc/conv3d_narrow.cu``'s Cin = 1 instance) at the Seg input at
     batch 1 and 2, each on its route. At F32_TIMED / CIN1_TIMED each is
     timed beside its plain version, one library call (``F.conv3d``, TF32
-    off; cuDNN's data gradient for the dx), its bound and the previous kernel on
-    the same inputs: ``csrc/conv3d.cu``'s bf16 instance for the Cin = 1
-    conv (unchanged since), the f32 instances of ``conv_parent`` (a
-    previous ``csrc/conv3d.cu``) when given. Then the small-Cin instances
+    off; cuDNN's data gradient for the dx) and its bound; the Cin = 1 conv
+    also beside ``conv_parent``'s ``mma.sync`` conv (a previous
+    ``csrc/conv3d.cu``, the kernel that carried it before) when given.
+    Then the narrow kernel's Cin 3 to 15 and gather instances
     (``_smallcin_rows``). Returns the kernels line's entries
     ``conv3d_f32``, ``conv3d_f32_dx``, ``conv3d_fused_f32``,
     ``conv3d_cin1`` and ``conv3d_smallcin``."""
@@ -3279,8 +3226,6 @@ def phase_conv3d_cu(gen: torch.Generator, shapes: dict,
             out, ref = kfn(), pfn()
             xn = x.permute(0, 4, 1, 2, 3)
             lfn = lambda: F.conv3d(xn, w, b, padding=1)  # noqa: E731
-            parent = (lambda: _general_conv(x, w, b, conv_parent)) \
-                if conv_parent is not None else None
         elif name == "conv3d_f32_dx":
             # the dx conv maps Cout -> Cin: x here is dy, w the forward's
             # weight with Cin = cout of the dx
@@ -3294,9 +3239,6 @@ def phase_conv3d_cu(gen: torch.Generator, shapes: dict,
             out, ref = kfn(), pfn()
             xs = torch.empty((B, D, H, W, cout), device=dev)
             lfn = lambda: _library_dx(dy, xs, wf)  # noqa: E731
-            parent = (lambda: _general_conv(
-                dy, cv.flip_weight(wf), None, conv_parent)) \
-                if conv_parent is not None else None
             nbytes -= 4.0 * cout  # no bias
         else:
             pro, silu, use_skip, stats = flags
@@ -3316,8 +3258,6 @@ def phase_conv3d_cu(gen: torch.Generator, shapes: dict,
                 line.update(_stats_errs(gn, got[1], want[1], N, cout))
             xn = x.permute(0, 4, 1, 2, 3)
             lfn = lambda: F.conv3d(xn, w, b, padding=1)  # noqa: E731
-            parent = (lambda: _parent_fused_f32(conv_parent, x, w, b, kw)) \
-                if conv_parent is not None and pro else None
             nbytes += 4.0 * (B * N * cout * use_skip + 2 * B * cin
                              + 2 * B * cout * stats)
         torch.cuda.synchronize()
@@ -3328,13 +3268,8 @@ def phase_conv3d_cu(gen: torch.Generator, shapes: dict,
             line.update(kernel_ms=time_ms(kfn),
                         plain_ms=time_ms(pfn, reps=3, warmup=1),
                         library_ms=time_ms(lfn), bound_ms=bms, bound_by=by,
-                        bytes=nbytes, flops=flops, parent_ms=None)
+                        bytes=nbytes, flops=flops)
             line["tflops"] = flops / line["kernel_ms"] / 1e9
-            if parent is not None:
-                p_out = parent()
-                p_out = p_out[0] if isinstance(p_out, tuple) else p_out
-                line["parent_rel_err"] = rel_err(p_out, ref)[1]
-                line["parent_ms"] = time_ms(parent)
         emit(line)
         check(bool(torch.isfinite(out).all()), f"{name} finite")
         check(rel <= TOL[f32], f"{name} {line['shape']}->{cout} rel err {rel}")
@@ -3382,16 +3317,14 @@ def phase_conv3d_cu(gen: torch.Generator, shapes: dict,
                 library_ms=time_ms(
                     lambda: F.conv3d(xn, wd, b.to(dt), padding=1)),
                 bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
-                # the previous kernel: csrc/conv3d.cu's bf16 instance, unchanged
-                parent_ms=time_ms(lambda: _general_conv(x, w.to(dt), b)),
-                parent_rel_err=rel_err(_general_conv(x, w.to(dt), b), ref)[1])
+                **_parent_times(conv_parent, x, w, b, ref))
             out_lines["conv3d_cin1"] = line
         emit(line)
         check(bool(torch.isfinite(out.float()).all()), "conv3d_cin1 finite")
         check(rel <= TOL[dt], f"conv3d_cin1 {line['shape']} rel err {rel}")
         checked["conv3d_cin1"] += 1
         del x, out, ref
-    out_lines["conv3d_smallcin"] = _smallcin_rows(gen, checked)
+    out_lines["conv3d_smallcin"] = _smallcin_rows(gen, checked, conv_parent)
     for name in out_lines:
         out_lines[name]["shapes_checked"] = checked[name]
     emit({"phase": "conv3d_cu", "shapes_checked": dict(checked)})
@@ -3418,16 +3351,28 @@ def _bf16_conv_times(x, w, b, cout) -> dict:
         bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
 
 
-def _smallcin_rows(gen: torch.Generator, checked) -> dict:
-    """The small-Cin instances (``csrc/conv3d_narrow.cu``, route
-    sm90_smallcin) against ``conv3d_plain``: every Cin 3 to 7 -> 128 at the
-    full patch at batch 1 and 2 (batch 2's first volume is batch 1's: the
-    same bits), the ragged SMALLCIN_RAGGED and the dx SMALLCIN_DX; at
-    SMALLCIN_TIMED each timed beside its plain version, ``F.conv3d`` and
-    ``csrc/conv3d.cu``'s ndhwc kernel on the same inputs (the kernel that
-    carried them before, ``parent_ms``); ndhwc timed again at NDHWC_TIMED,
-    a shape it still takes. Returns the kernels line's entry (the Cin = 4
-    row, the Cin = 3 row and the ndhwc row beside)."""
+def _parent_times(lib, x, w, b, ref) -> dict:
+    """``parent_ms`` (and its rel err against ``ref``) of the retired
+    ``mma.sync`` conv of ``lib`` (``--parent-conv``) on the same inputs, or
+    None without it."""
+    if lib is None:
+        return {"parent_ms": None}
+    err = rel_err(_parent_ndhwc(lib, x, w, b), ref)[1]
+    return {"parent_ms": time_ms(lambda: _parent_ndhwc(lib, x, w, b)),
+            "parent_rel_err": err}
+
+
+def _smallcin_rows(gen: torch.Generator, checked, conv_parent=None) -> dict:
+    """The narrow kernel's instances from Cin = 3 (``csrc/conv3d_narrow.cu``,
+    routes sm90_smallcin and sm90_gather) against ``conv3d_plain``: every
+    Cin 3 to 7, 9 to 15 and of SMALLCIN_GATHER -> 128 at the full patch at
+    batch 1 and 2 (batch 2's first volume is batch 1's: the same bits), the
+    ragged SMALLCIN_RAGGED and the dx of SMALLCIN_DX; at SMALLCIN_TIMED each
+    timed beside its plain version, ``F.conv3d``, its bound and, with
+    ``conv_parent`` (``--parent-conv``), the retired ``mma.sync`` conv on
+    the same inputs (the kernel that carried every one of these Cin before,
+    ``parent_ms``). Returns the kernels line's entry: the Cin = 4 row, the
+    other timed rows under ``cin_rows``."""
     from ddpm3d_tpu_torch import ops
     from ddpm3d_tpu_torch.ops import conv3d as cv
 
@@ -3443,10 +3388,12 @@ def _smallcin_rows(gen: torch.Generator, checked) -> dict:
         return x, w, b
 
     timed = {}
-    for cin in range(3, cv.NARROW_MAX_CIN + 1):
+    for cin in [c for c in range(3, cv.NARROW_MAX_CIN + 1) if c % 8] + list(
+            SMALLCIN_GATHER):
         x, w, b = inputs((1, D, H, W, cin), cout)
-        check(cv.conv3d_route(x.shape, dt, cout) == "sm90_smallcin",
-              f"bf16 Cin = {cin} runs the narrow kernel's small-Cin instance")
+        route = "sm90_smallcin" if cin <= cv.NARROW_MAX_CIN else "sm90_gather"
+        check(cv.conv3d_route(x.shape, dt, cout) == route,
+              f"bf16 Cin = {cin} runs the narrow kernel's {route} instance")
         wp, wd = cv.pack_weight_kernel(w, dt), w.to(dt)
         x2 = torch.cat([x, torch.randn(x.shape, generator=gen,
                                        device=dev).to(dt)])
@@ -3457,29 +3404,28 @@ def _smallcin_rows(gen: torch.Generator, checked) -> dict:
         torch.cuda.synchronize()
         err, rel = rel_err(out, ref)
         err2, rel2 = rel_err(out2, ref2)
-        line = dict(kernel="conv3d_smallcin", route="conv3d.sm90_smallcin",
+        line = dict(kernel="conv3d_smallcin", route=f"conv3d.{route}",
                     shape=[1, D, H, W, cin], cout=cout, dtype="bfloat16",
                     max_abs_err=max(err, err2), rel_err=rel,
                     rel_err_batch2=rel2, tol=TOL[dt],
                     batch2_equal=bool(torch.equal(out2[:1], out)),
                     routes=routes)
+        del x2, out2, ref2
         if cin in SMALLCIN_TIMED:
             line.update(_bf16_conv_times(x, w, b, cout))
-            # the previous kernel: csrc/conv3d.cu's ndhwc, unchanged
-            line["parent_ms"] = time_ms(lambda: _general_conv(x, wd, b))
-            line["parent_rel_err"] = rel_err(_general_conv(x, wd, b), ref)[1]
+            line.update(_parent_times(conv_parent, x, wd, b, ref))
             timed[cin] = line
         emit(line)
-        check(routes == {"conv3d.sm90_smallcin": 2},
-              f"smallcin Cin = {cin} routes {routes}")
-        check(bool(torch.isfinite(out2.float()).all()),
+        check(routes == {f"conv3d.{route}": 2},
+              f"Cin = {cin} routes {routes}")
+        check(bool(torch.isfinite(out.float()).all()),
               f"conv3d_smallcin Cin = {cin} finite")
         check(max(rel, rel2) <= TOL[dt],
               f"conv3d_smallcin Cin = {cin} rel err {rel}, batch 2 {rel2}")
         check(line["batch2_equal"],
               f"conv3d_smallcin Cin = {cin}: batch 2 equals batch 1")
         checked["conv3d_smallcin"] += 2
-        del x, x2, out, out2, ref, ref2
+        del x, out, ref
 
     for shape, n in SMALLCIN_RAGGED:
         x, w, b = inputs(shape, n)
@@ -3488,48 +3434,39 @@ def _smallcin_rows(gen: torch.Generator, checked) -> dict:
         err, rel = rel_err(out, cv.conv3d_plain(x, w.to(dt), b))
         repeat = bool(torch.equal(out, cv.conv3d_kernel(x, wp, b)))
         emit(dict(kernel="conv3d_smallcin", shape=list(shape), cout=n,
-                  dtype="bfloat16", max_abs_err=err, rel_err=rel,
-                  tol=TOL[dt], repeat_equal=repeat))
+                  route=cv.conv3d_route(shape, dt, n), dtype="bfloat16",
+                  max_abs_err=err, rel_err=rel, tol=TOL[dt],
+                  repeat_equal=repeat))
         check(rel <= TOL[dt] and repeat,
               f"conv3d_smallcin {list(shape)}->{n} rel err {rel}, "
               f"repeat equal {repeat}")
         checked["conv3d_smallcin"] += 1
 
-    shape, n = SMALLCIN_DX  # dy of a conv n -> Cin, Cin on the route
-    dy, w, _ = inputs(shape, n)  # w: (n, Cin, ...), the dx's (out, in)
-    wf = w.transpose(0, 1).contiguous()  # the forward's (Cin, n) weight
-    check(cv.conv3d_route(dy.shape, dt, n) == "sm90_smallcin",
-          "the dx of a conv to Cin = 4 runs the small-Cin instance")
-    ops.reset_launch_counts()
-    dx = cv.conv3d_dx_kernel(dy, cv.pack_weight_dx(wf, dt))
-    dx_routes = {k: v for k, v in ops.route_counts().items() if v}
-    err, rel = rel_err(dx, cv.conv3d_dx_plain(dy, wf))
-    emit(dict(kernel="conv3d_smallcin_dx", shape=list(shape), cout=n,
-              dtype="bfloat16", max_abs_err=err, rel_err=rel, tol=TOL[dt],
-              routes=dx_routes))
-    check(dx_routes == {"conv3d_dx.sm90_smallcin": 1} and rel <= TOL[dt],
-          f"conv3d_smallcin dx rel err {rel}, routes {dx_routes}")
-    checked["conv3d_smallcin"] += 1
-    del dy, dx
+    for shape, n in SMALLCIN_DX:  # dy of a conv n -> Cin, Cin on the route
+        dy, w, _ = inputs(shape, n)  # w: (n, Cin, ...), the dx's (out, in)
+        wf = w.transpose(0, 1).contiguous()  # the forward's (Cin, n) weight
+        route = cv.conv3d_route(dy.shape, dt, n)
+        check(route in ("sm90_smallcin", "sm90_gather"),
+              f"the dx of a conv to Cin = {shape[-1]} runs the narrow "
+              f"kernel, not {route}")
+        ops.reset_launch_counts()
+        dx = cv.conv3d_dx_kernel(dy, cv.pack_weight_dx(wf, dt))
+        dx_routes = {k: v for k, v in ops.route_counts().items() if v}
+        err, rel = rel_err(dx, cv.conv3d_dx_plain(dy, wf))
+        emit(dict(kernel="conv3d_smallcin_dx", shape=list(shape), cout=n,
+                  dtype="bfloat16", max_abs_err=err, rel_err=rel,
+                  tol=TOL[dt], routes=dx_routes))
+        check(dx_routes == {f"conv3d_dx.{route}": 1} and rel <= TOL[dt],
+              f"conv3d_smallcin dx {list(shape)} rel err {rel}, routes "
+              f"{dx_routes}")
+        checked["conv3d_smallcin"] += 1
+        del dy, dx
 
-    # what ndhwc costs now, at a shape no other kernel takes
-    Dn, Hn, Wn, cin, n = NDHWC_TIMED
-    x, w, b = inputs((1, Dn, Hn, Wn, cin), n)
-    check(cv.conv3d_route(x.shape, dt, n) == "ndhwc",
-          f"bf16 Cin = {cin} stays on ndhwc")
-    err, rel = rel_err(cv.conv3d_kernel(x, cv.pack_weight_kernel(w, dt), b),
-                       cv.conv3d_plain(x, w.to(dt), b))
-    ndhwc = dict(kernel="conv3d_ndhwc", route="conv3d.ndhwc",
-                 shape=[1, Dn, Hn, Wn, cin], cout=n, dtype="bfloat16",
-                 max_abs_err=err, rel_err=rel, tol=TOL[dt],
-                 **_bf16_conv_times(x, w, b, n))
-    emit(ndhwc)
-    check(rel <= TOL[dt], f"ndhwc Cin = {cin} rel err {rel}")
-    del x
-    keep = ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "parent_ms", "rel_err")
-    return dict(timed[4], cin3={k: timed[3][k] for k in keep},
-                ndhwc=ndhwc)
+    keep = ("shape", "route", "kernel_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "parent_ms", "rel_err", "batch2_equal")
+    return dict(timed[4], cin_rows={
+        cin: {k: line.get(k) for k in keep}
+        for cin, line in timed.items() if cin != 4})
 
 
 def _int8_sites_equal(card, cpu, x, low, t):
@@ -3886,11 +3823,10 @@ def main() -> None:
                     help="a previous csrc/conv3d_s8.cu (same C entry point) "
                          "to time beside K5 at the timed int8 sites")
     ap.add_argument("--parent-conv", metavar="FILE",
-                    help="a previous csrc/conv3d.cu (its conv3d_ndhwc_launch "
-                         "and conv3d_fused_launch) whose f32 instances are "
-                         "timed beside the f32 head kernel and "
-                         "csrc/conv3d_f32.cu's plain, fused and dx convs, "
-                         "and run the f32 model's 'before' timing")
+                    help="a previous csrc/conv3d.cu whose bf16 mma.sync conv "
+                         "(conv3d_ndhwc_launch) is timed beside the narrow "
+                         "kernel's Cin = 1, Cin 3 to 15 and gather "
+                         "instances on the same inputs")
     ap.add_argument("--parent-gn", metavar="FILE",
                     help="a previous csrc/groupnorm.cu whose two-launch "
                          "gn_stats_launch (x, part, stats, ...) is timed "
@@ -3927,7 +3863,6 @@ def main() -> None:
     gn_shapes = sorted(set(gn_shapes) | guided_path_gn_shapes(*guided)
                        | seg_gns, key=str)
     summary = phase_kernels(gen, conv_shapes, gn_shapes,
-                            conv_parent=libs.get("conv_parent"),
                             gn_parent=libs.get("gn_parent"))
     summary.update(phase_conv3d_cu(gen, f32_path_shapes(args.seed),
                                    conv_parent=libs.get("conv_parent")))
@@ -3940,8 +3875,7 @@ def main() -> None:
         steps=1000, learn_sigma=True, noise_schedule="linear")
     bwd = phase_backward(gen, *training_shapes(model, train_sched, train_cfg))
     model_counts = phase_model(args.seed)
-    model_counts["model_f32_timed"] = phase_model_f32_timed(
-        args.seed, libs.get("conv_parent"))
+    model_counts["model_f32_timed"] = phase_model_f32_timed(args.seed)
     phase_model_int8(args.seed)
     denoise_counts, volume, eps = phase_denoise(model, sched, cfg, args.seed)
     phase_profile(model)
@@ -4032,23 +3966,19 @@ def main() -> None:
             extra["parent_ms"] = s.get("parent_ms")
         if name in ("conv3d_narrow", "conv3d_head", "conv3d_head_dx"):
             extra["general_ms"] = s["general_ms"]  # the general kernel
-        if name == "conv3d_smallcin":  # the Cin = 3 row, ndhwc at Cin = 12
-            extra["cin3"] = s["cin3"]
-            extra["ndhwc"] = {k: s["ndhwc"][k] for k in (
-                "shape", "cout", "kernel_ms", "plain_ms", "library_ms",
-                "bound_ms", "bound_by", "rel_err")}
+        if name == "conv3d_smallcin":  # the other timed Cin, the gather's
+            extra["cin_rows"] = s["cin_rows"]
         if name in ("conv3d_cin1", "conv3d_f32", "conv3d_f32_dx",
                     "conv3d_fused_f32", "conv3d_smallcin"):
-            # the previous kernel on the same inputs (the f32 ones only with
-            # --parent-conv)
             extra["shape"] = s["shape"] + [s["cout"], s["dtype"]]
-            extra["parent_ms"] = s["parent_ms"]
-        if name == "conv3d_head":  # the parent's head instance (or None)
+        if name in ("conv3d_cin1", "conv3d_smallcin"):
+            # the retired mma.sync conv on the same inputs (--parent-conv)
             extra["parent_ms"] = s["parent_ms"]
         if name == "conv3d_head_dx":  # F.conv3d on the flipped weight
             extra["conv_call_ms"] = s["conv_call_ms"]
         if name in ("conv3d", "conv3d_dx"):
-            # the general kernel (csrc/conv3d.cu) on the same inputs, and
+            # the general kernel (bf16: the narrow kernel's gather
+            # instance) on the same inputs, and
             # each path's launches by route (ops.route_counts)
             extra["general_ms"] = s["general_ms"]
             extra["routes_by_path"] = {

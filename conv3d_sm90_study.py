@@ -3,17 +3,17 @@
 ``ddpm3d_tpu_torch/csrc/conv3d_s8.cu``, with ``--head`` the f32 head conv
 and its dx ``ddpm3d_tpu_torch/csrc/conv3d_head.cu``, with ``--f32`` the f32
 torso conv, its fused instance and its dx ``ddpm3d_tpu_torch/csrc/
-conv3d_f32.cu``, with ``--smallcin`` the bf16 Cin = 3 to 7 instances of
+conv3d_f32.cu``, with ``--smallcin`` the bf16 small-Cin instances (Cin
+3 to 15) and the gather instance of
 ``ddpm3d_tpu_torch/csrc/conv3d_narrow.cu``.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 conv3d_sm90_study.py [--against OTHER.cu]
     python3 conv3d_sm90_study.py --s8 [--against OTHER_S8.cu]
-    python3 conv3d_sm90_study.py --head [--against OLD_CONV3D.cu]
-    python3 conv3d_sm90_study.py --f32 [--against OLD_CONV3D.cu]
-    python3 conv3d_sm90_study.py --fused [--against OLD_CONV3D.cu]
-                                         [--against-gn OLD_GROUPNORM.cu]
+    python3 conv3d_sm90_study.py --head
+    python3 conv3d_sm90_study.py --f32
+    python3 conv3d_sm90_study.py --fused [--against-gn OLD_GROUPNORM.cu]
     python3 conv3d_sm90_study.py --smallcin
 
 Writes the committed source's ablations (and ``--against`` another version
@@ -45,9 +45,8 @@ for every variant that computes the function:
     epilogue's threads store the output instead of TMA;
   * ``noweights``, ``nohalo``, ``nostore`` — as above; ``noepilogue`` also
     skips the dequantize and staging;
-  * ``against``    — another version of the source, e.g. the previous K5,
-    run on the previous kernel's own tiles (``ops/conv3d.py:pick_tile``,
-    at most 128 rows);
+  * ``against``    — another version of the source (same entry point and
+    tiles);
 at the 3x3x3 sites beside the bf16 K3 on the conv int8 replaces, the 1x1
 sites beside ``torch._int_mm``, and the rate of one 8192^3 ``torch._int_mm``.
 
@@ -60,8 +59,7 @@ load), ``chunk8_stages3`` / ``chunk8_stages4`` (the same with a 3- or
 4-chunk ring), ``stages3`` (a 3-chunk ring of 16-channel chunks: one
 block per SM) and ``r8`` (8 outputs per thread along W, a 32-wide
 window), beside
-``F.conv3d`` f32 and ``--against`` (a previous ``csrc/conv3d.cu``, whose
-Cout <= 8 instance carried the head); the dx dy [1,96^3,2] -> 128 as
+``F.conv3d`` f32; the dx dy [1,96^3,2] -> 128 as
 committed, ``nostore``, ``nogather`` (the A tile gathered for a block's
 first tile only) and ``t256`` (256-thread blocks, two per SM), beside cuDNN's data gradient,
 ``F.conv3d`` on the flipped weight and the general f32 kernel
@@ -77,10 +75,8 @@ staging, transposes and epilogue alone) and ``nostage``
 holds); the plain instance also as ``noloads`` (the k loop's FFMA from
 registers, its shared loads once per unit) and ``loadsonly`` (the k
 loop's shared loads, no FFMA), both without staging; beside ``F.conv3d``
-(TF32 off; cuDNN's data gradient for the dx)
-and ``--against`` (a previous ``csrc/conv3d.cu``, whose f32 instances
-carried these convs, on its own weight layout and tiles); then the card's
-FFMA rate alone.
+(TF32 off; cuDNN's data gradient for the dx); then the card's FFMA rate
+alone.
 
 With ``--fused`` the bf16 fused ResBlock conv (K4, the fused instance of
 ``csrc/conv3d_sm90.cu``) in parts, each beside plain K3 on the same
@@ -95,8 +91,7 @@ warpgroups at the start of each chunk, as ``csrc/conv3d.cu`` did),
 ``lean`` (``-DCONV3D_SM90_PROLOGUE_ONLY``: the skip and stats code
 compiled out) with every part off and with the prologue alone; beside
 them
-the unfused sequence (K2 + K3 + skip add + K1) and ``--against`` (a
-previous ``csrc/conv3d.cu``, whose bf16 fused instance carried K4). Every
+the unfused sequence (K2 + K3 + skip add + K1). Every
 variant's output is checked against the plain version; where the fused
 route's tile (``ops/conv3d_fused.py:fused_tile``) differs from the conv's,
 also all three parts on the conv's tile (``k3_tile``). Then K1 (GN
@@ -106,14 +101,16 @@ flight per thread), rows per split halved and doubled, beside
 ``csrc/groupnorm.cu``, two launches), and a plain 16-byte read of the same
 bytes (``torch.sum`` over the tensor) as the practical read rate.
 
-With ``--smallcin`` the small-Cin instances at [1,96^3,Cin] -> 128 for
-Cin 3, 4, 5 and 7: as committed (``base``: K = Cin * tap + ci, folded),
-``tappad`` (each tap padded to an even width with a zero weight column,
-K = (Cin + 1) * tap + ci: more K at odd Cin, the same 2-byte loads),
-``noglobal`` (A from the k table's offsets, no device-memory gather) and
-``nostore`` (the epilogue stages its rows but stores nothing), beside
-``F.conv3d``, csrc/conv3d.cu's ndhwc kernel on the same inputs and a
-``fill_`` of the output's bytes (the card's practical store rate).
+With ``--smallcin`` the narrow kernel at [1,96^3,Cin] -> 128 for Cin 3,
+4, 5 and 7 (the small-Cin instances, one warpgroup a block), 9, 12 and 15
+(the resident Cin 9 to 15 instances, three warpgroups) and 20 and 130 (the
+gather instance): as committed (``base``), ``noglobal`` (A from the k
+table's offsets, no device-memory gather), ``nostore`` (the epilogue
+stages its rows but stores nothing) and, for the gather instance,
+``nostream`` (the ring's weight tiles loaded for the first four chunks
+only: no L2 -> SM weight traffic after them), beside ``F.conv3d``, the
+bound and a ``fill_`` of the output's bytes (the card's practical store
+rate). The ablations compute wrong results.
 Imports no JAX.
 """
 
@@ -161,15 +158,17 @@ S8_STORE = "if (r >= rows || n >= s.N) continue;"
 S8_TMA_STORE = "if (threadIdx.x == 128 && nc < s.N) {"
 NEVER = " || acc[0][0] != 0x7fffffff)"  # a condition the compiler keeps
 
-# the same of csrc/conv3d_narrow.cu's small-Cin instances
-NARROW_KPAD = "  static constexpr int kKpad = (kTaps * kCin + 15) / 16 * 16;"
-NARROW_TABLE = """      if (k < kTaps * kCin) {
-        tap = k / kCin;
-        off = static_cast<int>(tap_offset(s, tap)) * kCin + k % kCin;
-      }"""
+# the same of csrc/conv3d_narrow.cu: its device-memory gathers of A (the
+# Cin <= 7 instances', then the Cin >= 9 ones'), its stores and the gather
+# instance's weight tiles
 NARROW_HALF = "  return __ldg(x + r.m * kCin + off);"
 NARROW_WORD = "  return __ldg(x + ((r.m * kCin + off) >> 1));"
-NARROW_STORE = "      if (m >= s.M || col >= s.Cout) continue;"
+WIDE_HALF = "  return __ldg(x + r.e + off);"
+WIDE_WORD = "  return __ldg(x + ((r.e + off) >> 1));"
+NARROW_STORE = "    if (m >= s.M || col >= s.Cout) continue;"
+GATHER_TILES = "      for (int i = tid; i < kBN * 8; i += kNT) {"
+# the Cin of --smallcin, and which of them the gather instance takes
+SMALLCIN_CIN = (3, 4, 5, 7, 9, 12, 15, 20, 130)
 
 
 def _anchors(src: str, parts) -> None:
@@ -360,13 +359,13 @@ def study_s8(fns, gen, shape, n, taps, up) -> dict:
     line["library_ms"] = [time_ms(lib)]
     for _ in range(3):
         for name, fn in fns.items():
-            t = cv.pick_tile(*shape[1:4]) if name == "against" else tile
-            y = launch_s8(fn, xq, wp, s_x, s_w, kb, up, t)
+            y = launch_s8(fn, xq, wp, s_x, s_w, kb, up, tile)
             torch.cuda.synchronize()
             if name in ("base", "all_taps", "thread_stores", "against"):
                 line[name + "_equal"] = bool(torch.equal(y, ref))
             line.setdefault(name, []).append(
-                time_ms(lambda: launch_s8(fn, xq, wp, s_x, s_w, kb, up, t)))
+                time_ms(lambda: launch_s8(fn, xq, wp, s_x, s_w, kb, up,
+                                          tile)))
     line["library_ms"].append(time_ms(lib))
     return line
 
@@ -428,14 +427,13 @@ def variants_head(src: str) -> tuple:
     return fwd, dx
 
 
-def main_head(against) -> None:
+def main_head() -> None:
     """The f32 head conv and its dx (see the module note)."""
     with open(os.path.join(ROOT, "ddpm3d_tpu_torch", "csrc",
                            "conv3d_head.cu")) as f:
         fwd_src, dx_src = variants_head(f.read())
     fwd = build(fwd_src, "conv3d_head_launch")
     dxf = build(dx_src, "conv3d_f32_narrow_launch")
-    old = build({"against": against} if against else {}, "conv3d_ndhwc_launch")
     gen = torch.Generator(device="cuda").manual_seed(0)
     warm(gen)
     st = torch.cuda.current_stream().cuda_stream
@@ -471,12 +469,6 @@ def main_head(against) -> None:
                 line.setdefault(key, []).append(time_ms(head(fn, nseg)))
                 line[key + "_rel_err"] = ((y - ref).abs().max()
                                           / ref.abs().max()).item()
-        if "against" in old:
-            wo = cv.pack_weight(w, torch.float32)
-            line.setdefault("against", []).append(time_ms(lambda: launch_old(
-                old["against"], x, wo, b, y)))
-            line["against_rel_err"] = ((y - ref).abs().max()
-                                       / ref.abs().max()).item()
         xn = x.permute(0, 4, 1, 2, 3)
         line.setdefault("library_ms", []).append(
             time_ms(lambda: F.conv3d(xn, w, b, padding=1)))
@@ -578,28 +570,7 @@ def launch_fused(fn, x, wp, b, pg, pb, sk, parts, y, part, st, tile):
     _build.check(err, "conv3d_sm90_fused_launch")
 
 
-def launch_fused_old(fn, x, wp, b, pg, pb, sk):
-    """The previous kernel: the bf16 fused instance of an older
-    ``csrc/conv3d.cu`` (``conv3d_fused_launch``) with every part on."""
-    B, D, H, W, cin = x.shape
-    cout = wp.shape[1]
-    td, th, tw = cv.pick_tile(D, H, W)
-    tiles = -(-D // td) * -(-H // th) * -(-W // tw)
-    y = torch.empty((B, D, H, W, cout), dtype=x.dtype, device=x.device)
-    part = torch.empty((B * tiles * 2 * cout,), device=x.device)
-    part2 = torch.empty((B * -(-tiles // fo.STATS_GROUP) * 2 * cout,),
-                        device=x.device)
-    st = torch.empty((B, 2, cout), device=x.device)
-    err = fn(x.data_ptr(), wp.data_ptr(), b.data_ptr(), pg.data_ptr(),
-             pb.data_ptr(), 1, None if sk is None else sk.data_ptr(),
-             y.data_ptr(), part.data_ptr(), part2.data_ptr(), st.data_ptr(),
-             B, D, H, W, cin, cout, td, th, tw, 1,
-             torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "conv3d_fused_launch (previous)")
-    return y
-
-
-def study_fused(fns, old, gen, shape, cout, use_skip) -> dict:
+def study_fused(fns, gen, shape, cout, use_skip) -> dict:
     """K4's parts and builds at one site, three rounds each."""
     dev = torch.device("cuda")
     B, D, H, W, cin = shape
@@ -656,11 +627,8 @@ def study_fused(fns, old, gen, shape, cout, use_skip) -> dict:
         runs["k3_tile"] = lambda: launch_fused(
             fns["base"], x, wp, b, pg, pb, skx, (1, int(sk is not None), 1),
             y, part3, st, k3_tile)
-    if old is not None:
-        runs["against"] = lambda: launch_fused_old(old, x, wp, b, pg, pb, sk)
     for name, run in runs.items():
-        if (name in fns and name != "lean") or name in (
-                "all", "against", "k3_tile"):
+        if (name in fns and name != "lean") or name in ("all", "k3_tile"):
             out = run()
             out = y if out is None else out
             torch.cuda.synchronize()
@@ -733,18 +701,17 @@ def study_gn(fns, old, gen) -> list:
     return lines
 
 
-def main_fused(against, against_gn) -> None:
+def main_fused(against_gn) -> None:
     src = os.path.join(ROOT, "ddpm3d_tpu_torch", "csrc", "conv3d_sm90.cu")
     gsrc = os.path.join(ROOT, "ddpm3d_tpu_torch", "csrc", "groupnorm.cu")
     jobs = {f"fused_{k}": (src, flags) for k, flags in FUSED_BUILDS.items()}
     jobs["gn_unroll1"] = (gsrc, ("-DGN_STATS_UNROLL=1",))
     os.makedirs(OUT, exist_ok=True)
-    for name, text in (("fused_against", against), ("gn_against", against_gn)):
-        if text is not None:
-            path = os.path.join(OUT, f"{name}.cu")
-            with open(path, "w") as f:
-                f.write(text)
-            jobs[name] = (path, ())
+    if against_gn is not None:
+        path = os.path.join(OUT, "gn_against.cu")
+        with open(path, "w") as f:
+            f.write(against_gn)
+        jobs["gn_against"] = (path, ())
     libs = _build.build_variants(jobs)
     paths = _build.build_all()
     for line in open(paths["conv3d_sm90"] + ".log"):
@@ -754,12 +721,10 @@ def main_fused(against, against_gn) -> None:
     fns.update({k: _build.variant_fn(libs[f"fused_{k}"],
                                      "conv3d_sm90_fused_launch")
                 for k in FUSED_BUILDS})
-    old = (old_fused_fn(libs["fused_against"]) if "fused_against" in libs
-           else None)
     gen = torch.Generator(device="cuda").manual_seed(0)
     warm(gen)
     for shape, cout, use_skip in FUSED_SHAPES:
-        print(json.dumps(study_fused(fns, old, gen, shape, cout, use_skip)),
+        print(json.dumps(study_fused(fns, gen, shape, cout, use_skip)),
               flush=True)
     gfns = {"base": _build.fn("gn_stats_launch"),
             "unroll1": _build.variant_fn(libs["gn_unroll1"], "gn_stats_launch")}
@@ -793,18 +758,6 @@ def ffma_peak() -> dict:
     return {"ffma_peak_ms": ms, "ffma_tflops": flops / ms / 1e9}
 
 
-def old_fused_fn(lib):
-    """``conv3d_fused_launch`` of an older ``csrc/conv3d.cu`` (x, w, bias,
-    g, gb, silu, skip, y, part, part2, stats, B, D, H, W, Cin, Cout, TD, TH,
-    TW, dtype, stream)."""
-    fn = lib.conv3d_fused_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def launch_f32(fn, x, wp, b, y):
     """``conv3d_f32_launch`` (``csrc/conv3d_f32.cu``, weight from
     ``pack_weight_f32``) into ``y``."""
@@ -813,16 +766,6 @@ def launch_f32(fn, x, wp, b, y):
              y.data_ptr(), B, D, H, W, cin, wp.shape[2],
              *cv.pick_tile_f32(D, H, W), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "conv3d_f32_launch")
-
-
-def launch_old(fn, x, wp, b, y):
-    """An older csrc/conv3d.cu's ``conv3d_ndhwc_launch`` (f32, its [27, Cout,
-    Cin] weight) into ``y``."""
-    B, D, H, W, cin = x.shape
-    err = fn(x.data_ptr(), wp.data_ptr(), None if b is None else b.data_ptr(),
-             y.data_ptr(), B, D, H, W, cin, wp.shape[1],
-             *cv.pick_tile(D, H, W), 0, torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "conv3d_ndhwc_launch")
 
 
 F32_BUILDS = {"base": (), "nomath": ("-DCONV3D_F32_NO_MATH",),
@@ -874,7 +817,7 @@ F32_LOADSONLY = """#pragma unroll 1
   }"""
 
 
-def main_f32(against) -> None:
+def main_f32() -> None:
     """The f32 torso conv, fused and dx at [1,96^3,128] -> 128 (see the
     module note)."""
     src = os.path.join(ROOT, "ddpm3d_tpu_torch", "csrc", "conv3d_f32.cu")
@@ -885,14 +828,11 @@ def main_f32(against) -> None:
     os.makedirs(OUT, exist_ok=True)
     texts = {"noloads": text.replace(F32_LOOP, F32_NOLOADS),
              "loadsonly": text.replace(F32_LOOP, F32_LOADSONLY)}
-    if against is not None:
-        texts["against"] = against
     for name, body in texts.items():
         path = os.path.join(OUT, f"f32_{name}.cu")
         with open(path, "w") as f:
             f.write(body)
-        flags = ("-DCONV3D_F32_NO_STAGE",) if name != "against" else ()
-        jobs[f"f32_{name}"] = (path, flags)
+        jobs[f"f32_{name}"] = (path, ("-DCONV3D_F32_NO_STAGE",))
     libs = _build.build_variants(jobs)
     for name in jobs:
         with open(_build._lib_path(name, *jobs[name]) + ".log") as f:
@@ -914,7 +854,7 @@ def main_f32(against) -> None:
     pg = 0.5 + 0.05 * torch.randn((B, C), generator=gen, device="cuda")
     pb = -0.25 + 0.1 * torch.randn((B, C), generator=gen, device="cuda")
     skip = torch.randn_like(x)
-    wp, wo = cv.pack_weight_f32(w), cv.pack_weight(w, torch.float32)
+    wp = cv.pack_weight_f32(w)
     y = torch.empty_like(x)
     td, th = cv.pick_tile_f32(D, H, W)
     T = -(-D // td) * -(-H // th) * -(-W // cv.F32_TW)
@@ -940,21 +880,6 @@ def main_f32(against) -> None:
             fn, x, wp, b, y))
         if k in fused:
             runs[f"fused_{k}"] = ("fused", fused_run(fused[k]))
-    if against is not None:
-        lib = libs["f32_against"]
-        runs["plain_against"] = ("plain", lambda: launch_old(
-            _build.variant_fn(lib, "conv3d_ndhwc_launch"), x, wo, b, y))
-        ofn = old_fused_fn(lib)
-        tiles = cv.pick_tile(D, H, W)
-        ot = -(-D // tiles[0]) * -(-H // tiles[1]) * -(-W // tiles[2])
-        opart = torch.empty((ot * 2 * C,), device="cuda")
-        opart2 = torch.empty((-(-ot // fo.STATS_GROUP) * 2 * C,),
-                             device="cuda")
-        runs["fused_against"] = ("fused", lambda: _build.check(ofn(
-            x.data_ptr(), wo.data_ptr(), b.data_ptr(), pg.data_ptr(),
-            pb.data_ptr(), 1, skip.data_ptr(), y.data_ptr(), opart.data_ptr(),
-            opart2.data_ptr(), stats.data_ptr(), B, D, H, W, C, C, *tiles, 0,
-            st), "conv3d_fused_launch (against)"))
     runs["library_ms"] = (None, lambda: F.conv3d(xn, w, b, padding=1))
     line = dict(kernel="f32", shape=[B, D, H, W, C], cout=C,
                 bound_ms=flops / 67e12 * 1e3)
@@ -974,15 +899,10 @@ def main_f32(against) -> None:
     dy = torch.randn_like(x)
     ref = cv.conv3d_dx_plain(dy, w)
     wd = cv.pack_weight_dx(w, torch.float32)
-    wdo = cv.pack_weight(cv.flip_weight(w), torch.float32)
     line = dict(kernel="f32_dx", shape=[B, D, H, W, C], cout=C,
                 bound_ms=flops / 67e12 * 1e3)
     runs = {f"dx_{k}": lambda fn=plain[k]: launch_f32(fn, dy, wd, None, y)
             for k in F32_BUILDS}
-    if against is not None:
-        runs["dx_against"] = lambda: launch_old(
-            _build.variant_fn(libs["f32_against"], "conv3d_ndhwc_launch"),
-            dy, wdo, None, y)
     for name, run in runs.items():
         y.zero_()
         run()
@@ -999,64 +919,58 @@ def main_f32(against) -> None:
 
 
 def variants_smallcin(src: str) -> dict:
-    """{name: source text} of the small-Cin study (see the module note)."""
-    _anchors(src, (NARROW_KPAD, NARROW_TABLE, NARROW_HALF, NARROW_WORD,
-                   NARROW_STORE))
-    tappad = src.replace(NARROW_KPAD, (
-        "  static constexpr int kCinK = kCin >= 3 && kCin % 2 ? kCin + 1 "
-        ": kCin;\n  static constexpr int kKpad = (kTaps * kCinK + 15) / 16 "
-        "* 16;")).replace(NARROW_TABLE, """      if (k < kTaps * N::kCinK && k % N::kCinK < kCin) {
-        tap = k / N::kCinK;
-        off = static_cast<int>(tap_offset(s, tap)) * kCin + k % N::kCinK;
-      }""")
+    """{name: source text} of the narrow kernel's study (see the module
+    note)."""
+    _anchors(src, (NARROW_HALF, NARROW_WORD, WIDE_HALF, WIDE_WORD,
+                   NARROW_STORE, GATHER_TILES))
     offsets = "  return static_cast<unsigned>(off);"
     return {
         "smallcin_base": src,
-        "smallcin_tappad": tappad,
         "smallcin_noglobal": src.replace(NARROW_HALF, offsets).replace(
-            NARROW_WORD, offsets),
+            NARROW_WORD, offsets).replace(WIDE_HALF, offsets).replace(
+            WIDE_WORD, offsets),
         "smallcin_nostore": src.replace(NARROW_STORE, NARROW_STORE.replace(
-            ") continue;", " ||\n          acc[0] != 1.2345e-30f) continue;")),
+            ") continue;", " ||\n        acc[0] != 1.2345e-30f) continue;")),
+        "smallcin_nostream": src.replace(GATHER_TILES, GATHER_TILES.replace(
+            "i < kBN * 8", "iq < kRing && i < kBN * 8")),
     }
 
 
 def main_smallcin() -> None:
-    """The small-Cin instances at [1,96^3,Cin] -> 128 (see the module
-    note)."""
+    """The narrow kernel at [1,96^3,Cin] -> 128 (see the module note)."""
     with open(os.path.join(ROOT, "ddpm3d_tpu_torch", "csrc",
                            "conv3d_narrow.cu")) as f:
-        fns = build(variants_smallcin(f.read()), "conv3d_narrow_launch")
-    ndhwc = _build.fn("conv3d_ndhwc_launch")
+        sources = variants_smallcin(f.read())
+    entries = {"sm90_smallcin": build(sources, "conv3d_narrow_launch"),
+               "sm90_gather": build(sources, "conv3d_gather_launch")}
     gen = torch.Generator(device="cuda").manual_seed(0)
     warm(gen)
     stream = torch.cuda.current_stream().cuda_stream
-    for cin in (3, 4, 5, 7):
+    for cin in SMALLCIN_CIN:
         shape, cout = (1, 96, 96, 96, cin), 128
+        route = cv.conv3d_route(shape, torch.bfloat16, cout)
+        fns = {name: fn for name, fn in entries[
+            "sm90_gather" if route == "sm90_gather" else "sm90_smallcin"
+        ].items() if route == "sm90_gather" or "nostream" not in name}
         x, w, b = inputs(gen, shape, cout)
         wd = w.bfloat16()
         y = torch.empty(shape[:-1] + (cout,), dtype=x.dtype, device="cuda")
-        packed = {name: cv.pack_weight_narrow(w, torch.bfloat16)
-                  for name in fns}
-        packed["smallcin_tappad"] = cv.pack_weight_narrow(
-            F.pad(w, (0, 0, 0, 0, 0, 0, 0, cin % 2)), torch.bfloat16)
+        wp = cv.pack_weight_narrow(w, torch.bfloat16)
 
         def run(name):
-            err = fns[name](x.data_ptr(), packed[name].data_ptr(),
-                            b.data_ptr(), y.data_ptr(), *shape[:4], cin,
-                            cout, stream)
-            _build.check(err, "conv3d_narrow_launch")
-            return y
-
-        def run_ndhwc():
-            wp = cv.pack_weight(wd, torch.bfloat16)
-            err = ndhwc(x.data_ptr(), wp.data_ptr(), b.data_ptr(),
-                        y.data_ptr(), *shape[:4], cin, cout,
-                        *cv.pick_tile(*shape[1:4]), 1, stream)
-            _build.check(err, "conv3d_ndhwc_launch")
+            err = fns[name](x.data_ptr(), wp.data_ptr(), b.data_ptr(),
+                            y.data_ptr(), *shape[:4], cin, cout, stream)
+            _build.check(err, name)
             return y
 
         ref = cv.conv3d_plain(x, wd, b).float()
-        line = dict(shape=list(shape), cout=cout, kpad=cv.narrow_k(cin),
+        vox = x[..., 0].numel()
+        flops = 2.0 * 27 * cin * cout * vox
+        nbytes = 2.0 * (vox * (cin + cout) + 27 * cin * cout) + 4 * cout
+        line = dict(shape=list(shape), cout=cout, route=route,
+                    kpad=cv.narrow_k(cin),
+                    bound_ms=max(flops / H100_BF16_FLOPS,
+                                 nbytes / 3.35e12) * 1e3,
                     store_bound_ms=2.0 * y.numel() / 3.35e12 * 1e3)
         for name in fns:  # the ablations compute wrong results
             out = run(name).float()
@@ -1064,7 +978,6 @@ def main_smallcin() -> None:
                                        / ref.abs().max()).item()
         xn = x.permute(0, 4, 1, 2, 3)
         runs = {**{name: (lambda n=name: run(n)) for name in fns},
-                "ndhwc": run_ndhwc,
                 "F.conv3d": lambda: F.conv3d(xn, wd, b.bfloat16(),
                                              padding=1),
                 "fill": lambda: y.fill_(1.0)}
@@ -1072,6 +985,7 @@ def main_smallcin() -> None:
             for name, fn in runs.items():
                 line.setdefault(name, []).append(time_ms(fn))
         print(json.dumps(line), flush=True)
+        del x, y, ref
 
 
 def warm(gen) -> None:
@@ -1089,7 +1003,8 @@ def smi() -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--against", help="another version of the source")
+    ap.add_argument("--against", help="another version of the source (the "
+                    "bf16 conv's or, with --s8, the int8 conv's)")
     ap.add_argument("--s8", action="store_true",
                     help="study the int8 kernel (csrc/conv3d_s8.cu)")
     ap.add_argument("--head", action="store_true",
@@ -1101,8 +1016,8 @@ def main() -> None:
                     help="study the f32 conv (csrc/conv3d_f32.cu): plain, "
                          "fused and dx")
     ap.add_argument("--smallcin", action="store_true",
-                    help="study the bf16 Cin = 3 to 7 instances of "
-                         "csrc/conv3d_narrow.cu")
+                    help="study the bf16 narrow kernel's small-Cin and "
+                         "gather instances (csrc/conv3d_narrow.cu)")
     ap.add_argument("--against-gn",
                     help="with --fused: a previous csrc/groupnorm.cu")
     args = ap.parse_args()
@@ -1126,16 +1041,16 @@ def main() -> None:
         if args.against_gn:
             with open(args.against_gn) as f:
                 against_gn = f.read()
-        main_fused(against, against_gn)
+        main_fused(against_gn)
         smi()
         return
     if args.f32:
-        main_f32(against)
+        main_f32()
         print(json.dumps(ffma_peak()), flush=True)
         smi()
         return
     if args.head:
-        main_head(against)
+        main_head()
         print(json.dumps(ffma_peak()), flush=True)
         smi()
         return

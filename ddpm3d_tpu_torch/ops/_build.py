@@ -24,7 +24,7 @@ from typing import Dict
 _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SRC_DIR = osp.join(_PKG, "csrc")
 BUILD_DIR = osp.join(_PKG, "_build")
-SOURCES = ("conv3d", "conv3d_f32", "conv3d_head", "conv3d_narrow", "conv3d_s8",
+SOURCES = ("conv3d_f32", "conv3d_head", "conv3d_narrow", "conv3d_s8",
            "conv3d_sm90", "groupnorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -35,8 +35,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> (library, argtypes); every one returns cudaError_t
 _SIGNATURES = {
-    "conv3d_ndhwc_launch": (
-        "conv3d", [_P, _P, _P, _P] + [_I] * 10 + [_P]),
     "conv3d_f32_launch": (
         "conv3d_f32", [_P, _P, _P, _P] + [_I] * 8 + [_P]),
     "conv3d_f32_fused_launch": (
@@ -50,6 +48,8 @@ _SIGNATURES = {
     "conv3d_f32_narrow_launch": (
         "conv3d_head", [_P, _P, _P, _P] + [_I] * 5 + [_P]),
     "conv3d_narrow_launch": (
+        "conv3d_narrow", [_P, _P, _P, _P] + [_I] * 6 + [_P]),
+    "conv3d_gather_launch": (
         "conv3d_narrow", [_P, _P, _P, _P] + [_I] * 6 + [_P]),
     "conv3d_s8_launch": (
         "conv3d_s8", [_P] * 6 + [_I] * 12 + [_P]),

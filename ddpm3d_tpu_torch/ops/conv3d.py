@@ -1,8 +1,10 @@
 """Stride-1 SAME 3x3x3 convolution on channels-last volumes.
 
 Counterpart of ``ddpm3d_tpu/ops/conv3d_mxu.py:conv3d_mxu`` (the Pallas TPU
-kernel ``_conv_kernel``). Hand-written Hopper kernels compute it, on the
-route :func:`conv3d_route` picks:
+kernel ``_conv_kernel``, which takes Cin and Cout that are multiples of 128)
+and, at the other shapes, of the XLA conv the JAX package runs there
+(``ddpm3d_tpu/ops/conv3d.py:conv3d_decomposed``). Hand-written Hopper
+kernels compute every one, on the route :func:`conv3d_route` picks:
   * ``"sm90"``, ``csrc/conv3d_sm90.cu``: bf16 with Cin % 8 == 0, every conv
     of the model's torso. A warp-specialised implicit GEMM: TMA stages a
     haloed input tile once per 64-channel Cin chunk and the weights of each
@@ -15,11 +17,18 @@ route :func:`conv3d_route` picks:
   * ``"sm90_cin1"``, the same source's Cin = 1 instance: the Seg encoder's
     input conv. K = tap, 27 of one 32-wide chunk, two ``wgmma`` per 64
     rows; a register of A pairs taps 2j and 2j + 1 of one voxel;
-  * ``"sm90_smallcin"``, the same source's Cin = 3 to 7 instances: the
-    6-channel Seg models' input convs (Cin = 4 and 3). K = Cin * tap + ci
-    padded to a multiple of 16 (:func:`narrow_k`), Kpad / 16 ``wgmma`` per
-    64 rows; A is gathered through a per-block table of each k's offset
-    and tap (:func:`narrow_fragment_taps`);
+  * ``"sm90_smallcin"``, the same source's Cin = 3 to 7 and 9 to 15
+    instances: the 6-channel Seg models' input convs (Cin = 4 and 3), and
+    no model's Cin 9 to 15. K = Cin * tap + ci padded to a multiple of 16
+    (:func:`narrow_k`), Kpad / 16 ``wgmma`` per 64 rows; A is gathered
+    through a per-block table of each k's offset and tap
+    (:func:`narrow_fragment_taps`). From Cin = 9 three warpgroups share the
+    resident weight and gather A one chunk ahead
+    (:func:`narrow_chunk_steps`);
+  * ``"sm90_gather"``, the same source's gather instance: bf16 with Cin
+    above 15 that is not a multiple of 8 (no model). The same folded K,
+    the weight streamed in 64-k tiles through a ring with each chunk's k
+    table, 192-row slices;
   * ``"f32_head"``, ``csrc/conv3d_head.cu``: f32 with Cout <= 8, the model's
     head conv (128 -> 2). FFMA; a block walks a segment of D under a 32 x TW
     window of (H, W), staging each input plane once and keeping rolling
@@ -33,12 +42,9 @@ route :func:`conv3d_route` picks:
     the halo staged once per 8-channel chunk, the weights
     (:func:`pack_weight_f32`, [27, Cin, Cout]) streamed in tap rows through
     a ring of cp.async stages (:func:`pick_tile_f32`);
-  * ``"ndhwc"``, ``csrc/conv3d.cu``: bf16 with Cin > 8 and not a multiple
-    of 8 (rows TMA cannot stride), ``mma.sync``; no model of the port or of
-    the JAX package runs such a conv.
 Each source note says what bounds its kernel and what its design does about
-that (the narrow bf16 conv is bound by the bytes it stores, the others by
-operations).
+that (the narrow bf16 conv up to Cin = 9 is bound by the bytes it stores,
+the others by operations).
 
 :func:`conv3d` is differentiable (:class:`Conv3dFunction`, the counterpart of
 the custom VJP ``_conv3d_mxu_fwd``/``_conv3d_mxu_bwd``):
@@ -74,11 +80,8 @@ dx_launches = 0
 # the same launches by route (see ops.route_counts): "conv3d.<route>" and
 # "conv3d_dx.<route>" for each of ROUTES
 route_launches: Dict[str, int] = {}
-ROUTES = ("sm90", "sm90_narrow", "sm90_cin1", "sm90_smallcin", "f32_head",
-          "f32_narrow", "f32", "ndhwc")
-
-MAX_ROWS = 128   # output voxels per block (csrc/conv3d.cu kMaxRows)
-MAX_HALO = 640   # staged halo voxels per block (kMaxHalo)
+ROUTES = ("sm90", "sm90_narrow", "sm90_cin1", "sm90_smallcin",
+          "sm90_gather", "f32_head", "f32_narrow", "f32")
 
 # csrc/conv3d_sm90.cu
 SM90_MAX_ROWS = 256    # output voxels per tile (kMaxRows); 128-row tiles
@@ -92,11 +95,17 @@ SM90_SMEM_LIMIT = 232448  # dynamic shared memory a block may use (H100)
 
 # csrc/conv3d_narrow.cu: the taps folded into K = 27 * Cin, padded to a
 # multiple of 16 (the packed weight's row, narrow_k): Cin = 2 and Cin = 1;
-# Cin = 3 to 7 (the sm90_smallcin route) take 96 to 192
+# Cin = 3 to 7 and 9 to 15 (the sm90_smallcin route) take 96 to 416, the
+# gather instance any Cin
 NARROW_K = 64
 NARROW_K1 = 32
-NARROW_MAX_CIN = 7
-NARROW_ROUTES = ("sm90_narrow", "sm90_cin1", "sm90_smallcin")
+NARROW_MAX_CIN = 15
+NARROW_ROUTES = ("sm90_narrow", "sm90_cin1", "sm90_smallcin", "sm90_gather")
+NARROW_ROWS = 64          # rows of a warpgroup's slice (kRows)
+NARROW_TILE_K = 64        # K of a staged weight tile, A's chunk (kK)
+NARROW_WG = 3             # warpgroups a block from Cin = 9 (kWG)
+NARROW_RING = 4           # the gather instance's ring of tiles (kRing)
+NARROW_REGS = 168         # registers a thread may hold at 3 warpgroups
 
 # csrc/conv3d_f32.cu
 F32_THREADS = 256     # threads per block, two blocks per SM
@@ -130,15 +139,17 @@ def pack_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def narrow_k(cin: int) -> int:
-    """The narrow kernel's folded K for Cin = 1 to 7 (its packed row): 27 *
-    Cin padded to a multiple of 16 (32, 64, 96, 112, 144, 176, 192)."""
+    """The narrow kernel's folded K (its packed row): 27 * Cin padded to a
+    multiple of 16 (32, 64, 96, 112, 144, 176, 192 for Cin = 1 to 7, 256
+    to 416 for Cin = 9 to 15)."""
     return -(-27 * cin // 16) * 16
 
 
 def pack_weight_narrow(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(Cout, Cin, 3, 3, 3) with Cin = 1 to 7 -> the narrow kernel's [Cout,
-    narrow_k(Cin)] layout in ``dtype``: column k = Cin * tap + ci with tap =
-    9 kd + 3 kh + kw, zeros from k = 27 * Cin on."""
+    """(Cout, Cin, 3, 3, 3) -> the narrow kernel's [Cout, narrow_k(Cin)]
+    layout in ``dtype`` (every instance of ``csrc/conv3d_narrow.cu``, the
+    gather one too): column k = Cin * tap + ci with tap = 9 kd + 3 kh + kw,
+    zeros from k = 27 * Cin on."""
     cout, cin = weight.shape[:2]
     w = weight.detach().to(dtype).permute(0, 2, 3, 4, 1).reshape(cout, 27 * cin)
     return F.pad(w, (0, narrow_k(cin) - 27 * cin)).contiguous()
@@ -153,9 +164,44 @@ def narrow_fragment_taps(cin: int, ks: int, tq: int, reg: int):
     Cin = 3 to 7 through the kernel's k table: one word at even Cin, two
     2-byte loads at odd Cin (a tap's last channel pairs with the next
     tap's first). A tap from 27 on is a padding k, loaded as zero. Rows:
-    reg 0 and 2 hold row g, 1 and 3 row g + 8 (g = lane / 4)."""
+    reg 0 and 2 hold row g, 1 and 3 row g + 8 (g = lane / 4). From Cin = 9
+    the fragments come a chunk at a time (:func:`narrow_chunk_steps`)."""
     k = 16 * ks + 2 * tq + (8 if reg >= 2 else 0)
     return divmod(k, cin), divmod(k + 1, cin)
+
+
+def narrow_chunk_steps(cin: int, route: str) -> list:
+    """The k-steps (16 k each) of each chunk of A that the kernel of
+    ``route`` gathers ahead from Cin = 9: 64-k chunks (4 steps, one weight
+    tile) but 32-k ones (2 steps) at odd Cin on the resident instances
+    (``sm90_smallcin``: two 2-byte loads a register would spill past the
+    168 registers of a thread at 4 steps). The resident instances stop at
+    narrow_k(Cin); the gather instance runs whole 64-k chunks, the ring's
+    tiles (its padding k are zero in both operands). Chunk c starts at k =
+    16 * steps[0] * c."""
+    steps = narrow_k(cin) // 16
+    if route == "sm90_gather":
+        return [4] * -(-steps // 4)
+    per = 2 if cin % 2 else 4
+    return [min(per, steps - per * c) for c in range(-(-steps // per))]
+
+
+def narrow_smem_bytes(cin: int, route: str) -> int:
+    """Dynamic shared memory of one block of ``csrc/conv3d_narrow.cu``
+    (``Narrow<Cin>::kSmem``, ``kGatherSmem``): 1024 of alignment slack, the
+    weight tiles (16 KB each: all of them resident, or the gather ring's),
+    64 staged output rows of 256 bytes per warpgroup, the bias and the k
+    table (8 bytes a k: all of K resident, 64 per ring slot)."""
+    tile = SM90_BN * NARROW_TILE_K * 2
+    stage = NARROW_ROWS * SM90_BN * 2
+    if route == "sm90_gather":
+        return (1024 + NARROW_RING * tile + NARROW_WG * stage + SM90_BN * 4
+                + NARROW_RING * NARROW_TILE_K * 8)
+    kpad = narrow_k(cin)
+    groups = NARROW_WG if cin >= 9 else 1
+    table = kpad * 8 if cin >= 3 else 0
+    return (1024 + -(-kpad // NARROW_TILE_K) * tile + groups * stage
+            + SM90_BN * 4 + table)
 
 
 def pack_weight_f32(weight: torch.Tensor) -> torch.Tensor:
@@ -229,25 +275,6 @@ def pack_weight_dx(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """(Cout, Cin, 3, 3, 3) -> the kernel's layout (:func:`pack_weight_kernel`)
     of the flipped, in/out-swapped weight: the dx conv maps Cout -> Cin."""
     return pack_weight_kernel(flip_weight(weight), dtype)
-
-
-@functools.lru_cache(maxsize=64)
-def pick_tile(D: int, H: int, W: int) -> Tuple[int, int, int]:
-    """Output tile (TD, TH, TW) of at most MAX_ROWS voxels for a DxHxW
-    volume: fewest tiles first (every tile costs a full block of math),
-    then the smallest halo (input bytes staged per tile)."""
-    best = None
-    for tw in range(1, min(W, MAX_ROWS) + 1):
-        for th in range(1, min(H, MAX_ROWS // tw) + 1):
-            td = min(D, MAX_ROWS // (tw * th))
-            halo = (td + 2) * (th + 2) * (tw + 2)
-            if halo > MAX_HALO:
-                continue
-            tiles = -(-D // td) * -(-H // th) * -(-W // tw)
-            key = (tiles, halo, -tw)
-            if best is None or key < best[0]:
-                best = (key, (td, th, tw))
-    return best[1]
 
 
 @functools.lru_cache(maxsize=64)
@@ -348,15 +375,15 @@ def conv3d_route(x_shape, dtype: torch.dtype, cout: int) -> str:
     0, whose rows TMA can stage (16-byte strides); ``"sm90_narrow"``
     (``csrc/conv3d_narrow.cu``) for bf16 with Cin = 2, the input conv, and
     ``"sm90_cin1"`` (its Cin = 1 instance) for bf16 with Cin = 1, the Seg
-    encoder's input conv, and ``"sm90_smallcin"`` (its Cin = 3 to 7
-    instances) for bf16 with Cin 3 to 7, the 6-channel Seg models' input
-    convs; ``"f32_narrow"`` (``csrc/conv3d_head.cu``) for f32
-    with Cin = 2, the head's dx; ``"f32_head"`` (``csrc/conv3d_head.cu``)
-    for f32 with Cout <= 8, Cin % 4 == 0 (16-byte rows) and a weight that
-    fits the block's shared memory, the head conv; ``"f32"``
-    (``csrc/conv3d_f32.cu``) for the other f32 convs; ``"ndhwc"``
-    (``csrc/conv3d.cu``) for bf16 with any other Cin (above 8 and not a
-    multiple of 8)."""
+    encoder's input conv, ``"sm90_smallcin"`` (its Cin = 3 to 7 and 9 to
+    15 instances) for bf16 with Cin 3 to 15 (not 8), the 6-channel Seg
+    models' input convs, and ``"sm90_gather"`` (its gather instance) for
+    bf16 with any other Cin (above 15 and not a multiple of 8);
+    ``"f32_narrow"`` (``csrc/conv3d_head.cu``) for f32 with Cin = 2, the
+    head's dx; ``"f32_head"`` (``csrc/conv3d_head.cu``) for f32 with Cout
+    <= 8, Cin % 4 == 0 (16-byte rows) and a weight that fits the block's
+    shared memory, the head conv; ``"f32"`` (``csrc/conv3d_f32.cu``) for
+    the other f32 convs. No kernel takes another dtype."""
     cin = x_shape[-1]
     if dtype == torch.bfloat16:
         if cin % 8 == 0:
@@ -365,16 +392,17 @@ def conv3d_route(x_shape, dtype: torch.dtype, cout: int) -> str:
             return "sm90_narrow"
         if cin == 1:
             return "sm90_cin1"
-        if 3 <= cin <= NARROW_MAX_CIN:
+        if cin <= NARROW_MAX_CIN:
             return "sm90_smallcin"
-    elif dtype == torch.float32:
+        return "sm90_gather"
+    if dtype == torch.float32:
         if cin == 2:
             return "f32_narrow"
         if (cout <= HEAD_MAX_COUT and cin % 4 == 0
                 and head_smem_bytes(cin, cout) <= SM90_SMEM_LIMIT):
             return "f32_head"
         return "f32"
-    return "ndhwc"
+    raise TypeError(f"the conv kernels take bf16 or f32, got {dtype}")
 
 
 @functools.lru_cache(maxsize=64)
@@ -520,7 +548,7 @@ def check_kernel_inputs(x: torch.Tensor, w_packed: torch.Tensor, what: str,
     """Raise unless the conv kernels take ``x`` [B, D, H, W, Cin] (a CUDA
     tensor, bf16 or f32) with ``w_packed`` in the layout of ``route``
     (default: :func:`conv3d_route`'s, as :func:`pack_weight_kernel` packs;
-    ``"ndhwc"`` for :func:`pack_weight`'s, ``"f32"`` for
+    ``"tap_major"`` for :func:`pack_weight`'s, ``"f32"`` for
     :func:`pack_weight_f32`'s); returns (route, Cout)."""
     if x.device.type != "cuda":
         raise RuntimeError(f"{what} kernel takes CUDA tensors, got {x.device}")
@@ -538,7 +566,7 @@ def check_kernel_inputs(x: torch.Tensor, w_packed: torch.Tensor, what: str,
         "f32_narrow": (cout, F32_NARROW_K),
         "f32_head": (cin // 4, 27, 4, cout),
         "f32": (27, cin, cout),
-    }.get(route, (27, cout, cin))
+    }.get(route, (27, cout, cin))  # sm90 and tap_major
     if tuple(w_packed.shape) != expect:
         raise ValueError(
             f"packed weight {tuple(w_packed.shape)} does not fit Cin={cin} "
@@ -577,7 +605,8 @@ def _launch(
         if x.data_ptr() % x_align or w_packed.data_ptr() % 16:
             raise ValueError(f"conv3d_narrow takes {x_align}-byte-aligned x "
                              "and a 16-byte-aligned weight")
-        name = "conv3d_narrow_launch"
+        name = ("conv3d_gather_launch" if route == "sm90_gather"
+                else "conv3d_narrow_launch")
         err = _build.fn(name)(
             x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
             B, D, H, W, cin, cout, stream)
@@ -595,16 +624,11 @@ def _launch(
         err = _build.fn(name)(
             x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
             B, D, H, W, cout, stream)
-    elif route == "f32":
+    else:
         name = "conv3d_f32_launch"
         err = _build.fn(name)(
             x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
             B, D, H, W, cin, cout, *pick_tile_f32(D, H, W), stream)
-    else:
-        name = "conv3d_ndhwc_launch"
-        err = _build.fn(name)(
-            x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
-            B, D, H, W, cin, cout, *pick_tile(D, H, W), 1, stream)
     _build.check(err, name)
     key = f"{what}.{route}"
     route_launches[key] = route_launches.get(key, 0) + 1

@@ -180,7 +180,7 @@ def conv3d_fused_kernel(
     global launches
     route = conv3d_fused_route(x.shape, x.dtype)
     _, cout = check_kernel_inputs(
-        x, w_packed, "conv3d_fused", "f32" if route == "f32" else "ndhwc")
+        x, w_packed, "conv3d_fused", "f32" if route == "f32" else "tap_major")
     B, D, H, W, cin = x.shape
 
     def f32(t, shape, what):

@@ -4,10 +4,13 @@ it, on the CPU.
 
 The kernel does not run here (no nvcc, no card), so its host rules and
 its index arithmetic are held in torch: the route of every bf16 Cin, the
-packed weight's [Cout, Kpad] layout, the A fragments' (tap, ci) per
-register and the kernel's per-block k table, whose gathered A times the
-packed weight must equal ``conv3d_plain``. The plain version is held
-against the JAX package's conv at these widths, the f32 forward of
+packed weight's [Cout, Kpad] layout (also at the wider Cin of the Cin 9
+to 15 and gather instances, whose A and k tables
+``tests/test_torch_port_conv_wide.py`` emulates), the A fragments' (tap,
+ci) per register and the kernel's per-block k table, whose gathered A
+times the packed weight must equal ``conv3d_plain``. The plain version is
+held against the JAX package's conv at these widths and at Cin 12 and
+17, the f32 forward of
 ``SegModelv2_6c`` / ``SegModelv3_6c`` against JAX's at a tiny width, and
 the launches per forward of both models at the production depth (which
 ``chip_smoke.py``'s ``seg_6c`` phase pins on the card) are counted on the
@@ -59,23 +62,28 @@ ALIASES = ("SegModelv2_6c", "SegModelv3_6c")
 @pytest.mark.parametrize("cin,route", [
     (1, "sm90_cin1"), (2, "sm90_narrow"), (3, "sm90_smallcin"),
     (4, "sm90_smallcin"), (5, "sm90_smallcin"), (6, "sm90_smallcin"),
-    (7, "sm90_smallcin"), (8, "sm90"), (9, "ndhwc"), (10, "ndhwc"),
-    (11, "ndhwc"), (12, "ndhwc"), (13, "ndhwc"), (14, "ndhwc"),
-    (15, "ndhwc"), (16, "sm90"), (130, "ndhwc"),
+    (7, "sm90_smallcin"), (8, "sm90"), (9, "sm90_smallcin"),
+    (10, "sm90_smallcin"), (11, "sm90_smallcin"), (12, "sm90_smallcin"),
+    (13, "sm90_smallcin"), (14, "sm90_smallcin"), (15, "sm90_smallcin"),
+    (16, "sm90"), (130, "sm90_gather"), (17, "sm90_gather"),
+    (20, "sm90_gather"), (36, "sm90_gather"),
 ])
 def test_bf16_route_by_cin(cin, route):
-    """bf16 Cin 3 to 7 take the small-Cin instances; ndhwc keeps only Cin
-    above 8 that is not a multiple of 8. The dx of a conv with Cout = Cin
-    runs on dy's Cin, so it takes the same route."""
+    """bf16 Cin 3 to 15 but 8 take the small-Cin instances (resident
+    weight); the gather instance every other Cin that is not a multiple of
+    8. The dx of a conv with Cout = Cin runs on dy's Cin, so it takes the
+    same route."""
     assert cv.conv3d_route((1, 4, 8, 8, cin), torch.bfloat16, 128) == route
     assert cv.conv3d_route((2, 3, 5, 7, cin), torch.bfloat16, 5) == route
 
 
-@pytest.mark.parametrize("cin", SMALL_CIN)
+@pytest.mark.parametrize("cin", SMALL_CIN + (9, 12, 15, 17, 20, 36, 130))
 def test_pack_weight_narrow_small_cin(cin):
     """[Cout, Kpad]: column k = Cin * tap + ci is the permuted reshape of
-    the weight, Kpad = 27 Cin padded to a multiple of 16, zeros from k = 27
-    Cin on; pack_weight_kernel and pack_weight_dx pack it for the route."""
+    the weight, Kpad = 27 Cin padded to a multiple of 16 (16-byte rows for
+    the gather instance's cp.async), zeros from k = 27 Cin on;
+    pack_weight_kernel and pack_weight_dx pack it for the route (the
+    small-Cin instances' up to Cin = 15, the gather instance's above)."""
     g = torch.Generator().manual_seed(cin)
     w = torch.randn((40, cin, 3, 3, 3), generator=g)
     wp = cv.pack_weight_narrow(w, torch.bfloat16)
@@ -186,10 +194,10 @@ def test_small_cin_kernel_emulated(cin, B, dhw):
         2 ** -8 * ref.float().abs().max())
 
 
-@pytest.mark.parametrize("cin", [3, 4, 7])
+@pytest.mark.parametrize("cin", [3, 4, 7, 12, 17])
 def test_conv3d_plain_matches_jax_conv(cin):
     """conv3d_plain (the CPU path and the card's yardstick) against the JAX
-    package's conv at Cin 3, 4 and 7 (ops/conv3d.py: conv3d_decomposed,
+    package's conv at Cin 3, 4, 7, 12 and 17 (ops/conv3d.py: conv3d_decomposed,
     which the JAX Conv3D takes at these widths, plus the bias), in f32 on
     numpy-seeded inputs."""
     rng = np.random.default_rng(cin)
@@ -275,7 +283,7 @@ SEG_6C_INT8_ROUTES = {"sm90_smallcin": 2, "f32_head": 1}
 def test_production_seg_6c_launches(name, monkeypatch):
     """Launches per forward of each full-depth 6-channel Seg model, bf16
     and int8, by kernel and by the conv's route (``conv3d_route`` of each
-    call, as the card picks): none on ndhwc."""
+    call, as the card picks): none on sm90_gather."""
     counts, routes = {}, collections.Counter()
 
     def counting(key, fn):

@@ -167,8 +167,8 @@ def test_conv3d_sm90_matches_plain(dev, shape, cout):
     after = ops.route_counts()
     assert after["conv3d.sm90"] == before["conv3d.sm90"] + 1
     assert after["conv3d_dx.sm90"] == before["conv3d_dx.sm90"] + 1
-    assert after["conv3d.ndhwc"] == before["conv3d.ndhwc"]
-    assert after["conv3d_dx.ndhwc"] == before["conv3d_dx.ndhwc"]
+    assert after["conv3d.sm90_gather"] == before["conv3d.sm90_gather"]
+    assert after["conv3d_dx.sm90_gather"] == before["conv3d_dx.sm90_gather"]
     ref = cv.conv3d_plain(x, w.bfloat16(), b)
     dx_ref = cv.conv3d_dx_plain(dy, w)
     torch.cuda.synchronize()
@@ -629,7 +629,7 @@ def test_conv3d_narrow_matches_plain(dev, shape, cout):
     out = cv.conv3d_kernel(x, wp, b)
     after = ops.route_counts()
     assert after["conv3d.sm90_narrow"] == before["conv3d.sm90_narrow"] + 1
-    assert after["conv3d.ndhwc"] == before["conv3d.ndhwc"]
+    assert after["conv3d.sm90_gather"] == before["conv3d.sm90_gather"]
     ref = cv.conv3d_plain(x, w.bfloat16(), b)
     torch.cuda.synchronize()
     assert out.shape == ref.shape and out.dtype == torch.bfloat16
@@ -663,7 +663,7 @@ def test_conv3d_head_matches_plain(dev, shape, cout):
     out = cv.conv3d_kernel(x, wp, b)
     after = ops.route_counts()
     assert after["conv3d.f32_head"] == before["conv3d.f32_head"] + 1
-    assert after["conv3d.ndhwc"] == before["conv3d.ndhwc"]
+    assert after["conv3d.sm90_gather"] == before["conv3d.sm90_gather"]
     ref = cv.conv3d_plain(x, w, b)
     torch.cuda.synchronize()
     assert out.shape == ref.shape and out.dtype == torch.float32
@@ -695,7 +695,7 @@ def test_conv3d_f32_narrow_matches_plain(dev, shape, cout):
     after = ops.route_counts()
     assert after["conv3d.f32_narrow"] == before["conv3d.f32_narrow"] + 1
     assert after["conv3d_dx.f32_narrow"] == before["conv3d_dx.f32_narrow"] + 1
-    assert after["conv3d.ndhwc"] == before["conv3d.ndhwc"]
+    assert after["conv3d.sm90_gather"] == before["conv3d.sm90_gather"]
     ref = cv.conv3d_plain(x, w, b)
     torch.cuda.synchronize()
     assert out.shape == ref.shape and out.dtype == torch.float32
@@ -895,7 +895,7 @@ def test_sm90_cin1_conv_takes_bf16_cin1(dev, batch):
     ops.reset_launch_counts()
     out = cv.conv3d_kernel(x, wp, b)
     assert ops.route_counts()["conv3d.sm90_cin1"] == 1
-    assert ops.route_counts()["conv3d.ndhwc"] == 0
+    assert ops.route_counts()["conv3d.sm90_gather"] == 0
     ref = cv.conv3d_plain(x, w.bfloat16(), b)
     assert _rel(out, ref) <= TOL[torch.bfloat16]
     assert torch.equal(out[-1:], cv.conv3d_kernel(x[-1:].contiguous(), wp, b))
@@ -922,25 +922,27 @@ def test_conv3d_cin1_matches_plain(dev, shape, cout):
 
 
 @pytest.mark.parametrize("batch", [1, 2])
-@pytest.mark.parametrize("cin", [3, 4, 5, 6, 7])
+@pytest.mark.parametrize("cin", [3, 4, 5, 6, 7, 9, 12, 15, 20, 130])
 def test_conv3d_smallcin_matches_plain(dev, cin, batch):
     """bf16 Cin 3 to 7 (the 6-channel Seg models' input convs are Cin 4 and
-    3) on csrc/conv3d_narrow.cu's small-Cin instances, route
-    sm90_smallcin, none on ndhwc, against conv3d_plain at the full patch
-    within one bf16 rounding; the last volume alone gives the same bits."""
+    3) and 9 to 15 on csrc/conv3d_narrow.cu's small-Cin instances, route
+    sm90_smallcin, Cin 20 and 130 on its gather instance, route
+    sm90_gather, against conv3d_plain at the full patch within one bf16
+    rounding; the last volume alone gives the same bits."""
     g = torch.Generator(device=dev).manual_seed(10 * cin + batch)
     x = torch.randn((batch, 96, 96, 96, cin), generator=g,
                     device=dev).bfloat16()
     w = (torch.randn((128, cin, 3, 3, 3), generator=g, device=dev)
          / (27 * cin) ** 0.5)
     b = torch.randn((128,), generator=g, device=dev) * 0.1
-    assert cv.conv3d_route(x.shape, x.dtype, 128) == "sm90_smallcin"
+    route = "sm90_smallcin" if cin <= 15 else "sm90_gather"
+    assert cv.conv3d_route(x.shape, x.dtype, 128) == route
     wp = cv.pack_weight_kernel(w, x.dtype)
     assert wp.shape == (128, cv.narrow_k(cin))
     ops.reset_launch_counts()
     out = cv.conv3d_kernel(x, wp, b)
-    assert ops.route_counts()["conv3d.sm90_smallcin"] == 1
-    assert ops.route_counts()["conv3d.ndhwc"] == 0
+    assert {k: v for k, v in ops.route_counts().items() if v} == {
+        f"conv3d.{route}": 1}
     ref = cv.conv3d_plain(x, w.bfloat16(), b)
     assert _rel(out, ref) <= TOL[torch.bfloat16]
     assert torch.equal(out[-1:], cv.conv3d_kernel(x[-1:].contiguous(), wp, b))
@@ -952,10 +954,16 @@ def test_conv3d_smallcin_matches_plain(dev, cin, batch):
     ((1, 1, 1, 3, 7), 16),      # every tap but a few in the padding
     ((2, 3, 5, 6, 6), 128),
     ((1, 6, 12, 12, 4), 3),     # Cout 3: a narrow output too
+    ((2, 5, 7, 9, 9), 40),      # the Cin 9 to 15 instances
+    ((1, 4, 8, 8, 13), 130),
+    ((1, 1, 1, 3, 15), 16),
+    ((2, 3, 5, 6, 17), 128),    # the gather instance
+    ((1, 6, 12, 12, 130), 3),
+    ((2, 5, 7, 9, 1001), 200),  # K past 27000, two column tiles
 ])
 def test_conv3d_smallcin_ragged_matches_plain(dev, shape, cout):
-    """The small-Cin instances at ragged shapes: one bf16 rounding of the
-    plain version, the same bits on a repeat."""
+    """The small-Cin and gather instances at ragged shapes: one bf16
+    rounding of the plain version, the same bits on a repeat."""
     g = torch.Generator(device=dev).manual_seed(21)
     cin = shape[-1]
     x = torch.randn(shape, generator=g, device=dev).bfloat16()
@@ -970,34 +978,37 @@ def test_conv3d_smallcin_ragged_matches_plain(dev, shape, cout):
     assert torch.equal(out, cv.conv3d_kernel(x, wp, b))
 
 
-@pytest.mark.parametrize("cout", [3, 4, 7])
+@pytest.mark.parametrize("cout", [3, 4, 7, 12, 20])
 def test_conv3d_smallcin_dx_matches_plain(dev, cout):
-    """The dx of a bf16 conv with Cout 3 to 7 runs the small-Cin instance
-    on dy (Cin = Cout), through the autograd Function too."""
+    """The dx of a bf16 conv with Cout 3 to 15 runs the small-Cin
+    instance on dy (Cin = Cout), with Cout 20 the gather instance, through
+    the autograd Function too."""
     g = torch.Generator(device=dev).manual_seed(22 + cout)
     x = torch.randn((2, 6, 10, 12, 16), generator=g, device=dev).bfloat16()
     w = torch.randn((cout, 16, 3, 3, 3), generator=g, device=dev) / 432 ** 0.5
     dy = torch.randn((2, 6, 10, 12, cout), generator=g,
                      device=dev).bfloat16()
-    assert cv.conv3d_route(dy.shape, dy.dtype, 16) == "sm90_smallcin"
+    route = "sm90_smallcin" if cout <= 15 else "sm90_gather"
+    assert cv.conv3d_route(dy.shape, dy.dtype, 16) == route
     ops.reset_launch_counts()
     dx = cv.conv3d_dx(dy, w)
-    assert ops.route_counts()["conv3d_dx.sm90_smallcin"] == 1
+    assert ops.route_counts()[f"conv3d_dx.{route}"] == 1
     ref = cv.conv3d_dx_plain(dy, w)
     assert dx.shape == x.shape
     assert _rel(dx, ref) <= TOL[torch.bfloat16]
     xg = x.clone().requires_grad_(True)
     cv.conv3d(xg, w).backward(dy)
-    assert ops.route_counts()["conv3d_dx.sm90_smallcin"] == 2
+    assert ops.route_counts()[f"conv3d_dx.{route}"] == 2
     assert torch.equal(xg.grad, dx)
 
 
 def test_conv3d_smallcin_alignment(dev):
     """At even Cin a register's two channels are one 4-byte load: a view
     one element in (2-byte aligned) raises; at odd Cin every load is 2
-    bytes, so the same view runs and matches the plain version."""
+    bytes, so the same view runs and matches the plain version (the
+    small-Cin instances, then the gather instance)."""
     g = torch.Generator(device=dev).manual_seed(23)
-    for cin in (4, 3):
+    for cin in (4, 3, 12, 13, 20, 17):
         flat = torch.randn((1 + 2 * 4 * 5 * 6 * cin,), generator=g,
                            device=dev).bfloat16()
         xu = flat[1:].view(2, 4, 5, 6, cin)
@@ -1182,7 +1193,7 @@ def test_seg_6c_forward_launches_by_route(dev, name):
     """One bf16 forward of each production-depth 6-channel Seg model
     (tests/test_torch_port_conv_smallcin.py:SEG_6C_LAUNCHES, counted there
     on the plain path): both input convs (Cin 4 and 3) on sm90_smallcin,
-    none on ndhwc; its f32 forward on the card matches the CPU's."""
+    none on sm90_gather; its f32 forward on the card matches the CPU's."""
     from ddpm3d_tpu_torch import models
 
     want = {"conv3d": 101, "gn_stats": 99, "gn_apply": 99, "conv3d_s8": 0}

@@ -197,15 +197,31 @@ def test_head_dx_on_its_route_matches_jax_vjp(rng):
                                atol=CONV_ATOL)
 
 
-@pytest.mark.parametrize("dhw", [
-    (96, 96, 96), (96, 48, 48), (96, 24, 24), (96, 12, 12), (96, 6, 6),
-    (8, 32, 32), (5, 7, 3), (1, 1, 1),
-])
-def test_conv3d_tiles_fit_the_kernel(dhw):
-    td, th, tw = cv.pick_tile(*dhw)
-    assert td * th * tw <= cv.MAX_ROWS
-    assert (td + 2) * (th + 2) * (tw + 2) <= cv.MAX_HALO
-    assert td <= dhw[0] and th <= dhw[1] and tw <= dhw[2]
+@pytest.mark.parametrize("cin", [9, 10, 11, 12, 13, 14, 15, 17, 130, 1001])
+def test_conv3d_tiles_fit_the_kernel(cin):
+    """csrc/conv3d_narrow.cu from Cin = 9 (the resident Cin 9 to 15
+    instances, the gather instance above): one block's shared memory fits
+    the card's, its three warpgroups' registers (64 accumulators and two
+    chunks of A a thread within NARROW_REGS) the SM's file; the weight
+    tiles (resident) or the ring's tiles walked over the chunks cover K
+    exactly once, in k-steps of 16 that stop at narrow_k (resident) or
+    pad with zeros to whole chunks (gather)."""
+    route = cv.conv3d_route((1, 4, 4, 4, cin), torch.bfloat16, 128)
+    assert route == ("sm90_smallcin" if cin <= 15 else "sm90_gather")
+    assert cv.narrow_smem_bytes(cin, route) <= cv.SM90_SMEM_LIMIT
+    assert cv.NARROW_WG * 128 * cv.NARROW_REGS <= 65536
+    assert 64 + 2 * 4 * 4 <= cv.NARROW_REGS - 48  # addresses, rows, loads
+    kpad = cv.narrow_k(cin)
+    steps = cv.narrow_chunk_steps(cin, route)
+    per = steps[0]  # 4 a 64-k tile, 2 at odd Cin on the resident route
+    assert per == (2 if route == "sm90_smallcin" and cin % 2 else 4)
+    assert all(1 <= n <= per for n in steps[-1:]) and set(steps[:-1]) <= {per}
+    assert len(steps) == -(-kpad // (16 * per))
+    assert sum(steps) * 16 == (kpad if route == "sm90_smallcin"
+                               else len(steps) * cv.NARROW_TILE_K)
+    if route == "sm90_gather":  # the ring, not K, sets the shared memory
+        assert cv.narrow_smem_bytes(cin, route) == cv.narrow_smem_bytes(
+            17, route)
 
 
 def test_conv3d_rejects_other_devices():
