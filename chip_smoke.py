@@ -16,8 +16,9 @@ Phases (each failure exits non-zero before the final line):
                conv on ``csrc/conv3d_narrow.cu``, the f32 head on
                ``csrc/conv3d_head.cu``), each timed beside the general
                kernel of its dtype (in bf16 the gather instance of
-               ``csrc/conv3d_narrow.cu``, any Cin; ``csrc/conv3d_f32.cu``
-               in f32) on the same inputs; K1
+               ``csrc/conv3d_narrow.cu``, any Cin, as ``gather_ms``;
+               ``csrc/conv3d_f32.cu`` in f32, as ``general_ms``) on the
+               same inputs; K1
                (GN stats, one launch) also bit for bit twice and alone
                against in a batch of 2, timed beside ``torch.var_mean``
                and, with ``--parent-gn``, a previous
@@ -150,9 +151,9 @@ Phases (each failure exits non-zero before the final line):
                bit for bit twice and alone against in a batch of 2; the
                Cin = 1 conv at batch 1 and 2 of the Seg input; the narrow
                kernel's small-Cin instances (route sm90_smallcin) at every
-               Cin 3 to 7 and 9 to 15 and its gather instance (route
-               sm90_gather) at Cin 17, 20, 36 and 130 -> 128 at the full
-               patch, batch 1 and 2 (batch 2's first volume bit-equal to
+               Cin 3 to 7 and its gather instance (route sm90_gather) at
+               every Cin 9 to 15 and at 17, 20, 36 and 130 -> 128 at the
+               full patch, batch 1 and 2 (batch 2's first volume bit-equal to
                batch 1), at ten ragged shapes and in three dx, timed at
                Cin 3, 4, 9, 12, 15, 20 and 130; each timed at the torso
                shape (the Cin = 1 conv at the Seg input) beside
@@ -549,6 +550,14 @@ GN_TIMED = [  # (N, C, dtype, film, silu)
 ]
 
 
+def _general_key(dtype) -> str:
+    """The key of ``_general_conv``'s time: ``gather_ms`` in bf16 (the
+    narrow kernel's gather instance; before it, ``general_ms`` timed the
+    retired ``mma.sync`` conv, so the two do not compare), ``general_ms``
+    in f32."""
+    return "gather_ms" if str(dtype).endswith("bfloat16") else "general_ms"
+
+
 def _general_conv(x, w, bias):
     """The general kernel of x's dtype on the same inputs (``w`` the torch
     layout): bf16 on ``csrc/conv3d_narrow.cu``'s gather instance (any Cin,
@@ -579,9 +588,10 @@ def _general_conv(x, w, bias):
 
 def _ndhwc_tile(D: int, H: int, W: int) -> tuple:
     """The output tile (TD, TH, TW) that the retired ``mma.sync`` conv
-    (``conv3d_ndhwc_launch`` of a previous ``csrc/conv3d.cu``) takes: at
-    most 128 voxels and a 640-voxel halo; fewest tiles, then the smallest
-    halo, then the widest TW."""
+    (``conv3d_ndhwc_launch`` of a previous ``csrc/conv3d.cu``) takes, and
+    on which ``--parent-s8`` times a previous K5: at most 128 voxels and a
+    640-voxel halo; fewest tiles, then the smallest halo, then the widest
+    TW."""
     best = None
     for tw in range(1, min(W, 128) + 1):
         for th in range(1, min(H, 128 // tw) + 1):
@@ -707,7 +717,7 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes,
         if case in CONV_TIMED:
             ms = time_ms(lambda: cv.conv3d_kernel(x, wp, b))
             # the same conv on the general kernel of its dtype
-            line["general_ms"] = time_ms(lambda: _general_conv(x, w, b))
+            line[_general_key(dt)] = time_ms(lambda: _general_conv(x, w, b))
             plain_ms = time_ms(lambda: cv.conv3d_plain(x, wd, b), reps=3,
                                warmup=1)
             xn = x.permute(0, 4, 1, 2, 3)  # NCDHW view of the same bytes
@@ -1479,12 +1489,11 @@ FORWARD_FAMILIES = {
                      "conv3d_sm90_kernelILi1ELb1E",
                      "conv3d_sm90_kernelILi2ELb1E", "fused_stats_finish"),
     "conv3d_sm90": ("conv3d_sm90_kernel",),
-    # the Cin = 1 and Cin = 3 to 15 instances first, so that the Cin = 2
+    # the Cin = 1 and Cin = 3 to 7 instances first, so that the Cin = 2
     # one is conv3d_narrow
     "conv3d_cin1": ("conv3d_narrow_kernel<1>", "conv3d_narrow_kernelILi1E"),
     "conv3d_smallcin": tuple(f"conv3d_narrow_kernel<{c}>" for c in range(3, 8))
-    + tuple(f"conv3d_narrow_kernelILi{c}E" for c in range(3, 8))
-    + ("conv3d_wide_kernel",),
+    + tuple(f"conv3d_narrow_kernelILi{c}E" for c in range(3, 8)),
     "conv3d_narrow": ("conv3d_narrow_kernel",),
     "conv3d_gather": ("conv3d_gather_kernel",),
     "conv3d_head": ("conv3d_head_kernel",),
@@ -1686,7 +1695,7 @@ def phase_backward(gen: torch.Generator, conv_shapes, gn_shapes) -> dict:
                 wd = w.to(dt)
                 # the same dx on the general kernel of its dtype
                 wf = cv.flip_weight(w)
-                line["general_ms"] = time_ms(
+                line[_general_key(dt)] = time_ms(
                     lambda: _general_conv(dy, wf, None))
                 line["plain_ms"] = time_ms(lambda: cv.conv3d_dx_plain(dy, w),
                                            reps=3, warmup=1)
@@ -2088,7 +2097,7 @@ def _time_s8_site(case, xq, wq, wp, s_x, s_w, bias, dt, libs, ref) -> dict:
     out = {"kernel_ms": ms, "plain_ms": plain_ms, "quantize_act_ms": quant_ms,
            "library_ms": None}
     for key, name, tile in (
-            ("parent", "s8_parent", s8.s8_tile(1, D, H, W, n, taps, dt)),
+            ("parent", "s8_parent", _ndhwc_tile(D, H, W)),
             ("all_taps", "s8_all_taps", s8.s8_tile(1, D, H, W, n, taps,
                                                    dt))):
         if name not in libs or (key == "all_taps" and not up):
@@ -3075,14 +3084,14 @@ def seg_path_shapes(seed: int) -> tuple:
 # conv), the Cin = 1 conv at the Seg encoder's input; (D, H, W, Cin, Cout)
 F32_TIMED = (96, 96, 96, 128, 128)
 CIN1_TIMED = (96, 96, 96, 1, 128)
-# the narrow kernel from Cin = 3: every Cin 3 to 7 and 9 to 15 (route
-# sm90_smallcin; the 6-channel Seg models' input convs are Cin 4 and 3) and
+# the narrow kernel from Cin = 3: every Cin 3 to 7 (route sm90_smallcin;
+# the 6-channel Seg models' input convs are Cin 4 and 3) and
 # SMALLCIN_GATHER (route sm90_gather) -> 128 at the full patch, batch 1 and
 # 2; SMALLCIN_TIMED timed; ragged volumes, Cout < 128 and past one column
 # tile ((B, D, H, W, Cin), Cout), five for Cin <= 7 and five above; dx
 # through the route (dy [B, D, H, W, Cin] of a conv Cout -> Cin, Cout)
 SMALLCIN_VOLUME = (96, 96, 96, 128)
-SMALLCIN_GATHER = (17, 20, 36, 130)
+SMALLCIN_GATHER = (9, 10, 11, 12, 13, 14, 15, 17, 20, 36, 130)
 SMALLCIN_TIMED = (3, 4, 9, 12, 15, 20, 130)
 SMALLCIN_RAGGED = (((2, 5, 7, 9, 3), 40), ((1, 4, 8, 8, 5), 130),
                    ((1, 1, 1, 3, 7), 16), ((2, 3, 5, 6, 6), 128),
@@ -3186,7 +3195,7 @@ def phase_conv3d_cu(gen: torch.Generator, shapes: dict,
     off; cuDNN's data gradient for the dx) and its bound; the Cin = 1 conv
     also beside ``conv_parent``'s ``mma.sync`` conv (a previous
     ``csrc/conv3d.cu``, the kernel that carried it before) when given.
-    Then the narrow kernel's Cin 3 to 15 and gather instances
+    Then the narrow kernel's Cin 3 to 7 and gather instances
     (``_smallcin_rows``). Returns the kernels line's entries
     ``conv3d_f32``, ``conv3d_f32_dx``, ``conv3d_fused_f32``,
     ``conv3d_cin1`` and ``conv3d_smallcin``."""
@@ -3365,7 +3374,7 @@ def _parent_times(lib, x, w, b, ref) -> dict:
 def _smallcin_rows(gen: torch.Generator, checked, conv_parent=None) -> dict:
     """The narrow kernel's instances from Cin = 3 (``csrc/conv3d_narrow.cu``,
     routes sm90_smallcin and sm90_gather) against ``conv3d_plain``: every
-    Cin 3 to 7, 9 to 15 and of SMALLCIN_GATHER -> 128 at the full patch at
+    Cin 3 to 7 and of SMALLCIN_GATHER -> 128 at the full patch at
     batch 1 and 2 (batch 2's first volume is batch 1's: the same bits), the
     ragged SMALLCIN_RAGGED and the dx of SMALLCIN_DX; at SMALLCIN_TIMED each
     timed beside its plain version, ``F.conv3d``, its bound and, with
@@ -3825,7 +3834,7 @@ def main() -> None:
     ap.add_argument("--parent-conv", metavar="FILE",
                     help="a previous csrc/conv3d.cu whose bf16 mma.sync conv "
                          "(conv3d_ndhwc_launch) is timed beside the narrow "
-                         "kernel's Cin = 1, Cin 3 to 15 and gather "
+                         "kernel's Cin = 1, Cin 3 to 7 and gather "
                          "instances on the same inputs")
     ap.add_argument("--parent-gn", metavar="FILE",
                     help="a previous csrc/groupnorm.cu whose two-launch "
@@ -3965,7 +3974,7 @@ def main() -> None:
             extra["k3_bf16_ms"] = s["k3_bf16_ms"]
             extra["parent_ms"] = s.get("parent_ms")
         if name in ("conv3d_narrow", "conv3d_head", "conv3d_head_dx"):
-            extra["general_ms"] = s["general_ms"]  # the general kernel
+            extra[_general_key(s["dtype"])] = s[_general_key(s["dtype"])]
         if name == "conv3d_smallcin":  # the other timed Cin, the gather's
             extra["cin_rows"] = s["cin_rows"]
         if name in ("conv3d_cin1", "conv3d_f32", "conv3d_f32_dx",
@@ -3977,10 +3986,9 @@ def main() -> None:
         if name == "conv3d_head_dx":  # F.conv3d on the flipped weight
             extra["conv_call_ms"] = s["conv_call_ms"]
         if name in ("conv3d", "conv3d_dx"):
-            # the general kernel (bf16: the narrow kernel's gather
-            # instance) on the same inputs, and
-            # each path's launches by route (ops.route_counts)
-            extra["general_ms"] = s["general_ms"]
+            # the general kernel on the same inputs, and each path's
+            # launches by route (ops.route_counts)
+            extra[_general_key(s["dtype"])] = s[_general_key(s["dtype"])]
             extra["routes_by_path"] = {
                 path: {k: v for k, v in c["routes"].items()
                        if k.startswith(name + ".")}

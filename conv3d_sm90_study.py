@@ -4,7 +4,7 @@
 and its dx ``ddpm3d_tpu_torch/csrc/conv3d_head.cu``, with ``--f32`` the f32
 torso conv, its fused instance and its dx ``ddpm3d_tpu_torch/csrc/
 conv3d_f32.cu``, with ``--smallcin`` the bf16 small-Cin instances (Cin
-3 to 15) and the gather instance of
+3 to 7) and the gather instance of
 ``ddpm3d_tpu_torch/csrc/conv3d_narrow.cu``.
 
 Run from the repository root on a machine with one NVIDIA H100:
@@ -45,8 +45,9 @@ for every variant that computes the function:
     epilogue's threads store the output instead of TMA;
   * ``noweights``, ``nohalo``, ``nostore`` — as above; ``noepilogue`` also
     skips the dequantize and staging;
-  * ``against``    — another version of the source (same entry point and
-    tiles);
+  * ``against``    — another version of the source, e.g. the previous K5,
+    run on the tiles earlier K5 comparisons used (``chip_smoke.py:
+    _ndhwc_tile``, at most 128 rows);
 at the 3x3x3 sites beside the bf16 K3 on the conv int8 replaces, the 1x1
 sites beside ``torch._int_mm``, and the rate of one 8192^3 ``torch._int_mm``.
 
@@ -102,11 +103,11 @@ flight per thread), rows per split halved and doubled, beside
 bytes (``torch.sum`` over the tensor) as the practical read rate.
 
 With ``--smallcin`` the narrow kernel at [1,96^3,Cin] -> 128 for Cin 3,
-4, 5 and 7 (the small-Cin instances, one warpgroup a block), 9, 12 and 15
-(the resident Cin 9 to 15 instances, three warpgroups) and 20 and 130 (the
-gather instance): as committed (``base``), ``noglobal`` (A from the k
-table's offsets, no device-memory gather), ``nostore`` (the epilogue
-stages its rows but stores nothing) and, for the gather instance,
+4, 5 and 7 (the small-Cin instances, one warpgroup a block) and 9, 12,
+15, 20 and 130 (the gather instance, three warpgroups): as committed
+(``base``), ``noglobal`` (A from the k table's offsets, no device-memory
+gather), ``nostore`` (the epilogue stages its rows but stores nothing)
+and, for the gather instance,
 ``nostream`` (the ring's weight tiles loaded for the first four chunks
 only: no L2 -> SM weight traffic after them), beside ``F.conv3d``, the
 bound and a ``fill_`` of the output's bytes (the card's practical store
@@ -135,6 +136,7 @@ from ddpm3d_tpu_torch.ops import conv3d_fused as fo  # noqa: E402
 from ddpm3d_tpu_torch.ops import conv3d_s8 as s8  # noqa: E402
 from ddpm3d_tpu_torch.ops import groupnorm as gn  # noqa: E402
 from ddpm3d_tpu_torch.ops.phase_up import phase_window_mask  # noqa: E402
+from chip_smoke import _ndhwc_tile  # noqa: E402
 
 OUT = os.path.join(ROOT, "chiprun_out", "conv3d_sm90_study")
 H100_BF16_FLOPS = 989e12
@@ -159,12 +161,12 @@ S8_TMA_STORE = "if (threadIdx.x == 128 && nc < s.N) {"
 NEVER = " || acc[0][0] != 0x7fffffff)"  # a condition the compiler keeps
 
 # the same of csrc/conv3d_narrow.cu: its device-memory gathers of A (the
-# Cin <= 7 instances', then the Cin >= 9 ones'), its stores and the gather
-# instance's weight tiles
+# small-Cin instances', then the gather instance's), its stores and the
+# gather instance's weight tiles
 NARROW_HALF = "  return __ldg(x + r.m * kCin + off);"
 NARROW_WORD = "  return __ldg(x + ((r.m * kCin + off) >> 1));"
-WIDE_HALF = "  return __ldg(x + r.e + off);"
-WIDE_WORD = "  return __ldg(x + ((r.e + off) >> 1));"
+GATHER_HALF = "  return __ldg(x + r.e + off);"
+GATHER_WORD = "  return __ldg(x + ((r.e + off) >> 1));"
 NARROW_STORE = "    if (m >= s.M || col >= s.Cout) continue;"
 GATHER_TILES = "      for (int i = tid; i < kBN * 8; i += kNT) {"
 # the Cin of --smallcin, and which of them the gather instance takes
@@ -359,13 +361,13 @@ def study_s8(fns, gen, shape, n, taps, up) -> dict:
     line["library_ms"] = [time_ms(lib)]
     for _ in range(3):
         for name, fn in fns.items():
-            y = launch_s8(fn, xq, wp, s_x, s_w, kb, up, tile)
+            t = _ndhwc_tile(*shape[1:4]) if name == "against" else tile
+            y = launch_s8(fn, xq, wp, s_x, s_w, kb, up, t)
             torch.cuda.synchronize()
             if name in ("base", "all_taps", "thread_stores", "against"):
                 line[name + "_equal"] = bool(torch.equal(y, ref))
             line.setdefault(name, []).append(
-                time_ms(lambda: launch_s8(fn, xq, wp, s_x, s_w, kb, up,
-                                          tile)))
+                time_ms(lambda: launch_s8(fn, xq, wp, s_x, s_w, kb, up, t)))
     line["library_ms"].append(time_ms(lib))
     return line
 
@@ -921,14 +923,14 @@ def main_f32() -> None:
 def variants_smallcin(src: str) -> dict:
     """{name: source text} of the narrow kernel's study (see the module
     note)."""
-    _anchors(src, (NARROW_HALF, NARROW_WORD, WIDE_HALF, WIDE_WORD,
+    _anchors(src, (NARROW_HALF, NARROW_WORD, GATHER_HALF, GATHER_WORD,
                    NARROW_STORE, GATHER_TILES))
     offsets = "  return static_cast<unsigned>(off);"
     return {
         "smallcin_base": src,
         "smallcin_noglobal": src.replace(NARROW_HALF, offsets).replace(
-            NARROW_WORD, offsets).replace(WIDE_HALF, offsets).replace(
-            WIDE_WORD, offsets),
+            NARROW_WORD, offsets).replace(GATHER_HALF, offsets).replace(
+            GATHER_WORD, offsets),
         "smallcin_nostore": src.replace(NARROW_STORE, NARROW_STORE.replace(
             ") continue;", " ||\n        acc[0] != 1.2345e-30f) continue;")),
         "smallcin_nostream": src.replace(GATHER_TILES, GATHER_TILES.replace(

@@ -3,8 +3,8 @@
 // K: the model's input conv, [x_t, low_res] -> the model's channels (Cin =
 // 2), the Seg encoder's input conv (Cin = 1), in the 6-channel Seg models (a
 // 3-channel conditioner) the main branch's (Cin = 4) and the encoder's
-// (Cin = 3) input convs, and every other such Cin (9 to 15 on resident
-// instances, the rest on the gather instance; no model runs them).
+// (Cin = 3) input convs, and every other such Cin (from 9, on the gather
+// instance; no model runs them).
 //
 // The JAX package computes these convs with XLA (ddpm3d_tpu/ops/conv3d.py:
 // conv3d_decomposed): its Pallas conv, ops/conv3d_mxu.py:_conv_kernel,
@@ -55,19 +55,16 @@
 //     x 256 bytes in shared memory (16-byte piece j at j ^ (row & 7)) and
 //     writes them in 16-byte pieces, two whole rows per warp instruction.
 //  5. From Cin = 9 the bound turns to operations (at Cin = 12: 0.074 ms at
-//     [1,96^3,12]->128), and Kpad / 8 registers of A a row (up to 52 at Cin
-//     = 15) no longer fit beside the 64 accumulators. So A is gathered a
-//     chunk at a time (64 k, four k-steps; 32 k at odd Cin, whose two
-//     2-byte loads a register spill at four), chunk c + 1 into a second
-//     register buffer while chunk c's wgmma run. Cin 9 to 15: the weight
-//     stays resident (up to 7 tiles, 112 KB: one block an SM), shared by
-//     three warpgroups that each walk their own 64-row slices, so one's
-//     gather overlaps another's wgmma and stores. Any other Cin (the gather
-//     instance): the weight streams in 64-k tiles through a 4-slot
+//     [1,96^3,12]->128), Kpad / 8 registers of A a row no longer fit beside
+//     the 64 accumulators, and the weight (64 KB at Cin = 9, 880 KB at Cin
+//     = 130) leaves no room for several blocks an SM. So the gather
+//     instance, for any Cin: A is gathered a chunk at a time (64 k, four
+//     k-steps), chunk c + 1 into a second register buffer while chunk c's
+//     wgmma run; the weight streams in 64-k tiles through a 4-slot
 //     cp.async ring, each chunk's 64 k-table entries computed into the
-//     slot beside its tile (the whole table would grow with Cin); the
-//     three warpgroups take one 192-row slice together, so each tile
-//     serves 192 voxels, one barrier a chunk.
+//     slot beside its tile (the whole table would grow with Cin); three
+//     warpgroups take one 192-row slice together, so each tile serves 192
+//     voxels, one barrier a chunk.
 
 #include <cuda_bf16.h>
 
@@ -83,25 +80,22 @@ constexpr int kRows = 64;               // rows per slice (one m64 tile)
 constexpr int kWBytes = kBN * kK * 2;   // the weight tile, 16 KB
 constexpr int kStageRow = kBN * 2;      // staged output row, 256 bytes
 
-// Cin >= 9: warpgroups per block, the most k-steps of A gathered at a
-// time (one 64-k weight tile), the gather instance's ring of weight tiles
-// and k tables
+// The gather instance: warpgroups per block, the k-steps of A gathered at
+// a time (one 64-k weight tile), the ring of weight tiles and k tables
 constexpr int kWG = 3;
 constexpr int kSteps = kK / 16;  // k-steps per chunk
 constexpr int kRing = 4;
 
-// The instance for Cin: its K padded to a multiple of 16, its weight tiles,
-// its warpgroups and its dynamic shared memory (alignment slack, weight
-// tiles, staged output rows, bias and, at Cin >= 3, the k table of 8 bytes
-// a k)
+// The instance for Cin: its K padded to a multiple of 16, its weight tiles
+// and its dynamic shared memory (alignment slack, weight tiles, staged
+// output rows, bias and, at Cin >= 3, the k table of 8 bytes a k)
 template <int kCin>
 struct Narrow {
   static constexpr int kKpad = (kTaps * kCin + 15) / 16 * 16;
   static constexpr int kTiles = (kKpad + kK - 1) / kK;
-  static constexpr int kGroups = kCin >= 9 ? kWG : 1;
   static constexpr int kTable = kCin >= 3 ? kKpad * 8 : 0;
-  static constexpr int kSmem = 1024 + kTiles * kWBytes +
-                               kGroups * kRows * kStageRow + kBN * 4 + kTable;
+  static constexpr int kSmem =
+      1024 + kTiles * kWBytes + kRows * kStageRow + kBN * 4 + kTable;
 };
 
 // The gather instance's dynamic shared memory: alignment slack, the ring's
@@ -428,7 +422,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------------------- Cin >= 9 --
+// ------------------------------------------------- the gather instance --
 // A row's first element (voxel * Cin; never read past the end) and its tap
 // bits.
 struct RowE {
@@ -457,18 +451,16 @@ __device__ __forceinline__ unsigned word_at(const uint32_t* __restrict__ x,
   return __ldg(x + ((r.e + off) >> 1));
 }
 
-// The first `steps` (<= kS) A fragments of a chunk of kS k-steps for rows
-// r0 / r1, by the chunk's k table at `tab` (its first k): one word a
-// register at even Cin, two halves at odd Cin (a k pair may straddle two
-// taps).
-template <bool kOdd, int kS>
-__device__ __forceinline__ void gather_chunk(unsigned (&a)[kS][4],
+// The kSteps A fragments of a chunk for rows r0 / r1, by the chunk's k
+// table at `tab` (its first k): one word a register at even Cin, two
+// halves at odd Cin (a k pair may straddle two taps).
+template <bool kOdd>
+__device__ __forceinline__ void gather_chunk(unsigned (&a)[kSteps][4],
                                              const void* __restrict__ xv,
                                              const RowE& r0, const RowE& r1,
-                                             uint32_t tab, int tq, int steps) {
+                                             uint32_t tab, int tq) {
 #pragma unroll
-  for (int ks = 0; ks < kS; ++ks) {
-    if (ks >= steps) break;
+  for (int ks = 0; ks < kSteps; ++ks) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const uint32_t at = tab + 8 * (16 * ks + 2 * tq + 8 * h);
@@ -495,20 +487,14 @@ __device__ __forceinline__ void gather_chunk(unsigned (&a)[kS][4],
   }
 }
 
-// acc += the chunk's first `steps` k-steps, steps j0, j0 + 1, ... of the
-// weight tiles from `desc` (4 steps a [128][64] tile, 32 bytes a step): A
-// from registers.
-template <int kS>
+// acc += the chunk's kSteps k-steps of the [128][64] weight tile at `desc`
+// (32 bytes a step): A from registers.
 __device__ __forceinline__ void mma_chunk(float (&acc)[64],
-                                          const unsigned (&a)[kS][4],
-                                          uint64_t desc, int j0, int steps) {
+                                          const unsigned (&a)[kSteps][4],
+                                          uint64_t desc) {
 #pragma unroll
-  for (int ks = 0; ks < kS; ++ks) {
-    const int j = j0 + ks;
-    if (ks < steps)
-      wgmma_m64n128k16_rs(acc, a[ks],
-                          desc + (kWBytes >> 4) * (j >> 2) + 2 * (j & 3));
-  }
+  for (int ks = 0; ks < kSteps; ++ks)
+    wgmma_m64n128k16_rs(acc, a[ks], desc + 2 * ks);
 }
 
 __device__ __forceinline__ void cp_async16_or_zero(uint32_t dst,
@@ -523,80 +509,7 @@ __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Cin 9 to 15: the weight resident as at Cin <= 7 (up to 7 tiles, 112 KB),
-// so one block per SM; its kWG warpgroups share it and each walks its own
-// 64-row slices, gathering chunk c + 1 of A into the other register buffer
-// while chunk c's wgmma run. A chunk is 4 k-steps at even Cin and 2 at odd
-// Cin, whose two 2-byte loads a register and 16-byte table entries would
-// otherwise spill past the 168 registers three warpgroups leave a thread.
-template <int kCin>
-__global__ void __launch_bounds__(kWG * kThreads, 1)
-    conv3d_wide_kernel(const void* __restrict__ xv,
-                       const __nv_bfloat16* __restrict__ w,
-                       const float* __restrict__ bias,
-                       __nv_bfloat16* __restrict__ y, const Shape s) {
-  using N = Narrow<kCin>;
-  constexpr int kKC = N::kKpad;
-  constexpr int kAll = kKC / 16;  // k-steps
-  constexpr int kS = kCin % 2 ? 2 : kSteps;  // k-steps a chunk
-  constexpr int kChunks = (kAll + kS - 1) / kS;
-  constexpr int kNT = kWG * kThreads;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t wt = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const uint32_t rows = wt + N::kTiles * kWBytes;  // the staged output
-  const uint32_t btab = rows + kWG * kRows * kStageRow;
-  const uint32_t ktab = btab + kBN * 4;
-  const int n0 = blockIdx.y * kBN;
-  if (tid < kBN) {
-    const int n = n0 + tid;
-    const float b = bias != nullptr && n < s.Cout ? bias[n] : 0.f;
-    asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(btab + 4 * tid), "f"(b)
-                 : "memory");
-  }
-  load_weight_tiles(wt, w, s, n0, kKC, N::kTiles, tid, kNT);
-  for (int k = tid; k < kKC; k += kNT) put_k_entry(ktab + 8 * k, s, kCin, k);
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
-  const uint64_t db = desc_sw128(wt);
-  const uint32_t stage = rows + warp * 16 * kStageRow;
-  const int g = lane >> 2, tq = lane & 3, wg = tid >> 7;
-
-  float acc[64];
-  unsigned a0[kS][4], a1[kS][4];
-  for (int sl = blockIdx.x * kWG + wg; sl < s.slices; sl += gridDim.x * kWG) {
-    const int64_t m0 = static_cast<int64_t>(sl) * kRows + (warp & 3) * 16;
-    const RowE r0 = row_e(s, m0 + g, kCin), r1 = row_e(s, m0 + g + 8, kCin);
-    // chunk c (k-steps kS c ..) from `cur`, chunk c + 1 into `next`
-    auto step = [&](unsigned (&cur)[kS][4], unsigned (&next)[kS][4], int c) {
-      wgmma_fence();
-      mma_chunk(acc, cur, db, kS * c,
-                kAll - kS * c < kS ? kAll - kS * c : kS);
-      wgmma_commit();
-      if (c + 1 < kChunks) {
-        const int left = kAll - kS * (c + 1);
-        gather_chunk<kCin % 2 == 1>(next, xv, r0, r1,
-                                    ktab + 8 * 16 * kS * (c + 1), tq,
-                                    left < kS ? left : kS);
-      }
-      wgmma_wait<0>();
-      fence_acc(acc);
-    };
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-    fence_acc(acc);
-    gather_chunk<kCin % 2 == 1>(a0, xv, r0, r1, ktab, tq,
-                                kAll < kS ? kAll : kS);
-#pragma unroll
-    for (int c = 0; c < kChunks; c += 2) {
-      step(a0, a1, c);
-      if (c + 1 < kChunks) step(a1, a0, c + 1);
-    }
-    store_rows(acc, stage, btab, y, s, m0, n0, lane);
-  }
-}
-
-// Any Cin (the route sends Cin >= 17 that is not a multiple of 8): the
+// Any Cin (the route sends Cin >= 9 that is not a multiple of 8): the
 // weight streamed. A block's kWG warpgroups take 64 rows each of one
 // 192-row slice together, so that each weight tile serves 192 voxels; the
 // tiles and each chunk's 64-entry k table (computed per chunk: the whole
@@ -673,12 +586,11 @@ __global__ void __launch_bounds__(kWG * kThreads, 1)
       issue();
       const uint32_t slot = static_cast<uint32_t>(q % kRing);
       wgmma_fence();
-      mma_chunk(acc, cur, desc_sw128(ring + slot * kWBytes), 0, kSteps);
+      mma_chunk(acc, cur, desc_sw128(ring + slot * kWBytes));
       wgmma_commit();
       if (c + 1 < chunks) {  // its k table arrived two barriers ago
         const uint32_t next_slot = static_cast<uint32_t>((q + 1) % kRing);
-        gather_chunk<kOdd>(next, xv, r0, r1, ktab + 8 * kK * next_slot, tq,
-                           kSteps);
+        gather_chunk<kOdd>(next, xv, r0, r1, ktab + 8 * kK * next_slot, tq);
       }
       wgmma_wait<0>();
       fence_acc(acc);
@@ -688,8 +600,7 @@ __global__ void __launch_bounds__(kWG * kThreads, 1)
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
     fence_acc(acc);
     gather_chunk<kOdd>(a0, xv, r0, r1,
-                       ktab + 8 * kK * static_cast<uint32_t>(q % kRing), tq,
-                       kSteps);
+                       ktab + 8 * kK * static_cast<uint32_t>(q % kRing), tq);
     for (int c = 0; c < chunks; c += 2) {
       step(a0, a1, c);
       if (c + 1 < chunks) step(a1, a0, c + 1);
@@ -745,22 +656,20 @@ bool make_shape(Shape* s, int B, int D, int H, int W, int Cin, int Cout,
 
 extern "C" {
 
-// x [B, D, H, W, Cin] bf16 with Cin = 1 to 7 or 9 to 15 (4-byte aligned at
-// even Cin, 2-byte at odd), w packed [Cout][Kpad] bf16 (16-byte aligned),
-// bias f32 [Cout] or NULL, y [B, D, H, W, Cout] bf16. Returns a
-// cudaError_t.
+// x [B, D, H, W, Cin] bf16 with Cin = 1 to 7 (4-byte aligned at even Cin,
+// 2-byte at odd), w packed [Cout][Kpad] bf16 (16-byte aligned), bias f32
+// [Cout] or NULL, y [B, D, H, W, Cout] bf16. Returns a cudaError_t.
 int conv3d_narrow_launch(const void* x, const void* w, const float* bias,
                          void* y, int B, int D, int H, int W, int Cin,
                          int Cout, void* stream_ptr) {
   Shape s;
-  if (Cin > 15 || Cin == 8 ||
-      reinterpret_cast<uintptr_t>(x) % (Cin % 2 ? 2 : 4) != 0 ||
+  if (Cin > 7 || reinterpret_cast<uintptr_t>(x) % (Cin % 2 ? 2 : 4) != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
       !make_shape(&s, B, D, H, W, Cin, Cout, kRows))
     return static_cast<int>(cudaErrorInvalidValue);
   void (*kernel)(const void*, const __nv_bfloat16*, const float*,
                  __nv_bfloat16*, const Shape) = nullptr;
-  int smem = 0, groups = 1;
+  int smem = 0;
   switch (Cin) {
 #define NARROW_CASE(c)                                  \
   case c:                                               \
@@ -770,24 +679,12 @@ int conv3d_narrow_launch(const void* x, const void* w, const float* bias,
     NARROW_CASE(1) NARROW_CASE(2) NARROW_CASE(3) NARROW_CASE(4)
     NARROW_CASE(5) NARROW_CASE(6) NARROW_CASE(7)
 #undef NARROW_CASE
-#define WIDE_CASE(c)                                    \
-  case c:                                               \
-    kernel = conv3d_wide_kernel<c>;                     \
-    smem = Narrow<c>::kSmem;                            \
-    groups = kWG;                                       \
-    break;
-    WIDE_CASE(9) WIDE_CASE(10) WIDE_CASE(11) WIDE_CASE(12) WIDE_CASE(13)
-    WIDE_CASE(14) WIDE_CASE(15)
-#undef WIDE_CASE
   }
   cudaError_t err;
   dim3 grid;
-  // a warpgroup takes 64-row slices: enough blocks for all of them
-  if (!plan_grid(kernel, groups * kThreads, smem,
-                 (s.slices + groups - 1) / groups, &grid, Cout, &err))
+  if (!plan_grid(kernel, kThreads, smem, s.slices, &grid, Cout, &err))
     return static_cast<int>(err);
-  kernel<<<grid, groups * kThreads, smem,
-           static_cast<cudaStream_t>(stream_ptr)>>>(
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
       x, static_cast<const __nv_bfloat16*>(w), bias,
       static_cast<__nv_bfloat16*>(y), s);
   return static_cast<int>(cudaGetLastError());

@@ -3,7 +3,7 @@
 * :mod:`.conv3d` — stride-1 SAME 3x3x3 conv, forward and the dx of its
   backward: ``csrc/conv3d_sm90.cu`` (bf16, wgmma/TMA),
   ``csrc/conv3d_narrow.cu`` (bf16 with Cin not a multiple of 8: the
-  input convs, and a gather instance for Cin above 15), ``csrc/conv3d_head.cu``
+  input convs, and a gather instance for Cin above 8), ``csrc/conv3d_head.cu``
   (f32 with Cout <= 8: the head conv; f32 with Cin = 2: the head's dx) or
   ``csrc/conv3d_f32.cu`` (the other f32 convs, FFMA), by
   :func:`.conv3d.conv3d_route`;

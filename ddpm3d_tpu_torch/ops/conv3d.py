@@ -17,18 +17,15 @@ kernels compute every one, on the route :func:`conv3d_route` picks:
   * ``"sm90_cin1"``, the same source's Cin = 1 instance: the Seg encoder's
     input conv. K = tap, 27 of one 32-wide chunk, two ``wgmma`` per 64
     rows; a register of A pairs taps 2j and 2j + 1 of one voxel;
-  * ``"sm90_smallcin"``, the same source's Cin = 3 to 7 and 9 to 15
-    instances: the 6-channel Seg models' input convs (Cin = 4 and 3), and
-    no model's Cin 9 to 15. K = Cin * tap + ci padded to a multiple of 16
-    (:func:`narrow_k`), Kpad / 16 ``wgmma`` per 64 rows; A is gathered
-    through a per-block table of each k's offset and tap
-    (:func:`narrow_fragment_taps`). From Cin = 9 three warpgroups share the
-    resident weight and gather A one chunk ahead
-    (:func:`narrow_chunk_steps`);
+  * ``"sm90_smallcin"``, the same source's Cin = 3 to 7 instances: the
+    6-channel Seg models' input convs (Cin = 4 and 3). K = Cin * tap + ci
+    padded to a multiple of 16 (:func:`narrow_k`), Kpad / 16 ``wgmma`` per
+    64 rows; A is gathered through a per-block table of each k's offset
+    and tap (:func:`narrow_fragment_taps`);
   * ``"sm90_gather"``, the same source's gather instance: bf16 with Cin
-    above 15 that is not a multiple of 8 (no model). The same folded K,
-    the weight streamed in 64-k tiles through a ring with each chunk's k
-    table, 192-row slices;
+    above 8 that is not a multiple of 8 (no model). The same folded K, A
+    gathered one 64-k chunk ahead, the weight streamed in 64-k tiles
+    through a ring with each chunk's k table, 192-row slices;
   * ``"f32_head"``, ``csrc/conv3d_head.cu``: f32 with Cout <= 8, the model's
     head conv (128 -> 2). FFMA; a block walks a segment of D under a 32 x TW
     window of (H, W), staging each input plane once and keeping rolling
@@ -95,17 +92,12 @@ SM90_SMEM_LIMIT = 232448  # dynamic shared memory a block may use (H100)
 
 # csrc/conv3d_narrow.cu: the taps folded into K = 27 * Cin, padded to a
 # multiple of 16 (the packed weight's row, narrow_k): Cin = 2 and Cin = 1;
-# Cin = 3 to 7 and 9 to 15 (the sm90_smallcin route) take 96 to 416, the
-# gather instance any Cin
+# Cin = 3 to 7 (the sm90_smallcin route) take 96 to 192, the gather
+# instance any Cin
 NARROW_K = 64
 NARROW_K1 = 32
-NARROW_MAX_CIN = 15
+NARROW_MAX_CIN = 7
 NARROW_ROUTES = ("sm90_narrow", "sm90_cin1", "sm90_smallcin", "sm90_gather")
-NARROW_ROWS = 64          # rows of a warpgroup's slice (kRows)
-NARROW_TILE_K = 64        # K of a staged weight tile, A's chunk (kK)
-NARROW_WG = 3             # warpgroups a block from Cin = 9 (kWG)
-NARROW_RING = 4           # the gather instance's ring of tiles (kRing)
-NARROW_REGS = 168         # registers a thread may hold at 3 warpgroups
 
 # csrc/conv3d_f32.cu
 F32_THREADS = 256     # threads per block, two blocks per SM
@@ -141,7 +133,7 @@ def pack_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def narrow_k(cin: int) -> int:
     """The narrow kernel's folded K (its packed row): 27 * Cin padded to a
     multiple of 16 (32, 64, 96, 112, 144, 176, 192 for Cin = 1 to 7, 256
-    to 416 for Cin = 9 to 15)."""
+    at Cin = 9)."""
     return -(-27 * cin // 16) * 16
 
 
@@ -164,44 +156,11 @@ def narrow_fragment_taps(cin: int, ks: int, tq: int, reg: int):
     Cin = 3 to 7 through the kernel's k table: one word at even Cin, two
     2-byte loads at odd Cin (a tap's last channel pairs with the next
     tap's first). A tap from 27 on is a padding k, loaded as zero. Rows:
-    reg 0 and 2 hold row g, 1 and 3 row g + 8 (g = lane / 4). From Cin = 9
-    the fragments come a chunk at a time (:func:`narrow_chunk_steps`)."""
+    reg 0 and 2 hold row g, 1 and 3 row g + 8 (g = lane / 4). The gather
+    instance loads them the same way, one 64-k chunk (ks = 4 c .. 4 c + 3)
+    at a time, by the chunk's k table."""
     k = 16 * ks + 2 * tq + (8 if reg >= 2 else 0)
     return divmod(k, cin), divmod(k + 1, cin)
-
-
-def narrow_chunk_steps(cin: int, route: str) -> list:
-    """The k-steps (16 k each) of each chunk of A that the kernel of
-    ``route`` gathers ahead from Cin = 9: 64-k chunks (4 steps, one weight
-    tile) but 32-k ones (2 steps) at odd Cin on the resident instances
-    (``sm90_smallcin``: two 2-byte loads a register would spill past the
-    168 registers of a thread at 4 steps). The resident instances stop at
-    narrow_k(Cin); the gather instance runs whole 64-k chunks, the ring's
-    tiles (its padding k are zero in both operands). Chunk c starts at k =
-    16 * steps[0] * c."""
-    steps = narrow_k(cin) // 16
-    if route == "sm90_gather":
-        return [4] * -(-steps // 4)
-    per = 2 if cin % 2 else 4
-    return [min(per, steps - per * c) for c in range(-(-steps // per))]
-
-
-def narrow_smem_bytes(cin: int, route: str) -> int:
-    """Dynamic shared memory of one block of ``csrc/conv3d_narrow.cu``
-    (``Narrow<Cin>::kSmem``, ``kGatherSmem``): 1024 of alignment slack, the
-    weight tiles (16 KB each: all of them resident, or the gather ring's),
-    64 staged output rows of 256 bytes per warpgroup, the bias and the k
-    table (8 bytes a k: all of K resident, 64 per ring slot)."""
-    tile = SM90_BN * NARROW_TILE_K * 2
-    stage = NARROW_ROWS * SM90_BN * 2
-    if route == "sm90_gather":
-        return (1024 + NARROW_RING * tile + NARROW_WG * stage + SM90_BN * 4
-                + NARROW_RING * NARROW_TILE_K * 8)
-    kpad = narrow_k(cin)
-    groups = NARROW_WG if cin >= 9 else 1
-    table = kpad * 8 if cin >= 3 else 0
-    return (1024 + -(-kpad // NARROW_TILE_K) * tile + groups * stage
-            + SM90_BN * 4 + table)
 
 
 def pack_weight_f32(weight: torch.Tensor) -> torch.Tensor:
@@ -375,10 +334,10 @@ def conv3d_route(x_shape, dtype: torch.dtype, cout: int) -> str:
     0, whose rows TMA can stage (16-byte strides); ``"sm90_narrow"``
     (``csrc/conv3d_narrow.cu``) for bf16 with Cin = 2, the input conv, and
     ``"sm90_cin1"`` (its Cin = 1 instance) for bf16 with Cin = 1, the Seg
-    encoder's input conv, ``"sm90_smallcin"`` (its Cin = 3 to 7 and 9 to
-    15 instances) for bf16 with Cin 3 to 15 (not 8), the 6-channel Seg
-    models' input convs, and ``"sm90_gather"`` (its gather instance) for
-    bf16 with any other Cin (above 15 and not a multiple of 8);
+    encoder's input conv, ``"sm90_smallcin"`` (its Cin = 3 to 7
+    instances) for bf16 with Cin 3 to 7, the 6-channel Seg models' input
+    convs, and ``"sm90_gather"`` (its gather instance) for bf16 with any
+    other Cin (above 8 and not a multiple of 8);
     ``"f32_narrow"`` (``csrc/conv3d_head.cu``) for f32 with Cin = 2, the
     head's dx; ``"f32_head"`` (``csrc/conv3d_head.cu``) for f32 with Cout
     <= 8, Cin % 4 == 0 (16-byte rows) and a weight that fits the block's

@@ -4,9 +4,9 @@ it, on the CPU.
 
 The kernel does not run here (no nvcc, no card), so its host rules and
 its index arithmetic are held in torch: the route of every bf16 Cin, the
-packed weight's [Cout, Kpad] layout (also at the wider Cin of the Cin 9
-to 15 and gather instances, whose A and k tables
-``tests/test_torch_port_conv_wide.py`` emulates), the A fragments' (tap,
+packed weight's [Cout, Kpad] layout (also at the wider Cin of the gather
+instance, whose A and k tables ``tests/test_torch_port_conv_wide.py``
+emulates), the A fragments' (tap,
 ci) per register and the kernel's per-block k table, whose gathered A
 times the packed weight must equal ``conv3d_plain``. The plain version is
 held against the JAX package's conv at these widths and at Cin 12 and
@@ -62,16 +62,16 @@ ALIASES = ("SegModelv2_6c", "SegModelv3_6c")
 @pytest.mark.parametrize("cin,route", [
     (1, "sm90_cin1"), (2, "sm90_narrow"), (3, "sm90_smallcin"),
     (4, "sm90_smallcin"), (5, "sm90_smallcin"), (6, "sm90_smallcin"),
-    (7, "sm90_smallcin"), (8, "sm90"), (9, "sm90_smallcin"),
-    (10, "sm90_smallcin"), (11, "sm90_smallcin"), (12, "sm90_smallcin"),
-    (13, "sm90_smallcin"), (14, "sm90_smallcin"), (15, "sm90_smallcin"),
+    (7, "sm90_smallcin"), (8, "sm90"), (9, "sm90_gather"),
+    (10, "sm90_gather"), (11, "sm90_gather"), (12, "sm90_gather"),
+    (13, "sm90_gather"), (14, "sm90_gather"), (15, "sm90_gather"),
     (16, "sm90"), (130, "sm90_gather"), (17, "sm90_gather"),
     (20, "sm90_gather"), (36, "sm90_gather"),
 ])
 def test_bf16_route_by_cin(cin, route):
-    """bf16 Cin 3 to 15 but 8 take the small-Cin instances (resident
-    weight); the gather instance every other Cin that is not a multiple of
-    8. The dx of a conv with Cout = Cin runs on dy's Cin, so it takes the
+    """bf16 Cin 3 to 7 take the small-Cin instances (resident weight);
+    the gather instance every Cin above 8 that is not a multiple of 8.
+    The dx of a conv with Cout = Cin runs on dy's Cin, so it takes the
     same route."""
     assert cv.conv3d_route((1, 4, 8, 8, cin), torch.bfloat16, 128) == route
     assert cv.conv3d_route((2, 3, 5, 7, cin), torch.bfloat16, 5) == route

@@ -1,25 +1,48 @@
 """The bf16 conv at Cin above 8 that is not a multiple of 8, on the CPU:
-``csrc/conv3d_narrow.cu``'s Cin 9 to 15 instances (route ``sm90_smallcin``,
-the weight resident, three warpgroups a block) and its gather instance
-(route ``sm90_gather``, any other such Cin, the weight streamed through a
-ring of 64-k tiles with each chunk's k table).
+``csrc/conv3d_narrow.cu``'s gather instance (route ``sm90_gather``: A
+gathered a 64-k chunk at a time, the weight streamed through a ring of
+64-k tiles with each chunk's k table, three warpgroups on one 192-row
+slice).
 
-The kernels do not run here (no nvcc, no card), so their index arithmetic
-is held in torch: the packed weight, the A fragments a chunk at a time, the
-k table (whole, or computed per chunk into a ring slot), the rows of each
+The kernel does not run here (no nvcc, no card), so its index arithmetic
+is held in torch, with the slice and chunk sizes read from the source
+(:func:`narrow_constants`): the packed weight, the A fragments a chunk at
+a time, the k table computed per chunk into a ring slot, the rows of each
 warpgroup's slice and the zero-filled weight tiles, whose products must
 equal ``conv3d_plain``. The routes, the packing and ``conv3d_plain``
 against the JAX package's conv at these widths are cases of
-``tests/test_torch_port_conv_smallcin.py``'s tests; the instances' shared
-memory and registers of ``tests/test_torch_port_ops.py``'s.
+``tests/test_torch_port_conv_smallcin.py``'s tests; the instances' tiles
+and shared memory of ``tests/test_torch_port_ops.py``'s.
 """
 
 import itertools
+import pathlib
+import re
 
 import pytest
 import torch
 
 from ddpm3d_tpu_torch.ops import conv3d as cv
+
+NARROW_SRC = (pathlib.Path(cv.__file__).resolve().parents[1] / "csrc"
+              / "conv3d_narrow.cu")
+
+
+def narrow_constants(cin: int) -> dict:
+    """The compile-time constants of ``csrc/conv3d_narrow.cu`` for Cin =
+    ``cin``: its namespace's ``constexpr int``s and the members of
+    ``Narrow<cin>``, evaluated in order from the source's own expressions
+    (C's integer ``/`` as ``//``, ``a ? b : c`` as ``b if a else c``)."""
+    env = {"kCin": cin}
+    for name, expr in re.findall(
+            r"^(?:  static )?constexpr int (\w+) =\s*([^;]+);",
+            NARROW_SRC.read_text(), re.M):
+        expr = expr.replace("/", "//")
+        cond = re.fullmatch(r"(.+?)\?(.+?):(.+)", expr, re.S)
+        if cond:
+            expr = f"({cond[2]}) if ({cond[1]}) else ({cond[3]})"
+        env[name] = eval(f"({expr})", {}, env)  # noqa: S307
+    return env
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -48,46 +71,37 @@ def _entry(cin, k, H, W):
     return (((kd - 1) * H + kh - 1) * W + kw - 1) * cin + ci, tap
 
 
-def _slice_rows(route, M):
-    """Each warp's 16 rows, as the kernel walks them: the resident
-    instances give warpgroup wg of block b the 64-row slices wg + 3 b,
-    wg + 3 (b + grid), ...; the gather instance gives its three warpgroups
-    rows 64 wg .. of one 192-row slice. Returns the first row of every
-    warp's 16, for slices enough to cover M rows."""
-    if route == "sm90_gather":
-        per = cv.NARROW_WG * cv.NARROW_ROWS
-        return [sl * per + wg * cv.NARROW_ROWS + 16 * w
-                for sl in range(-(-M // per))
-                for wg in range(cv.NARROW_WG) for w in range(4)]
-    return [sl * cv.NARROW_ROWS + 16 * w
-            for sl in range(-(-M // cv.NARROW_ROWS)) for w in range(4)]
+def _slice_rows(M, src):
+    """The first row of each warp's 16, as the gather instance walks them:
+    its kWG warpgroups take rows kRows wg .. of one kWG kRows-row slice,
+    for slices enough to cover M rows."""
+    per = src["kWG"] * src["kRows"]
+    return [sl * per + wg * src["kRows"] + 16 * w
+            for sl in range(-(-M // per))
+            for wg in range(src["kWG"]) for w in range(src["kRows"] // 16)]
 
 
-def _emulate(x, wp, route):
-    """The kernel's f32 sums for x [B, D, H, W, Cin] and the packed [Cout,
-    Kpad] weight (Cout <= 128, one column tile): for each warp's 16 rows
-    and chunk c, each register's k pair from narrow_fragment_taps and the
-    k table (whole, or the gather instance's 64 entries of the chunk
-    computed alone), A times the chunk's columns of the [128][64] weight
-    tiles (zero past Kpad)."""
+def _emulate(x, wp):
+    """The gather instance's f32 sums for x [B, D, H, W, Cin] and the
+    packed [Cout, Kpad] weight (Cout <= 128, one column tile): for each
+    warp's 16 rows and chunk c of kK k (kSteps k-steps), each register's k
+    pair from narrow_fragment_taps and the chunk's kK k-table entries
+    computed alone, A times the chunk's [128][kK] weight tile (zero past
+    Kpad)."""
     B, D, H, W, cin = x.shape
+    src = narrow_constants(cin)
     M = B * D * H * W
-    kpad = cv.narrow_k(cin)
-    table = [_entry(cin, k, H, W) for k in range(kpad)]
+    kc, n_steps = src["kK"], src["kSteps"]
+    assert wp.shape[1] == src["kKpad"] == cv.narrow_k(cin)
     flat = x.float().reshape(-1)
     cout = wp.shape[0]
-    steps = cv.narrow_chunk_steps(cin, route)
-    kc = 16 * steps[0]  # k a chunk
     m_all = torch.arange(M)
     d, h, w = m_all // (H * W) % D, m_all // W % H, m_all % W
     y = torch.zeros((M, cout))
-    for m0 in _slice_rows(route, M):
-        for c, n_steps in enumerate(steps):
+    for m0 in _slice_rows(M, src):
+        for c in range(-(-src["kKpad"] // kc)):
             k0 = kc * c
-            if route == "sm90_gather":  # this chunk's slot, computed alone
-                tab = [_entry(cin, k0 + i, H, W) for i in range(64)]
-            else:
-                tab = table[k0:k0 + 16 * n_steps]
+            tab = [_entry(cin, k0 + i, H, W) for i in range(kc)]
             tile = torch.zeros((128, kc))
             cols = wp[:, k0:k0 + kc].float()
             tile[:cout, :cols.shape[1]] = cols
@@ -114,7 +128,7 @@ def _emulate(x, wp, route):
                     off, tap = tab[k - k0]
                     assert tab[k + 1 - k0] == (off + 1, tap)
                     assert off % 2 == 0
-            part = A @ tile[:cout, :16 * n_steps].T
+            part = A @ tile[:cout].T
             rows = [m0 + r for r in range(16) if m0 + r < M]
             if rows:
                 y[rows] += part[:len(rows)]
@@ -124,14 +138,14 @@ def _emulate(x, wp, route):
 @pytest.mark.parametrize("cin", WIDE_CIN)
 @pytest.mark.parametrize("B,dhw", [(1, (3, 5, 7)), (2, (2, 4, 3))])
 def test_wide_cin_kernel_emulated(cin, B, dhw):
-    """A assembled as the kernel of the Cin's route does (a 64-k chunk at a
-    time, the warpgroups' rows, the zero-filled tiles; the gather
-    instance's per-chunk tables), times pack_weight_narrow's [Cout, Kpad]:
+    """A assembled as the gather instance does (a 64-k chunk at a time by
+    the chunk's own k table, the warpgroups' rows, the zero-filled tiles),
+    times pack_weight_narrow's [Cout, Kpad]:
     the f32 sums equal the f32 conv of the bf16 values, one bf16 rounding
     of them is conv3d_plain but for sums within one rounding of a tie.
     Ragged volumes (3 x 5 x 7 leaves a slice part-filled) and batch 2."""
-    route = cv.conv3d_route((B, *dhw, cin), torch.bfloat16, 24)
-    assert route == ("sm90_smallcin" if cin <= 15 else "sm90_gather")
+    assert cv.conv3d_route((B, *dhw, cin), torch.bfloat16, 24) == (
+        "sm90_gather")
     cout = 24
     g = torch.Generator().manual_seed(40 + cin)
     x = torch.randn((B, *dhw, cin), generator=g).bfloat16()
@@ -139,7 +153,7 @@ def test_wide_cin_kernel_emulated(cin, B, dhw):
          / (27 * cin) ** 0.5).bfloat16()
     wp = cv.pack_weight_kernel(w, torch.bfloat16)
     assert wp.shape == (cout, cv.narrow_k(cin))
-    y32 = _emulate(x, wp, route)
+    y32 = _emulate(x, wp)
     ref32 = cv.conv3d_plain(x.float(), w.float())
     assert (y32 - ref32).abs().max() <= BF16_F32_SUM_REL * ref32.abs().max()
     ref = cv.conv3d_plain(x, w)

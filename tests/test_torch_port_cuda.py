@@ -925,8 +925,8 @@ def test_conv3d_cin1_matches_plain(dev, shape, cout):
 @pytest.mark.parametrize("cin", [3, 4, 5, 6, 7, 9, 12, 15, 20, 130])
 def test_conv3d_smallcin_matches_plain(dev, cin, batch):
     """bf16 Cin 3 to 7 (the 6-channel Seg models' input convs are Cin 4 and
-    3) and 9 to 15 on csrc/conv3d_narrow.cu's small-Cin instances, route
-    sm90_smallcin, Cin 20 and 130 on its gather instance, route
+    3) on csrc/conv3d_narrow.cu's small-Cin instances, route
+    sm90_smallcin, Cin 9, 12, 15, 20 and 130 on its gather instance, route
     sm90_gather, against conv3d_plain at the full patch within one bf16
     rounding; the last volume alone gives the same bits."""
     g = torch.Generator(device=dev).manual_seed(10 * cin + batch)
@@ -935,7 +935,7 @@ def test_conv3d_smallcin_matches_plain(dev, cin, batch):
     w = (torch.randn((128, cin, 3, 3, 3), generator=g, device=dev)
          / (27 * cin) ** 0.5)
     b = torch.randn((128,), generator=g, device=dev) * 0.1
-    route = "sm90_smallcin" if cin <= 15 else "sm90_gather"
+    route = "sm90_smallcin" if cin <= 7 else "sm90_gather"
     assert cv.conv3d_route(x.shape, x.dtype, 128) == route
     wp = cv.pack_weight_kernel(w, x.dtype)
     assert wp.shape == (128, cv.narrow_k(cin))
@@ -954,10 +954,10 @@ def test_conv3d_smallcin_matches_plain(dev, cin, batch):
     ((1, 1, 1, 3, 7), 16),      # every tap but a few in the padding
     ((2, 3, 5, 6, 6), 128),
     ((1, 6, 12, 12, 4), 3),     # Cout 3: a narrow output too
-    ((2, 5, 7, 9, 9), 40),      # the Cin 9 to 15 instances
+    ((2, 5, 7, 9, 9), 40),      # the gather instance
     ((1, 4, 8, 8, 13), 130),
     ((1, 1, 1, 3, 15), 16),
-    ((2, 3, 5, 6, 17), 128),    # the gather instance
+    ((2, 3, 5, 6, 17), 128),
     ((1, 6, 12, 12, 130), 3),
     ((2, 5, 7, 9, 1001), 200),  # K past 27000, two column tiles
 ])
@@ -980,15 +980,15 @@ def test_conv3d_smallcin_ragged_matches_plain(dev, shape, cout):
 
 @pytest.mark.parametrize("cout", [3, 4, 7, 12, 20])
 def test_conv3d_smallcin_dx_matches_plain(dev, cout):
-    """The dx of a bf16 conv with Cout 3 to 15 runs the small-Cin
-    instance on dy (Cin = Cout), with Cout 20 the gather instance, through
-    the autograd Function too."""
+    """The dx of a bf16 conv with Cout 3 to 7 runs the small-Cin
+    instance on dy (Cin = Cout), with Cout 12 and 20 the gather instance,
+    through the autograd Function too."""
     g = torch.Generator(device=dev).manual_seed(22 + cout)
     x = torch.randn((2, 6, 10, 12, 16), generator=g, device=dev).bfloat16()
     w = torch.randn((cout, 16, 3, 3, 3), generator=g, device=dev) / 432 ** 0.5
     dy = torch.randn((2, 6, 10, 12, cout), generator=g,
                      device=dev).bfloat16()
-    route = "sm90_smallcin" if cout <= 15 else "sm90_gather"
+    route = "sm90_smallcin" if cout <= 7 else "sm90_gather"
     assert cv.conv3d_route(dy.shape, dy.dtype, 16) == route
     ops.reset_launch_counts()
     dx = cv.conv3d_dx(dy, w)

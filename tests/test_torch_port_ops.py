@@ -17,6 +17,7 @@ from ddpm3d_tpu.ops.conv3d_mxu import _xla_conv3d, conv3d_mxu
 from ddpm3d_tpu.ops.groupnorm import fused_group_norm_silu
 from ddpm3d_tpu_torch.ops import conv3d as cv
 from ddpm3d_tpu_torch.ops import groupnorm as gn
+from test_torch_port_conv_wide import narrow_constants
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -197,31 +198,39 @@ def test_head_dx_on_its_route_matches_jax_vjp(rng):
                                atol=CONV_ATOL)
 
 
-@pytest.mark.parametrize("cin", [9, 10, 11, 12, 13, 14, 15, 17, 130, 1001])
+# shared memory of one H100 SM (228 KB); the runtime keeps 1 KB of it a block
+SM_SMEM = 233472
+
+
+@pytest.mark.parametrize("cin", [1, 2, 3, 4, 5, 6, 7, 9, 17, 130])
 def test_conv3d_tiles_fit_the_kernel(cin):
-    """csrc/conv3d_narrow.cu from Cin = 9 (the resident Cin 9 to 15
-    instances, the gather instance above): one block's shared memory fits
-    the card's, its three warpgroups' registers (64 accumulators and two
-    chunks of A a thread within NARROW_REGS) the SM's file; the weight
-    tiles (resident) or the ring's tiles walked over the chunks cover K
-    exactly once, in k-steps of 16 that stop at narrow_k (resident) or
-    pad with zeros to whole chunks (gather)."""
+    """csrc/conv3d_narrow.cu's tiles, from the source's own constants
+    (narrow_constants): the packed row that pack_weight_kernel makes is
+    the instance's Kpad; a Cin = 1 to 7 instance's resident weight tiles
+    cover it, one thread a bias column, and three of its blocks fit an SM
+    (their overlap hides each one's serial gather, wgmma and stores); the
+    gather instance's k-table slot is filled by its first kK threads, its
+    ring holds the chunk in use, the next one (whose k table must be a
+    barrier old) and one in flight, and its one block fits an SM. Every
+    block's shared memory fits the card's."""
+    src = narrow_constants(cin)
     route = cv.conv3d_route((1, 4, 4, 4, cin), torch.bfloat16, 128)
-    assert route == ("sm90_smallcin" if cin <= 15 else "sm90_gather")
-    assert cv.narrow_smem_bytes(cin, route) <= cv.SM90_SMEM_LIMIT
-    assert cv.NARROW_WG * 128 * cv.NARROW_REGS <= 65536
-    assert 64 + 2 * 4 * 4 <= cv.NARROW_REGS - 48  # addresses, rows, loads
-    kpad = cv.narrow_k(cin)
-    steps = cv.narrow_chunk_steps(cin, route)
-    per = steps[0]  # 4 a 64-k tile, 2 at odd Cin on the resident route
-    assert per == (2 if route == "sm90_smallcin" and cin % 2 else 4)
-    assert all(1 <= n <= per for n in steps[-1:]) and set(steps[:-1]) <= {per}
-    assert len(steps) == -(-kpad // (16 * per))
-    assert sum(steps) * 16 == (kpad if route == "sm90_smallcin"
-                               else len(steps) * cv.NARROW_TILE_K)
-    if route == "sm90_gather":  # the ring, not K, sets the shared memory
-        assert cv.narrow_smem_bytes(cin, route) == cv.narrow_smem_bytes(
-            17, route)
+    wp = cv.pack_weight_kernel(torch.zeros((128, cin, 3, 3, 3)),
+                               torch.bfloat16)
+    assert wp.shape == (src["kBN"], src["kKpad"])
+    assert src["kKpad"] % 16 == 0 and src["kKpad"] - 16 < 27 * cin
+    if route == "sm90_gather":
+        assert cin > 8 and cin % 8
+        smem, blocks = src["kGatherSmem"], 1
+        assert src["kK"] <= src["kWG"] * src["kThreads"]
+        assert src["kSteps"] * 16 == src["kK"] and src["kRing"] >= 3
+    else:
+        smem, blocks = src["kSmem"], 3
+        assert src["kThreads"] == src["kBN"]
+        assert (src["kTiles"] - 1) * src["kK"] < src["kKpad"] <= (
+            src["kTiles"] * src["kK"])
+    assert smem <= cv.SM90_SMEM_LIMIT
+    assert blocks * (smem + 1024) <= SM_SMEM
 
 
 def test_conv3d_rejects_other_devices():
