@@ -161,6 +161,28 @@ Phases (each failure exits non-zero before the final line):
                and its bound, the bf16 ones also beside the retired
                ``mma.sync`` conv of a previous ``csrc/conv3d.cu`` on the
                same inputs when ``--parent-conv`` names it.
+     quality tools (after evaluate; ``ddpm3d_tpu_torch/tools``) —
+               ``e2e_learning``: the end-to-end learning check in this
+               process at its defaults (exit 0: the loss fell and a PSNR
+               beat the noisy input's; its JSON; launches on sm90, K1, K2
+               and the conv dx); ``respacing_full_width``: the respacing
+               study at the production model (96^3, 10 training steps,
+               ddpm25 / ddim25 / dpm2m10, one volume), then its checkpoint
+               in int8 (ddpm25, ddim25): finite rows with the JAX tool's
+               keys, the run's own ms per chain step as
+               ``flagship_per_step_ms``, 70 sm90 a forward (and 70 dx a
+               step) in bf16, 88 K5 + 2 K3 in int8; ``respacing_debug``:
+               the study at its default model (50 steps) and the debugger
+               on its checkpoint, every section finite;
+               ``volume_quality``: a (100, 200, 200) synthetic volume
+               through the volume harness (a subprocess running the
+               serving CLI as one) on the full-width checkpoint, ddpm25
+               in bf16 and int8 over the 18-patch grid: exit 0, finite
+               seam and interior rows, outputs of the input's shape, the
+               CLI's launches per forward (72/71/71; 88 K5 + 2 K3), each
+               config's sampling wall; ``seg_int8_check`` (20 steps, one
+               eval volume): every fusion's and the encoder's row finite,
+               K5 and sm90_cin1 launched.
 Then the whole run's seconds, the card's name and power limit, one
 ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -3825,6 +3847,296 @@ def phase_evaluate(seed: int, volume: np.ndarray) -> None:
 
 
 
+# the JSON keys the JAX tools print or write (tools/e2e_learning_check.py,
+# tools/respacing_study.py: each row, its projection column renamed;
+# tools/seg_int8_check.py: each fusion row and the encoder's)
+E2E_KEYS = ("first_loss", "last_loss", "psnr_noisy_db", "ssim_noisy",
+            "ema_rate", "train_steps", "train_time_s", "psnr_raw_db",
+            "ssim_raw", "psnr_ema_db", "ssim_ema", "psnr_avg4_db",
+            "ssim_avg4")
+RESPACING_ROW_KEYS = ("setting", "steps", "psnr_vs_clean_db",
+                      "psnr_vs_clean_db_std", "ssim_vs_clean",
+                      "ssim_vs_clean_std", "psnr_vs_ddpm1000_db",
+                      "ssim_vs_ddpm1000", "n_chains", "projected_volume_s",
+                      "row_wall_s")
+SEG_ROW_KEYS = ("psnr_noisy", "psnr_fp", "psnr_int8", "delta_db",
+                "psnr_fp_vs_int8", "train_s")
+SEG_ENCODER_KEYS = ("top1_agreement", "max_logit_drift", "mean_logit_drift",
+                    "acc_fp", "acc_int8", "n_probes", "train_s")
+# the respacing study at the production model (the serving path's full
+# width: 128 channels, (1,1,2,3,4), 2 res blocks, 96^3 patches), 10
+# training steps: it proves the path, it measures no quality
+RESPACING_FULL_FLAGS = [
+    "--size", "96", "--model_channels", "128", "--channel_mult", "1,1,2,3,4",
+    "--num_res_blocks", "2", "--batch", "1", "--train_steps", "10",
+    "--n_eval", "1"]
+VOLUME_QUALITY_CONFIGS = "ddpm25:bf16@1,ddpm25:int8@1"
+
+
+def _run_counted(fn):
+    """``fn()`` with the launch counters zeroed just before and read just
+    after (the card synchronized on both sides); returns (its result, the
+    counts with ``routes``, seconds)."""
+    from ddpm3d_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    return out, dict(ops.launch_counts(), routes=ops.route_counts()), seconds
+
+
+def _finite(values) -> bool:
+    return all(np.isfinite(float(v)) for v in values)
+
+
+def _nonzero_routes(counts) -> dict:
+    return {k: v for k, v in counts["routes"].items() if v}
+
+
+def phase_e2e_learning(seed: int) -> dict:
+    """``tools/e2e_learning_check.main`` in this process at its defaults:
+    exit 0 (the loss fell, a PSNR above the noisy input's), its JSON's keys
+    (JAX's), and launches on sm90, K1, K2 and the conv dx. Returns the
+    run's counts."""
+    import contextlib
+    import io
+
+    from ddpm3d_tpu_torch.tools import e2e_learning_check
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, counts, seconds = _run_counted(
+            lambda: e2e_learning_check.main(["--seed", str(seed)]))
+    text = buf.getvalue()
+    print(text, end="")
+    result = json.loads([ln for ln in text.splitlines()
+                         if ln.startswith("{")][-1])
+    emit({"phase": "e2e_learning", "rc": rc, "seconds": seconds, **result,
+          "launches": {k: v for k, v in counts.items() if k != "routes"},
+          "routes": _nonzero_routes(counts)})
+    check(rc == 0, "e2e learning check passed (loss fell, PSNR gained)")
+    check(tuple(result) == E2E_KEYS, f"e2e keys {list(result)}")
+    check(result["last_loss"] < result["first_loss"] and max(
+        result["psnr_raw_db"], result["psnr_ema_db"],
+        result["psnr_avg4_db"]) > result["psnr_noisy_db"], "e2e PSNR gain")
+    for key in ("gn_stats", "gn_apply", "conv3d_dx"):
+        check(counts[key] > 0, f"e2e launched {key}")
+    check(counts["routes"]["conv3d.sm90"] > 0, "e2e launched sm90")
+    return counts
+
+
+def _check_study(phase: str, result: dict, counts: dict, seconds: float,
+                 int8: bool, train_steps: int) -> None:
+    """Finite rows with JAX's keys, the run's own step time as the
+    flagship's, and the launches per forward of the served path: 70 sm90
+    (bf16) or 88 K5 and 2 K3 (int8) a forward, each training step one
+    forward and its dx."""
+    rows = result["rows"]
+    proto = result["protocol"]
+    chain_steps = sum(r["steps"] * r["n_chains"] for r in rows)
+    forwards = chain_steps + train_steps
+    mean_ms = sum(r["ms_per_step"] * r["steps"] * r["n_chains"]
+                  for r in rows) / chain_steps
+    emit({"phase": phase, "seconds": seconds,
+          "ms_per_step": {r["setting"]: r["ms_per_step"] for r in rows},
+          "flagship_per_step_ms": proto["flagship_per_step_ms"],
+          "rows": rows, "noisy_input": result["noisy_input"],
+          "forwards": forwards,
+          "launches": {k: v for k, v in counts.items() if k != "routes"},
+          "routes": _nonzero_routes(counts)})
+    for r in rows:
+        check(all(k in r for k in RESPACING_ROW_KEYS),
+              f"{phase} row keys {list(r)}")
+        check(_finite([r["psnr_vs_clean_db"], r["ssim_vs_clean"],
+                       r["ms_per_step"], r["projected_volume_s"]]),
+              f"{phase} {r['setting']} finite")
+    check(abs(proto["flagship_per_step_ms"] - mean_ms) <= 1e-9 * mean_ms,
+          f"{phase} flagship_per_step_ms is the run's own step time")
+    if int8:
+        check(counts["conv3d_s8"] == 88 * forwards
+              and counts["conv3d"] == 2 * forwards,
+              f"{phase}: {counts['conv3d_s8']} K5 over {forwards} forwards")
+    else:
+        check(counts["routes"]["conv3d.sm90"] == 70 * forwards
+              and counts["routes"]["conv3d_dx.sm90"] == 70 * train_steps,
+              f"{phase}: {counts['routes']['conv3d.sm90']} sm90 over "
+              f"{forwards} forwards")
+
+
+def phase_respacing_full_width(seed: int, tmp: str) -> tuple:
+    """``tools/respacing_study.main`` at the production model
+    (RESPACING_FULL_FLAGS) in this process: 10 training steps, then
+    ddpm25, ddim25 and dpm2m10 on one volume, its checkpoint saved; then
+    the same checkpoint in int8 (ddpm25, ddim25). Returns the two runs'
+    counts and the checkpoint."""
+    from ddpm3d_tpu_torch.tools import respacing_study
+
+    ckpt = os.path.join(tmp, "respacing_full.pt")
+    result, counts, seconds = _run_counted(lambda: respacing_study.main(
+        RESPACING_FULL_FLAGS + [
+            "--settings", "ddpm25,ddim25,dpm2m10", "--seed", str(seed),
+            "--save_ckpt", ckpt,
+            "--out", os.path.join(tmp, "respacing_full.json")]))
+    _check_study("respacing_full_width", result, counts, seconds, False, 10)
+    torch.cuda.empty_cache()
+    result8, counts8, seconds8 = _run_counted(lambda: respacing_study.main(
+        RESPACING_FULL_FLAGS + [
+            "--int8", "--load_ckpt", ckpt, "--settings", "ddpm25,ddim25",
+            "--seed", str(seed),
+            "--out", os.path.join(tmp, "respacing_full_int8.json")]))
+    _check_study("respacing_full_width_int8", result8, counts8, seconds8,
+                 True, 0)
+    torch.cuda.empty_cache()
+    return counts, counts8, ckpt
+
+
+def phase_respacing_debug(seed: int, tmp: str) -> dict:
+    """The study at its default model (50 steps, ddim10, one volume), then
+    ``tools/respacing_debug.main`` on its checkpoint: every section (the
+    teacher-forced table, the four chains, the four truncated chains)
+    finite. Returns both runs' counts together."""
+    from ddpm3d_tpu_torch.tools import respacing_debug, respacing_study
+
+    ckpt = os.path.join(tmp, "respacing_small.pt")
+    study, counts, seconds = _run_counted(lambda: respacing_study.main([
+        "--train_steps", "50", "--settings", "ddim10", "--n_eval", "1",
+        "--seed", str(seed), "--save_ckpt", ckpt,
+        "--out", os.path.join(tmp, "respacing_small.json")]))
+    debug, dcounts, dseconds = _run_counted(
+        lambda: respacing_debug.main(["--ckpt", ckpt, "--seed", str(seed)]))
+    emit({"phase": "respacing_debug", "study_seconds": seconds,
+          "seconds": dseconds, "study_rows": study["rows"], **debug,
+          "launches": {k: v for k, v in dcounts.items() if k != "routes"}})
+    check(len(debug["teacher"]) == 14 and all(
+        _finite(r.values()) for r in debug["teacher"]), "teacher table")
+    check(sorted(debug["chains"]) == sorted(
+        ["ddpm_full", "ddim_full", "ddpm250", "ddim250"])
+        and sorted(debug["truncated"]) == sorted(["100", "250", "500",
+                                                   "1000"]),
+        "every chain and truncated chain")
+    for section in ("chains", "truncated"):
+        for name, r in debug[section].items():
+            check(_finite(r.values()), f"respacing_debug {name} finite")
+    check(dcounts["routes"]["conv3d.sm90"] > 0, "respacing_debug on sm90")
+    return {k: (v + dcounts[k] if k != "routes" else {
+        r: v[r] + dcounts["routes"][r] for r in v})
+        for k, v in counts.items()}
+
+
+def _cli_launches(log_path: str) -> dict:
+    """The serving CLI's "kernel launches on rank 0: {json}" line."""
+    with open(log_path) as f:
+        lines = [ln for ln in f if "kernel launches on rank 0: " in ln]
+    got = json.loads(lines[-1].split("kernel launches on rank 0: ", 1)[1])
+    return dict(got["launches"], routes=got["routes"])
+
+
+def phase_volume_quality(seed: int, tmp: str, ckpt: str) -> dict:
+    """``make_synthetic_data`` writes one (100, 200, 200) volume, split into
+    low and clean directories; ``python -m
+    ddpm3d_tpu_torch.tools.volume_quality`` (a subprocess, which runs the
+    serving CLI as one) on the full-width study checkpoint, ddpm25 in bf16
+    and int8 over the 18-patch grid: exit 0, finite seam and interior
+    rows, outputs of the input's shape, each config's sampling wall and
+    the CLI's launches per forward (72/71/71; 88 K5 + 2 K3). Returns the
+    counts by config."""
+    from ddpm3d_tpu_torch.data import tiff_io
+    from ddpm3d_tpu_torch.tools import make_synthetic_data
+
+    syn = os.path.join(tmp, "synthetic")
+    path = make_synthetic_data.main([syn, "--volumes", "1", "--shape", "100",
+                                     "200", "200", "--seed", str(seed)])[0]
+    vol = tiff_io.imread(path)
+    name = os.path.basename(path)
+    for sub, ch in (("low", 0), ("clean", 1)):
+        os.makedirs(os.path.join(tmp, sub), exist_ok=True)
+        tiff_io.imwrite(os.path.join(tmp, sub, name), vol[ch])
+    workdir, out = os.path.join(tmp, "vq"), os.path.join(tmp, "vq.json")
+    cmd = [sys.executable, "-m", "ddpm3d_tpu_torch.tools.volume_quality",
+           "--eval_low_dir", os.path.join(tmp, "low"),
+           "--eval_clean_dir", os.path.join(tmp, "clean"),
+           "--model_path", ckpt, "--predict_v", "False",
+           "--configs", VOLUME_QUALITY_CONFIGS, "--workdir", workdir,
+           "--out", out]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.monotonic() - t0
+    check(proc.returncode == 0, f"volume_quality exit {proc.returncode}: "
+          f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    with open(out) as f:
+        res = json.load(f)["results"]
+    counts, line = {}, {}
+    forwards = 25 * 6  # 18 patches at batch 3, 25 steps
+    for spec in VOLUME_QUALITY_CONFIGS.split(","):
+        spec = spec.split("@")[0]
+        sampler_steps, precision = spec.split(":")
+        cfg_dir = os.path.join(workdir, f"{sampler_steps}_{precision}")
+        den = tiff_io.imread(os.path.join(cfg_dir, f"denoised_{name}"))
+        c = counts[f"volume_quality_{precision}"] = _cli_launches(
+            os.path.join(cfg_dir, "log.txt"))
+        r = res[spec]
+        line[spec] = dict(r, output_shape=list(den.shape), launches={
+            k: v for k, v in c.items() if k != "routes"})
+        check(den.shape == vol.shape[1:], f"{spec} shape {den.shape}")
+        check(_finite([r["psnr_db"], r["ssim"], r["psnr_seam_db"],
+                       r["psnr_interior_db"]]), f"{spec} rows finite")
+        want = ({"conv3d_s8": 88, "conv3d": 2} if precision == "int8" else
+                {"conv3d": 72, "gn_stats": 71, "gn_apply": 71})
+        for k, n in want.items():
+            check(c[k] == n * forwards, f"{spec}: {c[k]} {k} over "
+                  f"{forwards} forwards")
+    emit({"phase": "volume_quality", "configs": VOLUME_QUALITY_CONFIGS,
+          "wall_s": wall, "noisy_input": res["noisy_input"],
+          "sampling_wall_s": {k: v["sampling_wall_s_mean"]
+                              for k, v in line.items()},
+          "results": line})
+    return counts
+
+
+def phase_seg_int8_check(seed: int, tmp: str) -> dict:
+    """``tools/seg_int8_check.main`` in this process (--steps 20 --n_eval
+    1): every fusion row and the encoder's finite with JAX's keys; K5 and
+    the Seg encoder's Cin = 1 conv (sm90_cin1) launched. Returns the
+    counts."""
+    from ddpm3d_tpu_torch.tools import seg_int8_check
+
+    result, counts, seconds = _run_counted(lambda: seg_int8_check.main([
+        "--steps", "20", "--n_eval", "1", "--seed", str(seed),
+        "--out", os.path.join(tmp, "seg_int8.json")]))
+    emit({"phase": "seg_int8_check", "seconds": seconds,
+          "fusions": result["fusions"], "encoder": result["encoder"],
+          "launches": {k: v for k, v in counts.items() if k != "routes"},
+          "routes": _nonzero_routes(counts)})
+    check(sorted(result["fusions"]) == ["add", "cat_conv", "midcat"],
+          "every fusion row")
+    for fusion, row in result["fusions"].items():
+        check(tuple(row) == SEG_ROW_KEYS and _finite(row.values()),
+              f"seg_int8_check {fusion} row")
+    check(tuple(result["encoder"]) == SEG_ENCODER_KEYS
+          and _finite(result["encoder"].values()), "encoder row")
+    check(counts["conv3d_s8"] > 0, "seg_int8_check launched K5")
+    check(counts["routes"]["conv3d.sm90_cin1"] > 0,
+          "seg_int8_check launched sm90_cin1")
+    return counts
+
+
+def phase_quality_tools(seed: int) -> dict:
+    """The quality tools' phases in order; the launches of each path."""
+    tmp = tempfile.mkdtemp(prefix="quality_")
+    counts = {"e2e_learning": phase_e2e_learning(seed)}
+    (counts["respacing_full_width"], counts["respacing_full_width_int8"],
+     ckpt) = phase_respacing_full_width(seed, tmp)
+    counts["respacing_debug"] = phase_respacing_debug(seed, tmp)
+    counts.update(phase_volume_quality(seed, tmp, ckpt))
+    counts["seg_int8_check"] = phase_seg_int8_check(seed, tmp)
+    return counts
+
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3924,6 +4236,7 @@ def main() -> None:
     seg_counts["denoise_int8_calibrated"] = phase_calibrate(args.seed)
     seg_counts["eps_calibration"] = phase_eps_calibration(args.seed)
     phase_evaluate(args.seed, volume)
+    quality_counts = phase_quality_tools(args.seed)
     train = phase_train(args.seed)
     phase_train_profile(train.pop("loop"))
     train_ddp_counts = phase_train_ddp(args.seed)
@@ -3948,7 +4261,8 @@ def main() -> None:
                    "classifier_sample": count(classifier_counts),
                    **{path: count(c) for path, c in serving_counts.items()},
                    **{path: count(c) for path, c in model_counts.items()},
-                   **{path: count(c) for path, c in seg_counts.items()}}
+                   **{path: count(c) for path, c in seg_counts.items()},
+                   **{path: count(c) for path, c in quality_counts.items()}}
         main_path = {"conv3d_fused": "denoise_fused",
                      "conv3d_s8": "denoise_int8",
                      "conv3d_cin1": "seg",

@@ -21,6 +21,7 @@ from .sampling import (
     ddim_sample_loop,
     p_sample,
     p_sample_loop,
+    p_sample_loop_progressive,
 )
 from .schedules import (
     Schedule,

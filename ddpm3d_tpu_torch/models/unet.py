@@ -333,6 +333,9 @@ class ConvSites:
         self.int8 = int8
         for m in self._sites():
             m.int8 = int8
+            # a weight changed through ``.data`` keeps its version: the
+            # quantized weight is rebuilt from the parameter after a switch
+            m._q_key = m._q = None
 
     def set_calibration(self, calib: Optional[ActCalibration]) -> None:
         """Record every conv site's input abs-max into ``calib`` (None:
@@ -568,7 +571,7 @@ def _spatial_shape(image_size, dims: int) -> Tuple[int, ...]:
     return shape
 
 
-class EncoderUNetModel(nn.Module):
+class EncoderUNetModel(ConvSites, nn.Module):
     """Half-UNet encoder with a pooling head, the classifier of guidance
     (``ddpm3d_tpu/models/unet.py:704-847``): the UNet's input stages and
     (``include_middle``) its middle block with attention, then ``pool``:
@@ -587,7 +590,13 @@ class EncoderUNetModel(nn.Module):
     head's names
     (:mod:`..utils.convert`): ``out.0`` its norm (spatial: the first
     dense), ``out.2`` its conv or pool (spatial: the last dense;
-    spatial_v2: ``out.1`` its norm, ``out.3`` the last dense)."""
+    spatial_v2: ``out.1`` its norm, ``out.3`` the last dense).
+
+    A 3-D encoder serves its conv sites in int8 (``int8=``, ``set_int8``)
+    and records them in the calibration mode (:class:`ConvSites`): its
+    3x3x3 convs and 1x1x1 skips, named by their flax paths (``in1_0/
+    in_conv``), the sites JAX's encoder quantizes under ``DDPM3D_INT8=1``
+    (the head's conv is a plain 1x1 conv in both packages)."""
 
     def __init__(
         self,
@@ -611,6 +620,7 @@ class EncoderUNetModel(nn.Module):
         dtype: torch.dtype = torch.float32,
         image_size: Union[int, Sequence[int], None] = None,
         head: bool = True,
+        int8: Optional[Int8Config] = None,
     ):
         super().__init__()
         if dims not in (1, 2, 3):
@@ -631,6 +641,7 @@ class EncoderUNetModel(nn.Module):
         self.include_middle = include_middle
         self.use_checkpoint = use_checkpoint
         self.dtype = dtype
+        self.fused = False
         emb_ch = 4 * model_channels
         self.time_embed = _time_embed(model_channels)
 
@@ -675,6 +686,7 @@ class EncoderUNetModel(nn.Module):
                 self.out = nn.ModuleList(
                     layers + [nn.Linear(2048, out_channels)])
         prim.init_params(self, seed=0)
+        self.set_int8(int8)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 return_features: bool = False):

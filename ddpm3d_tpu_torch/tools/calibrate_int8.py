@@ -54,31 +54,10 @@ from ..diffusion.sampling import XT_STEP, step_noise
 from ..diffusion.schedules import linear_beta_schedule
 from ..ops.quant import ActCalibration
 from ..utils.convert import load_checkpoint
+from .e2e_learning_check import make_pair
 
 T = 1000
 RANDOM_CKPT = "RANDOM-INIT (speed profiling only)"
-
-
-def make_pair(rng: np.random.Generator, shape, noise_sigma: float = 0.35):
-    """A synthetic (noisy, clean) volume pair: five Gaussian blobs scaled to
-    [0, 1], plus Gaussian noise (the port's copy of
-    ``tools/e2e_learning_check.py:make_pair``, same draws)."""
-    Z, H, W = shape
-    zz, yy, xx = np.meshgrid(
-        np.linspace(-1, 1, Z), np.linspace(-1, 1, H), np.linspace(-1, 1, W),
-        indexing="ij",
-    )
-    clean = np.zeros(shape, np.float32)
-    for _ in range(5):
-        cz, cy, cx = rng.uniform(-0.6, 0.6, 3)
-        s = rng.uniform(0.15, 0.5)
-        a = rng.uniform(0.4, 1.0)
-        clean += a * np.exp(
-            -(((zz - cz) ** 2 + (yy - cy) ** 2 + (xx - cx) ** 2) / (2 * s * s))
-        ).astype(np.float32)
-    clean = clean / max(clean.max(), 1e-6)  # [0, 1]
-    noisy = clean + rng.normal(0, noise_sigma, shape).astype(np.float32)
-    return noisy, clean
 
 
 def chain_schedule(respacing: str):

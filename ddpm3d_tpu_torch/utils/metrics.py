@@ -34,19 +34,33 @@ def psnr(reference: Array, test: Array,
     mse = float(torch.mean((ref - tst) ** 2))
     if mse == 0:
         return float("inf")
+    if data_range == 0:  # np.log10(0): a blank reference scores -inf
+        return float("-inf")
     return 10.0 * math.log10(data_range ** 2 / mse)
 
 
+def _reflect_index(n: int, lo: int, hi: int,
+                   device: torch.device) -> torch.Tensor:
+    """The source index of each voxel of an axis of ``n`` padded by ``lo``
+    and ``hi`` as ``np.pad(mode="reflect")`` pads it: the edge not
+    repeated, reflected again where the pad is wider than the axis, and the
+    one value repeated on an axis of length 1."""
+    i = torch.arange(-lo, n + hi, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    i = torch.remainder(i, 2 * (n - 1))
+    return torch.where(i >= n, 2 * (n - 1) - i, i)
+
+
 def _uniform_filter(x: torch.Tensor, size: int) -> torch.Tensor:
-    """Separable box filter of any rank: each axis reflect-padded (the edge
-    not repeated, as ``np.pad(mode="reflect")``) and averaged by a
-    cumulative sum."""
+    """Separable box filter of any rank: each axis reflect-padded
+    (:func:`_reflect_index`) and averaged by a cumulative sum."""
     lo = size // 2
     hi = size - 1 - lo
     for axis in range(x.dim()):
         xm = x.movedim(axis, -1)
         shape = xm.shape
-        xp = F.pad(xm.reshape(1, -1, shape[-1]), (lo, hi), mode="reflect")
+        xp = xm.index_select(-1, _reflect_index(shape[-1], lo, hi, x.device))
         c = F.pad(torch.cumsum(xp, dim=-1), (1, 0))
         x = ((c[..., size:] - c[..., :-size]) / size).reshape(shape)
         x = x.movedim(-1, axis)

@@ -41,24 +41,45 @@ def _pair(shape, seed):
     return x, np.clip(x + rng.normal(0, 0.1, shape), 0, 1)
 
 
+# the arrays of each case; "thin_*" have an axis of 3 voxels or fewer
+# (the 7-wide window's pad is wider than the axis: np.pad reflects again,
+# and repeats the one value of a 1-voxel axis), "blank" a constant
+# reference (data_range None is 0: psnr is -inf)
+SHAPES = {"2d": (12, 12), "2d_ragged": (9, 13), "3d": (10, 12, 14),
+          "3d_small": (7, 8, 9), "thin_3": (3, 16, 16), "thin_2": (2, 20, 20),
+          "thin_1": (1, 12, 12), "blank": (6, 8, 10)}
+
+
+def _close(got, want, tol):
+    """Within tol relative (at least absolute), or the same infinity."""
+    if np.isinf(want):
+        return got == want
+    return abs(got - want) <= tol * max(1.0, abs(want))
+
+
 @pytest.mark.parametrize("data_range", [None, 1.0])
-@pytest.mark.parametrize("shape", [(12, 12), (9, 13), (10, 12, 14), (7, 8, 9)],
-                         ids=["2d", "2d_ragged", "3d", "3d_small"])
-def test_metrics_match_jax(shape, data_range):
+@pytest.mark.parametrize("case", list(SHAPES))
+def test_metrics_match_jax(case, data_range):
     """psnr, ssim (reflect-padded 7-wide box, n / (n - 1)) and
     volume_report in 2-D and 3-D, on numpy arrays and float64 tensors."""
+    shape = SHAPES[case]
     x, y = _pair(shape, len(shape) * 10 + shape[0])
+    if case == "blank":
+        x = np.full(shape, 0.5)
     ref = jmetrics.volume_report(x, y, data_range)
     got = metrics.volume_report(x, y, data_range)
     assert set(got) == set(ref)
     for k, v in ref.items():
-        assert abs(got[k] - v) <= METRIC_TOL * max(1.0, abs(v)), k
+        assert _close(got[k], v, METRIC_TOL), k
     assert abs(metrics.ssim(torch.from_numpy(x), torch.from_numpy(y),
                             data_range) - ref["ssim"]) <= METRIC_TOL
-    assert abs(metrics.psnr(x, y, data_range) - jmetrics.psnr(
-        x, y, data_range)) <= METRIC_TOL * abs(ref["psnr_db"])
+    want = jmetrics.psnr(x, y, data_range)
+    got_psnr = metrics.psnr(x, y, data_range)
+    assert (got_psnr == want if np.isinf(want) else
+            abs(got_psnr - want) <= METRIC_TOL * abs(ref["psnr_db"]))
     assert metrics.psnr(x, x) == float("inf")
-    np.testing.assert_allclose(metrics.ssim(x, x), 1.0, atol=1e-12)
+    if case != "blank":  # 0 / 0 in both packages
+        np.testing.assert_allclose(metrics.ssim(x, x), 1.0, atol=1e-12)
 
 
 def test_box_filter_matches_jax():

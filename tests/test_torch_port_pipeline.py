@@ -32,7 +32,7 @@ from ddpm3d_tpu.utils.config import (
 from ddpm3d_tpu_torch import resolve_device
 from ddpm3d_tpu_torch.data import patches as tpatches
 from ddpm3d_tpu_torch.data import tiff_io as ttiff
-from ddpm3d_tpu_torch.diffusion import p_sample_loop
+from ddpm3d_tpu_torch.diffusion import p_sample_loop, p_sample_loop_progressive
 from ddpm3d_tpu_torch.inference import denoise_volume
 from ddpm3d_tpu_torch.models import SuperResModel, factory as tfactory
 from ddpm3d_tpu_torch.models.nn import init_params
@@ -43,6 +43,13 @@ from ddpm3d_tpu_torch.scripts import distill as distill_cli
 from ddpm3d_tpu_torch.scripts import evaluate as evaluate_cli
 from ddpm3d_tpu_torch.scripts import train as train_cli
 from ddpm3d_tpu_torch.tools import calibrate_int8 as calibrate_cli
+from ddpm3d_tpu_torch.tools import (
+    e2e_learning_check,
+    respacing_debug,
+    respacing_study,
+    seg_int8_check,
+    volume_quality,
+)
 from ddpm3d_tpu_torch.training import TrainLoop, distill_phase, progressive_distill
 from ddpm3d_tpu_torch.utils.config import (
     args_to_dict,
@@ -400,7 +407,8 @@ def test_cli_refuses_noise_seed_with_dpm():
 
 def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny):
     """With no card, the CLIs (classifier_sample, the int8 calibration tool
-    and evaluate among them), the sampler,
+    and evaluate among them), the quality tools, the sampler (its
+    segments and progressive generator too),
     the pipeline, the trainer and the distiller raise unless the caller
     asks for the CPU; a model on another device than the chain's is
     refused, not moved."""
@@ -416,6 +424,19 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny):
         cli.main(CLI_FLAGS[:-2] + ["--base_samples", "x.tif"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         p_sample_loop(lambda x, t, **kw: x, ts, tcfg, shape=(1, 4, 4, 4, 1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        p_sample_loop(lambda x, t, **kw: x, ts, tcfg, shape=(1, 4, 4, 4, 1),
+                      t_hi=1, return_intermediates=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(p_sample_loop_progressive(lambda x, t, **kw: x, ts, tcfg,
+                                       shape=(1, 4, 4, 4, 1)))
+    for tool, argv in ((e2e_learning_check, []), (respacing_study, []),
+                       (respacing_debug, []), (seg_int8_check, []),
+                       (volume_quality, ["--eval_low_dir", "a",
+                                         "--eval_clean_dir", "b",
+                                         "--model_path", "m.pt"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tool.main(argv)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         denoise_volume(model, ts, tcfg, vol, **grid)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -465,8 +486,11 @@ def test_port_imports_no_jax():
     assert len(files) > 15
     assert osp.join(REPO, "ddpm3d_tpu_torch", "scripts",
                     "classifier_sample.py") in files
-    assert osp.join(REPO, "ddpm3d_tpu_torch", "tools",
-                    "calibrate_int8.py") in files
+    for tool in ("calibrate_int8", "make_synthetic_data", "e2e_learning_check",
+                 "respacing_study", "respacing_debug", "volume_quality",
+                 "seg_int8_check"):
+        assert osp.join(REPO, "ddpm3d_tpu_torch", "tools",
+                        f"{tool}.py") in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
