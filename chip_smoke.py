@@ -182,7 +182,16 @@ Phases (each failure exits non-zero before the final line):
                CLI's launches per forward (72/71/71; 88 K5 + 2 K3), each
                config's sampling wall; ``seg_int8_check`` (20 steps, one
                eval volume): every fusion's and the encoder's row finite,
-               K5 and sm90_cin1 launched.
+               K5 and sm90_cin1 launched; ``host_tier`` (on the host,
+               after volume_quality): the native C++ tier's cold build
+               seconds; at the production volume a (2, 130, 200, 200) f32
+               TIFF written and read, 18 patches of 96^3 cut and blended,
+               each through the native tier and through numpy (equal
+               values; ms, best of 3); the serving pipeline's host share,
+               ``(wall_s - sample_wall_s) / wall_s``, of each
+               volume_quality config (18 patches, from the CLI's
+               ``host tier:`` log line); a ``mem://`` checkpoint round
+               trip of the production model's state dict, bit-equal.
 Then the whole run's seconds, the card's name and power limit, one
 ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -202,6 +211,7 @@ import copy
 import csv
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -403,6 +413,9 @@ TRAIN_FLAGS = [
     "--noise_schedule", "linear",
 ]
 TRAIN_STEPS = 6
+# the native Hann blend against its numpy version (another summation
+# order): max |diff| over max |value|
+HOST_BLEND_REL = 1e-6
 
 
 def emit(obj) -> None:
@@ -4124,14 +4137,118 @@ def phase_seg_int8_check(seed: int, tmp: str) -> dict:
     return counts
 
 
+def _best_ms(fn, reps: int = 3):
+    """(best wall ms of ``reps`` calls, the last call's result)."""
+    best, out = float("inf"), None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best, out
+
+
+HOST_LINE = re.compile(r"host tier: cut ([0-9.]+) ms, blend ([0-9.]+) ms; "
+                       r"wall ([0-9.]+) s, of which ([0-9.]+) s sampling")
+
+
+def phase_host_tier(seed: int, vq_workdir: str) -> None:
+    """The host data tier (``ddpm3d_tpu_torch/native``, on the host CPU):
+    a cold build of the library into a fresh directory (seconds); at the
+    production volume, (2, 130, 200, 200) f32 written as a TIFF and read
+    back, cut into the serving grid's 18 patches of 96^3 and blended, each
+    through the native tier and through its numpy version: equal values
+    (the blend within ``HOST_BLEND_REL`` of the larger value), ms (best of
+    3); the serving pipeline's host share of each volume_quality config
+    from its log; a ``mem://`` round trip of the production model's state
+    dict (``utils/checkpoint.py`` through ``utils/blobio.py``), bit-equal,
+    with the save and load seconds."""
+    from ddpm3d_tpu_torch import native
+    from ddpm3d_tpu_torch.data import patches, tiff_io
+    from ddpm3d_tpu_torch.utils import blobio
+    from ddpm3d_tpu_torch.utils import checkpoint as ckpt
+
+    check(native.available(), "native tier on ($DDPM3D_NATIVE unset)")
+    build_dir = native.BUILD_DIR
+    native.BUILD_DIR = tempfile.mkdtemp(prefix="native_build_")
+    try:
+        t0 = time.monotonic()
+        native.build()
+        build_s = time.monotonic() - t0
+    finally:
+        native.BUILD_DIR = build_dir
+    rng = np.random.default_rng(seed)
+    pair = rng.uniform(0, 4, (2, 130, 200, 200)).astype(np.float32)
+    path = os.path.join(tempfile.mkdtemp(prefix="host_tier_"), "pair.tif")
+    write_ms, _ = _best_ms(lambda: tiff_io.imwrite(path, pair))
+    read_ms, got = _best_ms(lambda: tiff_io.imread(path))
+    read_plain_ms, plain = _best_ms(lambda: tiff_io._imread_builtin(path))
+    check(got.dtype == np.float32 and np.array_equal(got, pair)
+          and np.array_equal(plain, pair), "host_tier TIFF read")
+    vol = pair[0] / 4.0
+    Z, X, Y = vol.shape
+    grid = patches.patch_grid(patches.test_xy_starts(X, 96),
+                              patches.test_xy_starts(Y, 96),
+                              patches.test_z_starts(Z, 96))
+    check(len(grid) == 18, f"{len(grid)} patches")
+    cut_ms, cut = _best_ms(lambda: patches.extract_patches_zxy(vol, grid, 96))
+    cut_plain_ms, cut_plain = _best_ms(
+        lambda: patches.extract_patches_zxy_plain(vol, grid, 96))
+    check(np.array_equal(cut, cut_plain), "host_tier cut bit-equal")
+    pxyz = np.transpose(cut, (0, 2, 3, 1))
+    blend_ms, blend = _best_ms(
+        lambda: patches.blend_patches_hann(pxyz, grid, (X, Y, Z), 96))
+    blend_plain_ms, blend_plain = _best_ms(
+        lambda: patches.blend_patches_hann_plain(pxyz, grid, (X, Y, Z), 96))
+    blend_err = float(np.abs(blend - blend_plain).max())
+    check(blend_err <= HOST_BLEND_REL * float(np.abs(blend_plain).max()),
+          f"host_tier blend {blend_err}")
+    share = {}
+    for cfg in sorted(os.listdir(vq_workdir)):
+        log_path = os.path.join(vq_workdir, cfg, "log.txt")
+        if not os.path.exists(log_path):
+            continue
+        with open(log_path) as f:
+            m = [HOST_LINE.search(ln) for ln in f]
+        m = [x for x in m if x]
+        check(len(m) == 1, f"{cfg}: one host tier line")
+        cut_s, blend_s, wall, sample = (float(v) for v in m[0].groups())
+        share[cfg] = {"wall_s": wall, "sample_wall_s": sample,
+                      "cut_ms": cut_s, "blend_ms": blend_s,
+                      "host_share": (wall - sample) / wall}
+    check(len(share) == len(VOLUME_QUALITY_CONFIGS.split(",")),
+          f"host share of every volume_quality config: {sorted(share)}")
+    sd = _model(use_fp16=True, seed=seed)[0].state_dict()
+    url = "mem://host_tier/model000001.pt"
+    t0 = time.monotonic()
+    ckpt.save_state_dict(url, sd)
+    save_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    back = ckpt.load(url)
+    load_s = time.monotonic() - t0
+    check(sorted(back) == sorted(sd) and all(
+        torch.equal(back[k], sd[k]) for k in sd), "mem:// checkpoint bit-equal")
+    nbytes = len(blobio.read_bytes(url))
+    emit({"phase": "host_tier", "build_s": build_s,
+          "volume": list(pair.shape), "patches": len(grid),
+          "tiff_write_ms": write_ms,
+          "tiff_read_ms": {"native": read_ms, "numpy": read_plain_ms},
+          "cut_ms": {"native": cut_ms, "numpy": cut_plain_ms},
+          "blend_ms": {"native": blend_ms, "numpy": blend_plain_ms},
+          "blend_max_abs_diff": blend_err, "pipeline": share,
+          "mem_checkpoint": {"bytes": nbytes, "save_s": save_s,
+                             "load_s": load_s, "bit_equal": True}})
+
+
 def phase_quality_tools(seed: int) -> dict:
-    """The quality tools' phases in order; the launches of each path."""
+    """The quality tools' phases in order, with the host tier after
+    volume_quality; the launches of each path."""
     tmp = tempfile.mkdtemp(prefix="quality_")
     counts = {"e2e_learning": phase_e2e_learning(seed)}
     (counts["respacing_full_width"], counts["respacing_full_width_int8"],
      ckpt) = phase_respacing_full_width(seed, tmp)
     counts["respacing_debug"] = phase_respacing_debug(seed, tmp)
     counts.update(phase_volume_quality(seed, tmp, ckpt))
+    phase_host_tier(seed, os.path.join(tmp, "vq"))
     counts["seg_int8_check"] = phase_seg_int8_check(seed, tmp)
     return counts
 

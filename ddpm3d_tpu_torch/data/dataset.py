@@ -5,11 +5,14 @@ discovery, the per-volume overlapping patch index, ``/4`` normalisation,
 the shard-by-rank file split, the legacy random-crop mode, an infinite
 shuffled batch generator whose order comes from ``np.random.default_rng
 (seed)`` (so batches equal the JAX package's for the same seed and files)
-and a prefetch thread. Batches are NDHWC float32 numpy arrays.
+and a prefetch thread; the whole-volume dataset; and the 2-D PIL crops of
+the upstream image path (PIL is imported only when a crop is called).
+Batches are NDHWC float32 numpy arrays.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import queue as queue_mod
 import threading
@@ -144,6 +147,31 @@ class PatchDataset:
         return cut(high), {"low_res": cut(low)}
 
 
+class WholeVolumeDataset:
+    """Whole volumes, no patching: item i is (high, {"low_res": low}), both
+    (D, H, W, 1) float32 divided by ``normalize_divisor``; this rank's
+    files are ``image_paths[shard::num_shards]``."""
+
+    def __init__(
+        self,
+        image_paths: Sequence[str],
+        shard: int = 0,
+        num_shards: int = 1,
+        normalize_divisor: float = 1.0,
+    ):
+        self.local_paths = list(image_paths)[shard::num_shards]
+        self.normalize_divisor = normalize_divisor
+
+    def __len__(self) -> int:
+        return len(self.local_paths)
+
+    def __getitem__(self, idx: int):
+        low, high = load_volume_pair(self.local_paths[idx])
+        low = low / self.normalize_divisor
+        high = high / self.normalize_divisor
+        return high[..., None], {"low_res": low[..., None]}
+
+
 def load_data(
     *,
     data_dir: str,
@@ -177,6 +205,48 @@ def load_data(
             items = [dataset[int(j)] for j in idxs]
             yield (np.stack([h for h, _ in items]),
                    {"low_res": np.stack([kw["low_res"] for _, kw in items])})
+
+
+def _resize_to(pil_image, smaller: int):
+    """Halve with BOX filtering while the short side is at least twice
+    ``smaller``, then bicubic so the short side is ``smaller``; as an
+    array."""
+    from PIL import Image
+
+    while min(*pil_image.size) >= 2 * smaller:
+        pil_image = pil_image.resize(
+            tuple(x // 2 for x in pil_image.size), resample=Image.BOX)
+    scale = smaller / min(*pil_image.size)
+    pil_image = pil_image.resize(
+        tuple(round(x * scale) for x in pil_image.size),
+        resample=Image.BICUBIC)
+    return np.array(pil_image)
+
+
+def center_crop_arr(pil_image, image_size: int) -> np.ndarray:
+    """2-D centre crop to ``image_size``^2 after a progressive downsample
+    to a short side of ``image_size``."""
+    arr = _resize_to(pil_image, image_size)
+    cy = (arr.shape[0] - image_size) // 2
+    cx = (arr.shape[1] - image_size) // 2
+    return arr[cy:cy + image_size, cx:cx + image_size]
+
+
+def random_crop_arr(
+    pil_image, image_size: int,
+    min_crop_frac: float = 0.8, max_crop_frac: float = 1.0,
+    rng=None,
+) -> np.ndarray:
+    """2-D random crop to ``image_size``^2 after a downsample to a short
+    side drawn from [image_size / max_crop_frac, image_size /
+    min_crop_frac]; draws come from ``rng`` (a numpy Generator)."""
+    rng = rng or np.random.default_rng()
+    min_s = math.ceil(image_size / max_crop_frac)
+    max_s = math.ceil(image_size / min_crop_frac)
+    arr = _resize_to(pil_image, int(rng.integers(min_s, max_s + 1)))
+    cy = int(rng.integers(0, arr.shape[0] - image_size + 1))
+    cx = int(rng.integers(0, arr.shape[1] - image_size + 1))
+    return arr[cy:cy + image_size, cx:cx + image_size]
 
 
 def prefetch(iterator, size: int = 2):

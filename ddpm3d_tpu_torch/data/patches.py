@@ -5,8 +5,9 @@ Own numpy copy of ``ddpm3d_tpu/data/patches.py``:
     guard, Z = {0, D-96};
   * inference grid: fixed XY starts ([0, 52, 104] for 200/96/3),
     Z = {0, D-96};
-  * zero-padded patch extraction and 3-D Hann-window overlap blending.
-(The JAX package's C++ host tier, ``native/``, is not ported yet.)
+  * zero-padded patch extraction and 3-D Hann-window overlap blending,
+    through the native C++ tier (:mod:`..native`) unless ``$DDPM3D_NATIVE``
+    turns it off; the numpy bodies below are their plain versions.
 """
 
 from __future__ import annotations
@@ -83,6 +84,20 @@ def extract_patches_zxy(
 ) -> np.ndarray:
     """Cut (Z, X, Y)-indexed patches, zero-padded at the high ends to a full
     ``patch_size^3`` cube. Returns [P, Z, X, Y] float32."""
+    from .. import native
+
+    if native.available():
+        return native.extract_patches(
+            np.asarray(vol_zxy, np.float32), list(grid), patch_size)
+    return extract_patches_zxy_plain(vol_zxy, grid, patch_size)
+
+
+def extract_patches_zxy_plain(
+    vol_zxy: np.ndarray,
+    grid: Sequence[Tuple[int, int, int]],
+    patch_size: int,
+) -> np.ndarray:
+    """numpy version of :func:`extract_patches_zxy`."""
     Z, X, Y = vol_zxy.shape
     out = np.zeros((len(grid), patch_size, patch_size, patch_size), np.float32)
     for i, (x0, y0, z0) in enumerate(grid):
@@ -105,10 +120,33 @@ def blend_patches_hann(
     grid: Sequence[Tuple[int, int, int]],
     out_shape_xyz: Tuple[int, int, int],
     patch_size: int,
+    window: np.ndarray = None,
 ) -> np.ndarray:
     """Hann-weighted overlap-add of [P, X, Y, Z] patches (grid order) into
-    the (X, Y, Z) volume; voxels whose accumulated weight is 0 stay 0."""
-    window = hann_window_3d(patch_size)
+    the (X, Y, Z) volume; voxels whose accumulated weight is 0 stay 0.
+    ``window`` defaults to :func:`hann_window_3d`."""
+    if window is None:
+        window = hann_window_3d(patch_size)
+    from .. import native
+
+    if native.available():
+        return native.blend_hann(
+            np.asarray(patches_xyz, np.float32), list(grid),
+            tuple(out_shape_xyz), patch_size, window)
+    return blend_patches_hann_plain(
+        patches_xyz, grid, out_shape_xyz, patch_size, window)
+
+
+def blend_patches_hann_plain(
+    patches_xyz: np.ndarray,
+    grid: Sequence[Tuple[int, int, int]],
+    out_shape_xyz: Tuple[int, int, int],
+    patch_size: int,
+    window: np.ndarray = None,
+) -> np.ndarray:
+    """numpy version of :func:`blend_patches_hann`."""
+    if window is None:
+        window = hann_window_3d(patch_size)
     X, Y, Z = out_shape_xyz
     acc = np.zeros(out_shape_xyz, np.float32)
     weight = np.zeros(out_shape_xyz, np.float32)

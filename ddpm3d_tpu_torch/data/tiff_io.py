@@ -1,9 +1,13 @@
 """Volume IO: TIFF read/write without external dependencies.
 
-Own copy of the built-in codec of ``ddpm3d_tpu/data/tiff_io.py``: classic
+Own copy of ``ddpm3d_tpu/data/tiff_io.py``. :func:`imwrite` writes classic
 little-endian TIFF, uncompressed, one strip per page, grayscale
-float32/float64/uint8/uint16/int16/uint32/int32. 4-D (C, D, H, W) volumes
+float32/float64/uint8/uint16/int16/uint32/int32; 4-D (C, D, H, W) volumes
 are stored as C*D pages with an ImageDescription tag recording the axes.
+:func:`imread` reads through the native tier (:mod:`..native`, float32 for
+every file, as the JAX package's reader) unless ``$DDPM3D_NATIVE`` turns it
+off or the file is one the tier declines; then through ``tifffile`` where
+installed, else the built-in parser, which keep the file's dtype.
 """
 
 from __future__ import annotations
@@ -11,6 +15,11 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+
+try:  # pragma: no cover - environment-dependent
+    import tifffile as _tifffile
+except ImportError:  # pragma: no cover
+    _tifffile = None
 
 # TIFF tag ids
 _IMAGE_WIDTH = 256
@@ -43,7 +52,15 @@ def imwrite(path: str, volume: np.ndarray) -> None:
 
 def imread(path: str) -> np.ndarray:
     """Read a TIFF written by :func:`imwrite` (or any simple uncompressed
-    grayscale TIFF). Returns (H,W), (D,H,W) or (C,D,H,W)."""
+    grayscale TIFF). Returns (H,W), (D,H,W) or (C,D,H,W): float32 from the
+    native tier, else the file's dtype (see the module docstring)."""
+    from .. import native
+
+    out = native.tiff_read(path) if native.available() else None
+    if out is not None:
+        return out
+    if _tifffile is not None:
+        return np.asarray(_tifffile.imread(path))
     return _imread_builtin(path)
 
 

@@ -250,9 +250,13 @@ def denoise_volume(
     passes ``"cpu"``, and the model must lie there; ``use_ddim``, ``eta``,
     ``use_dpm_solver`` and ``dpm_order`` choose the sampler as there.
 
+    ``stats`` has ``wall_s`` (the call), ``sample_wall_s`` (the chains),
+    ``cut_s`` and ``blend_s`` (the host tier's cut and blend).
+
     Under a process group every rank samples its slice of the patches; rank
     0 blends, logs and returns the result and all stats, the other ranks
     return ``(None, {"sample_wall_s": ...})`` and log nothing."""
+    t_start = time.monotonic()
     rank = world()[0]
     if rank != 0:
         log = _quiet
@@ -265,7 +269,9 @@ def denoise_volume(
     grid = patch_grid(xs, ys, zs)
     log(f"Patch grid: X {xs}, Y {ys}, Z {zs} -> {len(grid)} patches")
 
+    t0 = time.monotonic()
     low = extract_patches_zxy(volume_zxy, grid, patch_size)  # [P, Z, X, Y]
+    cut_s = time.monotonic() - t0
     log_stage_stats("patches", low, log)
 
     def blend_one(denoised):
@@ -298,7 +304,9 @@ def denoise_volume(
     if rank != 0:
         return None, {"sample_wall_s": sample_wall_s}
     P = low.shape[0]
+    t0 = time.monotonic()
     draws = [blend_one(denoised_all[s * P:(s + 1) * P]) for s in range(S)]
+    blend_s = time.monotonic() - t0
     result = np.mean(draws, axis=0) if S > 1 else draws[0]
     log_stage_stats("blended", result, log)
 
@@ -318,6 +326,11 @@ def denoise_volume(
         stats["mean_uncertainty"] = float(uncertainty.mean())
         log(f"uncertainty map over {S} draws: "
             f"mean sigma {stats['mean_uncertainty']:.4f}")
+    stats.update(cut_s=cut_s, blend_s=blend_s,
+                 wall_s=time.monotonic() - t_start)
+    log(f"host tier: cut {cut_s * 1e3:.1f} ms, blend {blend_s * 1e3:.1f} ms; "
+        f"wall {stats['wall_s']:.3f} s, of which {sample_wall_s:.3f} s "
+        "sampling")
     log(f"Full image denoising: original std {original_std:.4f}, "
         f"denoised std {denoised_std:.4f}, "
         f"noise reduction {stats['noise_reduction_pct']:.1f}% "

@@ -9,7 +9,17 @@ from .aliases import (
     SegModelv3_6c,
     UNetModelv2,
 )
-from .plan import AttnSpec, ConvSpec, DownSpec, ResSpec, UpSpec, plan_unet
+from . import nn
+from .plan import (
+    AttnSpec,
+    ConvSpec,
+    DownSpec,
+    ResSpec,
+    UNetPlan,
+    UpSpec,
+    attention_ds_from_resolutions,
+    plan_unet,
+)
 from .seg import (
     SegModel_3d_noatt_midcat,
     SegModelv2,

@@ -22,6 +22,7 @@
 from typing import Dict
 
 from . import conv3d, conv3d_fused, conv3d_s8, groupnorm
+from .quant import quantize_act, quantize_kernel, static_scales
 
 
 def launch_counts() -> Dict[str, int]:

@@ -25,8 +25,8 @@ of each global batch, as the training CLI does.
 from __future__ import annotations
 
 import argparse
+import io
 import json
-import os
 
 import numpy as np
 import torch
@@ -37,6 +37,7 @@ from ..diffusion import get_named_beta_schedule, space_timesteps
 from ..models.factory import sr_create_model_and_diffusion
 from ..parallel import barrier, destroy, maybe_initialize_distributed, rank_batch
 from ..training import progressive_distill
+from ..utils import blobio
 from ..utils import checkpoint as ckpt
 from ..utils import logger
 from ..utils.config import (
@@ -97,11 +98,13 @@ def distill(args, rank: int, world_size: int) -> None:
         device=device,
     ):
         n = len(use_ts)
-        out = os.path.join(logger.get_dir(), f"distilled_{n}steps.pt")
-        ts_path = os.path.join(logger.get_dir(), f"distilled_{n}steps_ts.npy")
+        out = blobio.join(logger.get_dir(), f"distilled_{n}steps.pt")
+        ts_path = blobio.join(logger.get_dir(), f"distilled_{n}steps_ts.npy")
         if rank == 0:
             ckpt.save_state_dict(out, weights)
-            np.save(ts_path, np.asarray(use_ts))
+            buf = io.BytesIO()
+            np.save(buf, np.asarray(use_ts))
+            blobio.write_bytes(ts_path, buf.getvalue())
         barrier()
         logger.log(f"saved {out} (sample with --timesteps_file {ts_path})")
     if device.type == "cuda":

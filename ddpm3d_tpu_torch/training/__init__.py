@@ -13,6 +13,7 @@ from .distill import (
 )
 from .resample import (
     LossSecondMomentState,
+    create_named_schedule_sampler,
     init_loss_second_moment,
     sample_loss_second_moment,
     sample_uniform,

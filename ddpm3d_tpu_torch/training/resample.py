@@ -93,3 +93,25 @@ def update_loss_second_moment(
             hist[t, c] = loss
             counts[t] = c + 1
     return LossSecondMomentState(hist, counts)
+
+
+def create_named_schedule_sampler(name: str, num_timesteps: int):
+    """The sampler called ``name`` as (init state, sample fn, update fn):
+    ``sample_fn(generator, state, batch_size) -> (t, weights)`` and
+    ``update_fn(state, ts, losses) -> state``. ``uniform`` has no state
+    and its update returns the state unchanged."""
+    if name == "uniform":
+        return (
+            None,
+            lambda generator, state, bs: sample_uniform(
+                num_timesteps, bs, generator),
+            lambda state, ts, losses: state,
+        )
+    if name == "loss-second-moment":
+        return (
+            init_loss_second_moment(num_timesteps),
+            lambda generator, state, bs: sample_loss_second_moment(
+                state, bs, generator),
+            update_loss_second_moment,
+        )
+    raise NotImplementedError(f"unknown schedule sampler: {name}")

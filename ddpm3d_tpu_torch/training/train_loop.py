@@ -58,9 +58,7 @@ from ..utils import checkpoint as ckpt
 from ..utils import logger
 from .resample import (
     LossSecondMomentState,
-    init_loss_second_moment,
-    sample_loss_second_moment,
-    sample_uniform,
+    create_named_schedule_sampler,
     update_loss_second_moment,
 )
 
@@ -240,7 +238,11 @@ class TrainLoop:
     resume. Runs on ``device`` (``cuda`` unless the caller asks for the
     CPU; raises when there is no card); data parallel when a process group
     is up (the module docstring), where ``data`` yields this rank's
-    ``batch_size / W`` rows."""
+    ``batch_size / W`` rows. ``schedule_sampler`` names a sampler of
+    :func:`.resample.create_named_schedule_sampler`. Checkpoints go to
+    ``checkpoint_dir`` (default the logger's directory) and
+    ``resume_checkpoint`` is read from any :mod:`..utils.blobio` scheme
+    (``mem://``, ``gs://``, ...)."""
 
     def __init__(
         self,
@@ -263,10 +265,11 @@ class TrainLoop:
         lr_anneal_steps: int = 0,
         seed: int = 0,
         auto_resume: bool = False,
+        checkpoint_dir: str = "",
         device=None,
     ):
-        if schedule_sampler not in ("uniform", "loss-second-moment"):
-            raise NotImplementedError(f"unknown schedule sampler: {schedule_sampler}")
+        sampler_state, self._sample_fn, _ = create_named_schedule_sampler(
+            schedule_sampler, sched.num_timesteps)
         self.device = resolve_device(device)
         self.rank, self.world_size = world()
         rank_batch(batch_size, self.world_size)  # W must divide the batch
@@ -282,8 +285,9 @@ class TrainLoop:
         )
         self.log_interval = log_interval
         self.save_interval = save_interval
+        self.checkpoint_dir = checkpoint_dir
         if auto_resume and not resume_checkpoint:
-            found = ckpt.latest_checkpoint(logger.get_dir() or "")
+            found = ckpt.latest_checkpoint(self._checkpoint_dir())
             if found:
                 logger.log(f"auto-resuming from {found}")
                 resume_checkpoint = found
@@ -331,8 +335,7 @@ class TrainLoop:
             model=wrapped,
             optimizer=optimizer,
             ema_params=ema_params,
-            sampler_state=(init_loss_second_moment(sched.num_timesteps)
-                           if schedule_sampler == "loss-second-moment" else None),
+            sampler_state=sampler_state,
             lg_loss_scale=INITIAL_LOG_LOSS_SCALE if use_fp16_scaling else None,
         )
         self.step = 0
@@ -340,7 +343,10 @@ class TrainLoop:
         logger.log(f"parameters:{{{sum(p.numel() for p in params)}}}")
 
     def _load(self, path: str):
-        return torch.load(path, map_location=self.device, weights_only=True)
+        return ckpt.load(path, map_location=self.device)
+
+    def _checkpoint_dir(self) -> str:
+        return self.checkpoint_dir or logger.get_dir() or ""
 
     @property
     def model(self) -> nn.Module:
@@ -349,11 +355,7 @@ class TrainLoop:
 
     def sample_t(self, batch_size: int):
         """(t, weights) on the device from the configured sampler."""
-        if self.state.sampler_state is not None:
-            t, w = sample_loss_second_moment(
-                self.state.sampler_state, batch_size, self.t_gen)
-        else:
-            t, w = sample_uniform(self.sched.num_timesteps, batch_size, self.t_gen)
+        t, w = self._sample_fn(self.t_gen, self.state.sampler_state, batch_size)
         return t.to(self.device), w.to(self.device)
 
     def run_loop(self):
@@ -436,7 +438,7 @@ class TrainLoop:
         paths = []
         if self.rank == 0:
             paths = ckpt.save_train_checkpoint(
-                logger.get_dir(), step, self.model.state_dict(),
+                self._checkpoint_dir(), step, self.model.state_dict(),
                 self.ema_state_dicts(), self.state.optimizer.state_dict())
         barrier()
         return paths

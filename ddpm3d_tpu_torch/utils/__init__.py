@@ -1,1 +1,3 @@
-"""Config flags, weight conversion and logging."""
+"""Config flags, weight conversion, blob IO, checkpoints and logging."""
+
+from . import blobio, checkpoint, config, logger

@@ -40,6 +40,8 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from . import checkpoint
+
 _NORM_MODULES = {"in_norm", "out_norm", "norm", "head_norm", "sp_norm"}
 _INNER = {
     "in_norm": "in_layers.0",
@@ -186,13 +188,14 @@ def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """Read a ``.pt`` state dict (tensors only) onto the CPU."""
+    """Read a ``.pt`` state dict (tensors only) onto the CPU, from a path
+    of any :mod:`.blobio` scheme."""
     if path.endswith(".msgpack"):
         raise SystemExit(
             f"{path}: the port reads .pt state dicts; convert a JAX "
             "checkpoint with tools/export_torch_ckpt.py"
         )
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = checkpoint.load(path)
     if not isinstance(sd, Mapping):
         raise ValueError(f"{path}: expected a state dict, got {type(sd)}")
     return dict(sd)

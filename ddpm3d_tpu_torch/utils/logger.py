@@ -1,24 +1,31 @@
-"""Key-value metrics logger with human, JSON and CSV writers.
+"""Key-value metrics logger with human, JSON, CSV and TensorBoard writers.
 
 Own copy of ``ddpm3d_tpu/utils/logger.py`` (the reference's
 OpenAI-baselines logger API and file formats): ``logkv`` (last wins),
-``logkv_mean`` (running mean), ``dumpkvs``, ``log`` lines, and the boxed
-human table, ``progress.json`` lines and the growing ``progress.csv``.
-Formats come from ``format_strs`` or ``$DDPM_LOG_FORMAT`` /
-``$OPENAI_LOG_FORMAT`` (default ``stdout,log,csv``). Under a process
-group only rank 0 writes: the CLIs configure the other ranks without
-formats, so there are no per-rank files. :func:`gather_weighted_means`
-combines host-local values over the ranks.
+``logkv_mean`` (running mean), ``dumpkvs``, ``log`` lines at levels
+(``debug`` ... ``error``, ``set_level``), ``profile_kv`` / ``profile``
+host wall-time scopes, and the boxed human table, ``progress.json``
+lines, the growing ``progress.csv`` and TensorBoard scalars (``tb/``,
+through ``torch.utils.tensorboard``, which needs the ``tensorboard``
+package: the format raises without it). Formats come from
+``format_strs`` or ``$DDPM_LOG_FORMAT`` / ``$OPENAI_LOG_FORMAT`` (default
+``stdout,log,csv``). Under a process group only rank 0 writes: the CLIs
+configure the other ranks without formats, so there are no per-rank
+files. :func:`gather_weighted_means` combines host-local values over the
+ranks; :func:`start_trace` / :func:`stop_trace` wrap ``torch.profiler``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import functools
 import json
 import os
 import os.path as osp
 import sys
 import tempfile
+import time
 from collections import defaultdict
 from typing import Any, Dict, List, Optional
 
@@ -136,6 +143,29 @@ class CSVOutputFormat(KVWriter):
         self.file.close()
 
 
+class TensorBoardOutputFormat(KVWriter):
+    """Scalar summaries, one step per dump starting at 1; values that do
+    not convert to float are left out."""
+
+    def __init__(self, logdir):
+        from torch.utils.tensorboard import SummaryWriter
+
+        os.makedirs(logdir, exist_ok=True)
+        self.step = 1
+        self.writer = SummaryWriter(logdir)
+
+    def writekvs(self, kvs):
+        for k, v in kvs.items():
+            try:
+                self.writer.add_scalar(k, float(v), self.step)
+            except (TypeError, ValueError):
+                pass
+        self.step += 1
+
+    def close(self):
+        self.writer.close()
+
+
 def make_output_format(fmt: str, ev_dir: str, log_suffix: str = "") -> KVWriter:
     os.makedirs(ev_dir, exist_ok=True)
     if fmt == "stdout":
@@ -146,6 +176,8 @@ def make_output_format(fmt: str, ev_dir: str, log_suffix: str = "") -> KVWriter:
         return JSONOutputFormat(osp.join(ev_dir, f"progress{log_suffix}.json"))
     if fmt == "csv":
         return CSVOutputFormat(osp.join(ev_dir, f"progress{log_suffix}.csv"))
+    if fmt == "tensorboard":
+        return TensorBoardOutputFormat(osp.join(ev_dir, f"tb{log_suffix}"))
     raise ValueError(f"unknown log format: {fmt}")
 
 
@@ -255,8 +287,58 @@ def log(*args, level=INFO):
     _current().log(*args, level=level)
 
 
+def debug(*args):
+    log(*args, level=DEBUG)
+
+
+def info(*args):
+    log(*args, level=INFO)
+
+
+def warn(*args):
+    log(*args, level=WARN)
+
+
+def error(*args):
+    log(*args, level=ERROR)
+
+
+def set_level(level):
+    _current().set_level(level)
+
+
 def get_dir():
     return _current().get_dir()
+
+
+record_tabular = logkv
+dump_tabular = dumpkvs
+
+
+@contextlib.contextmanager
+def profile_kv(scopename: str):
+    """Add the host wall time of the block to ``wait_<scopename>`` (no
+    device sync: queued GPU work is not waited for)."""
+    logkey = "wait_" + scopename
+    tstart = time.time()
+    try:
+        yield
+    finally:
+        _current().name2val[logkey] += time.time() - tstart
+
+
+def profile(n: str):
+    """Decorator form of :func:`profile_kv`."""
+
+    def decorator_with_name(func):
+        @functools.wraps(func)
+        def func_wrapper(*args, **kwargs):
+            with profile_kv(n):
+                return func(*args, **kwargs)
+
+        return func_wrapper
+
+    return decorator_with_name
 
 
 def gather_weighted_means(local_kvs: Dict[str, float],
@@ -282,3 +364,41 @@ def gather_weighted_means(local_kvs: Dict[str, float],
     dist.all_reduce(vals)
     sums, cnts = vals.cpu().tolist()
     return {k: float(s / max(c, 1e-12)) for k, s, c in zip(keys, sums, cnts)}
+
+
+_trace = None
+
+
+def start_trace(logdir: Optional[str] = None, device=None) -> str:
+    """Start a ``torch.profiler`` trace of CPU activity, and of CUDA
+    activity when ``device`` is a card (raises if there is none);
+    :func:`stop_trace` writes it under ``logdir`` (default
+    ``get_dir()/trace``) as a Chrome/TensorBoard trace file. Returns the
+    directory."""
+    global _trace
+    import torch
+
+    from .. import resolve_device
+
+    cuda = device is not None and resolve_device(device).type == "cuda"
+    if _trace is not None:
+        raise RuntimeError("a trace is already running")
+    logdir = logdir or osp.join(get_dir() or tempfile.gettempdir(), "trace")
+    os.makedirs(logdir, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    _trace = torch.profiler.profile(
+        activities=acts,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir))
+    _trace.start()
+    return logdir
+
+
+def stop_trace() -> None:
+    """Stop the trace that :func:`start_trace` began and write it."""
+    global _trace
+    if _trace is None:
+        raise RuntimeError("no trace is running")
+    prof, _trace = _trace, None
+    prof.stop()

@@ -8,6 +8,7 @@ import importlib.util
 import json
 import os
 import os.path as osp
+import re
 import sys
 
 import jax
@@ -55,6 +56,7 @@ from ddpm3d_tpu_torch.utils.config import (
     args_to_dict,
     sr_model_and_diffusion_defaults,
 )
+from ddpm3d_tpu_torch.utils import logger as tlogger
 from ddpm3d_tpu_torch.utils.convert import jax_params_to_state_dict
 
 
@@ -408,8 +410,9 @@ def test_cli_refuses_noise_seed_with_dpm():
 def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny):
     """With no card, the CLIs (classifier_sample, the int8 calibration tool
     and evaluate among them), the quality tools, the sampler (its
-    segments and progressive generator too),
-    the pipeline, the trainer and the distiller raise unless the caller
+    segments and progressive generator too), the pipeline, the trainer
+    (with a named sampler and a blob checkpoint directory too), a trace of
+    the card and the distiller raise unless the caller
     asks for the CPU; a model on another device than the chain's is
     refused, not moved."""
     _, _, model = tiny
@@ -446,6 +449,13 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny):
                   microbatch=-1, lr=1e-4, ema_rate="0.9999", log_interval=1,
                   save_interval=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrainLoop(model=model, sched=ts, cfg=tcfg, data=iter(()), batch_size=1,
+                  microbatch=-1, lr=1e-4, ema_rate="0.9999", log_interval=1,
+                  save_interval=1, schedule_sampler="loss-second-moment",
+                  checkpoint_dir="mem://never/written")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tlogger.start_trace(device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         distill_cli.main(["--data_dir", "unused", "--model_path", "x.pt"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         classifier_cli.main([])
@@ -477,9 +487,28 @@ def _imports(path):
             yield node.module
 
 
+def _code_strings(path):
+    """The string constants of a source file that are not docstrings."""
+    tree = ast.parse(open(path).read(), filename=path)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value,
+                                                          ast.Constant):
+                docs.add(id(first.value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node.value
+
+
 def test_port_imports_no_jax():
     """ddpm3d_tpu_torch and chip_smoke.py import no jax, flax,
-    ddpm3d_tpu or the repository's tools/ (only the tests import both)."""
+    ddpm3d_tpu or the repository's tools/ (only the tests import both), and
+    name no path or module of ddpm3d_tpu outside docstrings (the native
+    tier builds its own copy of the C++ source)."""
     files = [osp.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(osp.join(REPO, "ddpm3d_tpu_torch")):
         files += [osp.join(root, n) for n in names if n.endswith(".py")]
@@ -491,9 +520,31 @@ def test_port_imports_no_jax():
                  "seg_int8_check"):
         assert osp.join(REPO, "ddpm3d_tpu_torch", "tools",
                         f"{tool}.py") in files
+    for new in (("native", "__init__.py"), ("utils", "blobio.py")):
+        assert osp.join(REPO, "ddpm3d_tpu_torch", *new) in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "ddpm3d_tpu",
                                "tools"), (
                 f"{osp.relpath(path, REPO)} imports {mod}")
+        # no path or module name into the JAX package outside docstrings;
+        # chip_smoke's "replaces" labels (file:line of a TPU kernel) aside
+        for value in _code_strings(path):
+            if path.endswith("chip_smoke.py") and re.fullmatch(
+                    r"ddpm3d_tpu/[\w/]+\.py:\d+", value):
+                continue
+            assert not re.search(r"(^|[^\w])ddpm3d_tpu([/.\\]|$)", value), (
+                f"{osp.relpath(path, REPO)} names {value!r}")
+    for root, _, names in os.walk(osp.join(REPO, "ddpm3d_tpu_torch")):
+        for n in names:
+            if n.endswith((".cu", ".cuh", ".cpp", ".h")):
+                for line in open(osp.join(root, n)):
+                    assert not (line.lstrip().startswith("#include")
+                                and "ddpm3d_tpu/" in line), (n, line)
+    # the native tier builds its own copy of the C++ source
+    from ddpm3d_tpu_torch import native
+
+    assert native.SRC == osp.join(REPO, "ddpm3d_tpu_torch", "native",
+                                  "ddpm3d_native.cpp")
+    assert native.BUILD_DIR == osp.join(REPO, "ddpm3d_tpu_torch", "_build")
