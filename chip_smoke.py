@@ -4153,15 +4153,19 @@ HOST_LINE = re.compile(r"host tier: cut ([0-9.]+) ms, blend ([0-9.]+) ms; "
 
 def phase_host_tier(seed: int, vq_workdir: str) -> None:
     """The host data tier (``ddpm3d_tpu_torch/native``, on the host CPU):
-    a cold build of the library into a fresh directory (seconds); at the
+    a cold first use of the library into a fresh directory, the
+    ``g++ -Q --help=target`` probe that names it and the compile (seconds),
+    and the probe alone, which every process pays at first use; at the
     production volume, (2, 130, 200, 200) f32 written as a TIFF and read
     back, cut into the serving grid's 18 patches of 96^3 and blended, each
     through the native tier and through its numpy version: equal values
     (the blend within ``HOST_BLEND_REL`` of the larger value), ms (best of
     3); the serving pipeline's host share of each volume_quality config
-    from its log; a ``mem://`` round trip of the production model's state
-    dict (``utils/checkpoint.py`` through ``utils/blobio.py``), bit-equal,
-    with the save and load seconds."""
+    from its log (cut, blend and stats inside ``denoise_volume``; the
+    volume's read and save are outside it); a ``mem://`` round trip of the
+    production model's state dict (``utils/checkpoint.py`` through
+    ``utils/blobio.py``), bit-equal, with the save and load seconds, after
+    which the memory store is emptied."""
     from ddpm3d_tpu_torch import native
     from ddpm3d_tpu_torch.data import patches, tiff_io
     from ddpm3d_tpu_torch.utils import blobio
@@ -4174,6 +4178,9 @@ def phase_host_tier(seed: int, vq_workdir: str) -> None:
         t0 = time.monotonic()
         native.build()
         build_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        native.lib_path()
+        probe_s = time.monotonic() - t0
     finally:
         native.BUILD_DIR = build_dir
     rng = np.random.default_rng(seed)
@@ -4219,16 +4226,21 @@ def phase_host_tier(seed: int, vq_workdir: str) -> None:
           f"host share of every volume_quality config: {sorted(share)}")
     sd = _model(use_fp16=True, seed=seed)[0].state_dict()
     url = "mem://host_tier/model000001.pt"
-    t0 = time.monotonic()
-    ckpt.save_state_dict(url, sd)
-    save_s = time.monotonic() - t0
-    t0 = time.monotonic()
-    back = ckpt.load(url)
-    load_s = time.monotonic() - t0
-    check(sorted(back) == sorted(sd) and all(
-        torch.equal(back[k], sd[k]) for k in sd), "mem:// checkpoint bit-equal")
-    nbytes = len(blobio.read_bytes(url))
-    emit({"phase": "host_tier", "build_s": build_s,
+    try:
+        t0 = time.monotonic()
+        ckpt.save_state_dict(url, sd)
+        save_s = time.monotonic() - t0
+        nbytes = len(blobio.read_bytes(url))  # the stored bytes, not a copy
+        t0 = time.monotonic()
+        back = ckpt.load(url)
+        load_s = time.monotonic() - t0
+        check(sorted(back) == sorted(sd) and all(
+            torch.equal(back[k], sd[k]) for k in sd),
+            "mem:// checkpoint bit-equal")
+    finally:
+        del sd
+        blobio._SCHEMES["mem"].clear()  # 0.8 GB held for the process
+    emit({"phase": "host_tier", "build_s": build_s, "probe_s": probe_s,
           "volume": list(pair.shape), "patches": len(grid),
           "tiff_write_ms": write_ms,
           "tiff_read_ms": {"native": read_ms, "numpy": read_plain_ms},

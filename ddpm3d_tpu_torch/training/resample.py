@@ -10,7 +10,7 @@ unbiased ``1 / (T p)`` loss weights. Draws come from an explicit
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -95,6 +95,15 @@ def update_loss_second_moment(
     return LossSecondMomentState(hist, counts)
 
 
+SamplerUpdate = Callable[[Optional[LossSecondMomentState], torch.Tensor,
+                          torch.Tensor], Optional[LossSecondMomentState]]
+
+
+def keep_sampler_state(state, ts, losses):
+    """The update of a sampler with no state: ``state`` unchanged."""
+    return state
+
+
 def create_named_schedule_sampler(name: str, num_timesteps: int):
     """The sampler called ``name`` as (init state, sample fn, update fn):
     ``sample_fn(generator, state, batch_size) -> (t, weights)`` and
@@ -105,7 +114,7 @@ def create_named_schedule_sampler(name: str, num_timesteps: int):
             None,
             lambda generator, state, bs: sample_uniform(
                 num_timesteps, bs, generator),
-            lambda state, ts, losses: state,
+            keep_sampler_state,
         )
     if name == "loss-second-moment":
         return (

@@ -58,8 +58,9 @@ from ..utils import checkpoint as ckpt
 from ..utils import logger
 from .resample import (
     LossSecondMomentState,
+    SamplerUpdate,
     create_named_schedule_sampler,
-    update_loss_second_moment,
+    keep_sampler_state,
 )
 
 INITIAL_LOG_LOSS_SCALE = 20.0
@@ -68,13 +69,16 @@ INITIAL_LOG_LOSS_SCALE = 20.0
 @dataclasses.dataclass
 class TrainState:
     """What one update reads and writes. ``ema_params`` holds one list per
-    EMA rate, aligned with ``model.parameters()``."""
+    EMA rate, aligned with ``model.parameters()``; ``sampler_update`` is
+    the update fn of :func:`.resample.create_named_schedule_sampler` that
+    goes with ``sampler_state``."""
 
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
     ema_params: List[List[torch.Tensor]]
     sampler_state: Optional[LossSecondMomentState] = None
+    sampler_update: SamplerUpdate = keep_sampler_state
     lg_loss_scale: Optional[float] = None
 
 
@@ -204,9 +208,8 @@ def apply_update(
             torch._foreach_mul_(ema, rate)
             torch._foreach_add_(ema, params, alpha=1.0 - rate)
     state.model.zero_grad(set_to_none=True)
-    if state.sampler_state is not None:
-        state.sampler_state = update_loss_second_moment(
-            state.sampler_state, t.cpu(), terms["loss"].cpu())
+    state.sampler_state = state.sampler_update(
+        state.sampler_state, t, terms["loss"])
     metrics: Dict[str, Any] = {
         "grad_norm": grad_norm,
         "param_norm": param_norm,
@@ -239,10 +242,9 @@ class TrainLoop:
     CPU; raises when there is no card); data parallel when a process group
     is up (the module docstring), where ``data`` yields this rank's
     ``batch_size / W`` rows. ``schedule_sampler`` names a sampler of
-    :func:`.resample.create_named_schedule_sampler`. Checkpoints go to
-    ``checkpoint_dir`` (default the logger's directory) and
-    ``resume_checkpoint`` is read from any :mod:`..utils.blobio` scheme
-    (``mem://``, ``gs://``, ...)."""
+    :func:`.resample.create_named_schedule_sampler`. Checkpoints go to the
+    logger's directory and ``resume_checkpoint`` is read, from any
+    :mod:`..utils.blobio` scheme (``mem://``, ``gs://``, ...)."""
 
     def __init__(
         self,
@@ -265,11 +267,11 @@ class TrainLoop:
         lr_anneal_steps: int = 0,
         seed: int = 0,
         auto_resume: bool = False,
-        checkpoint_dir: str = "",
         device=None,
     ):
-        sampler_state, self._sample_fn, _ = create_named_schedule_sampler(
-            schedule_sampler, sched.num_timesteps)
+        sampler_state, self._sample_fn, sampler_update = (
+            create_named_schedule_sampler(schedule_sampler,
+                                          sched.num_timesteps))
         self.device = resolve_device(device)
         self.rank, self.world_size = world()
         rank_batch(batch_size, self.world_size)  # W must divide the batch
@@ -285,9 +287,8 @@ class TrainLoop:
         )
         self.log_interval = log_interval
         self.save_interval = save_interval
-        self.checkpoint_dir = checkpoint_dir
         if auto_resume and not resume_checkpoint:
-            found = ckpt.latest_checkpoint(self._checkpoint_dir())
+            found = ckpt.latest_checkpoint(logger.get_dir() or "")
             if found:
                 logger.log(f"auto-resuming from {found}")
                 resume_checkpoint = found
@@ -336,6 +337,7 @@ class TrainLoop:
             optimizer=optimizer,
             ema_params=ema_params,
             sampler_state=sampler_state,
+            sampler_update=sampler_update,
             lg_loss_scale=INITIAL_LOG_LOSS_SCALE if use_fp16_scaling else None,
         )
         self.step = 0
@@ -344,9 +346,6 @@ class TrainLoop:
 
     def _load(self, path: str):
         return ckpt.load(path, map_location=self.device)
-
-    def _checkpoint_dir(self) -> str:
-        return self.checkpoint_dir or logger.get_dir() or ""
 
     @property
     def model(self) -> nn.Module:
@@ -438,7 +437,7 @@ class TrainLoop:
         paths = []
         if self.rank == 0:
             paths = ckpt.save_train_checkpoint(
-                self._checkpoint_dir(), step, self.model.state_dict(),
+                logger.get_dir(), step, self.model.state_dict(),
                 self.ema_state_dicts(), self.state.optimizer.state_dict())
         barrier()
         return paths

@@ -370,9 +370,10 @@ _trace = None
 
 
 def start_trace(logdir: Optional[str] = None, device=None) -> str:
-    """Start a ``torch.profiler`` trace of CPU activity, and of CUDA
-    activity when ``device`` is a card (raises if there is none);
-    :func:`stop_trace` writes it under ``logdir`` (default
+    """Start a ``torch.profiler`` trace of CPU and CUDA activity, or of
+    CPU activity alone when the caller asks for ``device="cpu"`` (the
+    card by default, as every entry point of the port; raises when there
+    is none); :func:`stop_trace` writes it under ``logdir`` (default
     ``get_dir()/trace``) as a Chrome/TensorBoard trace file. Returns the
     directory."""
     global _trace
@@ -380,9 +381,9 @@ def start_trace(logdir: Optional[str] = None, device=None) -> str:
 
     from .. import resolve_device
 
-    cuda = device is not None and resolve_device(device).type == "cuda"
     if _trace is not None:
         raise RuntimeError("a trace is already running")
+    cuda = resolve_device(device).type == "cuda"
     logdir = logdir or osp.join(get_dir() or tempfile.gettempdir(), "trace")
     os.makedirs(logdir, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU]

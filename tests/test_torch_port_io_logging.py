@@ -221,13 +221,16 @@ def _assert_equal_states(a, b):
         assert torch.equal(a[2][k], b[2][k]), k
 
 
-def test_train_loop_on_mem_store_equals_local(tmp_path, restore_loggers):
+def test_train_loop_on_mem_store_equals_local(tmp_path, restore_loggers,
+                                              monkeypatch):
     tlogger.configure(str(tmp_path / "logs"), format_strs=[])
     runs = {}
     for name, where in (("local", str(tmp_path / "ckpt")),
                         ("mem", "mem://trainloop/run")):
+        # checkpoints go to the logger's directory, here on either store
+        monkeypatch.setattr(tlogger, "get_dir", lambda where=where: where)
         data = _data(3)
-        loop = _loop(data, checkpoint_dir=where)
+        loop = _loop(data)
         for _ in range(2):
             loop.run_step(*next(data))
         loop.step = 2
@@ -237,7 +240,7 @@ def test_train_loop_on_mem_store_equals_local(tmp_path, restore_loggers):
             "opt000002.pt"]
         assert all(p.startswith(where) for p in paths)
         resumed = _loop(data, resume_checkpoint=paths[0])
-        auto = _loop(data, checkpoint_dir=where, auto_resume=True)
+        auto = _loop(data, auto_resume=True)
         assert resumed.resume_step == auto.resume_step == 2
         _assert_equal_states(_state(loop), _state(resumed))
         _assert_equal_states(_state(loop), _state(auto))
@@ -369,7 +372,7 @@ def test_trace_directory_is_written(restore_loggers, tmp_path):
     d = tlogger.start_trace(device="cpu")
     assert d == str(tmp_path / "trace")
     with pytest.raises(RuntimeError, match="already running"):
-        tlogger.start_trace()
+        tlogger.start_trace(device="cpu")
     x = torch.randn(64, 64)
     (x @ x).relu_().sum()
     tlogger.stop_trace()
@@ -378,7 +381,7 @@ def test_trace_directory_is_written(restore_loggers, tmp_path):
     with open(osp.join(d, files[0])) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert "aten::mm" in names
-    other = tlogger.start_trace(str(tmp_path / "elsewhere"))
+    other = tlogger.start_trace(str(tmp_path / "elsewhere"), "cpu")
     tlogger.stop_trace()
     assert os.listdir(other)
 

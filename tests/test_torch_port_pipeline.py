@@ -452,9 +452,11 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny):
         TrainLoop(model=model, sched=ts, cfg=tcfg, data=iter(()), batch_size=1,
                   microbatch=-1, lr=1e-4, ema_rate="0.9999", log_interval=1,
                   save_interval=1, schedule_sampler="loss-second-moment",
-                  checkpoint_dir="mem://never/written")
+                  resume_checkpoint="mem://never/written/model000001.pt")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tlogger.start_trace(device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tlogger.start_trace()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         distill_cli.main(["--data_dir", "unused", "--model_path", "x.pt"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
