@@ -49,7 +49,10 @@ Phases (each failure exits non-zero before the final line):
                sampler's own device time per step beyond the forward;
                ``distributed``, the phase again through the patch split
                under an in-process NCCL group of one rank, bit-equal to
-               the denoise volume, and one all_gather timed; ``cli``, the
+               the denoise volume, and one all_gather timed;
+               ``spatial_one_rank``, the phase again through
+               ``make_mesh(n_spatial=1)`` under such a group, bit-equal to
+               the denoise volume; ``cli``, the
                serving CLI under ``torchrun --nproc_per_node 1`` at the
                production flags with ``--timesteps_file`` (3 steps) and
                ``--use_dpm_solver``: outputs of (200, 200, 96), finite,
@@ -85,6 +88,21 @@ Phases (each failure exits non-zero before the final line):
                against the bf16 one; ``denoise_int8_static``, per-time-bin
                scales from ``INT8_SCALES_PROD.json`` over its 25-step
                respacing; ``profile_int8``, one forward by family;
+     spatial — (after the int8 phases) one 96^3 patch's H split over two
+               shards of the spatial mesh axis at full width, each shard a
+               thread of this process with a CUDA stream of its own that
+               exchanges halo planes, GroupNorm sums and int8 abs-maxima
+               with the other through events (an in-process counterpart of
+               ``parallel/spatial.py``'s NCCL transport; the card machine
+               has one GPU): the forward unfused, fused, int8 dynamic and
+               static, and f32 against the unsharded forward (bf16 <= 1e-2,
+               f32 <= 1e-5, int8 <= 0.15; every int8 site's scale the
+               group's, bit for bit), each shard's launches by kernel and
+               route, each shard alone again from what it received (bit-
+               equal, its device ms and host issue ms beside the unsharded
+               forward's) and the conv rows the halo adds; then a 3-step
+               DDPM chain of one patch against the unsharded chain
+               (``spatial``, counters zeroed just before);
   8. train   — the training CLI (``ddpm3d_tpu_torch.scripts.train``) at the
                production flags on a synthetic (2, 96, 200, 200) low/high
                pair: 6 bf16 steps at batch 1 with the launch counters zeroed
@@ -209,6 +227,7 @@ import argparse
 import collections
 import copy
 import csv
+import functools
 import json
 import os
 import re
@@ -216,6 +235,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -367,7 +387,8 @@ GUIDED_LAUNCHES = {"denoiser_forward": {"gn_stats": 56, "gn_apply": 56},
 GUIDED_STEP_LAUNCHES = {"gn_stats": 97, "gn_apply": 97}
 # the serving phases on the unfused bf16 model: DPM-Solver++ (orders 2 and
 # 1), DDIM, the patch split under a process group, the CLI under torchrun
-SERVING_PATHS = ("dpm", "dpm_order1", "ddim", "distributed", "cli")
+SERVING_PATHS = ("dpm", "dpm_order1", "ddim", "distributed",
+                 "spatial_one_rank", "cli")
 for _path in SERVING_PATHS:
     FORWARD_LAUNCHES[_path] = FORWARD_LAUNCHES["denoise"]
 # the conv3d launches per forward by kernel route (ops.route_counts): the
@@ -883,6 +904,83 @@ def fused_path_shapes(model) -> list:
     return sorted(convs, key=str)
 
 
+def spatial_path_shapes(seed: int, model, fused, int8m, n: int) -> dict:
+    """Every distinct kernel call of the spatial phase's forwards (one 96^3
+    batch-1 patch, H over ``n`` shards; bf16 unfused, fused and int8, f32
+    unfused and fused) at the shapes the kernels get there: haloed rows,
+    an up site's haloed low-resolution rows upsampled, a fused site's
+    padded skip, a GroupNorm's local rows. Read one shard at a time under a
+    group whose transport gives shapes only (zero halo planes, local sums,
+    the shard repeated for a gather), through the package's own halo and
+    crop logic, by wrapping the ops the model calls and by the GroupNorm
+    hooks: {"conv": {(D, H, W, Cin, Cout, dtype)}, "fused": {(... as
+    fused_path_shapes)}, "fused_f32": {(... as f32_path_shapes' fused)},
+    "gn": {(N, C, dtype, film, silu)}, "s8": {(... as int8_path_shapes)}}."""
+    from ddpm3d_tpu_torch.ops import conv3d as cv
+    from ddpm3d_tpu_torch.ops import conv3d_fused as fo
+    from ddpm3d_tpu_torch.ops import quant
+    from ddpm3d_tpu_torch.parallel import SpatialGroup
+
+    class ShapeGroup(SpatialGroup):
+        def _exchange(self, sends):
+            return {p: torch.zeros_like(t) for p, t in sends.items()}
+
+        def _reduce(self, t, op):
+            return t.clone()
+
+        def _gather(self, t):
+            return [t] * self.size
+
+    out = {k: set() for k in ("conv", "fused", "fused_f32", "gn", "s8")}
+    real = (cv.conv3d, fo.conv3d_fused, quant.conv3d_int8)
+
+    def conv(x, weight, *args, **kw):
+        _, D, H, W, cin = x.shape
+        out["conv"].add((D, H, W, cin, weight.shape[0], x.dtype))
+        return real[0](x, weight, *args, **kw)
+
+    def conv_fused(x, weight, *args, **kw):
+        _, D, H, W, cin = x.shape
+        flags = (kw.get("prologue_g") is not None,
+                 bool(kw.get("prologue_silu", True)),
+                 kw.get("skip") is not None, bool(kw.get("want_stats", False)))
+        if x.dtype == torch.float32:
+            out["fused_f32"].add((D, H, W, cin, weight.shape[0]) + flags)
+        else:
+            out["fused"].add((D, H, W, cin, weight.shape[0], x.dtype) + flags)
+        return real[1](x, weight, *args, **kw)
+
+    def conv_int8(x, wq, *args, upsample=False, **kw):
+        _, D, H, W, cin = x.shape
+        out["s8"].add((D, H, W, cin, wq.shape[0], wq[0, 0].numel(),
+                       bool(upsample)))
+        return real[2](x, wq, *args, upsample=upsample, **kw)
+
+    f32 = [_model(use_fp16=False, seed=seed, fused=f)[0].cuda()
+           for f in (False, True)]
+    h = 96 // n
+    x = torch.randn((1, 96, h, 96, 1), device="cuda")
+    t = torch.tensor([500], device="cuda")
+    cv.conv3d, fo.conv3d_fused, quant.conv3d_int8 = conv, conv_fused, conv_int8
+    try:
+        for m in (model, fused, int8m, *f32):
+            handles = _gn_hooks(m, out["gn"])
+            try:
+                for i in range(n):
+                    m.set_spatial(ShapeGroup(range(n), i))
+                    with torch.inference_mode():
+                        m(x, t, low_res=x)
+            finally:
+                m.set_spatial(None)
+                for hd in handles:
+                    hd.remove()
+    finally:
+        cv.conv3d, fo.conv3d_fused, quant.conv3d_int8 = real
+    del f32
+    torch.cuda.empty_cache()
+    return out
+
+
 # fused sites that are timed (the rest are only checked): (D, H, W, Cin,
 # Cout, dtype, prologue, silu, skip, stats)
 FUSED_TIMED = [
@@ -1212,11 +1310,11 @@ def phase_model_f32_timed(seed: int) -> dict:
 
 
 def phase_denoise(model, sched, cfg, seed: int, phase: str = "denoise",
-                  **sampler):
+                  mesh=None, **sampler):
     """``denoise_volume`` on the synthetic volume, with ``sampler``'s options
-    (``use_ddim``, ``use_dpm_solver``, ``dpm_order``); launches per forward
-    must equal FORWARD_LAUNCHES[phase]. Returns (launch counts, volume, the
-    chain's first model output)."""
+    (``use_ddim``, ``use_dpm_solver``, ``dpm_order``) and ``mesh``; launches
+    per forward must equal FORWARD_LAUNCHES[phase]. Returns (launch counts,
+    volume, the chain's first model output)."""
     from ddpm3d_tpu_torch import ops
     from ddpm3d_tpu_torch.inference.pipeline import denoise_volume
 
@@ -1237,7 +1335,7 @@ def phase_denoise(model, sched, cfg, seed: int, phase: str = "denoise",
     t0 = time.monotonic()
     result, stats = denoise_volume(
         model, sched, cfg, vol, seed=seed, patch_size=96, num_xy_patches=2,
-        batch_size=batch, **sampler,
+        batch_size=batch, mesh=mesh, **sampler,
     )
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
@@ -1439,6 +1537,572 @@ def phase_distributed(model, sched, cfg, seed: int, volume) -> dict:
           "all_gather_ms": ms, "all_gather_bytes": rows.numel() * 4,
           "all_gather_gb_per_s": rows.numel() * 4 / ms / 1e6})
     check(equal, "the split path's volume equals the denoise phase's")
+    return counts
+
+
+def phase_spatial_one_rank(model, sched, cfg, seed: int, volume) -> dict:
+    """The denoise phase through ``make_mesh(n_spatial=1)`` under an NCCL
+    process group of one rank (in this process, through a FileStore): the
+    spatial axis of one changes nothing, so the volume must equal the
+    denoise phase's bit for bit. Returns the launch counts."""
+    import torch.distributed as dist
+
+    from ddpm3d_tpu_torch.parallel import make_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh(n_spatial=1)
+            check(mesh.shape == {"data": 1, "spatial": 1}, "a (1, 1) mesh")
+            counts, got, _ = phase_denoise(model, sched, cfg, seed,
+                                           phase="spatial_one_rank",
+                                           mesh=mesh)
+        finally:
+            dist.destroy_process_group()
+    equal = bool(np.array_equal(got, volume))
+    emit({"phase": "spatial_one_rank_volume", "backend": "nccl",
+          "mesh": [1, 1], "volume_bit_equal_to_denoise": equal,
+          "volume_max_abs_diff": float(np.abs(got - volume).max())})
+    check(equal, "the (1, 1) mesh's volume equals the denoise phase's")
+    return counts
+
+
+# ------------------------------------------------------------- spatial --
+
+# the spatial phase splits one 96^3 patch's H over this many shards, each
+# on its own CUDA stream in a thread of this process (the machine has one
+# card, and NCCL takes one rank per card)
+SPATIAL_SHARDS = 2
+# launches per shard of one forward under a spatial group: every conv and
+# GroupNorm launches once, as unsharded (on its haloed rows); fused, every
+# GroupNorm takes K1's local sums (the fused conv's stats would count the
+# halo rows), 17 unfused + 54 folds
+SPATIAL_LAUNCHES = {
+    "unfused": FORWARD_LAUNCHES["denoise"],
+    "fused": dict(FORWARD_LAUNCHES["denoise_fused"], gn_stats=71),
+    "int8_dynamic": FORWARD_LAUNCHES["denoise_int8"],
+    "int8_static": FORWARD_LAUNCHES["denoise_int8"],
+    "f32": FORWARD_LAUNCHES["denoise"],
+    "fused_f32": dict(FORWARD_LAUNCHES["denoise_fused"], gn_stats=71),
+}
+SPATIAL_ROUTES = {
+    "unfused": FORWARD_ROUTES["denoise"],
+    "fused": FORWARD_ROUTES["denoise_fused"],
+    "int8_dynamic": FORWARD_ROUTES["denoise_int8"],
+    "int8_static": FORWARD_ROUTES["denoise_int8"],
+    "f32": dict(_routes(0, 0, 0), **{"conv3d.f32_narrow": 1,
+                                    "conv3d.f32_head": 1, "conv3d.f32": 70}),
+    "fused_f32": dict(_routes(0, 0, 0), **{
+        "conv3d.f32_narrow": 1, "conv3d.f32_head": 1, "conv3d.f32": 16,
+        "conv3d_fused.f32": 54}),
+}
+# the 2-shard forward against the unsharded one, max |diff| / max |ref|:
+# the GroupNorm sums add in another order (per shard, then over the
+# group). In f32 that is summation order alone; bf16 and int8 carry the
+# roundings it flips through ~70 layers (a bf16 line reports the
+# forward's own noise, ``noise_rel_err``: every GroupNorm's sums one f32
+# ulp larger), so int8 is held to INT8_FORWARD_TOL and, exactly, every
+# int8 site on its own input
+SPATIAL_TOL = {"unfused": TOL[torch.bfloat16], "fused": TOL[torch.bfloat16],
+               "int8_dynamic": INT8_FORWARD_TOL,
+               "int8_static": INT8_FORWARD_TOL, "f32": TOL[torch.float32],
+               "fused_f32": TOL[torch.float32]}
+# int8 static runs on INT8_SCALES_PROD.json, the served scales: calibrated
+# on trained weights, they saturate many sites of these random ones, so a
+# flipped rounding ahead of a saturated site moves the forward by far more
+# than INT8_FORWARD_TOL. Its bound is then also this factor times the
+# forward's own noise read in the same run (``noise_rel_err``, every
+# GroupNorm's sums one f32 ulp larger; the shards' sums differ from the
+# unsharded ones by their order, a few ulps either way); every site on its
+# own input stays exact
+SPATIAL_NOISE_TOL = {"int8_static": 2.0}
+# the 3-step DDPM chain of one patch, mean |diff| / mean |unsharded| (the
+# x0 recovery at t = 999 multiplies differences by ~158 before clipping, as
+# DENOISE_FUSED_TOL says)
+SPATIAL_CHAIN_TOL = TOL[torch.bfloat16]
+SPATIAL_TIMEOUT_S = 300.0
+
+
+def _all_counts() -> collections.Counter:
+    from ddpm3d_tpu_torch import ops
+
+    return collections.Counter(dict(ops.launch_counts(),
+                                    **ops.route_counts()))
+
+
+class _ShardBoard:
+    """Where the shard threads meet: each collective waits until every
+    shard has put its part, then hands every shard the list of parts. One
+    thread issues work at a time (the turn: a shard gives it up only while
+    it waits at a collective), so the launch counters stay exact and each
+    shard's launches are told apart. Every part stays referenced until
+    :meth:`clear`, after the caller synchronized: no shard's memory is
+    reused while another shard's stream may still read it."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.cond = threading.Condition()
+        self.turn = threading.Lock()
+        self.slots, self.result, self.gen, self.failed = {}, None, 0, False
+        self.kept = []
+        self.launches = [collections.Counter() for _ in range(n)]
+        self._mark = None
+
+    def _take(self) -> None:
+        self.turn.acquire()
+        self._mark = _all_counts()
+
+    def _give(self, index: int) -> None:
+        self.launches[index] += _all_counts() - self._mark
+        self.turn.release()
+
+    def meet(self, index: int, part):
+        self._give(index)
+        try:
+            with self.cond:
+                gen = self.gen
+                self.slots[index] = part
+                if len(self.slots) == self.n:
+                    self.result = [self.slots[i] for i in range(self.n)]
+                    self.kept.append(self.result)
+                    self.slots, self.gen = {}, gen + 1
+                    self.cond.notify_all()
+                elif not self.cond.wait_for(
+                        lambda: self.gen != gen or self.failed,
+                        SPATIAL_TIMEOUT_S):
+                    raise RuntimeError("a shard never reached a collective")
+                if self.failed:
+                    raise RuntimeError("another shard failed")
+                return self.result
+        finally:
+            self._take()
+
+    def run(self, fns, streams):
+        """``fns[i]()`` in thread i on ``streams[i]``, in inference mode
+        (each stream first waits for the current one); their results, once
+        every stream is done."""
+        outs, errs = [None] * self.n, []
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream())
+
+        def body(i):
+            self._take()
+            try:  # grad mode and the current stream are per thread
+                with torch.inference_mode(), torch.cuda.stream(streams[i]):
+                    outs[i] = fns[i]()
+            except BaseException as e:  # handed to the caller below
+                errs.append(e)
+                with self.cond:
+                    self.failed = True
+                    self.cond.notify_all()
+            finally:
+                self._give(i)
+
+        threads = [threading.Thread(target=body, args=(i,))
+                   for i in range(self.n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(SPATIAL_TIMEOUT_S * 4)
+        check(not any(th.is_alive() for th in threads),
+              "the shard threads finished")
+        if errs:
+            raise errs[0]
+        torch.cuda.synchronize()
+        return outs
+
+    def clear(self) -> None:
+        self.kept = []
+
+
+def _spatial_group_types():
+    """The in-process counterparts of ``parallel/spatial.py``'s transport
+    (the group's halo, crop and concatenation logic is the package's):
+    ``ThreadGroup``, shared by the shard threads, whose index is the
+    calling thread's shard and whose parts cross streams by events; and
+    ``ReplayGroup``, one shard alone on the current stream, handed what
+    that shard received in a ThreadGroup run, in order (its device time is
+    then the shard's own)."""
+    from ddpm3d_tpu_torch.parallel import SpatialGroup
+
+    class ThreadGroup(SpatialGroup):
+        def __init__(self, board: _ShardBoard):
+            self.local = threading.local()
+            super().__init__(range(board.n), 0)
+            self.board = board
+            self.received = [[] for _ in range(board.n)]
+
+        @property
+        def index(self):
+            return getattr(self.local, "index", 0)
+
+        @index.setter
+        def index(self, value):
+            self.local.index = value
+
+        def _meet(self, part):
+            ev = torch.cuda.Event()
+            ev.record()
+            got = self.board.meet(self.index, (part, ev))
+            for i, (_, e) in enumerate(got):
+                if i != self.index:
+                    torch.cuda.current_stream().wait_event(e)
+            return [p for p, _ in got]
+
+        def _keep(self, value):
+            self.received[self.index].append(value)
+            return value
+
+        def _exchange(self, sends):
+            got = self._meet(sends)
+            return self._keep({p: got[p][self.index] for p in sends})
+
+        def _reduce(self, t, op):
+            parts = self._meet(t)
+            out = parts[0].clone()
+            for p in parts[1:]:
+                out = out + p if op == "sum" else torch.maximum(out, p)
+            return self._keep(out)
+
+        def _gather(self, t):
+            return self._keep(self._meet(t))
+
+    class ReplayGroup(SpatialGroup):
+        def __init__(self, n: int, index: int, received: list):
+            super().__init__(range(n), index)
+            self.received, self.cursor = received, 0
+
+        def rewind(self):
+            self.cursor = 0
+
+        def _next(self):
+            self.cursor += 1
+            return self.received[self.cursor - 1]
+
+        def _exchange(self, sends):
+            return self._next()
+
+        def _reduce(self, t, op):
+            return self._next()
+
+        def _gather(self, t):
+            return self._next()
+
+    return ThreadGroup, ReplayGroup
+
+
+def _shards(t: torch.Tensor, n: int) -> list:
+    h = t.shape[2] // n
+    return [t[:, :, i * h:(i + 1) * h].contiguous() for i in range(n)]
+
+
+def _sharded_run(model, fns_of_shard, n: int):
+    """``fns_of_shard(i)`` for every shard at once under one ThreadGroup
+    attached to ``model``: (outputs, the group, each shard's launches)."""
+    ThreadGroup, _ = _spatial_group_types()
+    board = _ShardBoard(n)
+    group = ThreadGroup(board)
+    streams = [torch.cuda.Stream() for _ in range(n)]
+
+    def shard(i):
+        group.index = i
+        return fns_of_shard(i)
+
+    model.set_spatial(group)
+    try:
+        outs = board.run([functools.partial(shard, i) for i in range(n)],
+                         streams)
+    finally:
+        model.set_spatial(None)
+    board.clear()
+    return outs, group, board.launches
+
+
+def _conv_row_overhead(model, x, t, low, n: int) -> float:
+    """The share of extra conv work the halo rows cost on a shard: sum over
+    the 3x3x3 convs of D x (h + halo) x W x Cin x Cout over the same with h
+    alone (one neighbour for an edge shard of 2; the input rows of an up
+    site double, and so do its halo rows)."""
+    from ddpm3d_tpu_torch.models.nn import Conv3x3x3
+
+    work = []
+
+    def hook(mod, args, kwargs):
+        b, d, h, w, cin = args[0].shape
+        f = 2 if kwargs.get("upsample") else 1
+        work.append((d * h * f * w * f * cin * mod.weight.shape[0],
+                     d * (h + 1) * f * w * f * cin * mod.weight.shape[0]))
+
+    hooks = [m.register_forward_pre_hook(hook, with_kwargs=True)
+             for m in model.modules() if isinstance(m, Conv3x3x3)]
+    try:
+        with torch.inference_mode():
+            model(_shards(x, n)[0], t, low_res=_shards(low, n)[0])
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(b for _, b in work) / sum(a for a, _ in work) - 1.0
+
+
+def _spatial_forward(model, name: str, x, low, t, n: int) -> dict:
+    """One variant: the unsharded forward, the n-shard forward in threads
+    (against it, with each shard's launches; in int8 every site's scale,
+    and every site on the shards' gathered input, unsharded, against the
+    shards' outputs bit for bit), each shard alone again from what it
+    received (bit-equal to its threaded output, timed and profiled beside
+    the unsharded forward). A bf16 model (int8 too) also reports the
+    forward's own noise: the unsharded forward with every GroupNorm's sums
+    one f32 ulp larger, from which SPATIAL_NOISE_TOL variants take their
+    bound."""
+    from ddpm3d_tpu_torch.models.nn import Conv1x1x1, Conv3x3x3
+    from ddpm3d_tpu_torch.ops import groupnorm as gn_ops
+    from ddpm3d_tpu_torch.ops import quant
+
+    _, ReplayGroup = _spatial_group_types()
+    real = quant.quantize_act
+    scales = collections.defaultdict(list)  # thread -> [(amax, scale)]
+    sites = collections.defaultdict(list)   # thread -> [(site, x, up, y)]
+
+    def recording(x, static_scale=None, spatial=None):
+        q, s = real(x, static_scale, spatial)
+        amax = torch.linalg.vector_norm(x.reshape(x.shape[0], -1),
+                                        float("inf"), dim=1,
+                                        dtype=torch.float32)
+        scales[threading.get_ident()].append((amax, s))
+        return q, s
+
+    def site_hook(mod, args, kwargs, out):
+        if mod.int8_active():
+            sites[threading.get_ident()].append(
+                (mod, args[0], bool(kwargs.get("upsample")), out))
+
+    xs, lows = _shards(x, n), _shards(low, n)
+    idents = [None] * n
+
+    def fwd(i):
+        idents[i] = threading.get_ident()
+        return model(xs[i], t, low_res=lows[i])
+
+    int8 = model.int8 is not None
+    hooks = [m.register_forward_hook(site_hook, with_kwargs=True)
+             for m in model.modules()
+             if int8 and isinstance(m, (Conv3x3x3, Conv1x1x1))]
+    with torch.inference_mode():
+        model(x, t, low_res=low)  # warm: weight packing
+        quant.quantize_act = recording
+        try:
+            ref = model(x, t, low_res=low)
+            ref_scales = scales.pop(threading.get_ident(), [])
+            sites.clear()
+            outs, group, launches = _sharded_run(model, fwd, n)
+        finally:
+            quant.quantize_act = real
+            for h in hooks:
+                h.remove()
+    got = torch.cat(outs, dim=2)
+    err, rel = rel_err(got, ref)
+    line = {"phase": "spatial_forward", "variant": name, "shards": n,
+            "shape": list(x.shape), "max_abs_err": err, "rel_err": rel,
+            "tol": SPATIAL_TOL[name],
+            "calls_per_forward": {k: v // n for k, v in group.calls.items()},
+            "launches_per_shard": [
+                {k: c.get(k, 0) for k in SPATIAL_LAUNCHES[name]}
+                for c in launches]}
+    if model.dtype == torch.bfloat16:
+        real_stats = gn_ops.channel_stats
+        gn_ops.channel_stats = lambda v: real_stats(v) * (1 + 2.0 ** -23)
+        try:
+            with torch.inference_mode():
+                line["noise_rel_err"] = rel_err(model(x, t, low_res=low),
+                                                ref)[1]
+        finally:
+            gn_ops.channel_stats = real_stats
+        if name in SPATIAL_NOISE_TOL:
+            line["tol"] = max(line["tol"], SPATIAL_NOISE_TOL[name]
+                              * line["noise_rel_err"])
+    check(bool(torch.isfinite(got).all()), f"spatial {name}: finite")
+    check(rel <= line["tol"], f"spatial {name}: rel err {rel} > {line['tol']}")
+    for i, c in enumerate(launches):
+        check({k: c.get(k, 0) for k in SPATIAL_LAUNCHES[name]}
+              == SPATIAL_LAUNCHES[name],
+              f"spatial {name}: shard {i} launches {dict(c)}")
+        check({k: c.get(k, 0) for k in SPATIAL_ROUTES[name]}
+              == SPATIAL_ROUTES[name],
+              f"spatial {name}: shard {i} routes {dict(c)}")
+    if int8:
+        per = [scales[idents[i]] for i in range(n)]
+        amax = torch.stack([torch.stack([a for a, _ in p]) for p in per])
+        used = torch.stack([torch.stack([s for _, s in p]) for p in per])
+        ref_used = torch.stack([s for _, s in ref_scales])
+        want = (quant._abs_max_scale(amax.amax(0))
+                if model.int8.scales == "" else ref_used)
+        scales_equal = all(torch.equal(used[i], want) for i in range(n))
+        # every site on the gathered input, unsharded (the dynamic scale
+        # is then the whole input's: the max over the shards')
+        caught = [sites[idents[i]] for i in range(n)]
+        n_sites = len(caught[0])
+        unequal = []
+        with torch.inference_mode():
+            for k in range(len(caught[0])):
+                mod, _, up, _ = caught[0][k]
+                xw = torch.cat([c[k][1] for c in caught], dim=2)
+                yw = mod(xw, upsample=up) if up else mod(xw)
+                if not torch.equal(yw, torch.cat([c[k][3] for c in caught],
+                                                 dim=2)):
+                    unequal.append(mod.site)
+        del caught
+        sites.clear()
+        line.update(sites=int(used.shape[1]),
+                    site_scales_bit_equal=scales_equal,
+                    sites_scale_as_unsharded=int(
+                        (used[0] == ref_used).all(-1).sum()),
+                    sites_checked=n_sites, sites_unequal=unequal)
+        check(used.shape[1] == len(ref_scales) == n_sites,
+              f"spatial {name}: {used.shape[1]} int8 sites a shard")
+        check(scales_equal, f"spatial {name}: every site's scale is the "
+                            "group's")
+        check(not unequal, f"spatial {name}: sites unequal to the unsharded "
+                           f"site on the gathered input: {unequal}")
+    if model.dtype == torch.bfloat16:  # f32 is checked, not timed
+        line["overhead_conv_rows"] = _conv_row_overhead(model, x, t, low, n)
+        line["unsharded"] = _profile_forward(
+            lambda: model(x, t, low_res=low), int8)
+        line["per_shard"] = []
+        for i in range(n):
+            replay = ReplayGroup(n, i, group.received[i])
+
+            def alone(i=i, replay=replay):
+                replay.rewind()
+                return model(xs[i], t, low_res=lows[i])
+
+            model.set_spatial(replay)
+            try:
+                with torch.inference_mode():
+                    same = torch.equal(alone(), outs[i])
+                    timed = _profile_forward(alone, int8)
+            finally:
+                model.set_spatial(None)
+            check(same, f"spatial {name}: shard {i} alone equals its run")
+            line["per_shard"].append(dict(timed, replay_bit_equal=same))
+        line["shard_device_share"] = [
+            s["device_ms"] / line["unsharded"]["device_ms"]
+            for s in line["per_shard"]]
+    emit(line)
+    return {"launches": sum(launches, collections.Counter())}
+
+
+def _profile_forward(fn, int8: bool) -> dict:
+    """``fn``'s forward ms, host issue ms, device ms and idle share, and its
+    device ms by family: the kernels', the int8 glue's and the copies the
+    halo adds (the concatenation and the crop's copy; the unsharded forward
+    has some of both in its glue)."""
+    families = dict(INT8_FAMILIES if int8 else FORWARD_FAMILIES,
+                    concat=("CatArrayBatchedCopy",),
+                    copy=("direct_copy_kernel", "copy_kernel"))
+    with torch.inference_mode():
+        prof = time_and_profile(fn, families, reps=3, warmup=1,
+                                host_reps=3, top=3)
+    return {"forward_ms": prof["ms"], "host_issue_ms": prof["host_issue_ms"],
+            "device_ms": prof["device_ms"], "idle_share": prof["idle_share"],
+            "kernel_ms": {k: v for k, v in prof["kernel_ms"].items() if v},
+            "other_ms": prof["other_ms"]}
+
+
+def phase_spatial(seed: int, model, fused, int8m, sched, cfg) -> dict:
+    """The production model at full width with one 96^3 patch's H split
+    over SPATIAL_SHARDS shards (threads of this process, a CUDA stream
+    each, exchanging through ``_ShardBoard``): the forward unfused, fused,
+    int8 with dynamic and with static scales (INT8_SCALES_PROD.json, the
+    served file), and f32, each against the unsharded forward (SPATIAL_TOL,
+    SPATIAL_NOISE_TOL; every int8 site's scale bit-equal to the group's),
+    each shard's launches by kernel and route
+    (SPATIAL_LAUNCHES, SPATIAL_ROUTES), and each shard's own device time
+    beside the unsharded forward's; then a 3-step DDPM chain of one patch
+    (each shard draws the whole patch's noise and keeps its rows) against
+    the unsharded chain. Returns {path: launch counts}: ``spatial`` the
+    chain's (both shards, counters zeroed just before), the forwards'
+    under ``spatial_<variant>``."""
+    from ddpm3d_tpu_torch import ops
+    from ddpm3d_tpu_torch.diffusion import p_sample_loop
+    from ddpm3d_tpu_torch.ops import quant
+
+    n = SPATIAL_SHARDS
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((1, 96, 96, 96, 1), device="cuda", generator=gen)
+    low = torch.randn((1, 96, 96, 96, 1), device="cuda", generator=gen)
+    t = torch.tensor([500], device="cuda")
+    counts = {}
+    served = int8m.int8
+    for name, m in (("unfused", model), ("fused", fused),
+                    ("int8_dynamic", int8m), ("int8_static", int8m)):
+        if name == "int8_dynamic":
+            m.set_int8(quant.Int8Config())
+        elif name == "int8_static":  # the served scales, whole chain
+            m.set_int8(quant.Int8Config(scales=os.path.join(
+                os.path.dirname(os.path.abspath(__file__)),
+                "INT8_SCALES_PROD.json")))
+        counts[f"spatial_{name}"] = _spatial_forward(m, name, x, low, t, n)[
+            "launches"]
+    int8m.set_int8(served)
+    for name, is_fused in (("f32", False), ("fused_f32", True)):
+        f32 = _model(use_fp16=False, seed=seed, fused=is_fused)[0]
+        f32.load_state_dict(model.state_dict(), strict=True)
+        f32.cuda()
+        counts[f"spatial_{name}"] = _spatial_forward(f32, name, x, low, t,
+                                                     n)["launches"]
+        del f32
+        torch.cuda.empty_cache()
+
+    # the chain: DDPM, 3 steps, drawn noise, one patch
+    def chain(x_shape, window, low_part):
+        return p_sample_loop(
+            lambda xx, tt, low_res: model(xx, tt, low_res=low_res).float(),
+            sched, cfg, shape=x_shape, seed=seed, sample_ids=[0],
+            model_kwargs={"low_res": low_part}, device="cuda",
+            noise_window=window)
+
+    with torch.inference_mode():
+        ref = chain(tuple(x.shape), None, low)
+        lows = _shards(low, n)
+        h = 96 // n
+        ops.reset_launch_counts()
+        outs, _, launches = _sharded_run(
+            model, lambda i: chain((1, 96, h, 96, 1),
+                                   ((96, 96, 96, 1), i * h, (i + 1) * h),
+                                   lows[i]), n)
+        counts["spatial"] = dict(ops.launch_counts(),
+                                 routes=ops.route_counts())
+    got = torch.cat(outs, dim=2)
+    d = (got - ref).abs()
+    mean_rel = (d.mean() / ref.abs().mean()).item()
+    steps = sched.num_timesteps
+    emit({"phase": "spatial_chain", "shards": n, "steps": steps,
+          "sampler": "ddpm", "volume_mean_rel_diff": mean_rel,
+          "volume_max_abs_diff": d.max().item(), "tol": SPATIAL_CHAIN_TOL,
+          "launches_per_shard": [{k: c.get(k, 0) for k in
+                                  SPATIAL_LAUNCHES["unfused"]}
+                                 for c in launches]})
+    check(bool(torch.isfinite(got).all()), "spatial chain finite")
+    check(mean_rel <= SPATIAL_CHAIN_TOL, f"spatial chain mean rel {mean_rel}")
+    for i, c in enumerate(launches):
+        check({k: c.get(k, 0) for k in SPATIAL_LAUNCHES["unfused"]}
+              == {k: v * steps for k, v in SPATIAL_LAUNCHES["unfused"].items()},
+              f"spatial chain: shard {i} launches {dict(c)}")
+    total = {k: counts["spatial"][k] for k in SPATIAL_LAUNCHES["unfused"]}
+    check(total == {k: v * steps * n for k, v
+                    in SPATIAL_LAUNCHES["unfused"].items()},
+          f"spatial chain launches {total}")
+    emit({"phase": "spatial", "seconds": time.monotonic() - t0})
+    for path in list(counts):
+        if "routes" not in counts[path]:
+            c = counts[path]
+            counts[path] = dict({k: c.get(k, 0) for k in
+                                 FORWARD_LAUNCHES["denoise"]},
+                                routes={k: c.get(k, 0) for k in
+                                        _routes(0, 0, 0)})
     return counts
 
 
@@ -4309,17 +4973,30 @@ def main() -> None:
     conv_shapes, gn_shapes = main_path_shapes(model)
     # the Seg models' shapes join the main path's (K1/K2/K3/K5 at each)
     seg_convs, seg_gns, seg_s8 = seg_path_shapes(args.seed)
-    conv_shapes = sorted(set(conv_shapes) | seg_convs, key=str)
+    # and so do the spatial phase's shard shapes (K1-K5 on haloed rows)
+    sp = spatial_path_shapes(args.seed, model, fused, int8m, SPATIAL_SHARDS)
+    f32_shapes = f32_path_shapes(args.seed)
+    fused_shapes = fused_path_shapes(fused)
+    s8_shapes = int8_path_shapes(int8m)
+    emit({"phase": "spatial_shapes", "shards": SPATIAL_SHARDS,
+          **{k: len(v) for k, v in sp.items()},
+          "new": {k: len(v - set(old)) for k, v, old in (
+              ("conv", sp["conv"], conv_shapes),
+              ("fused", sp["fused"], fused_shapes),
+              ("fused_f32", sp["fused_f32"], f32_shapes["fused"]),
+              ("gn", sp["gn"], gn_shapes), ("s8", sp["s8"], s8_shapes))}})
+    conv_shapes = sorted(set(conv_shapes) | seg_convs | sp["conv"], key=str)
     gn_shapes = sorted(set(gn_shapes) | guided_path_gn_shapes(*guided)
-                       | seg_gns, key=str)
+                       | seg_gns | sp["gn"], key=str)
+    f32_shapes["fused"] = sorted(set(f32_shapes["fused"]) | sp["fused_f32"])
     summary = phase_kernels(gen, conv_shapes, gn_shapes,
                             gn_parent=libs.get("gn_parent"))
-    summary.update(phase_conv3d_cu(gen, f32_path_shapes(args.seed),
+    summary.update(phase_conv3d_cu(gen, f32_shapes,
                                    conv_parent=libs.get("conv_parent")))
     summary["conv3d_fused"] = phase_fused_kernels(
-        gen, fused_path_shapes(fused))
+        gen, sorted(set(fused_shapes) | sp["fused"], key=str))
     summary["conv3d_s8"] = phase_s8_kernels(
-        gen, sorted(set(int8_path_shapes(int8m)) | seg_s8), libs)
+        gen, sorted(set(s8_shapes) | seg_s8 | sp["s8"]), libs)
     from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
     train_sched, train_cfg = create_gaussian_diffusion(
         steps=1000, learn_sigma=True, noise_schedule="linear")
@@ -4331,6 +5008,8 @@ def main() -> None:
     phase_profile(model)
     serving_counts = phase_dpm(model, args.seed)
     serving_counts["distributed"] = phase_distributed(
+        model, sched, cfg, args.seed, volume)
+    serving_counts["spatial_one_rank"] = phase_spatial_one_rank(
         model, sched, cfg, args.seed, volume)
     serving_counts["cli"] = phase_cli(model, args.seed)
     fused_counts, fused_volume, fused_eps = phase_denoise(
@@ -4344,6 +5023,8 @@ def main() -> None:
                   INT8_FORWARD_TOL, DENOISE_INT8_TOL)
     phase_profile_int8(int8m)
     static_counts = phase_denoise_int8_static(int8m, args.seed)
+    spatial_counts = phase_spatial(args.seed, model, fused, int8m, sched,
+                                   cfg)
     del model, fused, int8m
     torch.cuda.empty_cache()
     attention, attention_counts = phase_attention(args.seed)
@@ -4389,6 +5070,7 @@ def main() -> None:
                    "attention_denoise": count(attention_denoise_counts),
                    "classifier_sample": count(classifier_counts),
                    **{path: count(c) for path, c in serving_counts.items()},
+                   **{path: count(c) for path, c in spatial_counts.items()},
                    **{path: count(c) for path, c in model_counts.items()},
                    **{path: count(c) for path, c in seg_counts.items()},
                    **{path: count(c) for path, c in quality_counts.items()}}

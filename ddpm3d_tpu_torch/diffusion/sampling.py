@@ -11,7 +11,10 @@ ordered t = T-1 .. 0) or drawn from
 does not depend on how samples are batched — the property of the JAX
 package's ``_step_noise``. DDIM draws its step noise the same way whatever
 ``eta`` is (at ``eta = 0`` it is multiplied by 0), so a given noise stream
-lines up with the same steps on both samplers.
+lines up with the same steps on both samplers. A rank of a spatial group
+(:mod:`..parallel.mesh`) draws each step's noise at the whole patch's shape
+and keeps its H rows (``noise_window``), so a seeded chain does not depend
+on the layout either.
 
 Classifier guidance: ``cond_fn(x, t, **model_kwargs)`` returns grad_x log
 p(y | x) (times the guidance scale) at the model's timesteps; DDPM shifts
@@ -38,6 +41,9 @@ from .schedules import Schedule
 
 # the t key of x_T: above any timestep index (as in the JAX pipeline)
 XT_STEP = 2 ** 31 - 1
+# (the whole sample's shape, first H row kept, last H row kept + 1): a
+# spatial rank's window onto drawn noise (H is axis 1 of [D, H, W, C])
+NoiseWindow = Tuple[Tuple[int, ...], int, int]
 
 
 def _seed_for(seed: int, sample_id: int, t: int) -> int:
@@ -52,9 +58,13 @@ def step_noise(
     t: int,
     shape,
     device: torch.device,
+    window: Optional[NoiseWindow] = None,
 ) -> torch.Tensor:
     """Standard normal noise [len(sample_ids), *shape] in f32; sample i's
     draw depends only on (seed, sample_ids[i], t) and the device type.
+    ``window`` ``(whole shape, start, stop)``: each sample is drawn at the
+    whole shape and rows [start, stop) of its axis 1 (H) are kept; ``shape``
+    is then the kept part's.
 
     So a seeded run is the same whatever the batch composition, the
     chunking and the number of GPUs, on one device type. It is not the same
@@ -63,11 +73,13 @@ def step_noise(
     and copying would add host time to every patch-step). Neither matches
     the JAX package's ``fold_in`` draws either: tests that compare the two
     packages feed explicit noise."""
+    draw = tuple(shape) if window is None else tuple(window[0])
     out = []
     for sid in sample_ids:
         g = torch.Generator(device=device)
         g.manual_seed(_seed_for(seed, int(sid), int(t)))
-        out.append(torch.randn(tuple(shape), generator=g, device=device))
+        z = torch.randn(draw, generator=g, device=device)
+        out.append(z if window is None else z[:, window[1]:window[2]])
     return torch.stack(out)
 
 
@@ -170,7 +182,8 @@ def ddim_reverse_sample(
 
 
 def _chain_start(shape, noise, noise_stream, seed, sample_ids, device,
-                 sched: Schedule, t_hi: Optional[int], t_lo: int):
+                 sched: Schedule, t_hi: Optional[int], t_lo: int,
+                 noise_window: Optional[NoiseWindow] = None):
     """x_{t_hi} on the device (``noise``, else drawn keyed on ``XT_STEP``),
     the sample ids, the schedule on the device and the chain's t's."""
     device = resolve_device(device)
@@ -178,7 +191,8 @@ def _chain_start(shape, noise, noise_stream, seed, sample_ids, device,
         if shape is None:
             raise ValueError("provide shape or noise")
         ids = list(range(shape[0])) if sample_ids is None else list(sample_ids)
-        noise = step_noise(seed, ids, XT_STEP, tuple(shape[1:]), device)
+        noise = step_noise(seed, ids, XT_STEP, tuple(shape[1:]), device,
+                           noise_window)
     img = noise.to(device=device, dtype=torch.float32)
     B = img.shape[0]
     ids = list(range(B)) if sample_ids is None else list(sample_ids)
@@ -198,7 +212,7 @@ def _chain_start(shape, noise, noise_stream, seed, sample_ids, device,
 
 
 def _steps(model_fn, sched, cfg, img, ids, ts, noise_stream, seed, step_fn,
-           step_kwargs, before_step=None
+           step_kwargs, before_step=None, noise_window=None
            ) -> Iterator[Tuple[int, Dict[str, torch.Tensor]]]:
     """The reverse steps ``ts`` from ``img``: yields ``(t, step_fn's
     output)`` for each (see :func:`p_sample_loop`)."""
@@ -208,7 +222,8 @@ def _steps(model_fn, sched, cfg, img, ids, ts, noise_stream, seed, step_fn,
         if noise_stream is not None:
             eps = noise_stream[i].to(device=img.device, dtype=torch.float32)
         else:
-            eps = step_noise(seed, ids, t_scalar, img.shape[1:], img.device)
+            eps = step_noise(seed, ids, t_scalar, img.shape[1:], img.device,
+                             noise_window)
         if before_step is not None:
             before_step(t_scalar)
         out = step_fn(model_fn, sched, cfg, img, t, eps, **step_kwargs)
@@ -237,6 +252,7 @@ def p_sample_loop(
     return_intermediates: bool = False,
     t_hi: Optional[int] = None,
     t_lo: int = 0,
+    noise_window: Optional[NoiseWindow] = None,
 ):
     """Run the reverse chain t = T-1 .. 0 and return x_0: DDPM ancestral
     steps, or DDIM steps with ``use_ddim`` (and ``eta``), guided by
@@ -256,16 +272,19 @@ def p_sample_loop(
     noise is keyed on t, so segments compose to the whole chain bit for
     bit. A segment outside the chain raises (JAX clamps its gathers).
     ``return_intermediates`` returns ``(x_{t_lo}, [n_steps, *x.shape]
-    every step's output)``."""
+    every step's output)``. ``noise_window`` (a spatial rank's; see
+    :func:`step_noise`): the drawn x_T and step noise are the whole
+    patch's, cut to the rows of ``shape``."""
     step_fn = functools.partial(ddim_sample, eta=eta) if use_ddim else p_sample
     img, ids, sched, ts = _chain_start(shape, noise, noise_stream, seed,
-                                       sample_ids, device, sched, t_hi, t_lo)
+                                       sample_ids, device, sched, t_hi, t_lo,
+                                       noise_window)
     ys = []
     for t_scalar, out in _steps(
             model_fn, sched, cfg, img, ids, ts, noise_stream, seed, step_fn,
             dict(clip_denoised=clip_denoised, denoised_fn=denoised_fn,
                  model_kwargs=model_kwargs, cond_fn=cond_fn),
-            before_step):
+            before_step, noise_window):
         img = out["sample"]
         if return_intermediates:
             ys.append(img)

@@ -6,10 +6,12 @@ Port of ``ddpm3d_tpu/inference/pipeline.py``: the patches run in order,
 ``use_ddim``, the DDIM chain, or with ``use_dpm_solver`` DPM-Solver++(2M).
 Each patch's noise is keyed by its global index (and the seed), so the
 result does not depend on the batch size or the GPU count. Under
-``torchrun`` (a process group, :mod:`..parallel`) each rank samples a
-contiguous slice of the patches and the slices are gathered; rank 0 blends,
-logs and writes. A model served in int8 (``model.int8``) is told each
-step's chain index, which picks its per-time-bin activation scales.
+``torchrun`` (a process group, :mod:`..parallel`) the ranks form a (data,
+spatial) mesh (:func:`..parallel.make_mesh`): each data group samples a
+contiguous slice of the patches, each rank of a group the H rows of its
+spatial index, and the slices are gathered; rank 0 blends, logs and
+writes. A model served in int8 (``model.int8``) is told each step's chain
+index, which picks its per-time-bin activation scales.
 """
 
 from __future__ import annotations
@@ -35,7 +37,15 @@ from ..data.patches import (
 from ..diffusion import DiffusionConfig, Schedule
 from ..diffusion.dpm_solver import dpm_solver_pp_sample_loop
 from ..diffusion.sampling import XT_STEP, p_sample_loop, step_noise
-from ..parallel import all_gather_rows, pad_to_multiple, world
+from ..parallel import (
+    Mesh,
+    all_gather_rows,
+    check_spatial_split,
+    make_mesh,
+    pad_to_multiple,
+    spatial_rows,
+    world,
+)
 
 Log = Callable[[str], None]
 
@@ -98,6 +108,7 @@ def denoise_patches(
     eta: float = 0.0,
     use_dpm_solver: bool = False,
     dpm_order: int = 2,
+    mesh: Optional[Mesh] = None,
 ) -> np.ndarray:
     """Run the full reverse chain on conditioner patches [P, Z, X, Y] and
     return the denoised [P, Z, X, Y] (f32, host), on every rank.
@@ -106,12 +117,19 @@ def denoise_patches(
     ``"cpu"``. It raises when no card is there and when the model lies on
     another device, rather than moving anything.
 
-    With a process group of W ranks, rank r samples the r-th of W
-    contiguous slices of the patches, whose sizes differ by at most one,
-    ``batch_size`` at a time (the batch is per GPU). Each slice is padded
-    to ceil(P / W) rows (P padded to a multiple of W: the gather is never
-    ragged) and the slices are gathered in rank order; the pad rows are
-    zeros, not sampled, and dropped after the gather.
+    ``mesh`` (:func:`..parallel.make_mesh`; None: ``make_mesh()``, every
+    rank on the data axis) places the ranks. Data group d of ``n_data``
+    samples the d-th of ``n_data`` contiguous slices of the patches, whose
+    sizes differ by at most one, ``batch_size`` at a time (the batch is per
+    GPU). Each slice is padded to ceil(P / n_data) rows (the gather is
+    never ragged) and the slices are gathered in rank order; the pad rows
+    are zeros, not sampled, and dropped after the gather. With
+    ``n_spatial`` > 1 each rank of a group samples the X rows (the model's
+    H) of its spatial index, through the model's spatial group
+    (``model.set_spatial``, attached for the call); X must split into equal
+    shards of a multiple of ``model.spatial_multiple`` rows (raises
+    otherwise, naming the sizes that do). The rows are put back together
+    after the gather.
 
     ``noise`` [P, Z, X, Y] is x_T. ``noise_stream`` supplies every step's
     noise, ordered t = T-1 .. 0: an array [P, T, Z, X, Y] (with ``noise``),
@@ -121,7 +139,10 @@ def denoise_patches(
 
     ``use_ddim`` runs DDIM steps with ``eta``; ``use_dpm_solver`` runs
     DPM-Solver++ of ``dpm_order`` from x_T (``noise``, else drawn as the
-    other chains draw it). A noise stream with ``use_dpm_solver`` raises
+    other chains draw it). A rank of a spatial group draws the whole
+    patch's noise and keeps its rows, and cuts given noise the same way,
+    so the result does not depend on the mesh. A noise stream with
+    ``use_dpm_solver`` raises
     (the JAX pipeline silently runs the stochastic chain then), as does an
     int8 model. An int8 model's sites read their scales for the bin of the
     chain index ``i`` (the respaced step, ``clip(i * n_bins //
@@ -151,68 +172,95 @@ def denoise_patches(
             "use_dpm_solver with an int8 model is refused: deterministic "
             "chains accumulate quantization bias coherently")
 
+    mesh = mesh if mesh is not None else make_mesh(device=device)
+    if mesh.device.type != device.type:
+        raise ValueError(f"the mesh was made for {mesh.device.type}, the "
+                         f"chain runs on {device.type}")
+    n_data, n_spatial = mesh.n_data, mesh.n_spatial
+    patch = tuple(low_patches.shape[1:])
+    window = None
+    if n_spatial > 1:
+        check_spatial_split(patch[1], n_spatial, model.spatial_multiple)
+        h = patch[1] // n_spatial
+        window = (patch + (1,), mesh.spatial_index * h,
+                  (mesh.spatial_index + 1) * h)
+
     def model_fn(x, t, low_res):
         return model(x, t, low_res=low_res).float()
 
+    def rows(a, dim=2):  # this rank's X rows of host patches
+        return np.ascontiguousarray(spatial_rows(mesh, a, dim), np.float32)
+
     before_step = int8.set_chain_step if int8 is not None else None
 
-    # slices that differ by at most one patch: a rank that finishes early
+    # slices that differ by at most one patch: a group that finishes early
     # waits in the gather, for at most one batch's chain (NCCL aborts a
     # collective that waits longer than its timeout, 10 min by default)
-    rank, world_size = world()
-    sizes = [P // world_size + (r < P % world_size)
-             for r in range(world_size)]
-    n = pad_to_multiple(P, world_size) // world_size  # the largest slice
-    first = sum(sizes[:rank])
-    last = first + sizes[rank]
+    d = mesh.data_index
+    sizes = [P // n_data + (r < P % n_data) for r in range(n_data)]
+    n = pad_to_multiple(P, n_data) // n_data  # the largest slice
+    first = sum(sizes[:d])
+    last = first + sizes[d]
     outs = []
-    with torch.inference_mode():
-        for lo in range(first, last, batch_size):
-            hi = min(last, lo + batch_size)
-            low = torch.from_numpy(
-                np.ascontiguousarray(low_patches[lo:hi])[..., None]).to(device)
-            x_t = stream = None
-            if stream_fn is not None:
-                x_t, stream = stream_fn(lo, hi)
-            elif noise is not None:
-                x_t = noise[lo:hi]
-                if noise_stream is not None:
-                    stream = noise_stream[lo:hi]
-            if x_t is not None:
-                x_t = torch.from_numpy(
-                    np.ascontiguousarray(x_t, np.float32)[..., None]).to(device)
-            if stream is not None:
-                if stream.shape[1] != T:
-                    raise ValueError(
-                        f"noise_stream has {stream.shape[1]} steps, chain has {T}")
-                # [n, T, ...] -> [T, n, ..., 1], moved to the card step by step
-                stream = torch.from_numpy(
-                    np.asarray(stream, np.float32)).movedim(1, 0)[..., None]
-            ids = range(lo, hi)  # global: the noise does not depend on W
-            if use_dpm_solver:
-                if x_t is None:
-                    x_t = step_noise(seed, ids, XT_STEP, low.shape[1:], device)
-                img = dpm_solver_pp_sample_loop(
-                    model_fn, sched, cfg, x_t, clip_denoised=clip_denoised,
-                    model_kwargs={"low_res": low}, order=dpm_order,
-                    device=device)
-            else:
-                img = p_sample_loop(
-                    model_fn, sched, cfg, shape=low.shape, noise=x_t,
-                    noise_stream=stream, clip_denoised=clip_denoised,
-                    model_kwargs={"low_res": low}, seed=seed,
-                    sample_ids=ids, device=device,
-                    before_step=before_step, use_ddim=use_ddim, eta=eta,
-                )
-            outs.append(img[..., 0])
-            if progress_cb is not None:
-                progress_cb(hi - first, last - first)
+    if n_spatial > 1:
+        model.set_spatial(mesh.spatial)
+    try:
+        with torch.inference_mode():
+            for lo in range(first, last, batch_size):
+                hi = min(last, lo + batch_size)
+                low = torch.from_numpy(
+                    rows(low_patches[lo:hi])[..., None]).to(device)
+                x_t = stream = None
+                if stream_fn is not None:
+                    x_t, stream = stream_fn(lo, hi)
+                elif noise is not None:
+                    x_t = noise[lo:hi]
+                    if noise_stream is not None:
+                        stream = noise_stream[lo:hi]
+                if x_t is not None:
+                    x_t = torch.from_numpy(rows(x_t)[..., None]).to(device)
+                if stream is not None:
+                    if stream.shape[1] != T:
+                        raise ValueError(f"noise_stream has {stream.shape[1]} "
+                                         f"steps, chain has {T}")
+                    # [n, T, ...] -> [T, n, ..., 1], moved to the card step
+                    # by step
+                    stream = torch.from_numpy(rows(stream, 3)).movedim(
+                        1, 0)[..., None]
+                ids = range(lo, hi)  # global: the noise does not depend on W
+                if use_dpm_solver:
+                    if x_t is None:
+                        x_t = step_noise(seed, ids, XT_STEP, low.shape[1:],
+                                         device, window)
+                    img = dpm_solver_pp_sample_loop(
+                        model_fn, sched, cfg, x_t, clip_denoised=clip_denoised,
+                        model_kwargs={"low_res": low}, order=dpm_order,
+                        device=device)
+                else:
+                    img = p_sample_loop(
+                        model_fn, sched, cfg, shape=low.shape, noise=x_t,
+                        noise_stream=stream, clip_denoised=clip_denoised,
+                        model_kwargs={"low_res": low}, seed=seed,
+                        sample_ids=ids, device=device,
+                        before_step=before_step, use_ddim=use_ddim, eta=eta,
+                        noise_window=window,
+                    )
+                outs.append(img[..., 0])
+                if progress_cb is not None:
+                    progress_cb(hi - first, last - first)
+    finally:
+        if n_spatial > 1:
+            model.set_spatial(None)
     if int8 is not None:
         int8.set_chain_step(None)
-    pad = torch.zeros((n - sizes[rank],) + low_patches.shape[1:],
-                      device=device)
-    rows = all_gather_rows(torch.cat(outs + [pad]))
-    return torch.cat([rows[r * n:r * n + size]
+    local = (patch[0], patch[1] // n_spatial, patch[2])
+    pad = torch.zeros((n - sizes[d],) + local, device=device)
+    got = all_gather_rows(torch.cat(outs + [pad]))
+    # [n_data * n_spatial * n, Z, X / n_spatial, Y] in rank order: each
+    # data group's shards side by side along X
+    got = got.reshape((n_data, n_spatial, n) + local).permute(
+        0, 2, 3, 1, 4, 5).reshape((n_data * n,) + patch)
+    return torch.cat([got[r * n:r * n + size]
                       for r, size in enumerate(sizes)]).cpu().numpy()
 
 
@@ -238,6 +286,7 @@ def denoise_volume(
     eta: float = 0.0,
     use_dpm_solver: bool = False,
     dpm_order: int = 2,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Optional[np.ndarray], Dict]:
     """Denoise a whole (Z, H, W) volume; returns ((H, W, Z) result, stats).
 
@@ -248,7 +297,8 @@ def denoise_volume(
     the per-voxel std in ``stats["uncertainty_hwz"]``. The chain runs on
     ``device`` as in :func:`denoise_patches`: ``cuda`` unless the caller
     passes ``"cpu"``, and the model must lie there; ``use_ddim``, ``eta``,
-    ``use_dpm_solver`` and ``dpm_order`` choose the sampler as there.
+    ``use_dpm_solver`` and ``dpm_order`` choose the sampler, and ``mesh``
+    places the ranks, as there.
 
     ``stats`` has ``wall_s`` (the call), ``sample_wall_s`` (the chains),
     ``cut_s`` and ``blend_s`` (the host tier's cut and blend).
@@ -298,7 +348,7 @@ def denoise_volume(
             f"denoised {done}/{total} patch-draws "
             f"[{time.monotonic() - t0:.1f}s]"),
         device=device, use_ddim=use_ddim, eta=eta,
-        use_dpm_solver=use_dpm_solver, dpm_order=dpm_order,
+        use_dpm_solver=use_dpm_solver, dpm_order=dpm_order, mesh=mesh,
     )
     sample_wall_s = time.monotonic() - t0
     if rank != 0:

@@ -16,6 +16,14 @@ only) runs a conv site through :func:`..ops.quant.conv3d_int8` when the
 model attached an :class:`..ops.quant.Int8Config` that quantizes the site;
 the calibration mode records each site's input abs-max into the model's
 :class:`..ops.quant.ActCalibration`.
+
+Under a spatial group (``spatial``, a :class:`..parallel.SpatialGroup` of
+several ranks that the model attaches, inference only) each rank holds an
+equal slice of H: a 3x3x3 conv runs on its input with one halo plane from
+each neighbour and crops the rows the halo adds; a GroupNorm all-reduces
+its sums and folds them with the group's voxel count; an int8 site's
+dynamic abs-max is the group's. The 1x1 convs, pooling and upsampling stay
+local.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from ..ops import conv3d_fused as fused_ops
 from ..ops import conv3d_s8 as s8_ops
 from ..ops import groupnorm as gn_ops
 from ..ops import quant
+from ..parallel.spatial import crop
 
 NORM_GROUPS = gn_ops.NORM_GROUPS
 
@@ -60,7 +69,13 @@ class GroupNorm32(nn.Module):
     With ``fold_only=True`` (the fused path) the call returns the folded
     per-channel affine (g, b), [B, C] f32 each, from ``stats`` ([B, 2, C]
     sums, e.g. a fused conv's) or, without them, from the stats of x; the
-    normalize then happens in the consumer conv's prologue."""
+    normalize then happens in the consumer conv's prologue.
+
+    Under ``spatial`` (forward only) the sums (x's, or the ``stats`` given:
+    local sums) are all-reduced over the group before the fold with the
+    group's voxel count; K2 then normalizes the local rows."""
+
+    spatial = None  # a SpatialGroup of several ranks (set_spatial)
 
     def __init__(self, channels: int, num_groups: int = NORM_GROUPS,
                  eps: float = 1e-5):
@@ -79,18 +94,30 @@ class GroupNorm32(nn.Module):
         stats: Optional[torch.Tensor] = None,
         fold_only: bool = False,
     ):
+        if not fold_only and self.spatial is None:
+            return gn_ops.group_norm(
+                x, self.weight, self.bias, self.num_groups, self.eps,
+                film_scale=film_scale, film_shift=film_shift,
+                apply_silu=apply_silu)
+        xr = x.reshape(x.shape[0], -1, x.shape[-1])
+        if stats is None:
+            stats = gn_ops.channel_stats(xr)
+        n = xr.shape[1]
+        if self.spatial is not None:
+            if torch.is_grad_enabled():
+                raise RuntimeError(
+                    "GroupNorm over a spatial group is forward-only: training "
+                    "under a spatial group is not ported yet (ROADMAP.md "
+                    "Queue 1 item 3b); run under torch.no_grad() or "
+                    "inference_mode()")
+            stats = self.spatial.all_reduce_sum(stats)
+            n *= self.spatial.size
+        g, b = gn_ops.fold_gn_affine(
+            stats, n, self.weight, self.bias, self.num_groups, self.eps,
+            film_scale=film_scale, film_shift=film_shift)
         if fold_only:
-            if stats is None:
-                stats = gn_ops.channel_stats(
-                    x.reshape(x.shape[0], -1, x.shape[-1]))
-            return gn_ops.fold_gn_affine(
-                stats, math.prod(x.shape[1:-1]), self.weight, self.bias,
-                self.num_groups, self.eps,
-                film_scale=film_scale, film_shift=film_shift)
-        return gn_ops.group_norm(
-            x, self.weight, self.bias, self.num_groups, self.eps,
-            film_scale=film_scale, film_shift=film_shift, apply_silu=apply_silu,
-        )
+            return g, b
+        return gn_ops.gn_apply(xr, g, b, apply_silu).reshape(x.shape)
 
 
 class _Int8Site:
@@ -104,6 +131,7 @@ class _Int8Site:
 
     int8: Optional[quant.Int8Config] = None
     calib: Optional[quant.ActCalibration] = None
+    spatial = None  # a SpatialGroup of several ranks (set_spatial)
     site: str = ""
     _q_key = None
     _q = None
@@ -130,7 +158,8 @@ class _Int8Site:
         wq, s_w, packed = self._q
         return quant.conv3d_int8(x, wq, s_w, bias,
                                  self.int8.act_scale(self.site),
-                                 upsample=upsample, w_packed=packed)
+                                 upsample=upsample, w_packed=packed,
+                                 spatial=self.spatial)
 
 
 class Conv3x3x3(_Int8Site, nn.Module):
@@ -143,7 +172,13 @@ class Conv3x3x3(_Int8Site, nn.Module):
     it from the low-resolution x by the phase route, any other upsamples
     first. ``fused=True`` runs the fused kernel (:func:`..ops.conv3d_fused.
     conv3d_fused`, inference only) with ``fused_kw`` its prologue, skip and
-    stats arguments; it returns what that function returns."""
+    stats arguments; it returns what that function returns.
+
+    Under ``spatial`` x is this rank's H rows: the conv takes x with a halo
+    plane from each neighbour (on an up site the low-resolution x's, so 2
+    up-resolution rows a side), a skip padded with zero rows to match, and
+    returns the local rows; the fused kernel's stats would count the halo,
+    so ``want_stats`` is refused there."""
 
     def __init__(self, in_ch: int, out_ch: int, zero_init: bool = False):
         super().__init__()
@@ -171,15 +206,28 @@ class Conv3x3x3(_Int8Site, nn.Module):
     def forward(self, x: torch.Tensor, fused: bool = False,
                 upsample: bool = False, **fused_kw):
         self._record(x)  # before the upsample, where JAX sows
+        lo = hi = 0
+        if self.spatial is not None:
+            if fused_kw.get("want_stats"):
+                raise ValueError("a fused conv under a spatial group cannot "
+                                 "return stats: they would count the halo")
+            x, (lo, hi) = self.spatial.halo(x)
+            if fused_kw.get("skip") is not None:
+                # the skip of the halo rows lands in rows that are cropped
+                fused_kw["skip"] = F.pad(fused_kw["skip"],
+                                         (0, 0, 0, 0, lo, hi))
+        f = 2 if upsample else 1  # output rows per input row
         if self.int8_active():  # never fused: the model refuses both
-            return self._int8(x, self.bias, upsample)
+            return crop(self._int8(x, self.bias, upsample), lo * f, hi * f)
         if upsample:
             x = upsample_nearest(x)
         packed = self._packed_weight(x, fused)
         if fused:
-            return fused_ops.conv3d_fused(
+            y = fused_ops.conv3d_fused(
                 x, self.weight, self.bias, w_packed=packed, **fused_kw)
-        return conv_ops.conv3d(x, self.weight, self.bias, w_packed=packed)
+        else:
+            y = conv_ops.conv3d(x, self.weight, self.bias, w_packed=packed)
+        return crop(y, lo * f, hi * f)
 
 
 class Conv1x1x1(_Int8Site, nn.Module):

@@ -33,6 +33,14 @@ and ``proj_out`` are 1-D convs, which the JAX package's int8 path (its
 folded 3-D convs) never quantizes, and neither does the port. The same
 sites record their inputs' abs-max in the calibration mode
 (``set_calibration``, :class:`ConvSites`), which int8 and fused refuse.
+
+Spatial serving (``set_spatial``, :class:`ConvSites`; the 3-D
+``UNetModel`` and ``SuperResModel`` in eval mode only): each rank of a
+:class:`..parallel.SpatialGroup` holds an equal slice of H of every
+activation. The 3x3x3 convs exchange one halo plane with each neighbour,
+the GroupNorms all-reduce their sums (:mod:`.nn`), a fused ResBlock's
+next-GN stats come from K1 on its local output, and an attention block
+attends with its own query rows to the keys and values of every rank.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.quant import ActCalibration, Int8Config
+from ..parallel.spatial import SpatialGroup
 from ..utils.convert import torch_module_to_flax_path
 from . import nn as prim
 from .plan import AttnSpec, ConvSpec, DownSpec, ResSpec, UpSpec, plan_unet
@@ -81,7 +90,11 @@ class ResBlock(nn.Module):
     applies in its prologue, the residual add is the second conv's
     epilogue, and each conv emits the per-channel sums that fold the next
     GroupNorm. ``x_stats`` carries such sums in; the fused call returns
-    ``(out, out_stats)``, the unfused one ``out``."""
+    ``(out, out_stats)``, the unfused one ``out``. Under ``spatial`` the
+    fused kernel's stats would count the convs' halo rows: each fold takes
+    K1's sums of its local input instead, and ``out_stats`` is None."""
+
+    spatial = None  # a SpatialGroup of several ranks (set_spatial)
 
     def __init__(
         self,
@@ -151,22 +164,26 @@ class ResBlock(nn.Module):
         return self.skip_connection(x) + h
 
     def _forward_fused(self, x, emb, x_stats):
+        want = self.spatial is None  # else each fold reads K1's local sums
         g1, b1 = self.in_layers[0](x, stats=x_stats, fold_only=True)
-        h, h_stats = self.in_layers[2](
+        h = self.in_layers[2](
             x, fused=True, prologue_g=g1, prologue_b=b1, prologue_silu=True,
-            want_stats=True)
+            want_stats=want)
+        h, h_stats = h if want else (h, None)
         emb_out = prim.linear(self.emb_layers[1], F.silu(emb), x.dtype)
         scale, shift = emb_out.float().chunk(2, dim=-1)
         g2, b2 = self.out_layers[0](
             h, stats=h_stats, film_scale=scale, film_shift=shift,
             fold_only=True)
-        return self.out_layers[3](
+        out = self.out_layers[3](
             h, fused=True, prologue_g=g2, prologue_b=b2, prologue_silu=True,
-            skip=self.skip_connection(x), want_stats=True)
+            skip=self.skip_connection(x), want_stats=want)
+        return out if want else (out, None)
 
 
 def qkv_attention(qkv: torch.Tensor, num_heads: int, new_order: bool,
-                  weights_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                  weights_dtype: Optional[torch.dtype] = None,
+                  kv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Multi-head attention of qkv [B, T, 3C] -> [B, T, C]
     (``ddpm3d_tpu/models/unet.py:293-311``). ``new_order``: the layout
     ``[q_all | k_all | v_all]`` (QKVAttention), else per-head ``[q|k|v]``
@@ -174,14 +191,21 @@ def qkv_attention(qkv: torch.Tensor, num_heads: int, new_order: bool,
     qkv's dtype; the logits and the softmax are f32 (the products of bf16 q
     and k are exact in f32); the weights are cast to ``weights_dtype``
     (default qkv's) before the product with v, which runs in the promoted
-    dtype of the two."""
+    dtype of the two. ``kv`` [B, S, 3C], in qkv's layout, gives the keys and
+    values (a spatial rank's queries attend to every rank's tokens)."""
     B, T, C3 = qkv.shape
     C = C3 // 3
     ch = C // num_heads
-    if new_order:
-        q, k, v = (t.reshape(B, T, num_heads, ch) for t in qkv.chunk(3, -1))
-    else:
-        q, k, v = qkv.reshape(B, T, num_heads, 3 * ch).chunk(3, -1)
+
+    def split(t):
+        n = t.shape[1]
+        if new_order:
+            return [u.reshape(B, n, num_heads, ch) for u in t.chunk(3, -1)]
+        return t.reshape(B, n, num_heads, 3 * ch).chunk(3, -1)
+
+    q, k, v = split(qkv)
+    if kv is not None:
+        _, k, v = split(kv)
     scale = 1.0 / math.sqrt(math.sqrt(ch))
     q = (q * scale).transpose(1, 2).float()          # [B, H, T, ch]
     k = (k * scale).permute(0, 2, 3, 1).float()      # [B, H, ch, S]
@@ -198,7 +222,11 @@ class AttentionBlock(nn.Module):
     kernels on the card), a 1-D 1x1 ``qkv`` conv, :func:`qkv_attention`, a
     zero-initialised 1-D 1x1 ``proj_out``. Computed in x's dtype. With
     grad enabled it keeps no activations and recomputes in the backward
-    (the JAX package always wraps it in ``remat``)."""
+    (the JAX package always wraps it in ``remat``). Under ``spatial`` the
+    norm is the group's and the keys and values are gathered from every
+    rank (:meth:`..parallel.SpatialGroup.all_gather_h` of qkv)."""
+
+    spatial = None  # a SpatialGroup of several ranks (set_spatial)
 
     def __init__(self, channels: int, num_heads: int = 1,
                  use_new_attention_order: bool = False):
@@ -219,8 +247,14 @@ class AttentionBlock(nn.Module):
 
     def _attend(self, x: torch.Tensor) -> torch.Tensor:
         xt = x.reshape(x.shape[0], -1, x.shape[-1])
-        a = qkv_attention(self.qkv(self.norm(xt)), self.num_heads,
-                          self.use_new_attention_order)
+        qkv = self.qkv(self.norm(xt))
+        kv = None
+        if self.spatial is not None:
+            kv = self.spatial.all_gather_h(
+                qkv.reshape(x.shape[:-1] + qkv.shape[-1:])).reshape(
+                    x.shape[0], -1, qkv.shape[-1])
+        a = qkv_attention(qkv, self.num_heads, self.use_new_attention_order,
+                          kv=kv)
         return (xt + self.proj_out(a)).reshape(x.shape)
 
 
@@ -302,13 +336,16 @@ class ConvSites:
     """The serving modes of a 3-D model's conv sites (its
     :class:`.nn.Conv3x3x3` and :class:`.nn.Conv1x1x1` modules, each named by
     its flax module path after ``SITE_PREFIX``, as the scales files key
-    them): int8 serving and int8 calibration. A model that mixes this in
-    has ``dims`` and ``fused``."""
+    them): int8 serving, int8 calibration and spatial serving. A model that
+    mixes this in has ``dims`` and ``fused``."""
 
     # prefix of the conv sites' flax module paths
     SITE_PREFIX = ""
+    # whether the model serves under a spatial group (set_spatial)
+    SPATIAL_SERVING = False
     int8: Optional[Int8Config] = None
     calib: Optional[ActCalibration] = None
+    spatial: Optional[SpatialGroup] = None
 
     def _sites(self):
         for name, m in self.named_modules():
@@ -349,14 +386,52 @@ class ConvSites:
         if calib is not None and self.dims != 3:
             raise ValueError("calibration records 3-D conv sites; a 1-D or "
                              "2-D model has none")
+        if calib is not None and self.spatial is not None:
+            raise ValueError("calibration is a tool, not serving: it runs "
+                             "without a spatial group")
         self.calib = calib
         for m in self._sites():
             m.calib = calib
+
+    def set_spatial(self, spatial: Optional[SpatialGroup]) -> None:
+        """Serve with each activation's H axis split over ``spatial`` (a
+        :class:`..parallel.SpatialGroup`; None or a group of one: the whole
+        patch here). Every 3x3x3 conv, GroupNorm, fused ResBlock, attention
+        block and int8 site gets the group. Inference only: refused in
+        ``train()`` mode, on the Seg models and the standalone encoder
+        (ROADMAP.md Queue 1 items 3b-3c), on 1-D and 2-D models and in the
+        calibration mode. The model's forward raises when its input's H
+        rows do not pool down evenly (:attr:`spatial_multiple`)."""
+        if spatial is not None and spatial.size == 1:
+            spatial = None  # the whole patch here: the unsharded path
+        if spatial is not None:
+            if not self.SPATIAL_SERVING:
+                raise ValueError(
+                    f"{type(self).__name__} does not serve under a spatial "
+                    "group yet (ROADMAP.md Queue 1 item 3c)")
+            if self.dims != 3:
+                raise ValueError("a spatial group splits the H axis of 3-D "
+                                 "models; this model is "
+                                 f"{self.dims}-D")
+            if self.training:
+                raise RuntimeError(
+                    "spatial serving is inference-only (training under a "
+                    "spatial group is ROADMAP.md Queue 1 item 3b): call "
+                    "model.eval()")
+            if self.calib is not None:
+                raise ValueError("calibration runs without a spatial group")
+        self.spatial = spatial
+        for m in self.modules():
+            if isinstance(m, (prim.Conv3x3x3, prim.Conv1x1x1,
+                              prim.GroupNorm32, ResBlock, AttentionBlock)):
+                m.spatial = spatial
 
 
 class UNetModel(ConvSites, nn.Module):
     """The UNet with timestep (and optional class) conditioning, in ``dims``
     1, 2 or 3, with attention at the stages the plan puts it."""
+
+    SPATIAL_SERVING = True
 
     def __init__(
         self,
@@ -448,6 +523,14 @@ class UNetModel(ConvSites, nn.Module):
     ) -> torch.Tensor:
         if (y is not None) != (self.num_classes is not None):
             raise ValueError("pass y iff the model is class-conditional")
+        if self.spatial is not None:
+            if self.training:
+                raise RuntimeError("spatial serving is inference-only: call "
+                                   "model.eval()")
+            if x.shape[2] % self.spatial_multiple:
+                raise ValueError(
+                    f"a rank's {x.shape[2]} H rows do not pool down evenly: "
+                    f"each must be a multiple of {self.spatial_multiple}")
         emb = self.time_embed(
             prim.timestep_embedding(timesteps, self.model_channels))
         if y is not None:
@@ -475,6 +558,12 @@ class UNetModel(ConvSites, nn.Module):
                 hs.append((h, stats))
         h = self.out[0](h.to(x.dtype), apply_silu=True)
         return self.out[2](h)
+
+    @property
+    def spatial_multiple(self) -> int:
+        """2 ** the number of H downsamplings: a spatial rank's H rows must
+        be a multiple of it (pooling and upsampling stay local)."""
+        return max(self._stage_ds)
 
 
 def _run_stage(stage: nn.ModuleList, h: torch.Tensor, emb: torch.Tensor,

@@ -74,7 +74,7 @@ def _abs_max_scale(amax: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_act(
-    x: torch.Tensor, static_scale: Optional[float] = None
+    x: torch.Tensor, static_scale: Optional[float] = None, spatial=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-sample int8 quantization of ``x`` [B, ...].
 
@@ -82,6 +82,9 @@ def quantize_act(
     all-zero sample gets 1). Static: the given scale for every sample; values
     beyond it saturate. Then ``q = clip(round(x / scale), -127, 127)``,
     rounding half to even. Returns ``(q int8 like x, scale [B] f32)``.
+    ``spatial`` (a :class:`..parallel.SpatialGroup` over which each sample
+    is split): the dynamic abs-max is the max over the group's, so the
+    scale equals the unsharded one bit for bit (a max has no order).
 
     Passes over x: one abs-max reduction (exact from x's dtype), then the
     division in f32 and three in-place passes (round, clamp, cast); few
@@ -93,8 +96,11 @@ def quantize_act(
         scale = torch.full((B,), float(static_scale), dtype=torch.float32,
                            device=x.device)
     else:
-        scale = _abs_max_scale(torch.linalg.vector_norm(
-            x.reshape(B, -1), float("inf"), dim=1, dtype=torch.float32))
+        amax = torch.linalg.vector_norm(
+            x.reshape(B, -1), float("inf"), dim=1, dtype=torch.float32)
+        if spatial is not None:
+            amax = spatial.all_reduce_max(amax)
+        scale = _abs_max_scale(amax)
     # bf16 / f32 tensor promotes to f32: float(x) / scale, as the JAX code
     q = torch.div(x, scale.reshape((B,) + (1,) * (x.dim() - 1)))
     return q.round_().clamp_(-127, 127).to(torch.int8), scale
@@ -325,6 +331,7 @@ def conv3d_int8(
     act_scale: Optional[float] = None,
     upsample: bool = False,
     w_packed: Optional[torch.Tensor] = None,
+    spatial=None,
 ) -> torch.Tensor:
     """One quantized conv site on ``x`` [B, D, H, W, Cin] (bf16 or f32):
     quantize the activation per sample (or with ``act_scale``), the int8
@@ -332,11 +339,12 @@ def conv3d_int8(
     result in x's dtype. The 3x3x3 and 1x1x1 sites add the bias in f32
     before the rounding (``conv3d_folded_int8``); the phase route
     (``upsample``) returns the upsampled output with the bias added after
-    it (``upsample_conv_folded_int8`` and its caller)."""
+    it (``upsample_conv_folded_int8`` and its caller). ``spatial``: the
+    dynamic scale over the group (:func:`quantize_act`)."""
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError(
             "int8 serving is inference-only (the kernel has no backward): "
             "call it under torch.no_grad() or torch.inference_mode()")
-    xq, s_x = quantize_act(x, act_scale)
+    xq, s_x = quantize_act(x, act_scale, spatial)
     return s8.conv3d_s8(xq, wq, s_x, s_w, bias, x.dtype, upsample,
                         w_packed=w_packed)

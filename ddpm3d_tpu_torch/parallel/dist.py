@@ -8,9 +8,10 @@ contiguous slice of the patches on each rank and gathers the slices;
 training takes each rank's equal slice of the global batch
 (:func:`rank_rows`, JAX's ``shard_batch``) and all-reduces the gradients
 through :func:`data_parallel` (DistributedDataParallel, which broadcasts
-rank 0's parameters at construction: JAX's ``replicate``). Only the
-``data`` axis is ported; the ``spatial`` axis (one patch's H over several
-chips) is not (ROADMAP.md Queue 1).
+rank 0's parameters at construction: JAX's ``replicate``). The serving
+path's ``spatial`` axis (one patch's H over several GPUs) is
+:mod:`.mesh`'s: there the patches split over the data groups and each
+rank of a group samples its H slice (:mod:`.spatial`).
 """
 
 from __future__ import annotations

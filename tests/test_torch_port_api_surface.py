@@ -73,7 +73,6 @@ _INT8_GATE = ("an environment-variable gate of the JAX int8 lowering; the "
               "ActCalibration")
 _SHARDING = ("JAX sharding over a device mesh; the port's data parallel is "
              "DistributedDataParallel (parallel.dist.data_parallel)")
-_QUEUE = "not yet ported (ROADMAP Queue 1 item 3, the spatial mesh axis)"
 _CONVERTERS = ("a JAX<->torch checkpoint converter; the port reads and "
                "writes the reference's .pt files itself (utils.convert)")
 
@@ -104,13 +103,9 @@ NOT_PORTED = {
         "port's Int8Config holds the scales (ops.quant.scale_tables)",
     "ops.quant:conv3d_folded_sim": "the fake-quant XLA twin of the int8 "
         "conv, a JAX study mode; the port's int8 conv is K5 itself",
-    "parallel.mesh:DATA_AXIS": _SHARDING,
     "parallel.mesh:data_sharding": _SHARDING,
     "parallel.mesh:replicate": _SHARDING,
     "parallel.mesh:replicated": _SHARDING,
-    "parallel.mesh:SPATIAL_AXIS": _QUEUE,
-    "parallel.mesh:make_mesh": _QUEUE,
-    "parallel.mesh:shard_batch": _QUEUE,
     "training.train_loop:make_train_step": "builds a jitted pure step; the "
         "port's step is training.train_loop.compute_grads + apply_update",
     "diffusion.sampling:sample_chain_segment": "the segment length of the "
@@ -239,6 +234,8 @@ def test_lists_are_current():
     "utils.logger:profile_kv", "utils.logger:start_trace",
     "utils.logger:set_level", "utils.logger:record_tabular",
     "training:create_named_schedule_sampler",
+    "parallel:make_mesh", "parallel:shard_batch", "parallel:SPATIAL_AXIS",
+    "parallel:DATA_AXIS", "parallel.spatial:SpatialGroup",
 ])
 def test_slice_names_import(target):
     assert _resolves(target), target

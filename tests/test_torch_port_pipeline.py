@@ -34,10 +34,11 @@ from ddpm3d_tpu_torch import resolve_device
 from ddpm3d_tpu_torch.data import patches as tpatches
 from ddpm3d_tpu_torch.data import tiff_io as ttiff
 from ddpm3d_tpu_torch.diffusion import p_sample_loop, p_sample_loop_progressive
-from ddpm3d_tpu_torch.inference import denoise_volume
+from ddpm3d_tpu_torch.inference import denoise_patches, denoise_volume
 from ddpm3d_tpu_torch.models import SuperResModel, factory as tfactory
 from ddpm3d_tpu_torch.models.nn import init_params
 from ddpm3d_tpu_torch.ops import quant
+from ddpm3d_tpu_torch.parallel import make_mesh as tmake_mesh
 from ddpm3d_tpu_torch.scripts import classifier_sample as classifier_cli
 from ddpm3d_tpu_torch.scripts import test as cli
 from ddpm3d_tpu_torch.scripts import distill as distill_cli
@@ -410,7 +411,8 @@ def test_cli_refuses_noise_seed_with_dpm():
 def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny):
     """With no card, the CLIs (classifier_sample, the int8 calibration tool
     and evaluate among them), the quality tools, the sampler (its
-    segments and progressive generator too), the pipeline, the trainer
+    segments and progressive generator too), the pipeline (under a mesh
+    too), make_mesh, the trainer
     (with a named sampler and a blob checkpoint directory too), a trace of
     the card and the distiller raise unless the caller
     asks for the CPU; a model on another device than the chain's is
@@ -442,6 +444,13 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch, tiny):
             tool.main(argv)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         denoise_volume(model, ts, tcfg, vol, **grid)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmake_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmake_mesh(n_spatial=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        denoise_patches(model, ts, tcfg, vol[None, :, :16, :16],
+                        mesh=tmake_mesh(device="cpu"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--data_dir", "unused"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -507,11 +516,13 @@ def _code_strings(path):
 
 
 def test_port_imports_no_jax():
-    """ddpm3d_tpu_torch and chip_smoke.py import no jax, flax,
+    """ddpm3d_tpu_torch, chip_smoke.py and spatial_split_study.py import no
+    jax, flax,
     ddpm3d_tpu or the repository's tools/ (only the tests import both), and
     name no path or module of ddpm3d_tpu outside docstrings (the native
     tier builds its own copy of the C++ source)."""
-    files = [osp.join(REPO, "chip_smoke.py")]
+    files = [osp.join(REPO, "chip_smoke.py"),
+             osp.join(REPO, "spatial_split_study.py")]
     for root, _, names in os.walk(osp.join(REPO, "ddpm3d_tpu_torch")):
         files += [osp.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
@@ -522,7 +533,8 @@ def test_port_imports_no_jax():
                  "seg_int8_check"):
         assert osp.join(REPO, "ddpm3d_tpu_torch", "tools",
                         f"{tool}.py") in files
-    for new in (("native", "__init__.py"), ("utils", "blobio.py")):
+    for new in (("native", "__init__.py"), ("utils", "blobio.py"),
+                ("parallel", "mesh.py"), ("parallel", "spatial.py")):
         assert osp.join(REPO, "ddpm3d_tpu_torch", *new) in files
     for path in files:
         for mod in _imports(path):
