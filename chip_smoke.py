@@ -103,6 +103,12 @@ Phases (each failure exits non-zero before the final line):
                forward's) and the conv rows the halo adds; then a 3-step
                DDPM chain of one patch against the unsharded chain
                (``spatial``, counters zeroed just before);
+     spatial_seg — the Seg models (SegUNetModel add / cat_conv / midcat,
+               SegModelv2_6c / SegModelv3_6c with a 3-channel conditioner)
+               the same way, bf16, f32 and int8 dynamic: launches and
+               routes per shard as unsharded, every int8 site exact, the
+               shards of add and SegModelv2_6c timed alone; the kernels
+               phases also check every kernel at the Seg shard shapes;
   8. train   — the training CLI (``ddpm3d_tpu_torch.scripts.train``) at the
                production flags on a synthetic (2, 96, 200, 200) low/high
                pair: 6 bf16 steps at batch 1 with the launch counters zeroed
@@ -589,6 +595,13 @@ def main_path_shapes(model) -> tuple:
     return sorted(convs, key=str), sorted(gns, key=str)
 
 
+def _shape_route(case) -> str:
+    """The route of a conv shape (D, H, W, Cin, Cout, dtype)."""
+    from ddpm3d_tpu_torch.ops import conv3d as cv
+
+    return cv.conv3d_route((1,) + tuple(case[:4]), case[5], case[4])
+
+
 # shapes that are also timed (the rest are only checked): main-path sites
 CONV_TIMED = [  # (D, H, W, Cin, Cout, dtype)
     (96, 96, 96, 128, 128, torch.bfloat16),   # level-0 ResBlock conv
@@ -907,15 +920,50 @@ def fused_path_shapes(model) -> list:
 def spatial_path_shapes(seed: int, model, fused, int8m, n: int) -> dict:
     """Every distinct kernel call of the spatial phase's forwards (one 96^3
     batch-1 patch, H over ``n`` shards; bf16 unfused, fused and int8, f32
-    unfused and fused) at the shapes the kernels get there: haloed rows,
-    an up site's haloed low-resolution rows upsampled, a fused site's
-    padded skip, a GroupNorm's local rows. Read one shard at a time under a
-    group whose transport gives shapes only (zero halo planes, local sums,
-    the shard repeated for a gather), through the package's own halo and
-    crop logic, by wrapping the ops the model calls and by the GroupNorm
-    hooks: {"conv": {(D, H, W, Cin, Cout, dtype)}, "fused": {(... as
-    fused_path_shapes)}, "fused_f32": {(... as f32_path_shapes' fused)},
-    "gn": {(N, C, dtype, film, silu)}, "s8": {(... as int8_path_shapes)}}."""
+    unfused and fused) at the shapes the kernels get there
+    (:func:`_shard_shapes`)."""
+    f32 = [_model(use_fp16=False, seed=seed, fused=f)[0].cuda()
+           for f in (False, True)]
+    out = _shard_shapes([(m, 1) for m in (model, fused, int8m, *f32)], n)
+    del f32
+    torch.cuda.empty_cache()
+    return out
+
+
+def spatial_seg_path_shapes(seg_models: dict, n: int) -> dict:
+    """Every distinct kernel call of the spatial_seg phase's forwards (each
+    Seg model of ``seg_models``, on the host, over ``n`` shards: bf16, f32
+    and int8 dynamic; :func:`_shard_shapes`)."""
+    from ddpm3d_tpu_torch.ops import quant
+
+    out = None
+    for name, model in seg_models.items():
+        card = model.cuda()
+        f32 = _as_f32(card)
+        cond = _seg_cond(name)
+        out = _shard_shapes([(card, cond), (f32, cond)], n, out)
+        card.set_int8(quant.Int8Config())
+        out = _shard_shapes([(card, cond)], n, out)
+        card.set_int8(None)
+        del f32
+        _to_host(card)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _shard_shapes(models, n: int, out=None) -> dict:
+    """Every distinct kernel call of each (model, conditioner channels) of
+    ``models`` (on the card) on one 96^3 batch-1 patch with H over ``n``
+    shards, at the shapes the kernels get there: haloed rows, an up site's
+    haloed low-resolution rows upsampled, a fused site's padded skip, a
+    GroupNorm's local rows. Read one shard at a time under a group whose
+    transport gives shapes only (zero halo planes, local sums, the shard
+    repeated for a gather), through the package's own halo and crop logic,
+    by wrapping the ops the model calls and by the GroupNorm hooks, into
+    ``out`` (new if None): {"conv": {(D, H, W, Cin, Cout, dtype)},
+    "fused": {(... as fused_path_shapes)}, "fused_f32": {(... as
+    f32_path_shapes' fused)}, "gn": {(N, C, dtype, film, silu)}, "s8":
+    {(... as int8_path_shapes)}}."""
     from ddpm3d_tpu_torch.ops import conv3d as cv
     from ddpm3d_tpu_torch.ops import conv3d_fused as fo
     from ddpm3d_tpu_torch.ops import quant
@@ -931,7 +979,8 @@ def spatial_path_shapes(seed: int, model, fused, int8m, n: int) -> dict:
         def _gather(self, t):
             return [t] * self.size
 
-    out = {k: set() for k in ("conv", "fused", "fused_f32", "gn", "s8")}
+    if out is None:
+        out = {k: set() for k in ("conv", "fused", "fused_f32", "gn", "s8")}
     real = (cv.conv3d, fo.conv3d_fused, quant.conv3d_int8)
 
     def conv(x, weight, *args, **kw):
@@ -956,28 +1005,26 @@ def spatial_path_shapes(seed: int, model, fused, int8m, n: int) -> dict:
                        bool(upsample)))
         return real[2](x, wq, *args, upsample=upsample, **kw)
 
-    f32 = [_model(use_fp16=False, seed=seed, fused=f)[0].cuda()
-           for f in (False, True)]
     h = 96 // n
     x = torch.randn((1, 96, h, 96, 1), device="cuda")
     t = torch.tensor([500], device="cuda")
     cv.conv3d, fo.conv3d_fused, quant.conv3d_int8 = conv, conv_fused, conv_int8
     try:
-        for m in (model, fused, int8m, *f32):
+        for m, cond in models:
+            low = x if cond == 1 else torch.randn((1, 96, h, 96, cond),
+                                                  device="cuda")
             handles = _gn_hooks(m, out["gn"])
             try:
                 for i in range(n):
                     m.set_spatial(ShapeGroup(range(n), i))
                     with torch.inference_mode():
-                        m(x, t, low_res=x)
+                        m(x, t, low_res=low)
             finally:
                 m.set_spatial(None)
                 for hd in handles:
                     hd.remove()
     finally:
         cv.conv3d, fo.conv3d_fused, quant.conv3d_int8 = real
-    del f32
-    torch.cuda.empty_cache()
     return out
 
 
@@ -1846,7 +1893,8 @@ def _conv_row_overhead(model, x, t, low, n: int) -> float:
     return sum(b for _, b in work) / sum(a for a, _ in work) - 1.0
 
 
-def _spatial_forward(model, name: str, x, low, t, n: int) -> dict:
+def _spatial_forward(model, name: str, x, low, t, n: int,
+                     spec=None) -> dict:
     """One variant: the unsharded forward, the n-shard forward in threads
     (against it, with each shard's launches; in int8 every site's scale,
     and every site on the shards' gathered input, unsharded, against the
@@ -1854,8 +1902,17 @@ def _spatial_forward(model, name: str, x, low, t, n: int) -> dict:
     received (bit-equal to its threaded output, timed and profiled beside
     the unsharded forward). A bf16 model (int8 too) also reports the
     forward's own noise: the unsharded forward with every GroupNorm's sums
-    one f32 ulp larger, from which SPATIAL_NOISE_TOL variants take their
-    bound."""
+    one f32 ulp larger, from which a variant with a noise factor takes its
+    bound. ``spec`` holds the line's ``phase`` and ``label`` keys, the
+    ``launches`` and ``routes`` wanted per shard, ``tol``,
+    ``noise_factor`` (or None) and whether the shards are ``timed``;
+    default: the spatial phase's tables for ``name``."""
+    if spec is None:
+        spec = dict(phase="spatial_forward", label={},
+                    launches=SPATIAL_LAUNCHES[name],
+                    routes=SPATIAL_ROUTES[name], tol=SPATIAL_TOL[name],
+                    noise_factor=SPATIAL_NOISE_TOL.get(name),
+                    timed=model.dtype == torch.bfloat16)
     from ddpm3d_tpu_torch.models.nn import Conv1x1x1, Conv3x3x3
     from ddpm3d_tpu_torch.ops import groupnorm as gn_ops
     from ddpm3d_tpu_torch.ops import quant
@@ -1903,13 +1960,14 @@ def _spatial_forward(model, name: str, x, low, t, n: int) -> dict:
                 h.remove()
     got = torch.cat(outs, dim=2)
     err, rel = rel_err(got, ref)
-    line = {"phase": "spatial_forward", "variant": name, "shards": n,
-            "shape": list(x.shape), "max_abs_err": err, "rel_err": rel,
-            "tol": SPATIAL_TOL[name],
+    want_launches, want_routes = spec["launches"], spec["routes"]
+    line = {"phase": spec["phase"], **spec["label"], "variant": name,
+            "shards": n, "shape": list(x.shape),
+            "cond_shape": list(low.shape), "max_abs_err": err,
+            "rel_err": rel, "tol": spec["tol"],
             "calls_per_forward": {k: v // n for k, v in group.calls.items()},
-            "launches_per_shard": [
-                {k: c.get(k, 0) for k in SPATIAL_LAUNCHES[name]}
-                for c in launches]}
+            "launches_per_shard": [{k: c.get(k, 0) for k in want_launches}
+                                   for c in launches]}
     if model.dtype == torch.bfloat16:
         real_stats = gn_ops.channel_stats
         gn_ops.channel_stats = lambda v: real_stats(v) * (1 + 2.0 ** -23)
@@ -1919,18 +1977,17 @@ def _spatial_forward(model, name: str, x, low, t, n: int) -> dict:
                                                 ref)[1]
         finally:
             gn_ops.channel_stats = real_stats
-        if name in SPATIAL_NOISE_TOL:
-            line["tol"] = max(line["tol"], SPATIAL_NOISE_TOL[name]
+        if spec["noise_factor"]:
+            line["tol"] = max(line["tol"], spec["noise_factor"]
                               * line["noise_rel_err"])
-    check(bool(torch.isfinite(got).all()), f"spatial {name}: finite")
-    check(rel <= line["tol"], f"spatial {name}: rel err {rel} > {line['tol']}")
+    what = " ".join([spec["phase"], *map(str, spec["label"].values()), name])
+    check(bool(torch.isfinite(got).all()), f"{what}: finite")
+    check(rel <= line["tol"], f"{what}: rel err {rel} > {line['tol']}")
     for i, c in enumerate(launches):
-        check({k: c.get(k, 0) for k in SPATIAL_LAUNCHES[name]}
-              == SPATIAL_LAUNCHES[name],
-              f"spatial {name}: shard {i} launches {dict(c)}")
-        check({k: c.get(k, 0) for k in SPATIAL_ROUTES[name]}
-              == SPATIAL_ROUTES[name],
-              f"spatial {name}: shard {i} routes {dict(c)}")
+        check({k: c.get(k, 0) for k in want_launches} == want_launches,
+              f"{what}: shard {i} launches {dict(c)}")
+        check({k: c.get(k, 0) for k in want_routes} == want_routes,
+              f"{what}: shard {i} routes {dict(c)}")
     if int8:
         per = [scales[idents[i]] for i in range(n)]
         amax = torch.stack([torch.stack([a for a, _ in p]) for p in per])
@@ -1959,13 +2016,13 @@ def _spatial_forward(model, name: str, x, low, t, n: int) -> dict:
                     sites_scale_as_unsharded=int(
                         (used[0] == ref_used).all(-1).sum()),
                     sites_checked=n_sites, sites_unequal=unequal)
-        check(used.shape[1] == len(ref_scales) == n_sites,
-              f"spatial {name}: {used.shape[1]} int8 sites a shard")
-        check(scales_equal, f"spatial {name}: every site's scale is the "
-                            "group's")
-        check(not unequal, f"spatial {name}: sites unequal to the unsharded "
-                           f"site on the gathered input: {unequal}")
-    if model.dtype == torch.bfloat16:  # f32 is checked, not timed
+        check(used.shape[1] == len(ref_scales) == n_sites
+              == want_launches["conv3d_s8"],
+              f"{what}: {used.shape[1]} int8 sites a shard")
+        check(scales_equal, f"{what}: every site's scale is the group's")
+        check(not unequal, f"{what}: sites unequal to the unsharded site on "
+                           f"the gathered input: {unequal}")
+    if spec["timed"]:
         line["overhead_conv_rows"] = _conv_row_overhead(model, x, t, low, n)
         line["unsharded"] = _profile_forward(
             lambda: model(x, t, low_res=low), int8)
@@ -1984,7 +2041,7 @@ def _spatial_forward(model, name: str, x, low, t, n: int) -> dict:
                     timed = _profile_forward(alone, int8)
             finally:
                 model.set_spatial(None)
-            check(same, f"spatial {name}: shard {i} alone equals its run")
+            check(same, f"{what}: shard {i} alone equals its run")
             line["per_shard"].append(dict(timed, replay_bit_equal=same))
         line["shard_device_share"] = [
             s["device_ms"] / line["unsharded"]["device_ms"]
@@ -2104,6 +2161,106 @@ def phase_spatial(seed: int, model, fused, int8m, sched, cfg) -> dict:
                                 routes={k: c.get(k, 0) for k in
                                         _routes(0, 0, 0)})
     return counts
+
+
+def _seg_cond(name: str) -> int:
+    """The conditioner's channels of a Seg model of SPATIAL_SEG_MODELS."""
+    return SEG_6C_COND if name in SEG_6C_MODELS else 1
+
+
+def _seg_fusion(name: str) -> str:
+    return {"SegModelv2_6c": "add", "SegModelv3_6c": "cat_conv"}.get(name,
+                                                                     name)
+
+
+def _seg_spatial_spec(name: str, variant: str) -> dict:
+    """_spatial_forward's spec of one Seg model and variant."""
+    six = name in SEG_6C_MODELS
+    if variant == "int8_dynamic":
+        launches = dict(SEG_LAUNCHES, conv3d=3,
+                        conv3d_s8=SEG_INT8_S8[_seg_fusion(name)])
+        routes = SEG_6C_INT8_ROUTES if six else SEG_INT8_ROUTES
+    elif variant == "f32":
+        launches = SEG_LAUNCHES
+        routes = dict(_routes(0, 0, 0), **{
+            "conv3d.f32": 100 if six else 99,
+            "conv3d.f32_narrow": 0 if six else 1, "conv3d.f32_head": 1})
+    else:
+        launches, routes = SEG_LAUNCHES, SEG_6C_ROUTES if six else SEG_ROUTES
+    return dict(phase="spatial_seg_forward", label={"model": name},
+                launches=launches, routes=routes,
+                tol=INT8_FORWARD_TOL if variant == "int8_dynamic"
+                else TOL[torch.float32 if variant == "f32"
+                         else torch.bfloat16],
+                noise_factor=SPATIAL_SEG_NOISE_TOL if variant == "bf16"
+                else None,
+                timed=variant == "bf16" and name in SPATIAL_SEG_TIMED)
+
+
+def _as_f32(model):
+    """An f32 copy of a bf16 Seg model: the same parameters (f32 in every
+    dtype), its main branch and encoder computing in f32, as a model built
+    with ``dtype=torch.float32`` (the constructor's ``dtype`` sets those
+    two attributes alone)."""
+    f32 = copy.deepcopy(model)
+    f32.dtype = f32.encoder.dtype = torch.float32
+    return f32
+
+
+def _to_host(model):
+    """``model`` moved to the host, with the weights its conv modules keep
+    packed or quantized on the card dropped: it then holds no card
+    memory."""
+    for m in model.modules():
+        if hasattr(m, "_packed"):
+            m._packed = m._packed_key = None
+        if hasattr(m, "_q"):
+            m._q = m._q_key = None
+    return model.cpu()
+
+
+def phase_spatial_seg(seed: int, seg_models: dict) -> dict:
+    """Each Seg model of ``seg_models`` (bf16, on the host; SegUNetModel
+    add / cat_conv / midcat, SegModelv2_6c / SegModelv3_6c with a
+    3-channel conditioner) with one 96^3 patch's H split over
+    SPATIAL_SHARDS shard threads (as phase_spatial), bf16, f32 and int8
+    dynamic, each against the unsharded forward with its launches and
+    routes per shard (_seg_spatial_spec), every int8 site exact on its
+    gathered input; the shards of SPATIAL_SEG_TIMED replayed alone and
+    profiled. Returns {path: launch counts of the forwards, both shards}:
+    ``spatial_seg`` (bf16), ``spatial_seg_f32``, ``spatial_seg_int8``."""
+    from ddpm3d_tpu_torch.ops import quant
+
+    n = SPATIAL_SHARDS
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((1, 96, 96, 96, 1), device="cuda", generator=gen)
+    lows = {c: torch.randn((1, 96, 96, 96, c), device="cuda", generator=gen)
+            for c in (1, SEG_6C_COND)}
+    t = torch.tensor([500], device="cuda")
+    paths = {"bf16": "spatial_seg", "f32": "spatial_seg_f32",
+             "int8_dynamic": "spatial_seg_int8"}
+    counts = {p: collections.Counter() for p in paths.values()}
+    for name, model in seg_models.items():
+        card = model.cuda()
+        low = lows[_seg_cond(name)]
+        for variant in SPATIAL_SEG_VARIANTS:
+            m = _as_f32(card) if variant == "f32" else card
+            if variant == "int8_dynamic":
+                m.set_int8(quant.Int8Config())
+            try:
+                counts[paths[variant]] += _spatial_forward(
+                    m, variant, x, low, t, n,
+                    _seg_spatial_spec(name, variant))["launches"]
+            finally:
+                m.set_int8(None)
+            del m
+        _to_host(card)
+        torch.cuda.empty_cache()
+    emit({"phase": "spatial_seg", "seconds": time.monotonic() - t0})
+    return {path: dict({k: c.get(k, 0) for k in FORWARD_LAUNCHES["denoise"]},
+                       routes={k: c.get(k, 0) for k in _routes(0, 0, 0)})
+            for path, c in counts.items()}
 
 
 def phase_cli(model, seed: int) -> dict:
@@ -3697,6 +3854,23 @@ SEG_6C_MODELS = ("SegModelv2_6c", "SegModelv3_6c")  # add, cat_conv
 SEG_6C_COND = 3
 SEG_6C_ROUTES = dict(_routes(98, 0, 1), **{"conv3d.sm90_smallcin": 2})
 SEG_6C_INT8_ROUTES = dict(_routes(0, 0, 1), **{"conv3d.sm90_smallcin": 2})
+# the spatial_seg phase: every Seg model of the seg and seg_6c phases
+# (phase_seg's weights, made once: _seg_models) on one 96^3 patch at batch
+# 1 over SPATIAL_SHARDS shards, bf16, f32 and int8 with dynamic scales (the
+# Int8Config() phase_seg serves). Per shard, the launches of the unsharded
+# forward: SEG_LAUNCHES (in int8 the input convs and the head on K3, the
+# fusion's SEG_INT8_S8 sites on K5), on the routes of phase_seg (f32:
+# csrc/conv3d_f32.cu for every conv but the Cin = 2 input conv's and the
+# head's; the 6-channel models' Cin 4 and 3 input convs too). Tolerances:
+# bf16 within SPATIAL_TOL's, or twice the forward's own one-ulp GroupNorm
+# noise where that is larger (the Seg forwards run deeper, through two
+# branches); f32 SPATIAL_TOL's; int8 INT8_FORWARD_TOL and every site exact
+# on its gathered input. The shards are replayed alone and timed for
+# SPATIAL_SEG_TIMED (one model of each conditioner width) in bf16
+SPATIAL_SEG_MODELS = SEG_FUSIONS + SEG_6C_MODELS
+SPATIAL_SEG_VARIANTS = ("bf16", "f32", "int8_dynamic")
+SPATIAL_SEG_TIMED = ("add", "SegModelv2_6c")
+SPATIAL_SEG_NOISE_TOL = 2.0
 FORWARD_LAUNCHES["seg_denoise"] = SEG_LAUNCHES
 FORWARD_ROUTES["seg_denoise"] = SEG_ROUTES
 # a training step of the midcat model: its forward, and the dx of every
@@ -3758,22 +3932,33 @@ def _seg_6c_model(name: str, use_fp16: bool, seed: int):
     return model.eval()
 
 
-def seg_path_shapes(seed: int) -> tuple:
+def _seg_models(seed: int) -> dict:
+    """Every Seg model of SPATIAL_SEG_MODELS in bf16, random weights from
+    ``seed`` (_seg_model, _seg_6c_model), on the host: built once (a
+    build takes seconds of host time), each moved to the card where a
+    phase uses it and back after (_to_host)."""
+    return {name: (_seg_6c_model if name in SEG_6C_MODELS else _seg_model)(
+        name, True, seed) for name in SPATIAL_SEG_MODELS}
+
+
+def seg_path_shapes(seg_models: dict) -> tuple:
     """Every distinct conv and GroupNorm shape of one bf16 96^3 forward of
-    each Seg model, and every distinct int8 site of the add and cat_conv
-    int8 forwards (main_path_shapes / int8_path_shapes on each)."""
+    each Seg model of SEG_FUSIONS in ``seg_models`` (on the host), and
+    every distinct int8 site of the add and cat_conv int8 forwards
+    (main_path_shapes / int8_path_shapes on each)."""
     from ddpm3d_tpu_torch.ops import quant
 
     convs, gns, s8 = set(), set(), set()
     for fusion in SEG_FUSIONS:
-        model = _seg_model(fusion, True, seed).cuda()
+        model = seg_models[fusion].cuda()
         c, g = main_path_shapes(model)
         convs |= set(c)
         gns |= set(g)
         if fusion != "midcat":
             model.set_int8(quant.Int8Config())
             s8 |= set(int8_path_shapes(model))
-        del model
+            model.set_int8(None)
+        _to_host(model)
     torch.cuda.empty_cache()
     return convs, gns, s8
 
@@ -3802,7 +3987,7 @@ SMALLCIN_DX = (((1, 96, 48, 48, 4), 128), ((1, 96, 96, 96, 12), 128),
                ((1, 48, 48, 48, 20), 128))
 
 
-def f32_path_shapes(seed: int) -> dict:
+def f32_path_shapes(seed: int, seg_models: dict) -> dict:
     """Every distinct conv of ``csrc/conv3d_f32.cu`` on the f32 paths:
     phase_model's forward, fused forward and gradients (the full-width f32
     model at [1, 8, 32, 32, 1]) and phase_seg's f32 Seg forwards (the same
@@ -3834,19 +4019,23 @@ def f32_path_shapes(seed: int) -> dict:
 
     x = torch.randn((1, 8, 32, 32, 1), device="cuda")
     t = torch.tensor([517], device="cuda")
-    models = [_model(use_fp16=False, seed=seed)[0],
-              _model(use_fp16=False, seed=seed, fused=True)[0]]
-    models += [_seg_model(f, False, seed) for f in SEG_FUSIONS]
-    for i, model in enumerate(models):
-        grads[0] = i == 0  # phase_model's gradients; the rest forwards
-        model.cuda()
+
+    def read(model, with_grads: bool) -> None:
+        grads[0] = with_grads
         handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
                    for m in model.modules() if isinstance(m, Conv3x3x3)]
         with torch.no_grad():
             model(x, t, low_res=x)
         for h in handles:
             h.remove()
-    del models
+
+    # phase_model's gradients; the rest forwards
+    read(_model(use_fp16=False, seed=seed)[0].cuda(), True)
+    read(_model(use_fp16=False, seed=seed, fused=True)[0].cuda(), False)
+    for fusion in SEG_FUSIONS:
+        card = seg_models[fusion].cuda()
+        read(_as_f32(card), False)
+        _to_host(card)
     torch.cuda.empty_cache()
     return {k: sorted(v) for k, v in out.items()}
 
@@ -4202,7 +4391,7 @@ def _int8_sites_equal(card, cpu, x, low, t):
     return out, len(io), unequal
 
 
-def phase_seg(seed: int, phase: str = "seg") -> dict:
+def phase_seg(seed: int, seg_models: dict, phase: str = "seg") -> dict:
     """The three Seg models (``phase`` "seg") or the two 6-channel aliases
     (``phase`` "seg_6c": SegModelv2_6c, SegModelv3_6c with a 3-channel
     conditioner, so input convs of Cin 4 and 3) at full width, bf16, 96^3:
@@ -4216,7 +4405,9 @@ def phase_seg(seed: int, phase: str = "seg") -> dict:
     plain int8 conv on its own input (the f32 int8 model, card against
     CPU), the bf16 int8 forward against bf16 (INT8_FORWARD_TOL). Returns
     {path: one forward's counts} (``phase``: the first model,
-    ``<phase>_int8``: it in int8)."""
+    ``<phase>_int8``: it in int8). The bf16 models are ``seg_models``'
+    (_seg_models, on the host, returned there); the f32 ones are built
+    here."""
     from ddpm3d_tpu_torch.ops import quant
 
     if phase == "seg_6c":
@@ -4239,7 +4430,7 @@ def phase_seg(seed: int, phase: str = "seg") -> dict:
     ts = torch.tensor([517])
     paths = {}
     for i, name in enumerate(models):
-        model = build(name, True, seed).cuda()
+        model = seg_models[name].cuda()
         counts = _one_forward_counts(model, x1, t1, low1)
         routes = counts["routes"]
         launched = {k: v for k, v in counts.items() if k != "routes"}
@@ -4324,7 +4515,9 @@ def phase_seg(seed: int, phase: str = "seg") -> dict:
                   f"{phase} {name} int8 vs bf16 rel {int8_rel}")
             if i == 0:
                 paths[f"{phase}_int8"] = counts8
+            model.set_int8(None)
         emit(line)
+        _to_host(model)
         del model, m32
         torch.cuda.empty_cache()
     return paths
@@ -4970,12 +5163,16 @@ def main() -> None:
     # the guided-sampling path's GroupNorms are checked with the serving
     # path's (its other work is PyTorch calls)
     guided = _guided_models(args.seed)
+    # the Seg models of every Seg phase, built once, on the host
+    seg_models = _seg_models(args.seed)
     conv_shapes, gn_shapes = main_path_shapes(model)
     # the Seg models' shapes join the main path's (K1/K2/K3/K5 at each)
-    seg_convs, seg_gns, seg_s8 = seg_path_shapes(args.seed)
-    # and so do the spatial phase's shard shapes (K1-K5 on haloed rows)
+    seg_convs, seg_gns, seg_s8 = seg_path_shapes(seg_models)
+    # and so do the spatial phases' shard shapes (K1-K5 on haloed rows;
+    # the Seg models' input convs on sm90_cin1, sm90_narrow, sm90_smallcin)
     sp = spatial_path_shapes(args.seed, model, fused, int8m, SPATIAL_SHARDS)
-    f32_shapes = f32_path_shapes(args.seed)
+    sps = spatial_seg_path_shapes(seg_models, SPATIAL_SHARDS)
+    f32_shapes = f32_path_shapes(args.seed, seg_models)
     fused_shapes = fused_path_shapes(fused)
     s8_shapes = int8_path_shapes(int8m)
     emit({"phase": "spatial_shapes", "shards": SPATIAL_SHARDS,
@@ -4985,9 +5182,18 @@ def main() -> None:
               ("fused", sp["fused"], fused_shapes),
               ("fused_f32", sp["fused_f32"], f32_shapes["fused"]),
               ("gn", sp["gn"], gn_shapes), ("s8", sp["s8"], s8_shapes))}})
-    conv_shapes = sorted(set(conv_shapes) | seg_convs | sp["conv"], key=str)
+    # the Seg shard shapes no other list holds, and each conv's route
+    emit({"phase": "spatial_seg_shapes", "shards": SPATIAL_SHARDS,
+          **{k: len(v) for k, v in sps.items()},
+          "new": {k: len(sps[k] - set(old) - seg - sp[k]) for k, old, seg in (
+              ("conv", conv_shapes, seg_convs), ("gn", gn_shapes, seg_gns),
+              ("s8", s8_shapes, seg_s8))},
+          "conv_routes": dict(collections.Counter(
+              _shape_route(c) for c in sps["conv"]))})
+    conv_shapes = sorted(set(conv_shapes) | seg_convs | sp["conv"]
+                         | sps["conv"], key=str)
     gn_shapes = sorted(set(gn_shapes) | guided_path_gn_shapes(*guided)
-                       | seg_gns | sp["gn"], key=str)
+                       | seg_gns | sp["gn"] | sps["gn"], key=str)
     f32_shapes["fused"] = sorted(set(f32_shapes["fused"]) | sp["fused_f32"])
     summary = phase_kernels(gen, conv_shapes, gn_shapes,
                             gn_parent=libs.get("gn_parent"))
@@ -4996,7 +5202,7 @@ def main() -> None:
     summary["conv3d_fused"] = phase_fused_kernels(
         gen, sorted(set(fused_shapes) | sp["fused"], key=str))
     summary["conv3d_s8"] = phase_s8_kernels(
-        gen, sorted(set(s8_shapes) | seg_s8 | sp["s8"]), libs)
+        gen, sorted(set(s8_shapes) | seg_s8 | sp["s8"] | sps["s8"]), libs)
     from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
     train_sched, train_cfg = create_gaussian_diffusion(
         steps=1000, learn_sigma=True, noise_schedule="linear")
@@ -5025,6 +5231,7 @@ def main() -> None:
     static_counts = phase_denoise_int8_static(int8m, args.seed)
     spatial_counts = phase_spatial(args.seed, model, fused, int8m, sched,
                                    cfg)
+    spatial_counts.update(phase_spatial_seg(args.seed, seg_models))
     del model, fused, int8m
     torch.cuda.empty_cache()
     attention, attention_counts = phase_attention(args.seed)
@@ -5035,12 +5242,12 @@ def main() -> None:
     classifier_counts = phase_classifier_sample(args.seed, *guided)
     del guided
     torch.cuda.empty_cache()
-    seg_counts = phase_seg(args.seed)
-    seg_counts.update(phase_seg(args.seed, phase="seg_6c"))
-    seg_add = _seg_model("add", True, args.seed).cuda()
+    seg_counts = phase_seg(args.seed, seg_models)
+    seg_counts.update(phase_seg(args.seed, seg_models, phase="seg_6c"))
     seg_counts["seg_denoise"] = phase_denoise(
-        seg_add, sched, cfg, args.seed, phase="seg_denoise")[0]
-    del seg_add
+        seg_models["add"].cuda(), sched, cfg, args.seed,
+        phase="seg_denoise")[0]
+    del seg_models
     torch.cuda.empty_cache()
     seg_counts["seg_train"] = phase_seg_train(args.seed)
     seg_counts["denoise_int8_calibrated"] = phase_calibrate(args.seed)

@@ -110,8 +110,9 @@ def denoise_patches(
     dpm_order: int = 2,
     mesh: Optional[Mesh] = None,
 ) -> np.ndarray:
-    """Run the full reverse chain on conditioner patches [P, Z, X, Y] and
-    return the denoised [P, Z, X, Y] (f32, host), on every rank.
+    """Run the full reverse chain on conditioner patches [P, Z, X, Y] (or
+    [P, Z, X, Y, C]: a C-channel conditioner, as the 6-channel Seg models
+    take) and return the denoised [P, Z, X, Y] (f32, host), on every rank.
 
     The chain runs on ``device``: ``cuda`` unless the caller passes
     ``"cpu"``. It raises when no card is there and when the model lies on
@@ -128,8 +129,8 @@ def denoise_patches(
     H) of its spatial index, through the model's spatial group
     (``model.set_spatial``, attached for the call); X must split into equal
     shards of a multiple of ``model.spatial_multiple`` rows (raises
-    otherwise, naming the sizes that do). The rows are put back together
-    after the gather.
+    otherwise, naming the sizes that do); a conditioner's channels stay
+    whole. The rows are put back together after the gather.
 
     ``noise`` [P, Z, X, Y] is x_T. ``noise_stream`` supplies every step's
     noise, ordered t = T-1 .. 0: an array [P, T, Z, X, Y] (with ``noise``),
@@ -177,7 +178,10 @@ def denoise_patches(
         raise ValueError(f"the mesh was made for {mesh.device.type}, the "
                          f"chain runs on {device.type}")
     n_data, n_spatial = mesh.n_data, mesh.n_spatial
-    patch = tuple(low_patches.shape[1:])
+    patch = tuple(low_patches.shape[1:4])
+    if low_patches.ndim not in (4, 5):
+        raise ValueError(f"conditioner patches [P, Z, X, Y(, C)], got "
+                         f"{low_patches.shape}")
     window = None
     if n_spatial > 1:
         check_spatial_split(patch[1], n_spatial, model.spatial_multiple)
@@ -190,6 +194,9 @@ def denoise_patches(
 
     def rows(a, dim=2):  # this rank's X rows of host patches
         return np.ascontiguousarray(spatial_rows(mesh, a, dim), np.float32)
+
+    def channels(a):  # host conditioner rows -> [n, Z, X, Y, C]
+        return a if low_patches.ndim == 5 else a[..., None]
 
     before_step = int8.set_chain_step if int8 is not None else None
 
@@ -209,7 +216,8 @@ def denoise_patches(
             for lo in range(first, last, batch_size):
                 hi = min(last, lo + batch_size)
                 low = torch.from_numpy(
-                    rows(low_patches[lo:hi])[..., None]).to(device)
+                    channels(rows(low_patches[lo:hi]))).to(device)
+                x_shape = low.shape[:-1] + (1,)
                 x_t = stream = None
                 if stream_fn is not None:
                     x_t, stream = stream_fn(lo, hi)
@@ -230,7 +238,7 @@ def denoise_patches(
                 ids = range(lo, hi)  # global: the noise does not depend on W
                 if use_dpm_solver:
                     if x_t is None:
-                        x_t = step_noise(seed, ids, XT_STEP, low.shape[1:],
+                        x_t = step_noise(seed, ids, XT_STEP, x_shape[1:],
                                          device, window)
                     img = dpm_solver_pp_sample_loop(
                         model_fn, sched, cfg, x_t, clip_denoised=clip_denoised,
@@ -238,7 +246,7 @@ def denoise_patches(
                         device=device)
                 else:
                     img = p_sample_loop(
-                        model_fn, sched, cfg, shape=low.shape, noise=x_t,
+                        model_fn, sched, cfg, shape=x_shape, noise=x_t,
                         noise_stream=stream, clip_denoised=clip_denoised,
                         model_kwargs={"low_res": low}, seed=seed,
                         sample_ids=ids, device=device,

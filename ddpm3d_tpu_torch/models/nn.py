@@ -106,10 +106,9 @@ class GroupNorm32(nn.Module):
         if self.spatial is not None:
             if torch.is_grad_enabled():
                 raise RuntimeError(
-                    "GroupNorm over a spatial group is forward-only: training "
-                    "under a spatial group is not ported yet (ROADMAP.md "
-                    "Queue 1 item 3b); run under torch.no_grad() or "
-                    "inference_mode()")
+                    "GroupNorm over a spatial group is forward-only (the JAX "
+                    "package trains with the batch split alone); run under "
+                    "torch.no_grad() or inference_mode()")
             stats = self.spatial.all_reduce_sum(stats)
             n *= self.spatial.size
         g, b = gn_ops.fold_gn_affine(

@@ -20,6 +20,14 @@ model never fuses: the JAX Seg config has no ``fused`` key
 serving and calibration (:class:`.unet.ConvSites`) reach both branches and
 the ``cat_conv`` 1x1 sites; the site names are JAX's, with no ``unet/``
 prefix (``encoder/in1_0/in_conv``, ``fuse2``, ``mid_0/skip``).
+
+Under a spatial group (``set_spatial``, inference only; JAX's
+``denoise_patches`` serves any model under its ``(data, spatial)`` mesh)
+both branches hold the same H rows: the encoder's convs, GroupNorms and
+int8 sites take the group as the main branch's do, and every fusion (the
+input concat, ``add``, ``cat_conv``'s 1x1 conv, ``midcat``'s concat) and
+the skip concats are H-local. The encoder returns its features alone
+under a group: no head, no mean.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from .unet import (
     EncoderUNetModel,
     _build_stage,
     _run_stage,
+    _stage_rates,
     _time_embed,
     conv_nd,
 )
@@ -46,6 +55,8 @@ FUSIONS = ("add", "cat_conv", "midcat")
 
 class SegUNetModel(ConvSites, nn.Module):
     """Main denoising UNet + conditioner encoder with feature fusion."""
+
+    SPATIAL_SERVING = True
 
     def __init__(
         self,
@@ -108,6 +119,11 @@ class SegUNetModel(ConvSites, nn.Module):
             resblock_updown=resblock_updown, include_middle=False,
             use_checkpoint=use_checkpoint, dtype=dtype, head=False,
         )
+        self._stage_ds = _stage_rates(plan)
+        # a feature is added to (or concatenated with) the main branch's
+        # activation of its stage: both pool H alike, so a spatial rank's
+        # rows are the same in both
+        assert self.encoder.spatial_multiple == self.spatial_multiple
         emb_ch = 4 * model_channels
         self.time_embed = _time_embed(model_channels)
 
@@ -139,6 +155,7 @@ class SegUNetModel(ConvSites, nn.Module):
                 low_res: Optional[torch.Tensor] = None) -> torch.Tensor:
         if low_res is None:
             raise ValueError("SegUNetModel requires the low_res conditioner")
+        self._check_spatial_input(x)
         feats, final = self.encoder(low_res, timesteps, return_features=True)
         emb = self.time_embed(
             prim.timestep_embedding(timesteps, self.model_channels))

@@ -35,12 +35,14 @@ sites record their inputs' abs-max in the calibration mode
 (``set_calibration``, :class:`ConvSites`), which int8 and fused refuse.
 
 Spatial serving (``set_spatial``, :class:`ConvSites`; the 3-D
-``UNetModel`` and ``SuperResModel`` in eval mode only): each rank of a
-:class:`..parallel.SpatialGroup` holds an equal slice of H of every
-activation. The 3x3x3 convs exchange one halo plane with each neighbour,
-the GroupNorms all-reduce their sums (:mod:`.nn`), a fused ResBlock's
-next-GN stats come from K1 on its local output, and an attention block
-attends with its own query rows to the keys and values of every rank.
+``UNetModel``, ``SuperResModel`` and Seg models in eval mode only): each
+rank of a :class:`..parallel.SpatialGroup` holds an equal slice of H of
+every activation. The 3x3x3 convs exchange one halo plane with each
+neighbour, the GroupNorms all-reduce their sums (:mod:`.nn`), a fused
+ResBlock's next-GN stats come from K1 on its local output, and an
+attention block attends with its own query rows to the keys and values of
+every rank. The standalone ``EncoderUNetModel`` refuses a group: its heads
+pool over the whole patch.
 """
 
 from __future__ import annotations
@@ -326,6 +328,25 @@ def _build_stage(stage, dims: int, emb_ch: int, dropout: float,
     return nn.ModuleList([build(s) for s in stage])
 
 
+def _stage_rates(plan) -> List[int]:
+    """The H downsample rate at the input of each stage of ``plan``: its
+    input stages, the middle block, its output stages (the JAX forward's
+    ds bookkeeping)."""
+    rates, ds = [], 1
+    for stage in plan.input_blocks:
+        rates.append(ds)
+        if any(isinstance(s, DownSpec) or (isinstance(s, ResSpec) and s.down)
+               for s in stage):
+            ds *= 2
+    rates.append(ds)  # middle block
+    for stage in plan.output_blocks:
+        rates.append(ds)
+        if any(isinstance(s, UpSpec) or (isinstance(s, ResSpec) and s.up)
+               for s in stage):
+            ds //= 2
+    return rates
+
+
 def _time_embed(model_channels: int) -> nn.Sequential:
     emb_ch = 4 * model_channels
     return nn.Sequential(nn.Linear(model_channels, emb_ch), nn.SiLU(),
@@ -341,11 +362,34 @@ class ConvSites:
 
     # prefix of the conv sites' flax module paths
     SITE_PREFIX = ""
-    # whether the model serves under a spatial group (set_spatial)
+    # whether the model serves under a spatial group (set_spatial), and
+    # why not where it does not
     SPATIAL_SERVING = False
+    SPATIAL_REFUSAL = ""
     int8: Optional[Int8Config] = None
     calib: Optional[ActCalibration] = None
     spatial: Optional[SpatialGroup] = None
+    # the H downsample rate at each stage's input (_stage_rates)
+    _stage_ds: Sequence[int] = (1,)
+
+    @property
+    def spatial_multiple(self) -> int:
+        """2 ** the number of H downsamplings: a spatial rank's H rows must
+        be a multiple of it (pooling and upsampling stay local)."""
+        return max(self._stage_ds)
+
+    def _check_spatial_input(self, x: torch.Tensor) -> None:
+        """The forward's refusals under a group: ``train()`` mode, and a
+        rank's H rows that do not pool down evenly."""
+        if self.spatial is None:
+            return
+        if self.training:
+            raise RuntimeError("spatial serving is inference-only: call "
+                               "model.eval()")
+        if x.shape[2] % self.spatial_multiple:
+            raise ValueError(
+                f"a rank's {x.shape[2]} H rows do not pool down evenly: "
+                f"each must be a multiple of {self.spatial_multiple}")
 
     def _sites(self):
         for name, m in self.named_modules():
@@ -397,32 +441,33 @@ class ConvSites:
         """Serve with each activation's H axis split over ``spatial`` (a
         :class:`..parallel.SpatialGroup`; None or a group of one: the whole
         patch here). Every 3x3x3 conv, GroupNorm, fused ResBlock, attention
-        block and int8 site gets the group. Inference only: refused in
-        ``train()`` mode, on the Seg models and the standalone encoder
-        (ROADMAP.md Queue 1 items 3b-3c), on 1-D and 2-D models and in the
-        calibration mode. The model's forward raises when its input's H
-        rows do not pool down evenly (:attr:`spatial_multiple`)."""
+        block and int8 site gets the group, a Seg model's encoder branch
+        and fusion convs included. Inference only, as in the JAX package
+        (its trainer shards the batch alone): refused in ``train()`` mode,
+        on the standalone encoder (:attr:`SPATIAL_REFUSAL`), on 1-D and 2-D
+        models and in the calibration mode. The model's forward raises when
+        its input's H rows do not pool down evenly
+        (:attr:`spatial_multiple`)."""
         if spatial is not None and spatial.size == 1:
             spatial = None  # the whole patch here: the unsharded path
         if spatial is not None:
             if not self.SPATIAL_SERVING:
                 raise ValueError(
                     f"{type(self).__name__} does not serve under a spatial "
-                    "group yet (ROADMAP.md Queue 1 item 3c)")
+                    f"group: {self.SPATIAL_REFUSAL}")
             if self.dims != 3:
                 raise ValueError("a spatial group splits the H axis of 3-D "
                                  "models; this model is "
                                  f"{self.dims}-D")
             if self.training:
                 raise RuntimeError(
-                    "spatial serving is inference-only (training under a "
-                    "spatial group is ROADMAP.md Queue 1 item 3b): call "
-                    "model.eval()")
+                    "spatial serving is inference-only (the JAX package "
+                    "trains with the batch split alone): call model.eval()")
             if self.calib is not None:
                 raise ValueError("calibration runs without a spatial group")
         self.spatial = spatial
         for m in self.modules():
-            if isinstance(m, (prim.Conv3x3x3, prim.Conv1x1x1,
+            if isinstance(m, (ConvSites, prim.Conv3x3x3, prim.Conv1x1x1,
                               prim.GroupNorm32, ResBlock, AttentionBlock)):
                 m.spatial = spatial
 
@@ -478,20 +523,7 @@ class UNetModel(ConvSites, nn.Module):
         # the fused serving path (inference only) is off under remat, as in
         # the JAX package; only 3-D ResBlocks fuse (ResBlock.fusable)
         self.fused = fused and not use_checkpoint
-        # downsample rate of each stage (the JAX forward's ds bookkeeping)
-        self._stage_ds = []
-        ds = 1
-        for stage in plan.input_blocks:
-            self._stage_ds.append(ds)
-            if any(isinstance(s, DownSpec) or (isinstance(s, ResSpec) and s.down)
-                   for s in stage):
-                ds *= 2
-        self._stage_ds.append(ds)  # middle block
-        for stage in plan.output_blocks:
-            self._stage_ds.append(ds)
-            if any(isinstance(s, UpSpec) or (isinstance(s, ResSpec) and s.up)
-                   for s in stage):
-                ds //= 2
+        self._stage_ds = _stage_rates(plan)
         emb_ch = 4 * model_channels
         self.time_embed = _time_embed(model_channels)
         if num_classes is not None:
@@ -523,14 +555,7 @@ class UNetModel(ConvSites, nn.Module):
     ) -> torch.Tensor:
         if (y is not None) != (self.num_classes is not None):
             raise ValueError("pass y iff the model is class-conditional")
-        if self.spatial is not None:
-            if self.training:
-                raise RuntimeError("spatial serving is inference-only: call "
-                                   "model.eval()")
-            if x.shape[2] % self.spatial_multiple:
-                raise ValueError(
-                    f"a rank's {x.shape[2]} H rows do not pool down evenly: "
-                    f"each must be a multiple of {self.spatial_multiple}")
+        self._check_spatial_input(x)
         emb = self.time_embed(
             prim.timestep_embedding(timesteps, self.model_channels))
         if y is not None:
@@ -558,12 +583,6 @@ class UNetModel(ConvSites, nn.Module):
                 hs.append((h, stats))
         h = self.out[0](h.to(x.dtype), apply_silu=True)
         return self.out[2](h)
-
-    @property
-    def spatial_multiple(self) -> int:
-        """2 ** the number of H downsamplings: a spatial rank's H rows must
-        be a multiple of it (pooling and upsampling stay local)."""
-        return max(self._stage_ds)
 
 
 def _run_stage(stage: nn.ModuleList, h: torch.Tensor, emb: torch.Tensor,
@@ -685,7 +704,16 @@ class EncoderUNetModel(ConvSites, nn.Module):
     and records them in the calibration mode (:class:`ConvSites`): its
     3x3x3 convs and 1x1x1 skips, named by their flax paths (``in1_0/
     in_conv``), the sites JAX's encoder quantizes under ``DDPM3D_INT8=1``
-    (the head's conv is a plain 1x1 conv in both packages)."""
+    (the head's conv is a plain 1x1 conv in both packages).
+
+    Under a spatial group it serves only as a Seg model's branch
+    (``return_features=True``, which reaches no head and no mean)."""
+
+    SPATIAL_REFUSAL = (
+        "its heads pool over the whole patch, and the JAX package runs the "
+        "standalone classifier on no H-sharded array (its guided sampler "
+        "builds no mesh); it serves under a group only as a Seg model's "
+        "encoder branch")
 
     def __init__(
         self,
@@ -731,6 +759,8 @@ class EncoderUNetModel(ConvSites, nn.Module):
         self.use_checkpoint = use_checkpoint
         self.dtype = dtype
         self.fused = False
+        # the input stages' and the middle block's (its features' rates)
+        self._stage_ds = _stage_rates(plan)[:len(plan.input_blocks) + 1]
         emb_ch = 4 * model_channels
         self.time_embed = _time_embed(model_channels)
 
@@ -781,20 +811,28 @@ class EncoderUNetModel(ConvSites, nn.Module):
                 return_features: bool = False):
         """Logits [B, out_channels] in the head's dtype; with
         ``return_features``, ``(features, h)``: every input stage's output
-        and the last activation, in the torso's layout and dtype."""
+        and the last activation, in the torso's layout and dtype (no head,
+        no mean: the path a Seg model takes, also under a spatial group)."""
+        if self.spatial is not None and not return_features:
+            raise RuntimeError(
+                "under a spatial group the encoder serves only as a Seg "
+                "model's branch (return_features=True): its heads pool over "
+                "the whole patch")
         emb = self.time_embed(
             prim.timestep_embedding(timesteps, self.model_channels))
         remat = self.use_checkpoint and torch.is_grad_enabled()
         spatial = tuple(range(1, self.dims + 1))
 
         def spatial_mean(t):
+            assert self.spatial is None, "a mean over one rank's H rows"
             t = t.to(x.dtype)
             if self.dims == 3:  # H, W first, then depth (the JAX fold order)
                 return t.mean(dim=(2, 3)).mean(dim=1)
             return t.mean(dim=spatial)
 
         h = x.to(self.dtype)
-        sp = self.pool.startswith("spatial")
+        # the features alone need no stage means
+        sp = self.pool.startswith("spatial") and not return_features
         features: List[torch.Tensor] = []
         means: List[torch.Tensor] = []
         for stage in self.input_blocks:

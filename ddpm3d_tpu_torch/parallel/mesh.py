@@ -10,8 +10,9 @@ spatial_dim=2)``). Where XLA's SPMD partitioner inserts the conv halo
 exchanges and the cross-chip reductions, the port's model calls those of
 its :class:`.spatial.SpatialGroup` (``ConvSites.set_spatial``).
 
-The spatial axis serves only: training, the Seg models and the standalone
-encoder refuse a group of several ranks (ROADMAP.md Queue 1 items 3b-3c).
+The spatial axis serves only, as the JAX package's (its trainer shards the
+batch alone): training and the standalone encoder refuse a group of
+several ranks; the UNets, SuperResModel and the Seg models serve under it.
 Pooling and upsampling stay local, so H must split into equal shards of a
 whole number of the model's deepest rows: :func:`check_spatial_split`
 raises otherwise (JAX's GSPMD pads an uneven shard instead).

@@ -1,13 +1,14 @@
 """The port's spatial mesh axis on the CPU: one patch's H (the volume's X)
 split over gloo ranks (subprocesses, two torch threads each), with the conv
-halo exchange, GroupNorm sums over the group and the int8 abs-max over it.
+halo exchange, GroupNorm sums over the group and the int8 abs-max over it,
+through SuperResModel and the dual-branch Seg models.
 
 Groups of 2 ranks (mesh (1, 2)), 3 (mesh (1, 3)) and 4 (mesh (2, 2)) run
 the scenarios of :func:`_worker` at once; the JAX side (its
 ``denoise_patches`` under ``make_mesh(n_data=4, n_spatial=2)`` on the 8
-virtual CPU devices) runs once in the test process meanwhile. Run as a
-script, this file is one rank of such a group and writes its report under
-the directory it is given.
+virtual CPU devices, SuperResModel and each Seg model) runs in the test
+process meanwhile. Run as a script, this file is one rank of such a group
+and writes its report under the directory it is given.
 """
 
 import os
@@ -22,16 +23,19 @@ import pytest
 import torch
 
 from ddpm3d_tpu import diffusion as jdiffusion
+from ddpm3d_tpu import models as jmodels
 from ddpm3d_tpu.inference import denoise_patches as jax_denoise_patches
 from ddpm3d_tpu.models import SuperResModel as JaxSuperRes
 from ddpm3d_tpu.parallel import make_mesh as jax_make_mesh
 from ddpm3d_tpu.utils.torch_import import torch_state_dict_to_params
 from ddpm3d_tpu_torch import diffusion as tdiffusion
+from ddpm3d_tpu_torch import models as tmodels
 from ddpm3d_tpu_torch.inference import denoise_patches
 from ddpm3d_tpu_torch.models import SuperResModel, UNetModel
 from ddpm3d_tpu_torch.models.nn import GroupNorm32
 from ddpm3d_tpu_torch.models.seg import SegUNetModel
 from ddpm3d_tpu_torch.models.unet import EncoderUNetModel
+from ddpm3d_tpu_torch.ops import groupnorm as gn_ops
 from ddpm3d_tpu_torch.ops import quant
 from ddpm3d_tpu_torch.parallel import (
     DATA_AXIS,
@@ -77,6 +81,30 @@ VARIANTS = {
     "int8_dynamic": dict(int8=quant.Int8Config(exclude=())),
     "int8_static": dict(int8=quant.Int8Config(scales="const:0.02")),
 }
+# the Seg models under a group: each fusion (a 1-channel conditioner) and
+# a 6-channel alias (its 3-channel conditioner), at TINY's widths
+SEG_FUSIONS = ("add", "cat_conv", "midcat")
+SEG_MODELS = SEG_FUSIONS + ("SegModelv2_6c",)
+# the forwards each Seg model checks at 2 and 3 ranks: f32, bf16, int8 with
+# dynamic scales as the Seg models serve it (the input convs and the head
+# excluded); the additive model also with attention in both branches (2
+# ranks)
+SEG_VARIANTS = {"f32": {}, "bf16": dict(dtype=torch.bfloat16),
+                "int8_dynamic": dict(int8=quant.Int8Config())}
+SEG_ATTENTION = dict(attention_resolutions=(2,), num_heads=2)
+# a Seg model's bf16 sharded forward against its unsharded one: within this
+# factor of the unsharded forward's own noise (every GroupNorm's sums one
+# f32 ulp larger: the shards' sums differ from the unsharded ones by their
+# order, a few ulps either way), which stays under the ceiling (these tiny
+# random dual-branch models read 1.3-2.0 % at 2 and 3 ranks; the sharded
+# forwards 1.2-1.8 %, up to 1.12 times the noise)
+SEG_NOISE_FACTOR = 2.0
+SEG_BF16_NOISE_CEILING = 3e-2
+# the patches of the Seg models' chains against JAX (one batch a rank)
+SEG_P = 2
+# (world size, model, variant) of every Seg forward the groups check
+SEG_CASES = ([(w, n, v) for w in (2, 3) for n in SEG_MODELS
+              for v in SEG_VARIANTS] + [(2, "add", "attention_f32")])
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -109,6 +137,22 @@ def _tiny(seed: int = 7, **kw):
     return _seeded(SuperResModel(in_channels=1, **dict(TINY, **kw)), seed)
 
 
+def _seg_cond(name: str) -> int:
+    """The conditioner's channels of a Seg model of SEG_MODELS."""
+    return 1 if name in SEG_FUSIONS else 3
+
+
+def _seg_tiny(name: str, seed: int = 17, **kw):
+    """A Seg model of SEG_MODELS at TINY's widths, seeded as :func:`_seeded`:
+    a fusion of SegUNetModel, or the alias of that name."""
+    kw = dict(TINY, in_channels=1, **kw)
+    model = (SegUNetModel(cond_channels=1, fusion=name, **kw)
+             if name in SEG_FUSIONS else getattr(tmodels, name)(**kw))
+    assert model.encoder.input_blocks[0][0].weight.shape[1] == _seg_cond(
+        name)
+    return _seeded(model, seed)
+
+
 def _chain():
     """The 4-step schedule and learned-range config of the JAX test, in
     the port's types."""
@@ -126,6 +170,17 @@ def _chain_inputs():
     x_t = rng.standard_normal((P, Z, X, Y)).astype(np.float32)
     stream = rng.standard_normal((P, 4, Z, X, Y)).astype(np.float32)
     return low, x_t, stream
+
+
+def _seg_patches(name: str) -> np.ndarray:
+    """The conditioner patches of a Seg model's JAX comparison: the chain's
+    first SEG_P [Z, X, Y] at one channel, else [SEG_P, Z, X, Y, C] of
+    their own."""
+    cond = _seg_cond(name)
+    if cond == 1:
+        return _chain_inputs()[0][:SEG_P]
+    rng = np.random.default_rng(12)
+    return rng.standard_normal((SEG_P, Z, X, Y, cond)).astype(np.float32)
 
 
 # ---------------------------------------------------------------- ranks --
@@ -241,6 +296,63 @@ def _ops(group: SpatialGroup, mesh: Mesh) -> dict:
     return out
 
 
+def _sharded_forward(model, group: SpatialGroup, mesh: Mesh, x, t, low,
+                     name: str, exact: bool = False) -> dict:
+    """``model`` on this rank's rows of x and low under ``group`` against
+    its unsharded forward (``fwd_<name>``), with the collectives the
+    sharded forward called (``calls_<name>``) and, in int8, every site's
+    local abs-max and scale (``sites_<name>``); with ``exact``, each int8
+    site run unsharded on its gathered input against its gathered output
+    (``exact_<name>``: [sites checked, sites unequal])."""
+    from ddpm3d_tpu_torch.models.nn import Conv1x1x1, Conv3x3x3
+
+    with torch.no_grad():
+        ref = model(x, t, low_res=low)
+    record, caught = [], []
+    real = quant.quantize_act
+
+    def recording(x, static_scale=None, spatial=None):
+        record.append(torch.linalg.vector_norm(
+            x.reshape(x.shape[0], -1), float("inf"), dim=1,
+            dtype=torch.float32))
+        q, s = real(x, static_scale, spatial)
+        record.append(s)
+        return q, s
+
+    def catch(mod, args, kwargs, y):
+        caught.append((mod, args[0], bool(kwargs.get("upsample")), y))
+
+    hooks = [m.register_forward_hook(catch, with_kwargs=True)
+             for m in model.modules() if exact
+             and isinstance(m, (Conv3x3x3, Conv1x1x1)) and m.int8_active()]
+    quant.quantize_act = recording
+    model.set_spatial(group)
+    before = dict(group.calls)
+    try:
+        with torch.no_grad():
+            got = model(shard_batch(mesh, x, 2), t,
+                        low_res=shard_batch(mesh, low, 2))
+    finally:
+        quant.quantize_act = real
+        model.set_spatial(None)
+        for h in hooks:
+            h.remove()
+    out = {f"calls_{name}": np.asarray([
+        group.calls[k] - before.get(k, 0) for k in CALLS]),
+        f"fwd_{name}": _rel(group.all_gather_h(got), ref)}
+    if record:
+        out[f"sites_{name}"] = torch.stack(record).numpy()
+    if exact:
+        unequal = 0
+        for mod, xin, up, y in caught:
+            with torch.no_grad():
+                xw = group.all_gather_h(xin)
+                yw = mod(xw, upsample=True) if up else mod(xw)
+            unequal += not torch.equal(yw, group.all_gather_h(y))
+        out[f"exact_{name}"] = np.asarray([len(caught), unequal])
+    return out
+
+
 def _forwards(group: SpatialGroup, mesh: Mesh) -> dict:
     """Model variants, sharded against unsharded on one input; the int8
     ones also record every site's local abs-max and scale."""
@@ -252,41 +364,51 @@ def _forwards(group: SpatialGroup, mesh: Mesh) -> dict:
     # the wider group checks the plain model alone
     variants = VARIANTS if n_s == 2 else {"unfused_f32": {}}
     out = {}
-    real = quant.quantize_act
     for name, kw in variants.items():
         model, _ = _tiny(**kw)
-        with torch.no_grad():
-            ref = model(x, t, low_res=low)
-        record = []
-
-        def recording(x, static_scale=None, spatial=None):
-            record.append(torch.linalg.vector_norm(
-                x.reshape(x.shape[0], -1), float("inf"), dim=1,
-                dtype=torch.float32))
-            q, s = real(x, static_scale, spatial)
-            record.append(s)
-            return q, s
-
-        quant.quantize_act = recording
-        model.set_spatial(group)
-        before = dict(group.calls)
-        try:
-            with torch.no_grad():
-                got = model(shard_batch(mesh, x, 2), t,
-                            low_res=shard_batch(mesh, low, 2))
-        finally:
-            quant.quantize_act = real
-            model.set_spatial(None)
-        out[f"calls_{name}"] = np.asarray([
-            group.calls[k] - before.get(k, 0) for k in CALLS])
-        out[f"fwd_{name}"] = _rel(group.all_gather_h(got), ref)
+        out.update(_sharded_forward(model, group, mesh, x, t, low, name))
         if kw.get("dtype") == torch.bfloat16:
             with torch.no_grad():
-                out[f"noise_{name}"] = _rel(ref, _tiny()[0](x, t,
-                                                            low_res=low))
-        if record:
-            out[f"sites_{name}"] = torch.stack(record).numpy()
+                out[f"noise_{name}"] = _rel(
+                    model(x, t, low_res=low), _tiny()[0](x, t, low_res=low))
     return out
+
+
+def _seg_forwards(group: SpatialGroup, mesh: Mesh) -> dict:
+    """Each Seg model of SEG_MODELS in each SEG_VARIANTS variant (and the
+    additive one with attention, at 2 ranks), sharded against unsharded on
+    one input, int8 sites checked exactly (:func:`_sharded_forward`); the
+    keys end in ``seg_<model>_<variant>``."""
+    g = torch.Generator().manual_seed(19)
+    x = torch.randn((1, 4, 8 * mesh.n_spatial, 16, 1), generator=g)
+    t = torch.tensor([3])
+    out = {}
+    for name in SEG_MODELS:
+        low = torch.randn(x.shape[:-1] + (_seg_cond(name),), generator=g)
+        variants = dict(SEG_VARIANTS)
+        if name == "add" and mesh.n_spatial == 2:
+            variants["attention_f32"] = SEG_ATTENTION
+        for variant, kw in variants.items():
+            model, _ = _seg_tiny(name, **kw)
+            key = f"seg_{name}_{variant}"
+            out.update(_sharded_forward(model, group, mesh, x, t, low, key,
+                                        exact=variant.startswith("int8")))
+            if variant == "bf16":
+                out[f"noise_{key}"] = _one_ulp_noise(model, x, t, low)
+    return out
+
+
+def _one_ulp_noise(model, x, t, low) -> float:
+    """The unsharded forward's own noise: its distance from itself with
+    every GroupNorm's sums one f32 ulp larger."""
+    real = gn_ops.channel_stats
+    with torch.no_grad():
+        ref = model(x, t, low_res=low)
+        gn_ops.channel_stats = lambda v: real(v) * (1 + 2.0 ** -23)
+        try:
+            return _rel(model(x, t, low_res=low), ref)
+        finally:
+            gn_ops.channel_stats = real
 
 
 def _worker(out_dir: str) -> None:
@@ -313,12 +435,19 @@ def _worker(out_dir: str) -> None:
     kw = dict(device="cpu", batch_size=2)
     if world_size == 3:
         report.update(_forwards(group, mesh))
+        report.update(_seg_forwards(group, mesh))
     elif world_size == 2:
         report.update(_ops(group, mesh))
         report.update(_forwards(group, mesh))
+        report.update(_seg_forwards(group, mesh))
         report["jax_parity"] = denoise_patches(
             model, sched, cfg, low, noise=x_t, noise_stream=stream,
             mesh=mesh, **kw)
+        for name in SEG_MODELS:
+            report[f"jax_parity_seg_{name}"] = denoise_patches(
+                _seg_tiny(name)[0], sched, cfg, _seg_patches(name),
+                noise=x_t[:SEG_P], noise_stream=stream[:SEG_P], mesh=mesh,
+                **kw)
         try:
             denoise_patches(model, sched, cfg, low[:, :, :14], mesh=mesh,
                             **kw)
@@ -347,64 +476,121 @@ def _free_port() -> int:
 
 
 def _finish(procs):
-    """(returncode, stdout, stderr) of each process; kills them all if one
-    fails or the time runs out, so that no rank waits on a collective
-    forever."""
+    """The return code of each process; kills them all if one fails or the
+    time runs out, so that no rank waits on a collective forever."""
     results = []
     try:
         for p in procs:
-            out, err = p.communicate(timeout=TIMEOUT_S)
-            results.append((p.returncode, out, err))
-            if p.returncode != 0:
+            results.append(p.wait(timeout=TIMEOUT_S))
+            if results[-1] != 0:
                 break
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+        _kill(procs)
     return results
 
 
-@pytest.fixture(scope="module")
-def jax_volume():
+def _kill(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _jax_chain(apply, params, low):
     """JAX's denoise_patches on a (4, 2) mesh of the 8 virtual devices, on
-    the params, x_T and noise stream the ranks use (started after the
-    ranks, so both sides run at once)."""
-    _, sd = _tiny()
-    jm = JaxSuperRes(in_channels=1, **TINY)
-    params = torch_state_dict_to_params(sd, wrap_superres=True)
+    the 4-step schedule, x_T and noise stream the ranks use (the first of
+    them, one a patch of ``low``)."""
     sched = jdiffusion.make_schedule(np.linspace(1e-4, 0.02, 4))
     cfg = jdiffusion.DiffusionConfig(
         jdiffusion.MeanType.EPSILON, jdiffusion.VarType.LEARNED_RANGE,
         jdiffusion.LossType.MSE, original_num_steps=4)
-    low, x_t, stream = _chain_inputs()
+    _, x_t, stream = _chain_inputs()
+    n = low.shape[0]
     mesh = jax_make_mesh(n_data=4, n_spatial=2)
-    return jax_denoise_patches(jax.random.key(1), jm.apply, params, sched,
-                               cfg, low, mesh=mesh, noise=x_t,
-                               noise_stream=stream)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DDPM3D_INT8", "0")
+        return jax_denoise_patches(jax.random.key(1), apply, params, sched,
+                                   cfg, low, mesh=mesh, noise=x_t[:n],
+                                   noise_stream=stream[:n])
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """{world size: [report of each rank]}; the groups run at once."""
+def launched(tmp_path_factory):
+    """{world size: (report directory, its ranks' processes)}, every group
+    started at once; their output goes to ``rank<r>.log`` there. Any rank
+    still running at the module's end is killed."""
     tmp = tmp_path_factory.mktemp("spatial")
     env = dict(os.environ, OMP_NUM_THREADS="2")
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    launched = {}
-    for w in GROUPS:
-        out = tmp / f"w{w}"
-        out.mkdir()
-        port = str(_free_port())
-        launched[w] = (out, [subprocess.Popen(
-            [sys.executable, __file__, str(out)], cwd=REPO,
-            env=dict(env, RANK=str(r), WORLD_SIZE=str(w), LOCAL_RANK=str(r),
-                     MASTER_ADDR="127.0.0.1", MASTER_PORT=port),
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for r in range(w)])
+    groups = {}
+    try:
+        for w in GROUPS:
+            out = tmp / f"w{w}"
+            out.mkdir()
+            port = str(_free_port())
+            procs = []
+            groups[w] = (out, procs)
+            for r in range(w):
+                with open(out / f"rank{r}.log", "w") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, __file__, str(out)], cwd=REPO,
+                        env=dict(env, RANK=str(r), WORLD_SIZE=str(w),
+                                 LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                                 MASTER_PORT=port),
+                        stdout=log, stderr=subprocess.STDOUT))
+        yield groups
+    finally:
+        for _, procs in groups.values():
+            _kill(procs)
+
+
+@pytest.fixture(scope="module")
+def jax_volume(launched):
+    """JAX's denoise_patches of the SuperResModel on the params, x_T and
+    noise stream the ranks use (while the ranks run)."""
+    _, sd = _tiny()
+    jm = JaxSuperRes(in_channels=1, **TINY)
+    params = torch_state_dict_to_params(sd, wrap_superres=True)
+    return _jax_chain(jm.apply, params, _chain_inputs()[0])
+
+
+@pytest.fixture(scope="module")
+def jax_seg_volumes(launched):
+    """{Seg model: JAX's denoise_patches of it} (:func:`_jax_chain`), on
+    the ports' seeded params carried to JAX by its importer. JAX's
+    pipeline takes 1-channel conditioner patches: a C-channel conditioner
+    goes in with its channels laid along Z, [P, C * Z, X, Y] (X, the
+    sharded axis, untouched), and the model's apply lays them back."""
+    volumes = {}
+    for name in SEG_MODELS:
+        _, sd = _seg_tiny(name)
+        kw = dict(TINY, in_channels=1)
+        jm = (jmodels.SegUNetModel(cond_channels=1, fusion=name, **kw)
+              if name in SEG_FUSIONS else getattr(jmodels, name)(**kw))
+        low, apply, cond = _seg_patches(name), jm.apply, _seg_cond(name)
+        if cond > 1:
+            low = np.concatenate(list(np.moveaxis(low, -1, 0)), axis=1)
+
+            def apply(variables, x, t, low_res, jm=jm, cond=cond):
+                b, cz, h, w, _ = low_res.shape
+                c = low_res.reshape(b, cond, cz // cond, h, w)
+                return jm.apply(variables, x, t,
+                                low_res=jax.numpy.moveaxis(c, 1, -1))
+
+        volumes[name] = _jax_chain(apply, torch_state_dict_to_params(sd),
+                                   low)
+    return volumes
+
+
+@pytest.fixture(scope="module")
+def runs(launched, jax_volume, jax_seg_volumes):
+    """{world size: [report of each rank]}, read once every rank is done
+    (the JAX chains, which the comparisons need, run in this process
+    meanwhile)."""
     reports = {}
     for w, (out, procs) in launched.items():
-        for rc, stdout, err in _finish(procs):
-            assert rc == 0, stdout + err
+        for r, rc in enumerate(_finish(procs)):
+            assert rc == 0, (out / f"rank{r}.log").read_text()
         reports[w] = [dict(np.load(out / f"report{r}.npz"))
                       for r in range(w)]
     return reports
@@ -418,6 +604,22 @@ def test_port_matches_jax_under_spatial_mesh(runs, jax_volume):
     assert np.abs(jax_volume).max() > 1e-2
     for report in runs[2]:
         np.testing.assert_allclose(report["jax_parity"], jax_volume,
+                                   rtol=JAX_RTOL, atol=JAX_ATOL)
+
+
+@pytest.mark.parametrize("name", SEG_MODELS)
+def test_seg_port_matches_jax_under_spatial_mesh(runs, jax_seg_volumes,
+                                                 name):
+    """Each Seg fusion and a 6-channel alias (a 3-channel conditioner,
+    whose channels the ranks slice by X rows alone): the port's
+    denoise_patches on 2 gloo ranks, make_mesh(1, 2), against JAX's on
+    make_mesh(4, 2) with the same params, x_T and noise stream, JAX's own
+    tolerance."""
+    ref = jax_seg_volumes[name]
+    assert ref.shape == (SEG_P, Z, X, Y)
+    assert np.abs(ref).max() > 1e-2
+    for report in runs[2]:
+        np.testing.assert_allclose(report[f"jax_parity_seg_{name}"], ref,
                                    rtol=JAX_RTOL, atol=JAX_ATOL)
 
 
@@ -476,6 +678,72 @@ def test_sharded_model_matches_unsharded(runs, world, variant):
         assert rel <= tol, (variant, rel, tol)
         if variant.endswith("bf16"):
             assert tol <= TOL["bf16"], (variant, "bf16 noise", tol)
+
+
+@pytest.mark.parametrize("world,name,variant", SEG_CASES)
+def test_sharded_seg_matches_unsharded(runs, world, name, variant):
+    """Each Seg model with its H split over the group (both branches, the
+    fusion and the skips on the same rows) against the unsharded port on
+    the same input: f32 to summation order, bf16 within SEG_NOISE_FACTOR
+    times its own one-ulp noise (itself under SEG_BF16_NOISE_CEILING), int8
+    within INT8's bound (each site exact:
+    test_seg_int8_sites_exact_under_spatial); the additive model with
+    attention in both branches at 2 ranks."""
+    key = f"seg_{name}_{variant}"
+    for report in runs[world]:
+        rel = float(report[f"fwd_{key}"])
+        if variant == "bf16":
+            noise = float(report[f"noise_{key}"])
+            assert noise <= SEG_BF16_NOISE_CEILING, (key, "noise", noise)
+            tol = SEG_NOISE_FACTOR * noise
+        else:
+            tol = TOL["int8" if variant.startswith("int8") else "f32"]
+        assert rel <= tol, (key, rel, tol)
+
+
+@pytest.mark.parametrize("world", [2, 3])
+@pytest.mark.parametrize("name", SEG_MODELS)
+def test_seg_int8_sites_exact_under_spatial(runs, world, name):
+    """Every int8 site of a Seg model under the group (both branches, the
+    cat_conv fusion's 1x1 convs, midcat's 2C -> C skip): its output on the
+    ranks, gathered, bit-equal to the unsharded site on the gathered
+    input; its dynamic scale, on every rank, the scale of that whole input
+    (the max of the ranks' abs-maxima)."""
+    from ddpm3d_tpu_torch.ops.quant import _abs_max_scale
+
+    key = f"seg_{name}_int8_dynamic"
+    model, _ = _seg_tiny(name, **SEG_VARIANTS["int8_dynamic"])
+    n_sites = sum(m.int8_active() for m in model._sites())
+    assert n_sites > 0
+    sites = [r[f"sites_{key}"] for r in runs[world]]
+    want = _abs_max_scale(torch.from_numpy(
+        np.maximum.reduce([s[0::2] for s in sites]))).numpy()
+    for report, s in zip(runs[world], sites):
+        assert list(report[f"exact_{key}"]) == [n_sites, 0]
+        assert s.shape == (2 * n_sites, 1)
+        np.testing.assert_array_equal(s[1::2], want)
+
+
+@pytest.mark.parametrize("world,name,variant", SEG_CASES)
+def test_seg_spatial_calls_per_forward(runs, world, name, variant):
+    """The collectives of one Seg forward, on every rank alike: a halo per
+    3x3x3 conv and a sum per GroupNorm of both branches, a max per
+    dynamically quantized site (the 1x1 fusion and skip sites among them),
+    a gather per attention block, nothing else."""
+    from ddpm3d_tpu_torch.models.nn import Conv3x3x3
+    from ddpm3d_tpu_torch.models.unet import AttentionBlock
+
+    kw = SEG_ATTENTION if variant == "attention_f32" else SEG_VARIANTS[
+        variant]
+    model, _ = _seg_tiny(name, **kw)
+    mods = list(model.modules())
+    want = [sum(isinstance(m, Conv3x3x3) for m in mods),
+            sum(isinstance(m, GroupNorm32) for m in mods),
+            sum(m.int8_active() for m in model._sites()),
+            sum(isinstance(m, AttentionBlock) for m in mods)]
+    assert want[3] == (4 if variant == "attention_f32" else 0)
+    for report in runs[world]:
+        assert list(report[f"calls_seg_{name}_{variant}"]) == want
 
 
 @pytest.mark.parametrize("variant", ["int8_dynamic", "int8_static"])
@@ -592,10 +860,13 @@ def test_group_of_one_is_the_identity():
 
 
 def test_spatial_serving_refusals():
-    """Under a group of several ranks: training, the Seg models, the
-    standalone encoder, 1-D/2-D models and the calibration mode are
-    refused; an H that does not pool down evenly raises in the forward;
-    GroupNorm over a group raises under autograd."""
+    """Under a group of several ranks: training, the standalone encoder,
+    1-D/2-D models and the calibration mode are refused; an H that does not
+    pool down evenly raises in the forward; GroupNorm over a group raises
+    under autograd. Every Seg model and alias is admitted in eval mode (its
+    encoder branch with it), and refuses training, the calibration mode and
+    an uneven H as SuperResModel does; the encoder under a group returns
+    its features alone."""
     group = SpatialGroup([0, 1], 0)  # refused before any collective
     model, _ = _tiny()
     model.train()
@@ -616,14 +887,42 @@ def test_spatial_serving_refusals():
     model.set_calibration(quant.ActCalibration())
     with pytest.raises(ValueError, match="calibration"):
         model.set_spatial(group)
-    seg = SegUNetModel(in_channels=1, cond_channels=1, model_channels=32,
-                       out_channels=2, num_res_blocks=1,
-                       channel_mult=(1, 2)).eval()
     enc = EncoderUNetModel(in_channels=1, model_channels=32, out_channels=2,
                            num_res_blocks=1, channel_mult=(1, 2)).eval()
-    for m in (seg, enc):
-        with pytest.raises(ValueError, match="item 3c"):
-            m.set_spatial(group)
+    with pytest.raises(ValueError, match="heads pool over the whole patch"):
+        enc.set_spatial(group)
+    names = ("SegModelv2", "SegModelv2_3d_noatt", "SegModelv3",
+             "SegModel_3d_noatt_midcat", "SegModelv2_6c", "SegModelv3_6c")
+    for name in names:
+        cond = {} if name.endswith("_6c") else dict(cond_channels=1)
+        seg = getattr(tmodels, name)(
+            in_channels=1, model_channels=32, out_channels=2,
+            num_res_blocks=1, channel_mult=(1, 2), **cond).eval()
+        assert seg.spatial_multiple == seg.encoder.spatial_multiple == 2
+        seg.set_spatial(group)
+        assert seg.encoder.spatial is group
+        assert all(m.spatial is group for m in seg.encoder.modules()
+                   if isinstance(m, GroupNorm32))
+        assert all(m.spatial is group for m in seg._sites())
+        cond = seg.encoder.input_blocks[0][0].weight.shape[1]
+        low = torch.zeros((1, 4, 3, 16, cond))
+        with pytest.raises(ValueError, match="multiple of 2"):
+            seg(odd, torch.tensor([1]), low_res=low)
+        seg.train()
+        with pytest.raises(RuntimeError, match="inference-only"):
+            seg(x, torch.tensor([1]), low_res=low)
+        with pytest.raises(RuntimeError, match="inference-only"):
+            seg.set_spatial(group)
+        seg.eval()
+        with pytest.raises(ValueError, match="calibration"):
+            seg.set_calibration(quant.ActCalibration())
+        with pytest.raises(RuntimeError, match="return_features=True"):
+            seg.encoder(low, torch.tensor([1]))
+        seg.set_spatial(None)
+        assert seg.encoder.spatial is None
+    seg.set_calibration(quant.ActCalibration())
+    with pytest.raises(ValueError, match="calibration"):
+        seg.set_spatial(group)
     flat = UNetModel(in_channels=1, model_channels=32, out_channels=2,
                      num_res_blocks=1, channel_mult=(1, 2), dims=2).eval()
     with pytest.raises(ValueError, match="3-D"):
