@@ -73,21 +73,27 @@ Phases (each failure exits non-zero before the final line):
   7. int8    — the int8 (W8A8) serving path (``int8=Int8Config()``, the
                same weights): ``conv3d_s8`` against its plain version at
                every distinct quantized-conv shape of one bf16 96^3 int8
-               forward (read by hooks; 3^3, 1^3 and the stacked phases of
-               the up sites), each at batch 1 and 2, dynamic and static,
-               with and without bias, bf16 and f32 out, checked for
-               equality; six sites timed beside K3 and the plain version
-               (the 1x1 skip beside ``torch._int_mm``), and beside the
-               previous K5 when ``--parent-s8`` names its source; the
-               widest phase site also beside a 27-tap build of the same
-               kernel (``-DCONV3D_S8_ALL_TAPS``); ``model_int8``, the
+               forward (read by hooks; 3^3 and the stacked phases of the
+               up sites on ``csrc/conv3d_s8.cu``, 1^3 on
+               ``csrc/conv1x1_s8.cu``), each at batch 1 and 2, dynamic and
+               static, with and without bias, bf16 and f32 out, checked
+               for equality; eight sites timed beside the plain version
+               and K3 (the 1x1 sites at 96^2, 48^2 and 6^2 beside
+               ``torch._int_mm``), and beside the previous K5 when
+               ``--parent-s8`` names its source (at the 1x1 sites its
+               no-halo instance), every 1x1 shape also alone
+               (``conv1x1_s8_shapes``); the widest phase site also beside
+               a 27-tap build of the same kernel
+               (``-DCONV3D_S8_ALL_TAPS``); ``model_int8``, the
                full-width f32 int8 model on the card against the CPU, every
                site's output equal to the plain int8 conv on its own input;
                ``denoise_int8``, the denoise phase on the int8 model with
                dynamic scales, exact launches per forward and the volume
                against the bf16 one; ``denoise_int8_static``, per-time-bin
                scales from ``INT8_SCALES_PROD.json`` over its 25-step
-               respacing; ``profile_int8``, one forward by family;
+               respacing; ``profile_int8``, one forward by family (the
+               1x1 sites as ``conv1x1_s8``); the launches by route pin the
+               split 70 ``conv3d_s8.sm90`` + 18 ``conv3d_s8.conv1x1``;
      spatial — (after the int8 phases) one 96^3 patch's H split over two
                shards of the spatial mesh axis at full width, each shard a
                thread of this process with a CUDA stream of its own that
@@ -274,6 +280,11 @@ KERNELS = {
     "conv3d_s8": dict(
         route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_s8.cu",
         replaces="ddpm3d_tpu/ops/conv3d_s8.py:369"),
+    # the int8 1x1x1 sites: no TPU kernel there (conv3d_s8_applicable
+    # refuses 1x1x1 kernels and the JAX package leaves them to XLA)
+    "conv1x1_s8": dict(
+        route="cuda", source="ddpm3d_tpu_torch/csrc/conv1x1_s8.cu",
+        replaces="ddpm3d_tpu/ops/conv3d_s8.py:85"),
     # K3's other instances, by conv3d_route: the bf16 Cin = 2 input conv,
     # the f32 head conv and its dx (their launches are those of their routes)
     "conv3d_narrow": dict(
@@ -306,8 +317,11 @@ KERNELS = {
         route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_narrow.cu",
         replaces="ddpm3d_tpu/ops/conv3d_mxu.py:203"),
 }
-# the route (ops.route_counts) whose launches are each instance's
-ROUTE_OF = {"conv3d_narrow": "conv3d.sm90_narrow",
+# the route (ops.route_counts) whose launches are each instance's (the int8
+# kernels: launch_counts' "conv3d_s8" counts both, by route here)
+ROUTE_OF = {"conv3d_s8": "conv3d_s8.sm90",
+            "conv1x1_s8": "conv3d_s8.conv1x1",
+            "conv3d_narrow": "conv3d.sm90_narrow",
             "conv3d_head": "conv3d.f32_head",
             "conv3d_head_dx": "conv3d_dx.f32_narrow",
             "conv3d_cin1": "conv3d.sm90_cin1",
@@ -407,10 +421,12 @@ CONV_ROUTES = ("sm90", "sm90_narrow", "sm90_cin1", "sm90_smallcin",
                "sm90_gather", "f32_head", "f32_narrow", "f32")
 
 
-def _routes(sm90, narrow, head, dx_sm90=0, dx_f32_narrow=0, fused_sm90=0):
+def _routes(sm90, narrow, head, dx_sm90=0, dx_f32_narrow=0, fused_sm90=0,
+            s8_sm90=0, s8_1x1=0):
     counts = {f"{what}.{route}": 0 for what in ("conv3d", "conv3d_dx")
               for route in CONV_ROUTES}
     counts.update({"conv3d_fused.sm90": fused_sm90, "conv3d_fused.f32": 0})
+    counts.update({"conv3d_s8.sm90": s8_sm90, "conv3d_s8.conv1x1": s8_1x1})
     counts.update({"conv3d.sm90": sm90, "conv3d.sm90_narrow": narrow,
                    "conv3d.f32_head": head, "conv3d_dx.sm90": dx_sm90,
                    "conv3d_dx.f32_narrow": dx_f32_narrow})
@@ -420,7 +436,9 @@ def _routes(sm90, narrow, head, dx_sm90=0, dx_f32_narrow=0, fused_sm90=0):
 FORWARD_ROUTES = {
     "denoise": _routes(70, 1, 1),
     "denoise_fused": _routes(16, 1, 1, fused_sm90=54),
-    "denoise_int8": _routes(0, 1, 1),
+    # the 88 int8 launches by kernel: 66 3x3x3 + 4 phase-route on
+    # csrc/conv3d_s8.cu, the 18 1x1 skips on csrc/conv1x1_s8.cu
+    "denoise_int8": _routes(0, 1, 1, s8_sm90=70, s8_1x1=18),
 }
 FORWARD_ROUTES["denoise_int8_static"] = FORWARD_ROUTES["denoise_int8"]
 FORWARD_ROUTES["attention"] = FORWARD_ROUTES["denoise"]
@@ -465,6 +483,27 @@ def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, n: int = 20, rounds: int = 3) -> float:
+    """``fn``'s device ms: ``n`` calls between two events, enqueued while a
+    sleep kernel holds the card, so the host's time to issue each call
+    (which time_ms measures where it exceeds the kernel's) stays out;
+    the median of ``rounds``."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        torch.cuda._sleep(5_000_000)  # ~3 ms: longer than n issues
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
 def warm_card(seconds: float = 1.0) -> None:
     """Run bf16 tensor-core work for about ``seconds`` so that the first
     kernel timed meets the card at its loaded clock, as the later ones do."""
@@ -497,7 +536,9 @@ def check(ok: bool, what: str) -> None:
 
 
 # the wgmma sources (conv3d_sm90 holds K3 and the fused K4's instances)
-WGMMA_SOURCES = ("conv3d_sm90", "conv3d_s8", "conv3d_narrow")
+WGMMA_SOURCES = ("conv3d_sm90", "conv3d_s8", "conv1x1_s8", "conv3d_narrow")
+# the int8 sources, which equal their plain versions only without FFMA
+S8_SOURCES = ("conv3d_s8", "conv1x1_s8")
 # sources whose kernels must not spill: the wgmma ones, the f32 head's, the
 # f32 torso conv's and the GroupNorm kernels
 NO_SPILL_SOURCES = WGMMA_SOURCES + ("conv3d_head", "conv3d_f32", "groupnorm")
@@ -542,17 +583,20 @@ def phase_build(parent_s8=None, parent_conv=None, parent_gn=None) -> dict:
                     # ptxas must not have serialized the wgmma pipeline
                     check("serialized" not in line,
                           f"{name} wgmma serialized: {line.strip()}")
-    # K5 equals its plain version only if the multiply and the add of its
-    # epilogue stay two roundings: no FFMA anywhere in its code
+    # the int8 kernels equal their plain version only if the multiply and
+    # the add of the epilogue stay two roundings: no FFMA anywhere in them
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", paths["conv3d_s8"]],
-                          capture_output=True, text=True, check=True).stdout
-    # (GMMA: the wgmma opcodes, IGMMA for int8)
-    counts = {op: sass.count(op) for op in ("FFMA", "FMUL", "FADD", "GMMA")}
-    emit({"phase": "build_sass", "lib": "conv3d_s8", "counts": counts})
-    check(counts["GMMA"] > 0 and counts["FMUL"] > 0,
-          "conv3d_s8 SASS has its wgmma and its epilogue multiply")
-    check(counts["FFMA"] == 0, f"conv3d_s8 SASS contracts an FMA: {counts}")
+    for lib in S8_SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", paths[lib]],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        # (GMMA: the wgmma opcodes, IGMMA for int8)
+        counts = {op: sass.count(op) for op in ("FFMA", "FMUL", "FADD",
+                                                  "GMMA")}
+        emit({"phase": "build_sass", "lib": lib, "counts": counts})
+        check(counts["GMMA"] > 0 and counts["FMUL"] > 0,
+              f"{lib} SASS has its wgmma and its epilogue multiply")
+        check(counts["FFMA"] == 0, f"{lib} SASS contracts an FMA: {counts}")
     return libs
 
 
@@ -657,10 +701,9 @@ def _general_conv(x, w, bias):
 
 def _ndhwc_tile(D: int, H: int, W: int) -> tuple:
     """The output tile (TD, TH, TW) that the retired ``mma.sync`` conv
-    (``conv3d_ndhwc_launch`` of a previous ``csrc/conv3d.cu``) takes, and
-    on which ``--parent-s8`` times a previous K5: at most 128 voxels and a
-    640-voxel halo; fewest tiles, then the smallest halo, then the widest
-    TW."""
+    (``conv3d_ndhwc_launch`` of a previous ``csrc/conv3d.cu``) takes: at
+    most 128 voxels and a 640-voxel halo; fewest tiles, then the smallest
+    halo, then the widest TW."""
     best = None
     for tw in range(1, min(W, 128) + 1):
         for th in range(1, min(H, 128 // tw) + 1):
@@ -2179,7 +2222,8 @@ def _seg_spatial_spec(name: str, variant: str) -> dict:
     if variant == "int8_dynamic":
         launches = dict(SEG_LAUNCHES, conv3d=3,
                         conv3d_s8=SEG_INT8_S8[_seg_fusion(name)])
-        routes = SEG_6C_INT8_ROUTES if six else SEG_INT8_ROUTES
+        routes = (SEG_6C_INT8_ROUTES if six
+                  else SEG_INT8_ROUTES)[_seg_fusion(name)]
     elif variant == "f32":
         launches = SEG_LAUNCHES
         routes = dict(_routes(0, 0, 0), **{
@@ -2821,14 +2865,16 @@ def int8_path_shapes(model) -> list:
 
 
 # sites timed beside the plain version and K3 (bf16) at the conv int8
-# replaces: (D, H, W, Cin, N, taps, upsample); the up site is added from
-# the path (its widest)
+# replaces, the 1x1x1 ones beside torch._int_mm: (D, H, W, Cin, N, taps,
+# upsample); the up site is added from the path (its widest)
 S8_TIMED = [
     (96, 96, 96, 128, 128, 27, False),   # level-0 ResBlock conv
     (96, 96, 96, 256, 128, 27, False),   # level-0 decoder in_conv
     (96, 96, 96, 256, 128, 1, False),    # its 1x1 skip (beside _int_mm)
     (96, 48, 48, 256, 128, 27, False),   # level-1 decoder in_conv
+    (96, 48, 48, 256, 128, 1, False),    # its 1x1 skip
     (96, 6, 6, 1024, 512, 27, False),    # level-4 decoder in_conv
+    (96, 6, 6, 1024, 512, 1, False),     # its 1x1 skip (weights streamed)
 ]
 
 
@@ -2854,13 +2900,34 @@ def _s8_inputs(gen, case, B, static):
     return xq, wq, s_x, s_w, bias
 
 
+def _c1_plan(case, B: int, dt) -> dict:
+    """csrc/conv1x1_s8.cu's plan of a 1x1 site (ops/conv3d_s8.py:
+    conv1x1_plan), the fields a line reports."""
+    from ddpm3d_tpu_torch.ops import conv3d_s8 as s8
+
+    D, H, W, cin, n = case[:5]
+    p = s8.conv1x1_plan(B, D * H * W, cin, n, dt,
+                        torch.cuda.get_device_properties(0)
+                        .multi_processor_count)
+    return {"grid": p.grid, "row_tiles": p.row_tiles,
+            "col_tiles": p.col_tiles, "resident": p.resident,
+            "stages": p.stages, "smem_bytes": p.smem_bytes}
+
+
 def phase_s8_kernels(gen: torch.Generator, shapes, libs) -> dict:
-    """``conv3d_s8`` against its plain version at every distinct quantized
+    """The int8 conv against its plain version at every distinct quantized
     shape of the int8 path, three variants each (batch 1 dynamic with bias
     and bf16 out, as the path runs it; batch 2 dynamic with per-sample
     scales, no bias, f32 out; batch 1 static with bias, f32 out): equal
-    bit for bit. The S8_TIMED sites and the widest up site are timed, the
-    latter also on the 27-tap study build ``libs["s8_all_taps"]``."""
+    bit for bit, the 3x3x3 and phase shapes on ``csrc/conv3d_s8.cu``, the
+    1x1x1 ones on ``csrc/conv1x1_s8.cu`` (each call's route counted). The
+    S8_TIMED sites and the widest up site are timed, the latter also on the
+    27-tap study build ``libs["s8_all_taps"]``; every 1x1 shape's first
+    variant also by device time (``conv1x1_s8_shapes``: ms, bound,
+    torch._int_mm and, with ``--parent-s8``, the previous instance; the
+    host's issue time exceeds the small sites' kernels). Returns the
+    summaries of the two kernels, {"conv3d_s8": ..., "conv1x1_s8": ...}."""
+    from ddpm3d_tpu_torch import ops
     from ddpm3d_tpu_torch.ops import conv3d_s8 as s8
 
     for case in S8_TIMED:
@@ -2873,40 +2940,132 @@ def phase_s8_kernels(gen: torch.Generator, shapes, libs) -> dict:
         (2, False, False, torch.float32),
         (1, True, True, torch.float32),
     )
-    summary, checked, worst = None, 0, 0.0
+    summary = {"conv3d_s8": None, "conv1x1_s8": None}
+    checked = {k: 0 for k in summary}
+    worst = {k: 0.0 for k in summary}
+    n_shapes = {k: 0 for k in summary}
+    timed_1x1, shapes_1x1 = [], []
     for case in timed + [c for c in shapes if c not in timed]:
         D, H, W, cin, n, taps, up = case
+        kernel = "conv1x1_s8" if taps == 1 else "conv3d_s8"
+        route = "conv3d_s8." + ("conv1x1" if taps == 1 else "sm90")
+        n_shapes[kernel] += 1
         for vi, (B, static, with_bias, dt) in enumerate(variants):
             xq, wq, s_x, s_w, bias = _s8_inputs(gen, case, B, static)
             bias = bias if with_bias else None
             wp = s8.pack_weight_s8(wq)
+            routed = ops.route_counts()[route]
             got = s8.conv3d_s8_kernel(xq, wp, s_x, s_w, bias, dt, up)
+            check(ops.route_counts()[route] == routed + 1,
+                  f"the int8 conv {case} launched {route}")
             ref = s8.conv3d_s8_plain(xq, wq, s_x, s_w, bias, dt, up)
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs().max().item()
-            line = dict(kernel="conv3d_s8", shape=[B, D, H, W, cin], n=n,
+            line = dict(kernel=kernel, shape=[B, D, H, W, cin], n=n,
                         taps=taps, upsample=up, static=static,
                         bias=with_bias, dtype=str(dt).split(".")[-1],
-                        tile=list(s8.s8_tile(B, D, H, W, n, taps, dt)),
                         max_abs_err=err, equal=bool(torch.equal(got, ref)))
-            check(bool(torch.isfinite(got.float()).all()), "conv3d_s8 finite")
+            if taps == 1:
+                line["plan"] = _c1_plan(case, B, dt)
+            else:
+                line["tile"] = list(s8.s8_tile(B, D, H, W, n, dt))
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"{kernel} finite")
             if vi == 0 and case in timed:
                 line.update(_time_s8_site(case, xq, wq, wp, s_x, s_w, bias,
                                           dt, libs, ref))
-                if summary is None:
-                    summary = line
+                if summary[kernel] is None:
+                    summary[kernel] = line
+                if taps == 1:
+                    timed_1x1.append({k: line[k] for k in (
+                        "shape", "n", "kernel_ms", "plain_ms", "bound_ms",
+                        "library_ms", "parent_ms", "plan")})
+            if vi == 0 and taps == 1:
+                line.update(_time_1x1_alone(case, xq, wq, wp, s_x, s_w,
+                                            bias, dt, libs))
+                shapes_1x1.append({k: line.get(k) for k in (
+                    "shape", "n", "device_ms", "bound_ms",
+                    "library_device_ms", "parent_device_ms")})
             emit(line)
-            # K5 equals its plain version bit for bit: the same int32 sums
-            # (exact in any order) and the same f32 multiply, add and
-            # rounding, none contracted into an FMA
-            check(line["equal"], f"conv3d_s8 {case} variant {vi} differs "
+            # the int8 kernels equal their plain version bit for bit: the
+            # same int32 sums (exact in any order) and the same f32
+            # multiply, add and rounding, none contracted into an FMA
+            check(line["equal"], f"{kernel} {case} variant {vi} differs "
                   f"from its plain version by {err}")
-            worst = max(worst, err)
-            checked += 1
+            worst[kernel] = max(worst[kernel], err)
+            checked[kernel] += 1
             del xq, wq, got, ref
     emit({"phase": "s8_kernels", "shapes": len(shapes),
-          "checks": checked, "worst_max_abs_err": worst})
-    return dict(summary, shapes_checked=len(shapes))
+          "checks": sum(checked.values()),
+          "checks_by_kernel": checked,
+          "worst_max_abs_err": max(worst.values())})
+    emit({"phase": "conv1x1_s8_shapes", "shapes": shapes_1x1,
+          "no_slower_than_parent": None if "s8_parent" not in libs
+          else all(r["device_ms"] <= r["parent_device_ms"]
+                   for r in shapes_1x1)})
+    for k in summary:
+        check(summary[k] is not None, f"{k} timed at a site")
+        summary[k] = dict(summary[k], shapes_checked=n_shapes[k],
+                          max_abs_err=worst[k])
+    summary["conv1x1_s8"]["timed_sites"] = timed_1x1
+    summary["conv1x1_s8"]["shapes_ms"] = shapes_1x1
+    return summary
+
+
+def _parent_1x1_tile(B: int, D: int, H: int, W: int, n: int, dt) -> tuple:
+    """The tile on which the previous K5 ran a 1x1x1 site (its no-halo
+    instance, before csrc/conv1x1_s8.cu): the sm90 tile rules with no
+    halo, 128-row tiles for f32 output."""
+    from ddpm3d_tpu_torch.ops import conv3d as cv
+
+    if dt == torch.float32:
+        return cv.pick_tile_sm90(D, H, W, cv.SM90_MAX_ROWS // 2, 0)
+    return cv.sm90_tile(B, D, H, W, n,
+                        torch.cuda.get_device_properties(0)
+                        .multi_processor_count, 0)
+
+
+def _1x1_bound(case, dt) -> tuple:
+    """(bound ms, "bytes" or "operations") of one batch-1 1x1 site: x,
+    the weight, y, the scales and the bias moved once; 2 Cin N int8
+    operations a row."""
+    D, H, W, cin, n = case[:5]
+    vox = D * H * W
+    nbytes = (vox * cin + n * cin + vox * n * (2 if dt == torch.bfloat16
+                                               else 4) + (2 * n + 1) * 4)
+    t_ops = 2.0 * vox * cin * n / H100_INT8_OPS * 1e3
+    t_bytes = nbytes / H100_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _time_1x1_alone(case, xq, wq, wp, s_x, s_w, bias, dt, libs) -> dict:
+    """A 1x1 site's device ms (``device_ms``: at the small sites the host's
+    issue time exceeds the kernel's) beside its bound, ``torch._int_mm``
+    and, when its build is given, the previous K5's no-halo instance
+    (bit-equal)."""
+    from ddpm3d_tpu_torch.ops import conv3d_s8 as s8
+
+    D, H, W, cin, n = case[:5]
+    out = {"device_ms": device_ms(lambda: s8.conv3d_s8_kernel(
+        xq, wp, s_x, s_w, bias, dt, False)), "parent_device_ms": None}
+    out["bound_ms"], out["bound_by"] = _1x1_bound(case, dt)
+    a, b = xq.reshape(-1, cin), wq.reshape(n, cin).t()
+    try:
+        out["library_device_ms"] = device_ms(lambda: torch._int_mm(a, b))
+    except RuntimeError as e:  # a yardstick only: report, go on
+        out["library_device_ms"] = None
+        out["library_error"] = str(e)[:200]
+    if "s8_parent" in libs:
+        tile = _parent_1x1_tile(*xq.shape[:4], n, dt)
+        run = lambda: _s8_variant(libs["s8_parent"], xq, wp, s_x,  # noqa
+                                  s_w, bias, dt, False, tile)
+        y = run()
+        ref = s8.conv3d_s8_kernel(xq, wp, s_x, s_w, bias, dt, False)
+        torch.cuda.synchronize()
+        check(torch.equal(y, ref), f"the previous K5 at {case} equals "
+              "csrc/conv1x1_s8.cu")
+        out["parent_device_ms"] = device_ms(run)
+    return out
 
 
 def _s8_variant(lib, xq, wp, s_x, s_w, bias, dt, up, tile):
@@ -2933,10 +3092,13 @@ def _s8_variant(lib, xq, wp, s_x, s_w, bias, dt, up, tile):
 def _time_s8_site(case, xq, wq, wp, s_x, s_w, bias, dt, libs, ref) -> dict:
     """Kernel, plain and K3 (bf16, the conv int8 replaces: on the
     upsampled input for the phase route) times at one site, the quantize
-    glue on a bf16 activation of the site's shape, and the bound; the 1x1
-    skip also beside ``torch._int_mm`` (its s8 GEMM alone); the previous K5
-    on the same tiles (``parent_ms``) when its build is given; a
-    phase site also on the 27-tap build (``all_taps_ms``), both equal."""
+    glue on a bf16 activation of the site's shape, and the bound; a 1x1
+    site beside ``torch._int_mm`` (its s8 GEMM alone, int32 out) instead of
+    K3; the previous K5 on the same tiles (``parent_ms``; at a 1x1 site its
+    no-halo instance on the tile it ran) when its build is given; a phase
+    site also on the 27-tap build (``all_taps_ms``), both equal. A 3x3x3
+    site's kernel and previous K5 also by device time (``device_ms``,
+    ``parent_device_ms``; a 1x1 site's come from _time_1x1_alone)."""
     from ddpm3d_tpu_torch.models.nn import upsample_nearest
     from ddpm3d_tpu_torch.ops import conv3d as cv
     from ddpm3d_tpu_torch.ops import conv3d_s8 as s8
@@ -2951,11 +3113,11 @@ def _time_s8_site(case, xq, wq, wp, s_x, s_w, bias, dt, libs, ref) -> dict:
     xb = (torch.randn(xq.shape, device="cuda") * 2).to(torch.bfloat16)
     quant_ms = time_ms(lambda: quant.quantize_act(xb))
     out = {"kernel_ms": ms, "plain_ms": plain_ms, "quantize_act_ms": quant_ms,
-           "library_ms": None}
+           "library_ms": None, "parent_ms": None}
     for key, name, tile in (
-            ("parent", "s8_parent", _ndhwc_tile(D, H, W)),
-            ("all_taps", "s8_all_taps", s8.s8_tile(1, D, H, W, n, taps,
-                                                   dt))):
+            ("parent", "s8_parent", s8.s8_tile(1, D, H, W, n, dt)
+             if taps == 27 else _parent_1x1_tile(1, D, H, W, n, dt)),
+            ("all_taps", "s8_all_taps", s8.s8_tile(1, D, H, W, n, dt))):
         if name not in libs or (key == "all_taps" and not up):
             continue
         run = lambda: _s8_variant(libs[name], xq, wp, s_x, s_w,  # noqa: E731
@@ -2965,7 +3127,11 @@ def _time_s8_site(case, xq, wq, wp, s_x, s_w, bias, dt, libs, ref) -> dict:
         out[key + "_equal"] = bool(torch.equal(y, ref))
         check(out[key + "_equal"], f"{name} at {case} equals the plain K5")
         out[key + "_ms"] = time_ms(run)
+        if key == "parent" and taps == 27:
+            out["parent_device_ms"] = device_ms(run)
     if taps == 27:
+        out["device_ms"] = device_ms(lambda: s8.conv3d_s8_kernel(
+            xq, wp, s_x, s_w, bias, dt, up))
         xk = upsample_nearest(xb) if up else xb
         wk = cv.pack_weight(torch.randn((cout, cin, 3, 3, 3), device="cuda")
                             * (27 * cin) ** -0.5, torch.bfloat16)
@@ -3077,6 +3243,7 @@ def phase_denoise_int8_static(model, seed: int, fname: str = "",
 INT8_FAMILIES = dict(
     FORWARD_FAMILIES,
     conv3d_s8=("conv3d_s8_kernel",),
+    conv1x1_s8=("conv1x1_s8_kernel",),
     quantize=("MinMax", "minmax", "DivFunctor", "div_true", "round_kernel",
               "clamp"),
 )
@@ -3845,7 +4012,13 @@ SEG_LAUNCHES = {"conv3d": 101, "conv3d_dx": 0, "conv3d_fused": 0,
                 "conv3d_s8": 0, "gn_stats": 99, "gn_apply": 99}
 SEG_ROUTES = dict(_routes(98, 1, 1), **{"conv3d.sm90_cin1": 1})
 SEG_INT8_S8 = {"add": 119, "cat_conv": 134, "midcat": 120}
-SEG_INT8_ROUTES = dict(_routes(0, 1, 1), **{"conv3d.sm90_cin1": 1})
+# by kernel: 98 on csrc/conv3d_s8.cu (the main branch's 70, the encoder's
+# 28 3x3x3) and the 1x1x1 sites on csrc/conv1x1_s8.cu (18 + the encoder's 3
+# skips, + 15 fuse{i} for cat_conv, + the middle skip for midcat)
+SEG_INT8_1X1 = {"add": 21, "cat_conv": 36, "midcat": 22}
+SEG_INT8_ROUTES = {f: dict(_routes(0, 1, 1, s8_sm90=SEG_INT8_S8[f]
+                                   - SEG_INT8_1X1[f], s8_1x1=SEG_INT8_1X1[f]),
+                           **{"conv3d.sm90_cin1": 1}) for f in SEG_INT8_S8}
 # the 6-channel aliases (a 3-channel conditioner): the same launches, both
 # input convs (the main branch's Cin = 4, the encoder's Cin = 3) on the
 # small-Cin instances, none on sm90_gather; in int8 both stay K3 (in0_0), K5 as
@@ -3853,7 +4026,10 @@ SEG_INT8_ROUTES = dict(_routes(0, 1, 1), **{"conv3d.sm90_cin1": 1})
 SEG_6C_MODELS = ("SegModelv2_6c", "SegModelv3_6c")  # add, cat_conv
 SEG_6C_COND = 3
 SEG_6C_ROUTES = dict(_routes(98, 0, 1), **{"conv3d.sm90_smallcin": 2})
-SEG_6C_INT8_ROUTES = dict(_routes(0, 0, 1), **{"conv3d.sm90_smallcin": 2})
+SEG_6C_INT8_ROUTES = {f: dict(_routes(0, 0, 1), **{
+    "conv3d.sm90_smallcin": 2, "conv3d_s8.sm90": SEG_INT8_S8[f]
+    - SEG_INT8_1X1[f], "conv3d_s8.conv1x1": SEG_INT8_1X1[f]})
+    for f in ("add", "cat_conv")}  # SegModelv2_6c, SegModelv3_6c
 # the spatial_seg phase: every Seg model of the seg and seg_6c phases
 # (phase_seg's weights, made once: _seg_models) on one 96^3 patch at batch
 # 1 over SPATIAL_SHARDS shards, bf16, f32 and int8 with dynamic scales (the
@@ -4400,8 +4576,9 @@ def phase_seg(seed: int, seg_models: dict, phase: str = "seg") -> dict:
     SEG_6C_ROUTES); each f32 model on the card against the CPU
     (MODEL_TOL); the first model's forward by kernel family
     (``profile_<phase>``). Then int8 (all but midcat): K5 launches per
-    forward (the JAX-derived site count of the fusion), K3 on
-    SEG_INT8_ROUTES / SEG_6C_INT8_ROUTES, every site's output equal to the
+    forward (the JAX-derived site count of the fusion), K3 and the int8
+    kernels on SEG_INT8_ROUTES / SEG_6C_INT8_ROUTES (the 1x1 sites,
+    SEG_INT8_1X1, on csrc/conv1x1_s8.cu), every site's output equal to the
     plain int8 conv on its own input (the f32 int8 model, card against
     CPU), the bf16 int8 forward against bf16 (INT8_FORWARD_TOL). Returns
     {path: one forward's counts} (``phase``: the first model,
@@ -4506,7 +4683,8 @@ def phase_seg(seed: int, seg_models: dict, phase: str = "seg") -> dict:
             check(counts8["conv3d_s8"] == n_s8,
                   f"{phase} {name} int8: {counts8['conv3d_s8']} K5 launches")
             check(counts8["conv3d"] == 3 and counts8["routes"]
-                  == int8_routes_want, f"{phase} {name} int8 K3 {counts8}")
+                  == int8_routes_want[model.fusion],
+                  f"{phase} {name} int8 K3 and K5 routes {counts8}")
             check(n_sites == n_s8 and not unequal,
                   f"{phase} {name} int8 sites unequal: {unequal}")
             check(bool(torch.isfinite(out8).all() and torch.isfinite(
@@ -5201,8 +5379,8 @@ def main() -> None:
                                    conv_parent=libs.get("conv_parent")))
     summary["conv3d_fused"] = phase_fused_kernels(
         gen, sorted(set(fused_shapes) | sp["fused"], key=str))
-    summary["conv3d_s8"] = phase_s8_kernels(
-        gen, sorted(set(s8_shapes) | seg_s8 | sp["s8"] | sps["s8"]), libs)
+    summary.update(phase_s8_kernels(
+        gen, sorted(set(s8_shapes) | seg_s8 | sp["s8"] | sps["s8"]), libs))
     from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
     train_sched, train_cfg = create_gaussian_diffusion(
         steps=1000, learn_sigma=True, noise_schedule="linear")
@@ -5265,7 +5443,7 @@ def main() -> None:
     for name, meta in KERNELS.items():
         s = summary[name]
         count = ((lambda c: c[name]) if name not in ROUTE_OF
-                 else (lambda c: c["routes"][ROUTE_OF[name]]))
+                 else (lambda c: c["routes"].get(ROUTE_OF[name], 0)))
         by_path = {"denoise": count(denoise_counts),
                    "denoise_fused": count(fused_counts),
                    "denoise_int8": count(int8_counts),
@@ -5283,6 +5461,7 @@ def main() -> None:
                    **{path: count(c) for path, c in quality_counts.items()}}
         main_path = {"conv3d_fused": "denoise_fused",
                      "conv3d_s8": "denoise_int8",
+                     "conv1x1_s8": "denoise_int8",
                      "conv3d_cin1": "seg",
                      "conv3d_smallcin": "seg_6c",
                      "conv3d_f32": "model",
@@ -5305,6 +5484,24 @@ def main() -> None:
         if name == "conv3d_s8":  # the bf16 conv it replaces at that site
             extra["k3_bf16_ms"] = s["k3_bf16_ms"]
             extra["parent_ms"] = s.get("parent_ms")
+            extra["device_ms"] = s["device_ms"]
+            extra["parent_device_ms"] = s.get("parent_device_ms")
+        if name == "conv1x1_s8":
+            # the previous K5's no-halo instance (--parent-s8, else None),
+            # the three timed sites and every 1x1 shape alone, and both
+            # int8 kernels' launches (launch_counts' "conv3d_s8")
+            extra["parent_ms"] = s.get("parent_ms")
+            extra["library"] = s.get("library")
+            extra["device_ms"] = s["device_ms"]
+            extra["library_device_ms"] = s["library_device_ms"]
+            extra["parent_device_ms"] = s["parent_device_ms"]
+            extra["shape"] = s["shape"] + [s["n"], s["dtype"]]
+            extra["timed_sites"] = s["timed_sites"]
+            extra["shapes_ms"] = s["shapes_ms"]
+            extra["int8_launches_by_path"] = {
+                path: c["conv3d_s8"] for path, c in (
+                    ("denoise_int8", int8_counts),
+                    ("denoise_int8_static", static_counts))}
         if name in ("conv3d_narrow", "conv3d_head", "conv3d_head_dx"):
             extra[_general_key(s["dtype"])] = s[_general_key(s["dtype"])]
         if name == "conv3d_smallcin":  # the other timed Cin, the gather's

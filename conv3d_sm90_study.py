@@ -1,6 +1,7 @@
 """On-card study of the port's conv kernels: the bf16 K3
 ``ddpm3d_tpu_torch/csrc/conv3d_sm90.cu``, with ``--s8`` the int8 K5
-``ddpm3d_tpu_torch/csrc/conv3d_s8.cu``, with ``--head`` the f32 head conv
+``ddpm3d_tpu_torch/csrc/conv3d_s8.cu``, with ``--conv1x1`` the int8 1x1x1
+conv ``ddpm3d_tpu_torch/csrc/conv1x1_s8.cu``, with ``--head`` the f32 head conv
 and its dx ``ddpm3d_tpu_torch/csrc/conv3d_head.cu``, with ``--f32`` the f32
 torso conv, its fused instance and its dx ``ddpm3d_tpu_torch/csrc/
 conv3d_f32.cu``, with ``--smallcin`` the bf16 small-Cin instances (Cin
@@ -11,6 +12,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 conv3d_sm90_study.py [--against OTHER.cu]
     python3 conv3d_sm90_study.py --s8 [--against OTHER_S8.cu]
+    python3 conv3d_sm90_study.py --conv1x1 [--against OTHER_1X1.cu]
+                                 [--parent-s8 OLD_CONV3D_S8.cu]
     python3 conv3d_sm90_study.py --head
     python3 conv3d_sm90_study.py --f32
     python3 conv3d_sm90_study.py --fused [--against-gn OLD_GROUPNORM.cu]
@@ -112,6 +115,17 @@ and, for the gather instance,
 only: no L2 -> SM weight traffic after them), beside ``F.conv3d``, the
 bound and a ``fill_`` of the output's bytes (the card's practical store
 rate). The ablations compute wrong results.
+
+With ``--conv1x1`` the 1x1x1 kernel at the model's byte-heaviest sites and
+its deepest one, by device time (the calls enqueued while a sleep kernel
+holds the card, so the host's issue time stays out): as committed
+(``c1_base``), ``c1_nomath`` (no scale, no bias: the conversions and
+staging alone), ``c1_nostore``
+(the epilogue stages its rows but stores nothing), ``--against`` (another
+revision of the source), beside ``torch._int_mm``, a copy of the same
+bytes (``copy_``: the card's practical read-and-write rate), the bound
+and, with ``--parent-s8``, the previous ``csrc/conv3d_s8.cu``'s no-halo
+1x1 instance on the tile it ran.
 Imports no JAX.
 """
 
@@ -310,16 +324,15 @@ def launch_s8(fn, xq, wp, s_x, s_w, bias, up, tile):
     return y
 
 
-# (B, D, H, W, Cin), N, taps, upsample: the main-path int8 sites of
-# chip_smoke.py's S8_TIMED, the widest phase site and a deep 1x1 site
+# (B, D, H, W, Cin), N, taps, upsample: the main-path 3x3x3 int8 sites of
+# chip_smoke.py's S8_TIMED and the widest phase site (the 1x1x1 sites run
+# csrc/conv1x1_s8.cu, which chip_smoke.py times)
 S8_SHAPES = (
     ((1, 96, 96, 96, 128), 128, 27, False),
     ((1, 96, 96, 96, 256), 128, 27, False),
-    ((1, 96, 96, 96, 256), 128, 1, False),
     ((1, 96, 48, 48, 256), 128, 27, False),
     ((1, 96, 6, 6, 1024), 512, 27, False),
     ((1, 96, 48, 48, 128), 4 * 128, 27, True),
-    ((1, 96, 12, 12, 768), 384, 1, False),
 )
 
 
@@ -328,10 +341,9 @@ def study_s8(fns, gen, shape, n, taps, up) -> dict:
     version for those that compute the function, and the yardstick."""
     dev = torch.device("cuda")
     cin = shape[-1]
-    k = 3 if taps == 27 else 1
     xq = torch.randint(-127, 128, shape, generator=gen, device=dev,
                        dtype=torch.int8)
-    wq = torch.randint(-127, 128, (n, cin, k, k, k), generator=gen,
+    wq = torch.randint(-127, 128, (n, cin, 3, 3, 3), generator=gen,
                        device=dev, dtype=torch.int8)
     if up:  # the stacked phase kernels are zero outside their windows
         wq = wq * phase_window_mask(n // 4).to(dev, torch.int8)
@@ -341,23 +353,18 @@ def study_s8(fns, gen, shape, n, taps, up) -> dict:
     kb = bias.bfloat16().float() if up else bias  # as the wrapper passes it
     wp = s8.pack_weight_s8(wq)
     ref = s8.conv3d_s8_plain(xq, wq, s_x, s_w, bias, torch.bfloat16, up)
-    tile = s8.s8_tile(*shape[:4], n, taps)
+    tile = s8.s8_tile(*shape[:4], n)
     vox = shape[0] * shape[1] * shape[2] * shape[3]
     cout = n // 4 if up else n
     macs = vox * cin * cout * (48 if up else taps)
     line = dict(shape=list(shape), n=n, taps=taps, upsample=up,
                 tile=list(tile), bound_ms=2.0 * macs / 1979e12 * 1e3)
-    if taps == 1:
-        a, b = xq.reshape(vox, cin), wq.reshape(n, cin).t()
-        lib = lambda: torch._int_mm(a, b)  # noqa: E731
-        line["library"] = "torch._int_mm"
-    else:
-        xb = torch.randn(ref.shape[:-1] + (cin,), generator=gen,
-                         device=dev).bfloat16()
-        wk = cv.pack_weight(torch.randn((cout, cin, 3, 3, 3), generator=gen,
-                                        device=dev) * 0.01, torch.bfloat16)
-        lib = lambda: cv.conv3d_kernel(xb, wk)  # noqa: E731
-        line["library"] = "bf16 K3 (conv3d_sm90) on the conv int8 replaces"
+    xb = torch.randn(ref.shape[:-1] + (cin,), generator=gen,
+                     device=dev).bfloat16()
+    wk = cv.pack_weight(torch.randn((cout, cin, 3, 3, 3), generator=gen,
+                                    device=dev) * 0.01, torch.bfloat16)
+    lib = lambda: cv.conv3d_kernel(xb, wk)  # noqa: E731
+    line["library"] = "bf16 K3 (conv3d_sm90) on the conv int8 replaces"
     line["library_ms"] = [time_ms(lib)]
     for _ in range(3):
         for name, fn in fns.items():
@@ -384,6 +391,121 @@ def main_s8(against) -> None:
     ms = time_ms(lambda: torch._int_mm(a, a.t()))
     print(json.dumps({"int_mm_8192_ms": ms,
                       "tops": 2 * 8192 ** 3 / ms / 1e9}), flush=True)
+
+
+# ablations of csrc/conv1x1_s8.cu
+C1_MATH = """  const float v = __fmul_rn(__int2float_rn(acc), scale);
+  return has_bias ? __fadd_rn(v, bias) : v;"""
+C1_STORE = "          if (nc < s.N) tma_store_2d("
+# (B, D, H, W, Cin), N, out dtype: the 96^2 and 48^2 skips (87 % of the
+# sites' bytes), a 24^2, a 12^2 and the streamed 6^2 site
+C1_SHAPES = (
+    ((1, 96, 96, 96, 256), 128, torch.bfloat16),
+    ((1, 96, 96, 96, 256), 128, torch.float32),
+    ((1, 96, 48, 48, 256), 128, torch.bfloat16),
+    ((1, 96, 24, 24, 512), 256, torch.bfloat16),
+    ((1, 96, 12, 12, 768), 384, torch.bfloat16),
+    ((1, 96, 6, 6, 1024), 512, torch.bfloat16),
+)
+
+
+def device_ms(fn, n: int = 20, rounds: int = 3) -> float:
+    """``fn``'s device ms: ``n`` calls enqueued while a sleep kernel holds
+    the card, between two events; the median of ``rounds``."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        torch.cuda._sleep(5_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return sorted(times)[len(times) // 2]
+
+
+def variants_conv1x1(src: str, against: str = None) -> dict:
+    """{name: source text} of the 1x1x1 kernel's study."""
+    _anchors(src, (C1_MATH, C1_STORE))
+    out = {
+        "c1_base": src,
+        "c1_nomath": src.replace(C1_MATH, "  return __int2float_rn(acc);"),
+        "c1_nostore": src.replace(C1_STORE, C1_STORE.replace(
+            "s.N)", "s.N && acc[0] == 0x7fffffff)")),
+    }
+    if against is not None:
+        out["c1_against"] = against
+    return out
+
+
+def main_conv1x1(against: str = None, parent: str = None) -> None:
+    with open(os.path.join(ROOT, "ddpm3d_tpu_torch", "csrc",
+                           "conv1x1_s8.cu")) as f:
+        fns = build(variants_conv1x1(f.read(), against), "conv1x1_s8_launch")
+    if parent is not None:
+        fns.update(build({"c1_parent": parent}, "conv3d_s8_launch"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    warm(gen)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape, n, dt in C1_SHAPES:
+        B, D, H, W, cin = shape
+        rows = B * D * H * W
+        xq = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, cin, 1, 1, 1), generator=gen,
+                           device="cuda", dtype=torch.int8)
+        s_x = 0.01 + 0.02 * torch.rand((B,), generator=gen, device="cuda")
+        s_w = 1e-4 + 1e-3 * torch.rand((n,), generator=gen, device="cuda")
+        bias = torch.randn((n,), generator=gen, device="cuda")
+        wp = s8.pack_weight_s8(wq)
+        ref = s8.conv3d_s8_plain(xq, wq, s_x, s_w, bias, dt)
+        esize = 2 if dt == torch.bfloat16 else 4
+        nbytes = rows * cin + n * cin + rows * n * esize + (2 * n + 1) * 4
+        src = torch.empty((rows * cin + rows * n * esize) // 2,
+                          dtype=torch.int8, device="cuda")
+        dst = torch.empty_like(src)
+        a, b = xq.reshape(rows, cin), wq.reshape(n, cin).t()
+
+        def run(name):
+            y = torch.empty((B, D, H, W, n), dtype=dt, device="cuda")
+            if name == "c1_parent":
+                tile = (cv.pick_tile_sm90(D, H, W, 128, 0) if esize == 4
+                        else cv.sm90_tile(B, D, H, W, n, sms, 0))
+                err = fns[name](
+                    xq.data_ptr(), wp.data_ptr(), s_x.data_ptr(),
+                    s_w.data_ptr(), bias.data_ptr(), y.data_ptr(), B, D, H,
+                    W, cin, n, 1, 0, *tile, esize == 2,
+                    torch.cuda.current_stream().cuda_stream)
+            else:
+                err = fns[name](
+                    xq.data_ptr(), wp.data_ptr(), s_x.data_ptr(),
+                    s_w.data_ptr(), bias.data_ptr(), y.data_ptr(), B,
+                    D * H * W, cin, n, esize == 2,
+                    torch.cuda.current_stream().cuda_stream)
+            _build.check(err, name)
+            return y
+
+        line = dict(shape=list(shape), n=n, dtype=str(dt).split(".")[-1],
+                    bound_ms=nbytes / 3.35e12 * 1e3)
+        for name in fns:
+            if name in ("c1_base", "c1_against", "c1_parent"):
+                y = run(name)
+                torch.cuda.synchronize()
+                line[name + "_equal"] = bool(torch.equal(y, ref))
+        yard = {"int_mm": lambda: torch._int_mm(a, b),
+                "copy_same_bytes": lambda: dst.copy_(src)}
+        for _ in range(3):
+            for name in fns:
+                line.setdefault(name, []).append(
+                    device_ms(lambda name=name: run(name)))
+            for name, fn in yard.items():
+                line.setdefault(name, []).append(device_ms(fn))
+        print(json.dumps(line), flush=True)
+        del xq, wq, ref, src, dst
 
 
 # ablations of csrc/conv3d_head.cu
@@ -1009,6 +1131,11 @@ def main() -> None:
                     "bf16 conv's or, with --s8, the int8 conv's)")
     ap.add_argument("--s8", action="store_true",
                     help="study the int8 kernel (csrc/conv3d_s8.cu)")
+    ap.add_argument("--conv1x1", action="store_true",
+                    help="study the int8 1x1x1 kernel (csrc/conv1x1_s8.cu)")
+    ap.add_argument("--parent-s8",
+                    help="with --conv1x1: a previous csrc/conv3d_s8.cu whose "
+                         "no-halo 1x1 instance is timed beside it")
     ap.add_argument("--head", action="store_true",
                     help="study the f32 head kernels (csrc/conv3d_head.cu)")
     ap.add_argument("--fused", action="store_true",
@@ -1032,6 +1159,14 @@ def main() -> None:
             against = f.read()
     if args.s8:
         main_s8(against)
+        smi()
+        return
+    if args.conv1x1:
+        parent = None
+        if args.parent_s8:
+            with open(args.parent_s8) as f:
+                parent = f.read()
+        main_conv1x1(against, parent)
         smi()
         return
     if args.smallcin:

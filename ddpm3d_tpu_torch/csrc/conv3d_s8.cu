@@ -1,11 +1,13 @@
-// int8 (W8A8) stride-1 SAME 3x3x3 and 1x1x1 convolution, channels-last
-// (NDHWC), with the dequantize epilogue, for Hopper (sm_90a): wgmma s8 fed
-// by TMA.
+// int8 (W8A8) stride-1 SAME 3x3x3 convolution, channels-last (NDHWC), with
+// the dequantize epilogue, for Hopper (sm_90a): wgmma s8 fed by TMA.
 //
 // Replaces the TPU kernel ddpm3d_tpu/ops/conv3d_s8.py:_conv_kernel /
-// _conv_kernel_im2col (reached through conv3d_s8), and serves every quantized
-// conv site of the JAX package's int8 path (ops/quant.py:
-// conv3d_folded_int8, upsample_conv_folded_int8). Same function:
+// _conv_kernel_im2col (reached through conv3d_s8), and serves every 3x3x3
+// quantized conv site of the JAX package's int8 path (ops/quant.py:
+// conv3d_folded_int8, upsample_conv_folded_int8). The 1x1x1 sites, which
+// JAX leaves to XLA, run csrc/conv1x1_s8.cu (a streaming s8 GEMM over rows,
+// its weights resident in shared memory); this launch refuses taps = 1.
+// Same function:
 //
 //   acc[b,v,n] = sum_{taps,ci} xq[b, v + tap - pad, ci] * wq[tap, n, ci]
 //                                                       s8 x s8 -> s32, exact
@@ -32,7 +34,7 @@
 // Bound on the H100: operations at the 3x3x3 sites, 54 * Cin * Cout int8
 // operations per output voxel against (Cin + 2 * Cout) bytes moved (bf16
 // out): ~2200 op/byte at Cin = Cout = 128, above the card's ~590 int8
-// op/byte ridge; bytes at the 1x1 sites (27x fewer operations).
+// op/byte ridge.
 //
 // Design: csrc/conv3d_sm90.cu (the bf16 K3) carried over byte for byte. A
 // Cin chunk of 128 int8 channels is one 128-byte swizzle row, the halo pitch
@@ -48,13 +50,11 @@
 //     mbarrier pairs.
 //  3. The halo by one cp.async.bulk.tensor.5d per (tile, chunk), map (C, W,
 //     H, D, B), box (128, TW+2p, TH+2p, TD+2p, 1) at (c0, w0-p, h0-p, d0-p,
-//     b), p = 1 for 3x3x3 and 0 for 1x1x1 (the no-halo instance: the box is
-//     the tile). TMA zero-fills outside the tensor: the SAME padding and the
-//     ragged last Cin chunk. A ring of as many halo stages (2 to 4) as shared
-//     memory holds, across chunks and tiles: the 3x3x3 tiles get 2 (each
-//     chunk's halo lands under the previous chunk's taps), the byte-bound
-//     1x1 tiles 4, so three loads stay in flight under a tile's math and
-//     epilogue.
+//     b), p = 1 at every launch (Shape::pad). TMA zero-fills outside the
+//     tensor: the SAME padding and the ragged last Cin chunk. A ring of as
+//     many halo stages (2 to 4) as shared memory holds, across chunks and
+//     tiles: the model's tiles get 2 (each chunk's halo lands under the
+//     previous chunk's taps).
 //  4. Tiles of 256 (two consumer warpgroups x two m64 tiles) or 128 rows,
 //     warp specialisation (producer setmaxnreg 40, consumers 232) and the
 //     persistent grid, as in the bf16 kernel (ops/conv3d_s8.py:s8_tile).
@@ -70,7 +70,7 @@
 //     bits.)
 //  6. Epilogue: dequantize in the order above, one rounding, staged in the
 //     last chunk's halo stage in passes of 128 bytes a row (two for bf16,
-//     four for f32: a 1x1 tile's stage is one 128-byte row per output row),
+//     four for f32),
 //     in TMA's box order and 128-byte swizzle, and stored by one TMA tensor
 //     store per pass (cp.async.bulk.tensor, which clips the volume's and
 //     Cout's edges): the consumer threads spend no instructions on output
@@ -112,7 +112,11 @@ struct Shape {
   int B, D, H, W, Cin;
   int N;      // GEMM columns: Cout, or 4 * Cout for the phase route
   int Cout;   // channels of y
-  int pad;    // 1: 3x3x3 taps over a halo; 0: the 1x1x1 conv
+  // the halo, 1 at every launch (the 1x1x1 conv, pad 0, is
+  // csrc/conv1x1_s8.cu's). The kernel keeps it a parameter, and tap_mask
+  // its test: with pad folded to the constant 1, ptxas scheduled the main
+  // loop 3-6 % slower on an H100 (chip_smoke.py --parent-s8)
+  int pad;
   int up;     // 1: the stacked phases of conv(nearest_up2_HW(x))
   int TD, TH, TW;
   int nD, nH, nW;
@@ -153,7 +157,7 @@ __device__ __forceinline__ TileId decode_tile(const Shape& s, int q) {
 // tap: bits {0, 1, 3, 4} of a 3x3 plane (27) shifted to (a, b), repeated
 // at depth offsets 0, 9, 18 (x 262657 = 1 + 2^9 + 2^18).
 __device__ __forceinline__ uint32_t tap_mask(const Shape& s, int n0) {
-  if (!s.pad) return 1u;  // the 1x1x1 conv: one tap, weight coordinate 0
+  if (!s.pad) return 1u;  // never taken (Shape::pad)
 #ifndef CONV3D_S8_ALL_TAPS
   if (s.up) {
     const int last = min(n0 + kBN, s.N) - 1;
@@ -686,10 +690,10 @@ bool encode_out_maps(OutMaps* maps, void* y, const Shape& s, int esize) {
 
 extern "C" {
 
-// xq [B, D, H, W, Cin] int8; w packed [taps][N][Cin] int8 (taps 27: the
-// 3x3x3 conv, 1: the 1x1x1 conv); sx [B] and sw [N] f32; bias [Cout] f32 or
-// NULL (on the phase route: the bias already rounded to the output dtype).
-// upsample = 1 (taps 27 only): N = 4 * Cout stacked phases, y is
+// xq [B, D, H, W, Cin] int8; w packed [taps][N][Cin] int8 (taps must be
+// 27: the 1x1x1 conv is csrc/conv1x1_s8.cu's); sx [B] and sw [N] f32; bias
+// [Cout] f32 or NULL (on the phase route: the bias already rounded to the
+// output dtype). upsample = 1: N = 4 * Cout stacked phases, y is
 // [B, D, 2H, 2W, Cout]; else N = Cout and y is [B, D, H, W, Cout]. Output
 // tile TD x TH x TW (ops/conv3d_s8.py:s8_tile; at most 128 rows for f32
 // output). xq and w 16-byte aligned,
@@ -699,10 +703,9 @@ int conv3d_s8_launch(const void* x, const void* w, const float* sx,
                      const float* sw, const float* bias, void* y, int B, int D,
                      int H, int W, int Cin, int N, int taps, int upsample,
                      int TD, int TH, int TW, int out_dtype, void* stream_ptr) {
-  const int pad = taps == 27 ? 1 : 0;
+  const int pad = 1;
   if (B <= 0 || D <= 0 || H <= 0 || W <= 0 || Cin <= 0 || N <= 0 ||
-      Cin % 16 != 0 || (taps != 27 && taps != 1) ||
-      (upsample && (taps != 27 || N % 4)) ||
+      Cin % 16 != 0 || taps != 27 || (upsample && N % 4) ||
       (out_dtype != 0 && out_dtype != 1) || TD <= 0 || TH <= 0 || TW <= 0 ||
       TD > 254 || TH > 254 || TW > 254 || TD * TH * TW > kMaxRows ||
       (TD + 2 * pad) * (TH + 2 * pad) * (TW + 2 * pad) > kMaxHalo ||

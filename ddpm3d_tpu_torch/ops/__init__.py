@@ -14,7 +14,8 @@
 * :mod:`.groupnorm` — GroupNorm stats and fused normalize/FiLM/SiLU
   (``csrc/groupnorm.cu``);
 * :mod:`.conv3d_s8` — the int8 (s8 x s8 -> s32) conv with its dequantize
-  epilogue (``csrc/conv3d_s8.cu``, wgmma s8 fed by TMA), under :mod:`.quant`
+  epilogue (``csrc/conv3d_s8.cu`` for 3x3x3 kernels, ``csrc/conv1x1_s8.cu``
+  for 1x1x1 ones; wgmma s8 fed by TMA), under :mod:`.quant`
   (int8 serving) and
   :mod:`.phase_up` (the up sites' phase kernels).
 """
@@ -41,17 +42,21 @@ def route_counts() -> Dict[str, int]:
     """The conv launches of :func:`launch_counts` by kernel route
     ("conv3d.<route>" and "conv3d_dx.<route>" for each of
     :data:`.conv3d.ROUTES`, "conv3d_fused.<route>" for each of
-    :data:`.conv3d_fused.ROUTES`)."""
+    :data:`.conv3d_fused.ROUTES`, "conv3d_s8.<route>" for each of
+    :data:`.conv3d_s8.ROUTES`)."""
     counts = {f"{what}.{route}": conv3d.route_launches.get(f"{what}.{route}", 0)
               for what in ("conv3d", "conv3d_dx") for route in conv3d.ROUTES}
     counts.update({f"conv3d_fused.{route}": conv3d_fused.route_launches.get(
         f"conv3d_fused.{route}", 0) for route in conv3d_fused.ROUTES})
+    counts.update({f"conv3d_s8.{route}": conv3d_s8.route_launches.get(
+        f"conv3d_s8.{route}", 0) for route in conv3d_s8.ROUTES})
     return counts
 
 
 def reset_launch_counts() -> None:
     conv3d.route_launches.clear()
     conv3d_fused.route_launches.clear()
+    conv3d_s8.route_launches.clear()
     conv3d.launches = 0
     conv3d.dx_launches = 0
     conv3d_fused.launches = 0

@@ -24,8 +24,8 @@ from typing import Dict
 _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SRC_DIR = osp.join(_PKG, "csrc")
 BUILD_DIR = osp.join(_PKG, "_build")
-SOURCES = ("conv3d_f32", "conv3d_head", "conv3d_narrow", "conv3d_s8",
-           "conv3d_sm90", "groupnorm")
+SOURCES = ("conv1x1_s8", "conv3d_f32", "conv3d_head", "conv3d_narrow",
+           "conv3d_s8", "conv3d_sm90", "groupnorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -53,6 +53,8 @@ _SIGNATURES = {
         "conv3d_narrow", [_P, _P, _P, _P] + [_I] * 6 + [_P]),
     "conv3d_s8_launch": (
         "conv3d_s8", [_P] * 6 + [_I] * 12 + [_P]),
+    "conv1x1_s8_launch": (
+        "conv1x1_s8", [_P] * 6 + [_I] * 5 + [_P]),
     "gn_stats_launch": ("groupnorm", [_P] * 4 + [_I] * 5 + [_P]),
     "gn_apply_launch": ("groupnorm", [_P, _P, _P, _P] + [_I] * 5 + [_P]),
 }

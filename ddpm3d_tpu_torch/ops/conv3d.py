@@ -395,7 +395,9 @@ def head_block(q: int, B: int, D: int, H: int, W: int, cout: int,
 
 def sm90_halo(tile: Tuple[int, int, int], pad: int = 1) -> int:
     """Voxels of the haloed input tile (TD+2p)(TH+2p)(TW+2p): p = 1 for the
-    3x3x3 conv; p = 0 (no halo) for the int8 kernel's 1x1x1 instance."""
+    3x3x3 conv; p = 0 (no halo) for the 1x1x1 instance that
+    ``csrc/conv3d_s8.cu`` had before ``csrc/conv1x1_s8.cu`` (chip_smoke.py
+    times it as the previous kernel with ``--parent-s8``)."""
     td, th, tw = tile
     return (td + 2 * pad) * (th + 2 * pad) * (tw + 2 * pad)
 
@@ -415,7 +417,7 @@ def pick_tile_sm90(D: int, H: int, W: int, rows: int = SM90_MAX_ROWS,
                    pad: int = 1) -> Tuple[int, int, int]:
     """Output tile (TD, TH, TW) of ``csrc/conv3d_sm90.cu`` (and of
     ``csrc/conv3d_s8.cu``, whose tiles follow the same rules; ``pad`` 0 for
-    its 1x1x1 instance) for a DxHxW volume: at most ``rows`` (256 or 128)
+    its former 1x1x1 instance) for a DxHxW volume: at most ``rows`` (256 or 128)
     voxels and SM90_MAX_HALO halo voxels; fewest tiles first (every tile
     costs ``rows`` rows of math), then the smallest halo, then the widest
     TW (8 consecutive voxels keep ldmatrix free of bank conflicts)."""

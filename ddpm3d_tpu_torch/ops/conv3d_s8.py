@@ -15,21 +15,24 @@ along Cout (:func:`..phase_up.stacked_phase_weight`): the result is the
 upsampled [B, D, 2H, 2W, Cout] output, and the bias is added after the
 rounding to the output dtype, as the JAX package's up sites add it.
 
-The Hopper kernel is ``csrc/conv3d_s8.cu``: ``wgmma`` s8 fed by TMA, the
-design of the bf16 ``csrc/conv3d_sm90.cu`` with 128-channel chunks, a
-no-halo instance for the 1x1x1 sites, and phase tiles that run only their
-12 taps (:func:`s8_tap_mask`); its source note says what bounds it and what
-the design does about that. It takes Cin a multiple of 16 (TMA's 16-byte
-row strides) and 16-byte-aligned operands: every site of the model has Cin
-a multiple of 128. A CPU tensor takes :func:`conv3d_s8_plain` (the integer
-sums in float64, exact since every partial sum is an integer below 2^53,
-then the same f32 epilogue ops), which the kernel equals bit for bit; a
-CUDA tensor launches the kernel or raises.
+The Hopper kernels: the 3x3x3 conv and the phase route run
+``csrc/conv3d_s8.cu`` (route "sm90": ``wgmma`` s8 fed by TMA, the design of
+the bf16 ``csrc/conv3d_sm90.cu`` with 128-channel chunks, phase tiles that
+run only their 12 taps, :func:`s8_tap_mask`); the 1x1x1 conv runs
+``csrc/conv1x1_s8.cu`` (route "conv1x1": a streaming s8 GEMM over rows,
+its weight tile resident in shared memory, :func:`conv1x1_plan`). Each
+source note says what bounds the kernel and what its design does about
+that. Both take Cin a multiple of 16 (TMA's 16-byte row strides) and
+16-byte-aligned operands: every site of the model has Cin a multiple of
+128. A CPU tensor takes :func:`conv3d_s8_plain` (the integer sums in
+float64, exact since every partial sum is an integer below 2^53, then the
+same f32 epilogue ops), which the kernels equal bit for bit; a CUDA tensor
+launches a kernel or raises.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,8 +41,13 @@ from . import _build
 from .conv3d import (SM90_BN, SM90_MAX_ROWS, SM90_SMEM_LIMIT, SM90_SMS,
                      SM90_STAGES, pick_tile_sm90, sm90_halo, sm90_tile)
 
-# kernel launches on the main path (see ops.launch_counts)
+# kernel launches on the main path (see ops.launch_counts): both kernels
 launches = 0
+# the same launches by kernel (see ops.route_counts): "conv3d_s8.sm90"
+# (csrc/conv3d_s8.cu, 3x3x3 and phase sites), "conv3d_s8.conv1x1"
+# (csrc/conv1x1_s8.cu, 1x1x1 sites)
+ROUTES = ("sm90", "conv1x1")
+route_launches = {}
 
 # csrc/conv3d_s8.cu: a Cin chunk is 128 int8 channels (kBK), one 128-byte
 # row per voxel; a ring of 2 to 4 halo stages (kMaxHaloStages)
@@ -48,17 +56,16 @@ S8_MAX_HALO_STAGES = 4
 S8_CIN_ALIGN = 16  # TMA: row strides a multiple of 16 bytes
 
 
-def s8_tile(B: int, D: int, H: int, W: int, n: int, taps: int,
+def s8_tile(B: int, D: int, H: int, W: int, n: int,
             out_dtype: torch.dtype = torch.bfloat16,
             sms: int = SM90_SMS) -> Tuple[int, int, int]:
-    """The output tile of one launch: the sm90 tile rules
-    (:func:`.conv3d.sm90_tile`) over N GEMM columns, with a halo for the
-    3x3x3 conv and none for the 1x1x1 conv; f32 output takes the kernel's
-    128-row instance (its 256-row one is built for bf16 output only)."""
-    pad = 1 if taps == 27 else 0
+    """The output tile of one launch of the 3x3x3 kernel: the sm90 tile
+    rules (:func:`.conv3d.sm90_tile`) over N GEMM columns; f32 output takes
+    the kernel's 128-row instance (its 256-row one is built for bf16 output
+    only)."""
     if out_dtype == torch.float32:
-        return pick_tile_sm90(D, H, W, SM90_MAX_ROWS // 2, pad)
-    return sm90_tile(B, D, H, W, n, sms, pad)
+        return pick_tile_sm90(D, H, W, SM90_MAX_ROWS // 2)
+    return sm90_tile(B, D, H, W, n, sms)
 
 
 def _s8_fixed_smem() -> int:
@@ -68,21 +75,98 @@ def _s8_fixed_smem() -> int:
             + 8 * (2 * S8_MAX_HALO_STAGES + 2 * SM90_STAGES) + 4 * 256)
 
 
-def s8_halo_stages(tile: Tuple[int, int, int], taps: int) -> Tuple[int, int]:
+def s8_halo_stages(tile: Tuple[int, int, int]) -> Tuple[int, int]:
     """(stages, bytes per stage) of the halo ring (the launch's
     ``hstages``, ``halo_bytes``): 128 bytes per halo voxel rounded up to
     1024, as many stages as the block's shared memory holds, at most 4
     (the kernel needs 2). The epilogue stages 128 bytes per output row in
     a halo stage, which always holds them."""
-    stage = -(-sm90_halo(tile, 1 if taps == 27 else 0) * S8_BK // 1024) * 1024
+    stage = -(-sm90_halo(tile) * S8_BK // 1024) * 1024
     return (min(S8_MAX_HALO_STAGES,
                 (SM90_SMEM_LIMIT - _s8_fixed_smem()) // stage), stage)
 
 
-def s8_smem_bytes(tile: Tuple[int, int, int], taps: int) -> int:
+def s8_smem_bytes(tile: Tuple[int, int, int]) -> int:
     """Dynamic shared memory of one block (the launch's ``smem``)."""
-    stages, stage = s8_halo_stages(tile, taps)
+    stages, stage = s8_halo_stages(tile)
     return _s8_fixed_smem() + stages * stage
+
+
+# csrc/conv1x1_s8.cu: tiles of 128 rows x 128 columns, 128-channel chunks
+# (16 KB each, for rows and for weights), a ring of 4 to 8 stages, two
+# consumer warpgroups with four 8 KB pass buffers each, 2 * 8 + 1 barriers
+C1_ROWS = 128
+C1_BN = 128
+C1_BK = 128
+C1_CHUNK = C1_ROWS * C1_BK
+C1_MIN_STAGES, C1_MAX_STAGES = 4, 8
+C1_CONSUMERS = 2
+C1_OUT_BUFS = 4
+C1_PASS_BYTES = 64 * 128
+C1_OUT_BYTES = C1_CONSUMERS * C1_OUT_BUFS * C1_PASS_BYTES
+C1_BARS = 2 * C1_MAX_STAGES + 1
+
+
+class Conv1x1Plan(NamedTuple):
+    """One launch of ``csrc/conv1x1_s8.cu`` (its ``Shape`` and launch)."""
+    chunks: int          # 128-channel chunks of Cin
+    col_tiles: int       # nt: 128-column tiles of N
+    row_tiles: int       # mt: 128-row tiles of M
+    blocks_per_col: int  # bpc: blocks on one column tile
+    grid: int            # nt * bpc blocks
+    resident: bool       # the weight slab loaded once, or streamed
+    stages: int          # the ring's stages
+    stage_bytes: int     # 16 KB, 32 KB when streamed (rows + weights)
+    slab_bytes: int      # chunks * 16 KB when resident, else 0
+    ring_off: int        # shared memory from the 1024-aligned base: the
+    out_off: int         # slab at 0, the ring, the output buffers, the
+    bar_off: int         # barriers
+    smem_bytes: int      # the launch's dynamic shared memory
+    passes: int          # 128-byte column passes of a tile's epilogue
+    tma_out: bool        # the epilogue stores by TMA (16-byte rows of y)
+
+
+def conv1x1_plan(B: int, V: int, cin: int, n: int,
+                 out_dtype: torch.dtype = torch.bfloat16,
+                 sms: int = SM90_SMS) -> Conv1x1Plan:
+    """The plan of ``conv1x1_s8_launch`` for x [B * V, Cin] -> y [B * V, N]:
+    the weight slab resident where ``C1_MIN_STAGES`` row stages fit beside
+    it and the output buffers (Cin <= 768), else streamed beside the rows
+    in each stage; as many stages as fit, at most ``C1_MAX_STAGES``; block
+    b on column tile b % nt and row tiles b // nt, + bpc, ..."""
+    M = B * V
+    chunks = -(-cin // C1_BK)
+    nt, mt = -(-n // C1_BN), -(-M // C1_ROWS)
+    fixed = 1024 + C1_OUT_BYTES + 8 * C1_BARS
+    slab = chunks * C1_CHUNK
+    stages = (SM90_SMEM_LIMIT - fixed - slab) // C1_CHUNK
+    resident = stages >= C1_MIN_STAGES
+    if resident:
+        stage_bytes, ring_off = C1_CHUNK, slab
+    else:
+        stage_bytes, ring_off, slab = 2 * C1_CHUNK, 0, 0
+        stages = (SM90_SMEM_LIMIT - fixed) // stage_bytes
+    stages = min(stages, C1_MAX_STAGES)
+    out_off = ring_off + stages * stage_bytes
+    bar_off = out_off + C1_OUT_BYTES
+    bpc = max(1, min(mt, sms // nt))
+    esize = 2 if out_dtype == torch.bfloat16 else 4
+    return Conv1x1Plan(
+        chunks=chunks, col_tiles=nt, row_tiles=mt,
+        blocks_per_col=bpc, grid=nt * bpc, resident=resident, stages=stages,
+        stage_bytes=stage_bytes, slab_bytes=slab, ring_off=ring_off,
+        out_off=out_off, bar_off=bar_off,
+        smem_bytes=1024 + bar_off + 8 * C1_BARS,
+        passes=C1_BN * esize // 128, tma_out=n * esize % 16 == 0)
+
+
+def conv1x1_work_items(plan: Conv1x1Plan) -> Iterator[Tuple[int, int, int]]:
+    """(block, row tile, column tile) in each block's order, as the
+    kernel's producer and consumers walk them."""
+    for blk in range(plan.grid):
+        for rt in range(blk // plan.col_tiles, plan.row_tiles,
+                        plan.blocks_per_col):
+            yield blk, rt, blk % plan.col_tiles
 
 
 def phase_taps(p: int) -> List[int]:
@@ -213,9 +297,10 @@ def conv3d_s8_kernel(
     out_dtype: torch.dtype = torch.bfloat16,
     upsample: bool = False,
 ) -> torch.Tensor:
-    """Launch ``csrc/conv3d_s8.cu`` on CUDA tensors. ``w_packed`` comes from
-    :func:`pack_weight_s8`. Raises unless Cin is a multiple of 16 and both
-    operands start 16-byte aligned (TMA)."""
+    """Launch the int8 conv on CUDA tensors: ``csrc/conv1x1_s8.cu`` for a
+    1x1x1 weight, ``csrc/conv3d_s8.cu`` for the 3x3x3 conv and the phase
+    route. ``w_packed`` comes from :func:`pack_weight_s8`. Raises unless Cin
+    is a multiple of 16 and both operands start 16-byte aligned (TMA)."""
     global launches
     if xq.device.type != "cuda":
         raise RuntimeError(f"conv3d_s8 kernel takes CUDA tensors, got {xq.device}")
@@ -237,17 +322,25 @@ def conv3d_s8_kernel(
     shape = (B, D, 2 * H, 2 * W, cout) if upsample else (B, D, H, W, cout)
     y = torch.empty(shape, dtype=out_dtype, device=dev)
     n = w_packed.shape[1]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    td, th, tw = s8_tile(B, D, H, W, n, taps, out_dtype, sms)
-    err = _build.fn("conv3d_s8_launch")(
-        xq.data_ptr(), w_packed.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-        None if b is None else b.data_ptr(), y.data_ptr(),
-        B, D, H, W, cin, n, taps, int(upsample), td, th, tw,
-        1 if out_dtype == torch.bfloat16 else 0,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "conv3d_s8_launch")
+    b_ptr = None if b is None else b.data_ptr()
+    bf16 = 1 if out_dtype == torch.bfloat16 else 0
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if taps == 1:
+        route, entry = "conv1x1", "conv1x1_s8_launch"
+        err = _build.fn(entry)(
+            xq.data_ptr(), w_packed.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+            b_ptr, y.data_ptr(), B, D * H * W, cin, n, bf16, stream)
+    else:
+        route, entry = "sm90", "conv3d_s8_launch"
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        err = _build.fn(entry)(
+            xq.data_ptr(), w_packed.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+            b_ptr, y.data_ptr(), B, D, H, W, cin, n, taps, int(upsample),
+            *s8_tile(B, D, H, W, n, out_dtype, sms), bf16, stream)
+    _build.check(err, entry)
     launches += 1
+    key = f"conv3d_s8.{route}"
+    route_launches[key] = route_launches.get(key, 0) + 1
     return y
 
 

@@ -276,7 +276,14 @@ SEG_6C_INT8_LAUNCHES = {
     "SegModelv3_6c": {"conv3d": 3, "conv3d_s8": 134, "gn_stats": 99,
                       "gn_apply": 99},
 }
-SEG_6C_INT8_ROUTES = {"sm90_smallcin": 2, "f32_head": 1}
+# and K5's launches by kernel: the 3x3x3 sites on csrc/conv3d_s8.cu, the
+# 1x1x1 ones (the fusion's) on csrc/conv1x1_s8.cu
+SEG_6C_INT8_ROUTES = {
+    "SegModelv2_6c": {"sm90_smallcin": 2, "f32_head": 1,
+                      "conv3d_s8.sm90": 98, "conv3d_s8.conv1x1": 21},
+    "SegModelv3_6c": {"sm90_smallcin": 2, "f32_head": 1,
+                      "conv3d_s8.sm90": 98, "conv3d_s8.conv1x1": 36},
+}
 
 
 @pytest.mark.parametrize("name", ALIASES)
@@ -292,6 +299,9 @@ def test_production_seg_6c_launches(name, monkeypatch):
             if key == "conv3d":
                 routes[cv.conv3d_route(a[0].shape, a[0].dtype,
                                        a[1].shape[0])] += 1
+            elif key == "conv3d_s8":
+                routes["conv3d_s8." + ("conv1x1" if a[1][0, 0].numel() == 1
+                                       else "sm90")] += 1
             return fn(*a, **k)
         return wrapper
 
@@ -309,7 +319,8 @@ def test_production_seg_6c_launches(name, monkeypatch):
         resblock_updown=True, dtype=torch.bfloat16).eval()
     for int8, want, want_routes in (
             (None, SEG_6C_LAUNCHES, SEG_6C_ROUTES),
-            (quant.Int8Config(), SEG_6C_INT8_LAUNCHES, SEG_6C_INT8_ROUTES)):
+            (quant.Int8Config(), SEG_6C_INT8_LAUNCHES,
+             SEG_6C_INT8_ROUTES[name])):
         model.set_int8(int8)
         counts.update({k: 0 for k in want[name]})
         routes.clear()

@@ -525,6 +525,14 @@ S8_CASES = [
     ((1, 4, 16, 32, 256), 128, 1, False),   # a 1x1 site's 256-row tiles
     ((1, 3, 8, 8, 128), 4 * 128, 27, True),   # phase site, Cout 128: 12 taps
     ((1, 2, 6, 12, 384), 4 * 384, 27, True),  # phase site, Cout 384
+    # csrc/conv1x1_s8.cu beyond the two 1x1 cases above:
+    ((2, 4, 6, 6, 256), 128, 1, False),     # 144 rows a sample: row tiles
+                                            # straddle the two samples
+    ((1, 3, 6, 6, 1024), 512, 1, False),    # Cin 1024: weights streamed
+    ((1, 3, 5, 6, 48), 24, 1, False),       # Cin 48: a ragged chunk
+    ((2, 3, 5, 7, 128), 200, 1, False),     # N = 200: a ragged column tile
+    ((1, 2, 6, 6, 64), 130, 1, False),      # N = 130: rows of y not 16-byte
+                                            # strided, the threads store
 ]
 
 
@@ -566,8 +574,11 @@ def test_conv3d_s8_kernel_matches_plain(dev, shape, n, taps, up, dtype):
                0.01 + 0.02 * torch.rand((B,), generator=g, device=dev))
         for b in (None, bias):
             before = ops.launch_counts()["conv3d_s8"]
+            key = "conv3d_s8." + ("conv1x1" if taps == 1 else "sm90")
+            routed = ops.route_counts()[key]
             got = s8.conv3d_s8(xq, wq, s_x, s_w, b, dtype, up, w_packed=wp)
             assert ops.launch_counts()["conv3d_s8"] == before + 1
+            assert ops.route_counts()[key] == routed + 1
             ref = s8.conv3d_s8_plain(xq, wq, s_x, s_w, b, dtype, up)
             torch.cuda.synchronize()
             assert got.dtype == dtype and got.shape == ref.shape
@@ -609,6 +620,58 @@ def test_conv3d_s8_rejects_what_tma_cannot_stage(dev):
     xv.copy_(xq)
     with pytest.raises(ValueError, match="16-byte"):
         s8.conv3d_s8(xv, wq, s_x, s_w)
+
+
+def test_conv3d_s8_launch_refuses_taps_1(dev):
+    """csrc/conv3d_s8.cu has no 1x1x1 path: its C entry point returns an
+    error for taps = 1 (the wrapper sends those to csrc/conv1x1_s8.cu)."""
+    from ddpm3d_tpu_torch.ops import _build
+    from ddpm3d_tpu_torch.ops import conv3d_s8 as s8
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    xq, wq, s_w, bias = _s8_case(dev, g, (1, 4, 8, 8, 128), 128, 1, False)
+    wp = s8.pack_weight_s8(wq)
+    s_x = torch.full((1,), 0.02, device=dev)
+    y = torch.empty((1, 4, 8, 8, 128), dtype=torch.bfloat16, device=dev)
+    err = _build.fn("conv3d_s8_launch")(
+        xq.data_ptr(), wp.data_ptr(), s_x.data_ptr(), s_w.data_ptr(),
+        bias.data_ptr(), y.data_ptr(), 1, 4, 8, 8, 128, 128, 1, 0, 4, 8, 8, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(err, "conv3d_s8_launch")
+
+
+def test_conv1x1_s8_rejects_what_tma_cannot_stage(dev):
+    """The 1x1x1 kernel takes what K5 took: Cin % 16 != 0 and a misaligned
+    x or weight raise in the wrapper, and the C entry point refuses a
+    misaligned x itself."""
+    from ddpm3d_tpu_torch.ops import _build
+    from ddpm3d_tpu_torch.ops import conv3d_s8 as s8
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    s_x = torch.full((1,), 0.02, device=dev)
+    xq, wq, s_w, _ = _s8_case(dev, g, (1, 3, 5, 6, 40), 24, 1, False)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        s8.conv3d_s8(xq, wq, s_x, s_w)
+    xq, wq, s_w, _ = _s8_case(dev, g, (1, 2, 4, 4, 32), 16, 1, False)
+    flat = torch.zeros(xq.numel() + 1, device=dev, dtype=torch.int8)
+    xv = flat[1:].view(xq.shape)
+    xv.copy_(xq)
+    with pytest.raises(ValueError, match="16-byte"):
+        s8.conv3d_s8(xv, wq, s_x, s_w)
+    wflat = torch.zeros(wq.numel() + 1, device=dev, dtype=torch.int8)
+    wv = wflat[1:].view(1, 16, 32)
+    wv.copy_(s8.pack_weight_s8(wq))
+    with pytest.raises(ValueError, match="16-byte"):
+        s8.conv3d_s8_kernel(xq, wv, s_x, s_w)
+    y = torch.empty((1, 2, 4, 4, 16), dtype=torch.bfloat16, device=dev)
+    wp = s8.pack_weight_s8(wq)
+    err = _build.fn("conv1x1_s8_launch")(
+        xv.data_ptr(), wp.data_ptr(), s_x.data_ptr(), s_w.data_ptr(), None,
+        y.data_ptr(), 1, 32, 32, 16, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 @pytest.mark.parametrize("shape,cout", [

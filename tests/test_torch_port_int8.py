@@ -140,23 +140,38 @@ def test_conv3d_s8_plain_matches_pallas_interpret():
             np.testing.assert_allclose(got.numpy(), ref, rtol=5e-6, atol=1e-4)
 
 
-@pytest.mark.parametrize("k", [3, 1])
-def test_conv3d_int8_matches_jax_default_lowering(k):
+@pytest.mark.parametrize("k,cin,n,dtype", [
+    pytest.param(3, 16, 24, "float32", id="3"),
+    pytest.param(1, 16, 24, "float32", id="1"),
+    # the model's 1x1x1 sites at their chunk counts (2 and 8 of 128
+    # channels on csrc/conv1x1_s8.cu; 1024 -> 512 streams its weights)
+    pytest.param(1, 256, 128, "float32", id="1-256-128-float32"),
+    pytest.param(1, 256, 128, "bfloat16", id="1-256-128-bfloat16"),
+    pytest.param(1, 1024, 512, "float32", id="1-1024-512-float32"),
+    pytest.param(1, 1024, 512, "bfloat16", id="1-1024-512-bfloat16"),
+])
+def test_conv3d_int8_matches_jax_default_lowering(k, cin, n, dtype):
     """A quantized site end to end (quantize the activation per sample,
-    the weight per channel, int8 conv, f32 epilogue with the bias) against
-    conv3d_folded_int8 at batch 2, dynamic scales: bit-equal (f32)."""
-    rng = np.random.default_rng(4 + k)
-    B, D = 2, 5
-    x = (rng.standard_normal((B, D, 6, 7, 16)) * 2).astype(np.float32)
+    the weight per channel, int8 conv, f32 epilogue with the bias, one
+    rounding to x's dtype) against conv3d_folded_int8 (XLA's lowering: the
+    JAX package runs its 1x1x1 sites there) at batch 2, dynamic scales:
+    bit-equal, f32 and bf16 out."""
+    rng = np.random.default_rng(4 + k + (0 if cin == 16 else cin + n))
+    B, D, H, W = (2, 5, 6, 7) if cin == 16 else (2, 3, 4, 5)
+    x = (rng.standard_normal((B, D, H, W, cin)) * 2).astype(np.float32)
     x[1] *= 30  # per-sample scales differ
-    w = (rng.standard_normal((k, k, k, 16, 24)) * 0.1).astype(np.float32)
-    bias = rng.standard_normal(24).astype(np.float32)
+    w = (rng.standard_normal((k, k, k, cin, n)) * 0.1).astype(np.float32)
+    bias = rng.standard_normal(n).astype(np.float32)
+    xj = jnp.asarray(x.reshape((B * D, H, W, cin)), getattr(jnp, dtype))
     ref = np.asarray(jquant.conv3d_folded_int8(
-        jnp.asarray(x.reshape((B * D,) + x.shape[2:])), jnp.asarray(w), B,
-        bias=jnp.asarray(bias))).reshape(B, D, 6, 7, 24)
+        xj, jnp.asarray(w), B, bias=jnp.asarray(bias)).astype(jnp.float32))
     wq, s_w = quant.quantize_weight(_torch_w(w))
-    got = quant.conv3d_int8(_t(x), wq, s_w, _t(bias))
-    np.testing.assert_array_equal(got.numpy(), ref)
+    xt = _t(np.array(xj.astype(jnp.float32)).reshape(x.shape)).to(
+        getattr(torch, dtype))
+    got = quant.conv3d_int8(xt, wq, s_w, _t(bias))
+    assert got.dtype == xt.dtype
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  ref.reshape(B, D, H, W, n))
 
 
 def test_phase_route_matches_jax():

@@ -1,7 +1,9 @@
 """Host-side rules of the port's redesigned int8 conv (``csrc/conv3d_s8.cu``,
-K5) and of the narrow input conv (``csrc/conv3d_narrow.cu``): which taps a
-phase tile runs, the tiles, work items and shared memory of every int8 site
-of the production model, and the narrow conv's folded weight layout. Pure
+K5), of its 1x1x1 kernel (``csrc/conv1x1_s8.cu``) and of the narrow input
+conv (``csrc/conv3d_narrow.cu``): which taps a phase tile runs, the tiles,
+work items and shared memory of every int8 site of the production model
+(and, for the 1x1x1 kernel, of the Seg models), and the narrow conv's
+folded weight layout. Pure
 Python on the CPU, against the JAX package where it has the function; the
 kernels themselves are held against their plain versions on the card
 (tests/test_torch_port_cuda.py, chip_smoke.py).
@@ -9,6 +11,8 @@ kernels themselves are held against their plain versions on the card
 
 import collections
 import itertools
+import os.path as osp
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +21,7 @@ import torch
 
 from ddpm3d_tpu.ops.conv3d_mxu import conv3d_mxu
 from ddpm3d_tpu.ops.phase_up import phase_up_kernels as jax_phase_up_kernels
+from ddpm3d_tpu_torch.models import SegUNetModel
 from ddpm3d_tpu_torch.models.factory import sr_create_model_and_diffusion
 from ddpm3d_tpu_torch.models.nn import init_params
 from ddpm3d_tpu_torch.ops import conv3d as cv
@@ -145,55 +150,53 @@ def test_phase_tiles_run_twelve_taps_at_every_up_site(int8_sites):
 
 @pytest.mark.parametrize("B", [1, 2])
 def test_s8_tiles_fit_every_site(int8_sites, B):
-    """At every int8 site (batch 1 and 2): the tile of s8_tile has at most
-    256 rows, a halo within the kernel's limit and TMA's box dimensions, a
-    halo ring of 2-4 stages, shared memory within the block's 232448
-    bytes; the 3x3x3 tiles follow the bf16 kernel's rules, the 1x1 tiles
-    have no halo and fill 256 rows at 96^3."""
+    """At every 3x3x3 int8 site (batch 1 and 2; the 1x1x1 sites run
+    csrc/conv1x1_s8.cu, test_conv1x1_plans_fit_every_site): the tile of
+    s8_tile has at most 256 rows, a halo within the kernel's limit and
+    TMA's box dimensions, a halo ring of 2-4 stages, shared memory within
+    the block's 232448 bytes, and follows the bf16 kernel's rules."""
     for (D, H, W, cin, n, taps, up) in int8_sites:
-        pad = 1 if taps == 27 else 0
-        tile = s8.s8_tile(B, D, H, W, n, taps)
+        if taps == 1:
+            continue
+        tile = s8.s8_tile(B, D, H, W, n)
         td, th, tw = tile
         assert td * th * tw <= cv.SM90_MAX_ROWS
         assert td <= D and th <= H and tw <= W
-        assert cv.sm90_halo(tile, pad) <= cv.SM90_MAX_HALO
-        assert max(td, th, tw) + 2 * pad <= 256
-        stages, stage = s8.s8_halo_stages(tile, taps)
+        assert cv.sm90_halo(tile) <= cv.SM90_MAX_HALO
+        assert max(td, th, tw) + 2 <= 256
+        stages, stage = s8.s8_halo_stages(tile)
         assert 2 <= stages <= s8.S8_MAX_HALO_STAGES
         assert stage >= td * th * tw * 128  # the epilogue's staged rows
-        assert s8.s8_smem_bytes(tile, taps) <= cv.SM90_SMEM_LIMIT
-        if taps == 27:
-            assert tile == cv.sm90_tile(B, D, H, W, n)
-        elif H == 96:
-            assert td * th * tw == 256 and stages == 4
+        assert s8.s8_smem_bytes(tile) <= cv.SM90_SMEM_LIMIT
+        assert tile == cv.sm90_tile(B, D, H, W, n)
         # f32 output runs the 128-row instance only
-        t32 = s8.s8_tile(B, D, H, W, n, taps, torch.float32)
+        t32 = s8.s8_tile(B, D, H, W, n, torch.float32)
         assert t32[0] * t32[1] * t32[2] <= cv.SM90_MAX_ROWS // 2
-        assert s8.s8_smem_bytes(t32, taps) <= cv.SM90_SMEM_LIMIT
+        assert s8.s8_smem_bytes(t32) <= cv.SM90_SMEM_LIMIT
 
 
 def test_s8_smem_matches_the_kernel_layout():
     """At 8x4x8: two 600-voxel halo stages of 76.8 KB (128 bytes a voxel),
     four 16 KB weight stages, 16 barriers, the 256-row table and 1 KB of
-    alignment slack. A 1x1 tile of 256 rows: four 32 KB stages."""
-    assert s8.s8_halo_stages((8, 4, 8), 27) == (2, 76800)
-    assert s8.s8_smem_bytes((8, 4, 8), 27) == (
+    alignment slack."""
+    assert s8.s8_halo_stages((8, 4, 8)) == (2, 76800)
+    assert s8.s8_smem_bytes((8, 4, 8)) == (
         1024 + 2 * 76800 + 4 * 16384 + 8 * 16 + 1024)
-    assert s8.s8_halo_stages((8, 1, 32), 1) == (4, 32768)
-    assert s8.s8_smem_bytes((14, 2, 8), 27) <= cv.SM90_SMEM_LIMIT
+    assert s8.s8_smem_bytes((14, 2, 8)) <= cv.SM90_SMEM_LIMIT
 
 
 @pytest.mark.parametrize("B,dhw,n,taps", [
-    (1, (96, 12, 12), 384, 1), (2, (5, 7, 9), 130, 27), (1, (6, 12, 12), 512, 27),
-    (2, (4, 6, 6), 256, 1), (1, (96, 6, 6), 4 * 384, 27),
+    (2, (5, 7, 9), 130, 27), (1, (6, 12, 12), 512, 27),
+    (1, (96, 6, 6), 4 * 384, 27),
 ])
 def test_s8_work_items_cover_the_output_once(B, dhw, n, taps):
     """The work items of one launch (``decode_tile``, the same order as the
     bf16 kernel's) cover every output voxel and 128-column tile once; the
-    1x1 tile's box is the tile itself, the 3x3x3 box starts one voxel
-    before it (TMA's zero fill is the SAME padding)."""
+    3x3x3 box starts one voxel before the tile (TMA's zero fill is the SAME
+    padding). The 1x1x1 cases moved to
+    test_conv1x1_work_items_cover_the_output_once."""
     D, H, W = dhw
-    tile = s8.s8_tile(B, D, H, W, n, taps)
+    tile = s8.s8_tile(B, D, H, W, n)
     td, th, tw = tile
     total = cv.sm90_tiles(B, D, H, W, n, tile)
     seen = collections.Counter()
@@ -207,6 +210,161 @@ def test_s8_work_items_cover_the_output_once(B, dhw, n, taps):
             seen[(b, d, h, w, n0)] += 1
     assert len(seen) == B * D * H * W * -(-n // cv.SM90_BN)
     assert set(seen.values()) == {1}
+
+
+# ------------------------------------------------- csrc/conv1x1_s8.cu --
+
+C1_SRC = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
+                  "ddpm3d_tpu_torch", "csrc", "conv1x1_s8.cu")
+
+
+@pytest.fixture(scope="module")
+def seg_1x1_sites():
+    """The 1x1x1 int8 sites of one forward of each full-width Seg fusion
+    (128 channels, (1, 1, 2, 3, 4), 2 res blocks, bf16, dynamic scales), as
+    {fusion: Counter((D, H, W, Cin, N))} at 96^3, read by forward hooks
+    from a forward at (1, 16, 16) as :func:`int8_sites` reads the
+    production model's."""
+    out = {}
+    scale = 96 // SMALL_HW
+    for fusion in ("add", "cat_conv", "midcat"):
+        model = SegUNetModel(
+            in_channels=1, cond_channels=1, model_channels=128,
+            out_channels=2, num_res_blocks=2, channel_mult=(1, 1, 2, 3, 4),
+            use_scale_shift_norm=True, resblock_updown=True, fusion=fusion,
+            dtype=torch.bfloat16).eval()
+        model.set_int8(quant.Int8Config())
+        sites = collections.Counter()
+
+        def hook(mod, args, kwargs, y, sites=sites):
+            _, _, H, W, cin = args[0].shape
+            if mod.weight[0, 0].numel() == 1:
+                sites[(96, H * scale, W * scale, cin,
+                       mod.weight.shape[0])] += 1
+
+        for m in model.modules():
+            if getattr(m, "site", "") and m.int8_active():
+                m.register_forward_hook(hook, with_kwargs=True)
+        x = torch.zeros((1, 1, SMALL_HW, SMALL_HW, 1))
+        with torch.no_grad():
+            model(x, torch.tensor([10]), low_res=x)
+        out[fusion] = sites
+    return out
+
+
+def _all_1x1_sites(int8_sites, seg_1x1_sites) -> set:
+    """Every distinct (D, H, W, Cin, N) 1x1x1 site of the production model
+    and of the three Seg fusions."""
+    main = {k[:5] for k in int8_sites if k[5] == 1}
+    return main.union(*seg_1x1_sites.values())
+
+
+def _c1_fits(plan) -> bool:
+    """The slab, C1_MIN_STAGES row stages and the output buffers fit."""
+    return (1024 + plan.chunks * s8.C1_CHUNK
+            + s8.C1_MIN_STAGES * s8.C1_CHUNK + s8.C1_OUT_BYTES
+            + 8 * s8.C1_BARS) <= cv.SM90_SMEM_LIMIT
+
+
+def _check_work_items(plan, B: int, V: int, n: int) -> int:
+    """Every (row tile, column tile) once, every row of [0, B V) in exactly
+    one row tile, the blocks within the grid; returns how many row tiles
+    straddle two samples (the epilogue's per-row scale)."""
+    seen = collections.Counter(
+        (rt, ct) for blk, rt, ct in s8.conv1x1_work_items(plan))
+    assert set(seen) == set(itertools.product(range(plan.row_tiles),
+                                              range(plan.col_tiles)))
+    assert set(seen.values()) == {1}
+    assert plan.col_tiles * s8.C1_BN >= n > (plan.col_tiles - 1) * s8.C1_BN
+    assert plan.row_tiles * s8.C1_ROWS >= B * V
+    assert (plan.row_tiles - 1) * s8.C1_ROWS < B * V
+    assert plan.grid <= max(cv.SM90_SMS, plan.col_tiles)
+    blocks = {blk for blk, _, _ in s8.conv1x1_work_items(plan)}
+    assert blocks == set(range(plan.grid))  # no block without a tile
+    straddles = 0
+    for rt in range(plan.row_tiles):
+        r0, r1 = rt * s8.C1_ROWS, min((rt + 1) * s8.C1_ROWS, B * V) - 1
+        straddles += r0 // V != r1 // V
+    return straddles
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_conv1x1_plans_fit_every_site(int8_sites, seg_1x1_sites, B):
+    """At every 1x1x1 int8 site of the production model and of the Seg
+    fusions (14 + 4 more distinct shapes), batch 1 and 2, bf16 and f32 out:
+    the work items cover every output row and column tile once; shared
+    memory is within the block's 232448 bytes; the weight slab is resident
+    at every site with Cin <= 512 and exactly where it fits beside four
+    row stages and the output buffers, and streamed (two 16 KB chunks a
+    stage) elsewhere; 4 to 8 stages; TMA stores (16-byte rows of y)."""
+    sites = _all_1x1_sites(int8_sites, seg_1x1_sites)
+    assert len({k for k in int8_sites if k[5] == 1}) == 14
+    for (D, H, W, cin, n) in sites:
+        V = D * H * W
+        for dt in (torch.bfloat16, torch.float32):
+            plan = s8.conv1x1_plan(B, V, cin, n, dt)
+            assert plan.smem_bytes <= cv.SM90_SMEM_LIMIT
+            assert plan.resident == _c1_fits(plan)
+            if cin <= 512:
+                assert plan.resident
+            assert plan.stage_bytes == s8.C1_CHUNK * (1 if plan.resident
+                                                      else 2)
+            assert s8.C1_MIN_STAGES <= plan.stages <= s8.C1_MAX_STAGES
+            assert plan.tma_out
+            assert plan.passes == (2 if dt == torch.bfloat16 else 4)
+            _check_work_items(plan, B, V, n)
+    # the byte-heavy sites fill the card: 96^2 and 48^2 run 132 blocks
+    for (D, H, W, cin, n) in sites:
+        if H >= 48:
+            assert s8.conv1x1_plan(B, D * H * W, cin, n).grid == cv.SM90_SMS
+
+
+@pytest.mark.parametrize("B,dhw,n,cin", [
+    (1, (96, 12, 12), 384, 768), (2, (4, 6, 6), 256, 128),
+    (2, (5, 7, 9), 200, 48), (1, (96, 6, 6), 512, 1024),
+])
+def test_conv1x1_work_items_cover_the_output_once(B, dhw, n, cin):
+    """The work items of one launch (each block's column tile b % nt and
+    row tiles b // nt, + bpc, ...) cover every output row and 128-column
+    tile once, including row tiles that straddle two samples (batch 2 with
+    D H W not a multiple of 128: 144 and 315 rows a sample)."""
+    V = dhw[0] * dhw[1] * dhw[2]
+    plan = s8.conv1x1_plan(B, V, cin, n)
+    straddles = _check_work_items(plan, B, V, n)
+    assert straddles == (1 if B == 2 and V % s8.C1_ROWS else 0)
+
+
+def test_conv1x1_smem_matches_the_kernel_layout():
+    """The planner's constants are the kernel's, and its layout: at Cin 256
+    a resident 32 KB slab, eight 16 KB row stages, 2 x 4 output buffers of
+    8 KB, 17 barriers and 1 KB of alignment slack; at Cin 1024 (a 128 KB
+    slab does not fit beside four stages) five 32 KB stages of rows and
+    weights; at Cin 768 a resident 96 KB slab beside four stages."""
+    with open(C1_SRC) as f:
+        src = f.read()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kRows"] == s8.C1_ROWS and const["kBN"] == s8.C1_BN
+    assert const["kBK"] == s8.C1_BK
+    assert const["kMinStages"] == s8.C1_MIN_STAGES
+    assert const["kMaxStages"] == s8.C1_MAX_STAGES
+    assert const["kConsumers"] == s8.C1_CONSUMERS
+    assert const["kOutBufs"] == s8.C1_OUT_BUFS
+    assert "kPassBytes = 64 * 128;" in src
+    assert "kBars = 2 * kMaxStages + 1;" in src
+    plan = s8.conv1x1_plan(1, 96 ** 3, 256, 128)
+    assert plan.resident and plan.stages == 8 and plan.slab_bytes == 32768
+    assert (plan.ring_off, plan.out_off, plan.bar_off) == (
+        32768, 32768 + 8 * 16384, 32768 + 8 * 16384 + 65536)
+    assert plan.smem_bytes == 1024 + 32768 + 8 * 16384 + 65536 + 8 * 17
+    plan = s8.conv1x1_plan(1, 96 * 36, 1024, 512)
+    assert not plan.resident and plan.stages == 5
+    assert (plan.ring_off, plan.out_off, plan.bar_off) == (
+        0, 5 * 32768, 5 * 32768 + 65536)
+    assert plan.smem_bytes == 1024 + 5 * 32768 + 65536 + 8 * 17
+    plan = s8.conv1x1_plan(1, 96 * 144, 768, 384)
+    assert plan.resident and plan.stages == 4
+    assert plan.smem_bytes == 1024 + 98304 + 4 * 16384 + 65536 + 8 * 17
 
 
 def _im2col_narrow(x: np.ndarray) -> np.ndarray:

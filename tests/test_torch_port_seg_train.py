@@ -95,7 +95,13 @@ SEG_INT8_LAUNCHES = {
     "midcat": {"conv3d": 3, "conv3d_s8": 120, "gn_stats": 99,
                "gn_apply": 99},
 }
-SEG_INT8_ROUTES = {"sm90_narrow": 1, "sm90_cin1": 1, "f32_head": 1}
+# and K5's launches by kernel (chip_smoke.py SEG_INT8_ROUTES): the 3x3x3
+# sites on csrc/conv3d_s8.cu, the 1x1x1 ones on csrc/conv1x1_s8.cu
+SEG_INT8_1X1 = {"add": 21, "cat_conv": 36, "midcat": 22}
+SEG_INT8_ROUTES = {
+    fusion: {"sm90_narrow": 1, "sm90_cin1": 1, "f32_head": 1,
+             "conv3d_s8.sm90": 98, "conv3d_s8.conv1x1": SEG_INT8_1X1[fusion]}
+    for fusion in FUSIONS}
 
 
 def production_seg(fusion, model_channels=128, **kw) -> SegUNetModel:
@@ -124,6 +130,10 @@ def test_production_seg_launches(fusion, monkeypatch):
                 r = conv_ops.conv3d_route(a[0].shape, a[0].dtype,
                                           a[1].shape[0])
                 routes[r] = routes.get(r, 0) + 1
+            elif name == "conv3d_s8":
+                r = "conv3d_s8." + ("conv1x1" if a[1][0, 0].numel() == 1
+                                    else "sm90")
+                routes[r] = routes.get(r, 0) + 1
             return fn(*a, **k)
         return wrapper
 
@@ -137,7 +147,8 @@ def test_production_seg_launches(fusion, monkeypatch):
     model = production_seg(fusion, model_channels=32)
     for int8, want, want_routes in (
             (None, SEG_LAUNCHES, SEG_ROUTES),
-            (quant.Int8Config(), SEG_INT8_LAUNCHES, SEG_INT8_ROUTES)):
+            (quant.Int8Config(), SEG_INT8_LAUNCHES,
+             SEG_INT8_ROUTES[fusion])):
         model.set_int8(int8)
         counts.update({k: 0 for k in want[fusion]})
         routes.clear()
