@@ -1890,8 +1890,12 @@ def _shards(t: torch.Tensor, n: int) -> list:
 
 def _sharded_run(model, fns_of_shard, n: int):
     """``fns_of_shard(i)`` for every shard at once under one ThreadGroup
-    attached to ``model``: (outputs, the group, each shard's launches)."""
+    attached to ``model``: (outputs, the group, its operations run
+    {op: n}, each shard's launches)."""
+    from ddpm3d_tpu_torch.utils import tracing
+
     ThreadGroup, _ = _spatial_group_types()
+    before = tracing.counters("spatial.")
     board = _ShardBoard(n)
     group = ThreadGroup(board)
     streams = [torch.cuda.Stream() for _ in range(n)]
@@ -1907,7 +1911,9 @@ def _sharded_run(model, fns_of_shard, n: int):
     finally:
         model.set_spatial(None)
     board.clear()
-    return outs, group, board.launches
+    calls = {k.split(".", 1)[1]: v - before.get(k, 0)
+             for k, v in tracing.counters("spatial.").items()}
+    return outs, group, {k: v for k, v in calls.items() if v}, board.launches
 
 
 def _conv_row_overhead(model, x, t, low, n: int) -> float:
@@ -1996,7 +2002,7 @@ def _spatial_forward(model, name: str, x, low, t, n: int,
             ref = model(x, t, low_res=low)
             ref_scales = scales.pop(threading.get_ident(), [])
             sites.clear()
-            outs, group, launches = _sharded_run(model, fwd, n)
+            outs, group, calls, launches = _sharded_run(model, fwd, n)
         finally:
             quant.quantize_act = real
             for h in hooks:
@@ -2008,7 +2014,7 @@ def _spatial_forward(model, name: str, x, low, t, n: int,
             "shards": n, "shape": list(x.shape),
             "cond_shape": list(low.shape), "max_abs_err": err,
             "rel_err": rel, "tol": spec["tol"],
-            "calls_per_forward": {k: v // n for k, v in group.calls.items()},
+            "calls_per_forward": {k: v // n for k, v in calls.items()},
             "launches_per_shard": [{k: c.get(k, 0) for k in want_launches}
                                    for c in launches]}
     if model.dtype == torch.bfloat16:
@@ -2169,7 +2175,7 @@ def phase_spatial(seed: int, model, fused, int8m, sched, cfg) -> dict:
         lows = _shards(low, n)
         h = 96 // n
         ops.reset_launch_counts()
-        outs, _, launches = _sharded_run(
+        outs, _, _, launches = _sharded_run(
             model, lambda i: chain((1, 96, h, 96, 1),
                                    ((96, 96, 96, 1), i * h, (i + 1) * h),
                                    lows[i]), n)

@@ -19,6 +19,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from .. import resolve_device
+from ..utils import tracing
 from . import process
 from .process import DiffusionConfig
 from .schedules import Schedule
@@ -61,23 +62,25 @@ def dpm_solver_pp_sample_loop(
 
     d_prev = h_prev = None
     for i in range(K):
-        idx = K - 1 - i
-        t = torch.full((B,), idx, dtype=torch.long, device=device)
-        d = process.p_mean_variance(
-            model_fn, sched, cfg, x, t,
-            clip_denoised=clip_denoised, denoised_fn=denoised_fn,
-            model_kwargs=model_kwargs,
-        )["pred_xstart"]
-        if idx == 0:  # the ODE ends at t = 0: x = x0
-            return d
-        h = lams[idx - 1] - lams[idx]
-        d_used = d
-        if order == 2 and d_prev is not None:
-            r = h_prev / torch.where(h == 0, torch.ones_like(h), h)
-            r = torch.where(r == 0, torch.ones_like(r), r)
-            d_used = (1.0 + 1.0 / (2.0 * r)) * d - (1.0 / (2.0 * r)) * d_prev
-        ratio = sigmas[idx - 1] / sigmas[idx]
-        coef = alphas[idx - 1] * -torch.expm1(-h)
-        x = ratio * x + coef * d_used
-        d_prev, h_prev = d, h
+        with tracing.span("ddpm.sampler.step"):
+            idx = K - 1 - i
+            t = torch.full((B,), idx, dtype=torch.long, device=device)
+            d = process.p_mean_variance(
+                model_fn, sched, cfg, x, t,
+                clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                model_kwargs=model_kwargs,
+            )["pred_xstart"]
+            if idx == 0:  # the ODE ends at t = 0: x = x0
+                return d
+            h = lams[idx - 1] - lams[idx]
+            d_used = d
+            if order == 2 and d_prev is not None:
+                r = h_prev / torch.where(h == 0, torch.ones_like(h), h)
+                r = torch.where(r == 0, torch.ones_like(r), r)
+                d_used = ((1.0 + 1.0 / (2.0 * r)) * d
+                          - (1.0 / (2.0 * r)) * d_prev)
+            ratio = sigmas[idx - 1] / sigmas[idx]
+            coef = alphas[idx - 1] * -torch.expm1(-h)
+            x = ratio * x + coef * d_used
+            d_prev, h_prev = d, h
     raise ValueError("the schedule has no timesteps")

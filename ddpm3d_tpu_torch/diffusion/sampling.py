@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils import tracing
 from . import process
 from .process import DiffusionConfig
 from .schedules import Schedule
@@ -218,15 +219,18 @@ def _steps(model_fn, sched, cfg, img, ids, ts, noise_stream, seed, step_fn,
     output)`` for each (see :func:`p_sample_loop`)."""
     B = img.shape[0]
     for i, t_scalar in enumerate(ts):
-        t = torch.full((B,), t_scalar, dtype=torch.long, device=img.device)
-        if noise_stream is not None:
-            eps = noise_stream[i].to(device=img.device, dtype=torch.float32)
-        else:
-            eps = step_noise(seed, ids, t_scalar, img.shape[1:], img.device,
-                             noise_window)
-        if before_step is not None:
-            before_step(t_scalar)
-        out = step_fn(model_fn, sched, cfg, img, t, eps, **step_kwargs)
+        with tracing.span("ddpm.sampler.step"):
+            t = torch.full((B,), t_scalar, dtype=torch.long,
+                           device=img.device)
+            if noise_stream is not None:
+                eps = noise_stream[i].to(device=img.device,
+                                         dtype=torch.float32)
+            else:
+                eps = step_noise(seed, ids, t_scalar, img.shape[1:],
+                                 img.device, noise_window)
+            if before_step is not None:
+                before_step(t_scalar)
+            out = step_fn(model_fn, sched, cfg, img, t, eps, **step_kwargs)
         img = out["sample"]
         yield t_scalar, out
 

@@ -46,6 +46,7 @@ from ..parallel import (
     spatial_rows,
     world,
 )
+from ..utils import tracing
 
 Log = Callable[[str], None]
 
@@ -198,6 +199,28 @@ def denoise_patches(
     def channels(a):  # host conditioner rows -> [n, Z, X, Y, C]
         return a if low_patches.ndim == 5 else a[..., None]
 
+    def upload(lo, hi):
+        """Patches [lo, hi) on the device: the conditioner, x_T and the
+        step noise stream (None where not given)."""
+        low = torch.from_numpy(channels(rows(low_patches[lo:hi]))).to(device)
+        x_t = stream = None
+        if stream_fn is not None:
+            x_t, stream = stream_fn(lo, hi)
+        elif noise is not None:
+            x_t = noise[lo:hi]
+            if noise_stream is not None:
+                stream = noise_stream[lo:hi]
+        if x_t is not None:
+            x_t = torch.from_numpy(rows(x_t)[..., None]).to(device)
+        if stream is not None:
+            if stream.shape[1] != T:
+                raise ValueError(f"noise_stream has {stream.shape[1]} "
+                                 f"steps, chain has {T}")
+            # [n, T, ...] -> [T, n, ..., 1], moved to the card step by step
+            stream = torch.from_numpy(rows(stream, 3)).movedim(
+                1, 0)[..., None]
+        return low, x_t, stream
+
     before_step = int8.set_chain_step if int8 is not None else None
 
     # slices that differ by at most one patch: a group that finishes early
@@ -208,68 +231,58 @@ def denoise_patches(
     n = pad_to_multiple(P, n_data) // n_data  # the largest slice
     first = sum(sizes[:d])
     last = first + sizes[d]
-    outs = []
-    if n_spatial > 1:
-        model.set_spatial(mesh.spatial)
-    try:
-        with torch.inference_mode():
-            for lo in range(first, last, batch_size):
-                hi = min(last, lo + batch_size)
-                low = torch.from_numpy(
-                    channels(rows(low_patches[lo:hi]))).to(device)
-                x_shape = low.shape[:-1] + (1,)
-                x_t = stream = None
-                if stream_fn is not None:
-                    x_t, stream = stream_fn(lo, hi)
-                elif noise is not None:
-                    x_t = noise[lo:hi]
-                    if noise_stream is not None:
-                        stream = noise_stream[lo:hi]
-                if x_t is not None:
-                    x_t = torch.from_numpy(rows(x_t)[..., None]).to(device)
-                if stream is not None:
-                    if stream.shape[1] != T:
-                        raise ValueError(f"noise_stream has {stream.shape[1]} "
-                                         f"steps, chain has {T}")
-                    # [n, T, ...] -> [T, n, ..., 1], moved to the card step
-                    # by step
-                    stream = torch.from_numpy(rows(stream, 3)).movedim(
-                        1, 0)[..., None]
-                ids = range(lo, hi)  # global: the noise does not depend on W
-                if use_dpm_solver:
-                    if x_t is None:
-                        x_t = step_noise(seed, ids, XT_STEP, x_shape[1:],
-                                         device, window)
-                    img = dpm_solver_pp_sample_loop(
-                        model_fn, sched, cfg, x_t, clip_denoised=clip_denoised,
-                        model_kwargs={"low_res": low}, order=dpm_order,
-                        device=device)
-                else:
-                    img = p_sample_loop(
-                        model_fn, sched, cfg, shape=x_shape, noise=x_t,
-                        noise_stream=stream, clip_denoised=clip_denoised,
-                        model_kwargs={"low_res": low}, seed=seed,
-                        sample_ids=ids, device=device,
-                        before_step=before_step, use_ddim=use_ddim, eta=eta,
-                        noise_window=window,
-                    )
-                outs.append(img[..., 0])
-                if progress_cb is not None:
-                    progress_cb(hi - first, last - first)
-    finally:
+    tracing.new_call()
+    with tracing.span("ddpm.pipeline.call"):
+        outs = []
         if n_spatial > 1:
-            model.set_spatial(None)
-    if int8 is not None:
-        int8.set_chain_step(None)
-    local = (patch[0], patch[1] // n_spatial, patch[2])
-    pad = torch.zeros((n - sizes[d],) + local, device=device)
-    got = all_gather_rows(torch.cat(outs + [pad]))
-    # [n_data * n_spatial * n, Z, X / n_spatial, Y] in rank order: each
-    # data group's shards side by side along X
-    got = got.reshape((n_data, n_spatial, n) + local).permute(
-        0, 2, 3, 1, 4, 5).reshape((n_data * n,) + patch)
-    return torch.cat([got[r * n:r * n + size]
-                      for r, size in enumerate(sizes)]).cpu().numpy()
+            model.set_spatial(mesh.spatial)
+        try:
+            with torch.inference_mode():
+                for lo in range(first, last, batch_size):
+                    hi = min(last, lo + batch_size)
+                    with tracing.span("ddpm.pipeline.upload"):
+                        low, x_t, stream = upload(lo, hi)
+                    x_shape = low.shape[:-1] + (1,)
+                    ids = range(lo, hi)  # global: noise independent of W
+                    with tracing.span("ddpm.pipeline.chain"):
+                        if use_dpm_solver:
+                            if x_t is None:
+                                x_t = step_noise(seed, ids, XT_STEP,
+                                                 x_shape[1:], device, window)
+                            img = dpm_solver_pp_sample_loop(
+                                model_fn, sched, cfg, x_t,
+                                clip_denoised=clip_denoised,
+                                model_kwargs={"low_res": low}, order=dpm_order,
+                                device=device)
+                        else:
+                            img = p_sample_loop(
+                                model_fn, sched, cfg, shape=x_shape, noise=x_t,
+                                noise_stream=stream,
+                                clip_denoised=clip_denoised,
+                                model_kwargs={"low_res": low}, seed=seed,
+                                sample_ids=ids, device=device,
+                                before_step=before_step, use_ddim=use_ddim,
+                                eta=eta, noise_window=window,
+                            )
+                    outs.append(img[..., 0])
+                    if progress_cb is not None:
+                        progress_cb(hi - first, last - first)
+        finally:
+            if n_spatial > 1:
+                model.set_spatial(None)
+        if int8 is not None:
+            int8.set_chain_step(None)
+        local = (patch[0], patch[1] // n_spatial, patch[2])
+        with tracing.span("ddpm.pipeline.gather"):
+            pad = torch.zeros((n - sizes[d],) + local, device=device)
+            got = all_gather_rows(torch.cat(outs + [pad]))
+            # [n_data * n_spatial * n, Z, X / n_spatial, Y] in rank order:
+            # each data group's shards side by side along X
+            got = got.reshape((n_data, n_spatial, n) + local).permute(
+                0, 2, 3, 1, 4, 5).reshape((n_data * n,) + patch)
+        with tracing.span("ddpm.pipeline.download"):
+            return torch.cat([got[r * n:r * n + size]
+                              for r, size in enumerate(sizes)]).cpu().numpy()
 
 
 def denoise_volume(
@@ -328,7 +341,8 @@ def denoise_volume(
     log(f"Patch grid: X {xs}, Y {ys}, Z {zs} -> {len(grid)} patches")
 
     t0 = time.monotonic()
-    low = extract_patches_zxy(volume_zxy, grid, patch_size)  # [P, Z, X, Y]
+    with tracing.span("ddpm.pipeline.cut"):
+        low = extract_patches_zxy(volume_zxy, grid, patch_size)  # [P, Z, X, Y]
     cut_s = time.monotonic() - t0
     log_stage_stats("patches", low, log)
 
@@ -363,7 +377,8 @@ def denoise_volume(
         return None, {"sample_wall_s": sample_wall_s}
     P = low.shape[0]
     t0 = time.monotonic()
-    draws = [blend_one(denoised_all[s * P:(s + 1) * P]) for s in range(S)]
+    with tracing.span("ddpm.pipeline.blend"):
+        draws = [blend_one(denoised_all[s * P:(s + 1) * P]) for s in range(S)]
     blend_s = time.monotonic() - t0
     result = np.mean(draws, axis=0) if S > 1 else draws[0]
     log_stage_stats("blended", result, log)

@@ -41,6 +41,7 @@ from ..ops import conv3d_s8 as s8_ops
 from ..ops import groupnorm as gn_ops
 from ..ops import quant
 from ..parallel.spatial import crop
+from ..utils import tracing
 
 NORM_GROUPS = gn_ops.NORM_GROUPS
 
@@ -94,29 +95,30 @@ class GroupNorm32(nn.Module):
         stats: Optional[torch.Tensor] = None,
         fold_only: bool = False,
     ):
-        if not fold_only and self.spatial is None:
-            return gn_ops.group_norm(
-                x, self.weight, self.bias, self.num_groups, self.eps,
-                film_scale=film_scale, film_shift=film_shift,
-                apply_silu=apply_silu)
-        xr = x.reshape(x.shape[0], -1, x.shape[-1])
-        if stats is None:
-            stats = gn_ops.channel_stats(xr)
-        n = xr.shape[1]
-        if self.spatial is not None:
-            if torch.is_grad_enabled():
-                raise RuntimeError(
-                    "GroupNorm over a spatial group is forward-only (the JAX "
-                    "package trains with the batch split alone); run under "
-                    "torch.no_grad() or inference_mode()")
-            stats = self.spatial.all_reduce_sum(stats)
-            n *= self.spatial.size
-        g, b = gn_ops.fold_gn_affine(
-            stats, n, self.weight, self.bias, self.num_groups, self.eps,
-            film_scale=film_scale, film_shift=film_shift)
-        if fold_only:
-            return g, b
-        return gn_ops.gn_apply(xr, g, b, apply_silu).reshape(x.shape)
+        with tracing.span("ddpm.gn"):
+            if not fold_only and self.spatial is None:
+                return gn_ops.group_norm(
+                    x, self.weight, self.bias, self.num_groups, self.eps,
+                    film_scale=film_scale, film_shift=film_shift,
+                    apply_silu=apply_silu)
+            xr = x.reshape(x.shape[0], -1, x.shape[-1])
+            if stats is None:
+                stats = gn_ops.channel_stats(xr)
+            n = xr.shape[1]
+            if self.spatial is not None:
+                if torch.is_grad_enabled():
+                    raise RuntimeError(
+                        "GroupNorm over a spatial group is forward-only (the "
+                        "JAX package trains with the batch split alone); run "
+                        "under torch.no_grad() or inference_mode()")
+                stats = self.spatial.all_reduce_sum(stats)
+                n *= self.spatial.size
+            g, b = gn_ops.fold_gn_affine(
+                stats, n, self.weight, self.bias, self.num_groups, self.eps,
+                film_scale=film_scale, film_shift=film_shift)
+            if fold_only:
+                return g, b
+            return gn_ops.gn_apply(xr, g, b, apply_silu).reshape(x.shape)
 
 
 class _Int8Site:
@@ -150,9 +152,11 @@ class _Int8Site:
         key = (x.device, upsample, self.weight.data_ptr(),
                self.weight._version)
         if key != self._q_key:
-            wq, s_w = quant.quantize_weight(self.weight, upsample)
-            packed = (s8_ops.pack_weight_s8(wq) if x.device.type == "cuda"
-                      else None)
+            tracing.count("int8.requant")
+            with tracing.span("ddpm.conv.pack"):
+                wq, s_w = quant.quantize_weight(self.weight, upsample)
+                packed = (s8_ops.pack_weight_s8(wq)
+                          if x.device.type == "cuda" else None)
             self._q, self._q_key = (wq, s_w, packed), key
         wq, s_w, packed = self._q
         return quant.conv3d_int8(x, wq, s_w, bias,
@@ -198,35 +202,39 @@ class Conv3x3x3(_Int8Site, nn.Module):
             # the fused kernel takes the tap-major layout at every Cin
             pack = (fused_ops.pack_weight_fused if fused
                     else conv_ops.pack_weight_kernel)
-            self._packed = pack(self.weight, x.dtype)
+            tracing.count("pack.miss")
+            with tracing.span("ddpm.conv.pack"):
+                self._packed = pack(self.weight, x.dtype)
             self._packed_key = key
         return self._packed
 
     def forward(self, x: torch.Tensor, fused: bool = False,
                 upsample: bool = False, **fused_kw):
-        self._record(x)  # before the upsample, where JAX sows
-        lo = hi = 0
-        if self.spatial is not None:
-            if fused_kw.get("want_stats"):
-                raise ValueError("a fused conv under a spatial group cannot "
-                                 "return stats: they would count the halo")
-            x, (lo, hi) = self.spatial.halo(x)
-            if fused_kw.get("skip") is not None:
-                # the skip of the halo rows lands in rows that are cropped
-                fused_kw["skip"] = F.pad(fused_kw["skip"],
-                                         (0, 0, 0, 0, lo, hi))
-        f = 2 if upsample else 1  # output rows per input row
-        if self.int8_active():  # never fused: the model refuses both
-            return crop(self._int8(x, self.bias, upsample), lo * f, hi * f)
-        if upsample:
-            x = upsample_nearest(x)
-        packed = self._packed_weight(x, fused)
-        if fused:
-            y = fused_ops.conv3d_fused(
-                x, self.weight, self.bias, w_packed=packed, **fused_kw)
-        else:
-            y = conv_ops.conv3d(x, self.weight, self.bias, w_packed=packed)
-        return crop(y, lo * f, hi * f)
+        with tracing.span("ddpm.conv"):
+            self._record(x)  # before the upsample, where JAX sows
+            lo = hi = 0
+            if self.spatial is not None:
+                if fused_kw.get("want_stats"):
+                    raise ValueError("a fused conv under a spatial group "
+                                     "cannot return stats: they would count "
+                                     "the halo")
+                x, (lo, hi) = self.spatial.halo(x)
+                if fused_kw.get("skip") is not None:
+                    # the skip of the halo rows lands in rows that are cropped
+                    fused_kw["skip"] = F.pad(fused_kw["skip"],
+                                             (0, 0, 0, 0, lo, hi))
+            f = 2 if upsample else 1  # output rows per input row
+            if self.int8_active():  # never fused: the model refuses both
+                return crop(self._int8(x, self.bias, upsample), lo * f, hi * f)
+            if upsample:
+                x = upsample_nearest(x)
+            packed = self._packed_weight(x, fused)
+            if fused:
+                y = fused_ops.conv3d_fused(
+                    x, self.weight, self.bias, w_packed=packed, **fused_kw)
+            else:
+                y = conv_ops.conv3d(x, self.weight, self.bias, w_packed=packed)
+            return crop(y, lo * f, hi * f)
 
 
 class Conv1x1x1(_Int8Site, nn.Module):
@@ -239,11 +247,12 @@ class Conv1x1x1(_Int8Site, nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self._record(x)
-        if self.int8_active():
-            return self._int8(x, self.bias)
-        w = self.weight.reshape(self.weight.shape[:2]).to(x.dtype)
-        return F.linear(x, w, self.bias.to(x.dtype))
+        with tracing.span("ddpm.conv"):
+            self._record(x)
+            if self.int8_active():
+                return self._int8(x, self.bias)
+            w = self.weight.reshape(self.weight.shape[:2]).to(x.dtype)
+            return F.linear(x, w, self.bias.to(x.dtype))
 
 
 class ConvNd(nn.Module):

@@ -38,6 +38,7 @@ import torch
 from torch import nn
 
 from ..ops.quant import Int8Config
+from ..utils import tracing
 from . import nn as prim
 from .plan import ResSpec, plan_unet
 from .unet import (
@@ -155,6 +156,11 @@ class SegUNetModel(ConvSites, nn.Module):
                 low_res: Optional[torch.Tensor] = None) -> torch.Tensor:
         if low_res is None:
             raise ValueError("SegUNetModel requires the low_res conditioner")
+        with tracing.span("ddpm.model.forward"):
+            return self._forward(x, timesteps, low_res)
+
+    def _forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                 low_res: torch.Tensor) -> torch.Tensor:
         self._check_spatial_input(x)
         feats, final = self.encoder(low_res, timesteps, return_features=True)
         emb = self.time_embed(

@@ -57,6 +57,7 @@ from torch import nn
 
 from ..ops.quant import ActCalibration, Int8Config
 from ..parallel.spatial import SpatialGroup
+from ..utils import tracing
 from ..utils.convert import torch_module_to_flax_path
 from . import nn as prim
 from .plan import AttnSpec, ConvSpec, DownSpec, ResSpec, UpSpec, plan_unet
@@ -553,6 +554,11 @@ class UNetModel(ConvSites, nn.Module):
         timesteps: torch.Tensor,
         y: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        with tracing.span("ddpm.model.forward"):
+            return self._forward(x, timesteps, y)
+
+    def _forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                 y: Optional[torch.Tensor]) -> torch.Tensor:
         if (y is not None) != (self.num_classes is not None):
             raise ValueError("pass y iff the model is class-conditional")
         self._check_spatial_input(x)
@@ -626,8 +632,9 @@ class SuperResModel(UNetModel):
     ) -> torch.Tensor:
         if low_res is None:
             raise ValueError("SuperResModel requires the low_res conditioner")
-        return super().forward(
-            torch.cat([x, low_res.to(x.dtype)], dim=-1), timesteps, y=y)
+        with tracing.span("ddpm.model.forward"):
+            return self._forward(
+                torch.cat([x, low_res.to(x.dtype)], dim=-1), timesteps, y)
 
 
 class AttentionPool(nn.Module):

@@ -22,20 +22,19 @@
 
 from typing import Dict
 
+from ..utils import tracing
 from . import conv3d, conv3d_fused, conv3d_s8, groupnorm
 from .quant import quantize_act, quantize_kernel, static_scales
 
+KERNELS = ("conv3d", "conv3d_dx", "conv3d_fused", "conv3d_s8", "gn_stats",
+           "gn_apply")
+
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {
-        "conv3d": conv3d.launches,
-        "conv3d_dx": conv3d.dx_launches,
-        "conv3d_fused": conv3d_fused.launches,
-        "conv3d_s8": conv3d_s8.launches,
-        "gn_stats": groupnorm.stats_launches,
-        "gn_apply": groupnorm.apply_launches,
-    }
+    """Kernel launches since the last :func:`reset_launch_counts` (the
+    recorder's ``launch.<kernel>`` counters)."""
+    got = tracing.counters("launch.")
+    return {k: got.get(f"launch.{k}", 0) for k in KERNELS}
 
 
 def route_counts() -> Dict[str, int]:
@@ -43,23 +42,26 @@ def route_counts() -> Dict[str, int]:
     ("conv3d.<route>" and "conv3d_dx.<route>" for each of
     :data:`.conv3d.ROUTES`, "conv3d_fused.<route>" for each of
     :data:`.conv3d_fused.ROUTES`, "conv3d_s8.<route>" for each of
-    :data:`.conv3d_s8.ROUTES`)."""
-    counts = {f"{what}.{route}": conv3d.route_launches.get(f"{what}.{route}", 0)
-              for what in ("conv3d", "conv3d_dx") for route in conv3d.ROUTES}
-    counts.update({f"conv3d_fused.{route}": conv3d_fused.route_launches.get(
-        f"conv3d_fused.{route}", 0) for route in conv3d_fused.ROUTES})
-    counts.update({f"conv3d_s8.{route}": conv3d_s8.route_launches.get(
-        f"conv3d_s8.{route}", 0) for route in conv3d_s8.ROUTES})
-    return counts
+    :data:`.conv3d_s8.ROUTES`; the recorder's ``route.<kernel>.<route>``
+    counters)."""
+    got = tracing.counters("route.")
+    keys = [f"{what}.{route}" for what, routes in (
+        ("conv3d", conv3d.ROUTES), ("conv3d_dx", conv3d.ROUTES),
+        ("conv3d_fused", conv3d_fused.ROUTES), ("conv3d_s8", conv3d_s8.ROUTES))
+        for route in routes]
+    return {k: got.get(f"route.{k}", 0) for k in keys}
 
 
 def reset_launch_counts() -> None:
-    conv3d.route_launches.clear()
-    conv3d_fused.route_launches.clear()
-    conv3d_s8.route_launches.clear()
-    conv3d.launches = 0
-    conv3d.dx_launches = 0
-    conv3d_fused.launches = 0
-    conv3d_s8.launches = 0
-    groupnorm.stats_launches = 0
-    groupnorm.apply_launches = 0
+    tracing.reset_counters("launch.")
+    tracing.reset_counters("route.")
+
+
+def counter_report() -> Dict[str, Dict[str, int]]:
+    """The whole registry as the CLIs log it at the end of a run:
+    ``launches`` (:func:`launch_counts`), ``routes`` (:func:`route_counts`)
+    and ``counters``, every other counter (weight repacks, int8
+    requantizations, kernel builds, spatial collectives)."""
+    return {"launches": launch_counts(), "routes": route_counts(),
+            "counters": {k: v for k, v in tracing.counters().items()
+                         if not k.startswith(("launch.", "route."))}}

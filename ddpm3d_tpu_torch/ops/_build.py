@@ -7,7 +7,9 @@ named by a hash of the source and the flags, so an edited source rebuilds
 and an unchanged one is reused. All sources are compiled at once, in
 parallel, on first use. :func:`build_variants` compiles other versions of a
 source (study builds with extra defines, another revision of a file) the
-same way. Nothing here runs at import time.
+same way. Nothing here runs at import time. A build opens the span
+``ddpm.build`` and counts ``build.compiled`` per library nvcc compiled and
+``build.loaded`` per library loaded (:mod:`..utils.tracing`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import shutil
 import subprocess
 import threading
 from typing import Dict
+
+from ..utils import tracing
 
 _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SRC_DIR = osp.join(_PKG, "csrc")
@@ -94,34 +98,38 @@ def build_all(variants: Dict[str, tuple] = None) -> Dict[str, str]:
     with ``variants`` {name: (source path, extra nvcc flags)} beside them.
     Returns {name: library path}. Raises with nvcc's output on a failed
     build. ``ptxas`` register/spill reports land in ``<lib>.log``."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    jobs = {name: (osp.join(SRC_DIR, f"{name}.cu"), ()) for name in SOURCES}
-    jobs.update(variants or {})
-    paths = {name: _lib_path(name, src, tuple(flags))
-             for name, (src, flags) in jobs.items()}
-    procs = {}
-    for name, path in paths.items():
-        if osp.exists(path):
-            continue
-        src, flags = jobs[name]
-        tmp = f"{path}.{os.getpid()}.tmp"
-        # -I: a source outside csrc/ (another revision) finds the headers
-        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-I", SRC_DIR, "-o", tmp, src]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        ), tmp)
-    failures = []
-    for name, (proc, tmp) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"--- {name}.cu ---\n{out}")
-            continue
-        with open(paths[name] + ".log", "w") as f:
-            f.write(out)
-        os.replace(tmp, paths[name])
-    if failures:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
-    return paths
+    with tracing.span("ddpm.build"):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        jobs = {name: (osp.join(SRC_DIR, f"{name}.cu"), ())
+                for name in SOURCES}
+        jobs.update(variants or {})
+        paths = {name: _lib_path(name, src, tuple(flags))
+                 for name, (src, flags) in jobs.items()}
+        procs = {}
+        for name, path in paths.items():
+            if osp.exists(path):
+                continue
+            src, flags = jobs[name]
+            tmp = f"{path}.{os.getpid()}.tmp"
+            # -I: a source outside csrc/ (another revision) finds the headers
+            cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-I", SRC_DIR, "-o", tmp,
+                   src]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp)
+        failures = []
+        for name, (proc, tmp) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"--- {name}.cu ---\n{out}")
+                continue
+            with open(paths[name] + ".log", "w") as f:
+                f.write(out)
+            os.replace(tmp, paths[name])
+            tracing.count("build.compiled")
+        if failures:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+        return paths
 
 
 def build_variants(variants: Dict[str, tuple]) -> Dict[str, ctypes.CDLL]:
@@ -131,6 +139,7 @@ def build_variants(variants: Dict[str, tuple]) -> Dict[str, ctypes.CDLL]:
     if set(variants) & set(SOURCES):
         raise ValueError("a variant may not take a source's name")
     paths = build_all(variants)
+    tracing.count("build.loaded", len(variants))
     return {name: ctypes.CDLL(paths[name]) for name in variants}
 
 
@@ -152,6 +161,7 @@ def fn(name: str):
             paths = build_all()
             for n, p in paths.items():
                 _libs[n] = ctypes.CDLL(p)
+            tracing.count("build.loaded", len(paths))
         f = getattr(_libs[lib_name], name)
     f.argtypes = argtypes
     f.restype = ctypes.c_int

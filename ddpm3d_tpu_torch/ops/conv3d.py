@@ -63,20 +63,17 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from . import _build
 
-# kernel launches on the main path (see ops.launch_counts): forward convs
-# and the dx convs of the backward, over both routes
-launches = 0
-dx_launches = 0
-# the same launches by route (see ops.route_counts): "conv3d.<route>" and
-# "conv3d_dx.<route>" for each of ROUTES
-route_launches: Dict[str, int] = {}
+# the kernel routes; each launch counts as "launch.conv3d" (or
+# "launch.conv3d_dx") and "route.conv3d.<route>" (ops.launch_counts,
+# ops.route_counts)
 ROUTES = ("sm90", "sm90_narrow", "sm90_cin1", "sm90_smallcin",
           "sm90_gather", "f32_head", "f32_narrow", "f32")
 
@@ -591,8 +588,8 @@ def _launch(
             x.data_ptr(), w_packed.data_ptr(), b_ptr, y.data_ptr(),
             B, D, H, W, cin, cout, *pick_tile_f32(D, H, W), stream)
     _build.check(err, name)
-    key = f"{what}.{route}"
-    route_launches[key] = route_launches.get(key, 0) + 1
+    tracing.count(f"launch.{what}")
+    tracing.count(f"route.{what}.{route}")
     return y
 
 
@@ -604,20 +601,14 @@ def conv3d_kernel(
     """Launch the conv kernel (:func:`conv3d_route`) on CUDA tensors.
     ``w_packed`` comes from :func:`pack_weight_kernel` in x's dtype; bias
     is cast to f32."""
-    global launches
-    y = _launch(x, w_packed, bias, "conv3d")
-    launches += 1
-    return y
+    return _launch(x, w_packed, bias, "conv3d")
 
 
 def conv3d_dx_kernel(dy: torch.Tensor, w_packed_dx: torch.Tensor) -> torch.Tensor:
     """dx of the conv: the conv kernel (:func:`conv3d_route`) on dy [B, D,
     H, W, Cout] with :func:`pack_weight_dx` in dy's dtype (no bias); the
     result has Cin channels."""
-    global dx_launches
-    dx = _launch(dy, w_packed_dx, None, "conv3d_dx")
-    dx_launches += 1
-    return dx
+    return _launch(dy, w_packed_dx, None, "conv3d_dx")
 
 
 def conv3d_dx_plain(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

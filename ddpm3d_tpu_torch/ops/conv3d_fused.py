@@ -33,21 +33,20 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from . import _build
 from .conv3d import (
     F32_TW, SM90_MAX_HALO, SM90_MAX_ROWS, SM90_SMS, _full_f32, _ncdhw,
     check_kernel_inputs, pack_weight, pack_weight_f32, pick_tile_f32,
     sm90_halo, sm90_tile, sm90_tiles)
 
-# kernel launches on the main path (see ops.launch_counts), and the same
-# launches by route (see ops.route_counts): "conv3d_fused.<route>"
-launches = 0
-route_launches: Dict[str, int] = {}
+# the kernel routes; each launch counts as "launch.conv3d_fused" and
+# "route.conv3d_fused.<route>" (ops.launch_counts, ops.route_counts)
 ROUTES = ("sm90", "f32")
 
 STATS_GROUP = 64  # tiles per first-level stats sum (csrc/conv3d_f32.cu
@@ -177,7 +176,6 @@ def conv3d_fused_kernel(
     """Launch the fused kernel on CUDA tensors. ``w_packed`` comes from
     :func:`pack_weight_fused` in x's dtype; bias, g and b are cast to f32,
     skip to x's dtype."""
-    global launches
     route = conv3d_fused_route(x.shape, x.dtype)
     _, cout = check_kernel_inputs(
         x, w_packed, "conv3d_fused", "f32" if route == "f32" else "tap_major")
@@ -251,9 +249,8 @@ def conv3d_fused_kernel(
             int(prologue_silu), ptr(sk), y.data_ptr(), ptr(part), ptr(part2),
             ptr(stats), B, D, H, W, cin, cout, td, th, stream)
     _build.check(err, name)
-    launches += 1
-    key = f"conv3d_fused.{route}"
-    route_launches[key] = route_launches.get(key, 0) + 1
+    tracing.count("launch.conv3d_fused")
+    tracing.count(f"route.conv3d_fused.{route}")
     return (y, stats) if want_stats else y
 
 

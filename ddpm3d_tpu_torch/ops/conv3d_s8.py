@@ -37,17 +37,16 @@ from typing import Iterator, List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from . import _build
 from .conv3d import (SM90_BN, SM90_MAX_ROWS, SM90_SMEM_LIMIT, SM90_SMS,
                      SM90_STAGES, pick_tile_sm90, sm90_halo, sm90_tile)
 
-# kernel launches on the main path (see ops.launch_counts): both kernels
-launches = 0
-# the same launches by kernel (see ops.route_counts): "conv3d_s8.sm90"
-# (csrc/conv3d_s8.cu, 3x3x3 and phase sites), "conv3d_s8.conv1x1"
-# (csrc/conv1x1_s8.cu, 1x1x1 sites)
+# the kernels; each launch counts as "launch.conv3d_s8" and
+# "route.conv3d_s8.<route>" (ops.launch_counts, ops.route_counts): "sm90"
+# (csrc/conv3d_s8.cu, 3x3x3 and phase sites), "conv1x1" (csrc/conv1x1_s8.cu,
+# 1x1x1 sites)
 ROUTES = ("sm90", "conv1x1")
-route_launches = {}
 
 # csrc/conv3d_s8.cu: a Cin chunk is 128 int8 channels (kBK), one 128-byte
 # row per voxel; a ring of 2 to 4 halo stages (kMaxHaloStages)
@@ -301,7 +300,6 @@ def conv3d_s8_kernel(
     1x1x1 weight, ``csrc/conv3d_s8.cu`` for the 3x3x3 conv and the phase
     route. ``w_packed`` comes from :func:`pack_weight_s8`. Raises unless Cin
     is a multiple of 16 and both operands start 16-byte aligned (TMA)."""
-    global launches
     if xq.device.type != "cuda":
         raise RuntimeError(f"conv3d_s8 kernel takes CUDA tensors, got {xq.device}")
     if w_packed.device != xq.device or w_packed.dim() != 3:
@@ -338,9 +336,8 @@ def conv3d_s8_kernel(
             b_ptr, y.data_ptr(), B, D, H, W, cin, n, taps, int(upsample),
             *s8_tile(B, D, H, W, n, out_dtype, sms), bf16, stream)
     _build.check(err, entry)
-    launches += 1
-    key = f"conv3d_s8.{route}"
-    route_launches[key] = route_launches.get(key, 0) + 1
+    tracing.count("launch.conv3d_s8")
+    tracing.count(f"route.conv3d_s8.{route}")
     return y
 
 

@@ -30,13 +30,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..utils import tracing
 from . import _build
 
 NORM_GROUPS = 32
-
-# kernel launches on the main path (see ops.launch_counts)
-stats_launches = 0
-apply_launches = 0
 
 
 def _dtype_code(x: torch.Tensor) -> int:
@@ -97,7 +94,6 @@ def _stats_scratch(device: torch.device, stream: int, n_tickets: int,
 
 def channel_stats(x: torch.Tensor) -> torch.Tensor:
     """Per-(batch, channel) (sum x, sum x^2) of x [B, N, C] as [B, 2, C] f32."""
-    global stats_launches
     if x.device.type == "cpu":
         return channel_stats_plain(x)
     if x.device.type != "cuda":
@@ -116,7 +112,7 @@ def channel_stats(x: torch.Tensor) -> torch.Tensor:
         B, N, C, rows, code, stream,
     )
     _build.check(err, "gn_stats_launch")
-    stats_launches += 1
+    tracing.count("launch.gn_stats")
     return stats
 
 
@@ -173,8 +169,9 @@ def fold_gn_affine(
     """Fold GroupNorm (+FiLM) into one per-channel affine (g, b), [B, C] f32,
     from per-channel sums [B, 2, C] (``ddpm3d_tpu/models/nn.py:
     fold_gn_affine``): ``x * g + b`` equals the normalized, FiLM'd x."""
-    mean_c, rstd_c = gn_moments(stats, n_spatial, num_groups, eps)
-    return gn_affine(mean_c, rstd_c, scale, bias, film_scale, film_shift)
+    with tracing.span("ddpm.gn.fold"):
+        mean_c, rstd_c = gn_moments(stats, n_spatial, num_groups, eps)
+        return gn_affine(mean_c, rstd_c, scale, bias, film_scale, film_shift)
 
 
 def gn_apply_plain(
@@ -192,7 +189,6 @@ def gn_apply(
 ) -> torch.Tensor:
     """silu?(x * g + b) over x [B, N, C] with per-(batch, channel) f32
     affine (g, b) [B, C]; the result has x's dtype."""
-    global apply_launches
     if x.device.type == "cpu":
         return gn_apply_plain(x, g, b, apply_silu)
     if x.device.type != "cuda":
@@ -210,7 +206,7 @@ def gn_apply(
         int(apply_silu), code, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "gn_apply_launch")
-    apply_launches += 1
+    tracing.count("launch.gn_apply")
     return y
 
 
@@ -281,8 +277,10 @@ class GroupNormFunction(torch.autograd.Function):
     def forward(ctx, x, scale, bias, film_scale, film_shift, num_groups, eps,
                 apply_silu):
         stats = channel_stats(x)
-        mean_c, rstd_c = gn_moments(stats, x.shape[1], num_groups, eps)
-        g, b = gn_affine(mean_c, rstd_c, scale, bias, film_scale, film_shift)
+        with tracing.span("ddpm.gn.fold"):
+            mean_c, rstd_c = gn_moments(stats, x.shape[1], num_groups, eps)
+            g, b = gn_affine(mean_c, rstd_c, scale, bias, film_scale,
+                             film_shift)
         ctx.save_for_backward(x, scale, bias, film_scale, film_shift,
                               mean_c, rstd_c)
         ctx.num_groups = num_groups

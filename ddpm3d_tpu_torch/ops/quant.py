@@ -47,6 +47,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import tracing
 from . import conv3d_s8 as s8
 from .phase_up import stacked_phase_weight
 
@@ -345,6 +346,7 @@ def conv3d_int8(
         raise RuntimeError(
             "int8 serving is inference-only (the kernel has no backward): "
             "call it under torch.no_grad() or torch.inference_mode()")
-    xq, s_x = quantize_act(x, act_scale, spatial)
+    with tracing.span("ddpm.conv.quantize"):
+        xq, s_x = quantize_act(x, act_scale, spatial)
     return s8.conv3d_s8(xq, wq, s_x, s_w, bias, x.dtype, upsample,
                         w_packed=w_packed)

@@ -23,16 +23,20 @@ nothing: every operation returns its input.
 
 The transport is three methods (:meth:`SpatialGroup._exchange`,
 :meth:`SpatialGroup._reduce`, :meth:`SpatialGroup._gather`); the halo,
-crop and concatenation logic above them does not depend on it.
+crop and concatenation logic above them does not depend on it. Each
+operation run counts as ``spatial.<op>`` in :mod:`..utils.tracing`; a halo
+and a reduction open the spans ``ddpm.spatial.halo`` and
+``ddpm.spatial.reduce``.
 """
 
 from __future__ import annotations
 
-import collections
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from ..utils import tracing
 
 H_DIM = 2  # the H axis of [B, D, H, W, C]
 
@@ -40,8 +44,7 @@ H_DIM = 2  # the H axis of [B, D, H, W, C]
 class SpatialGroup:
     """The spatial group of this rank: ``ranks`` (global ranks, in spatial
     order), this rank's ``index`` among them and the ``torch.distributed``
-    ``group`` they form (None: the default group). ``calls`` counts the
-    operations run (the halos and reductions of a forward)."""
+    ``group`` they form (None: the default group)."""
 
     def __init__(self, ranks: Sequence[int], index: int, group=None):
         self.ranks = list(ranks)
@@ -50,7 +53,6 @@ class SpatialGroup:
         self.group = group
         if not 0 <= index < self.size:
             raise ValueError(f"index {index} outside a group of {self.size}")
-        self.calls: Dict[str, int] = collections.Counter()
 
     # ------------------------------------------------------------ transport
 
@@ -93,40 +95,43 @@ class SpatialGroup:
         zero padding."""
         if self.size == 1:
             return x, (0, 0)
-        self.calls["halo"] += 1
-        lo, hi = int(self.index > 0), int(self.index < self.size - 1)
-        sends = {}
-        if lo:
-            sends[self.index - 1] = x.narrow(dim, 0, 1).contiguous()
-        if hi:
-            sends[self.index + 1] = x.narrow(dim, x.shape[dim] - 1,
-                                             1).contiguous()
-        got = self._exchange(sends)
-        parts = ([got[self.index - 1]] if lo else []) + [x] + (
-            [got[self.index + 1]] if hi else [])
-        return torch.cat(parts, dim), (lo, hi)
+        tracing.count("spatial.halo")
+        with tracing.span("ddpm.spatial.halo"):
+            lo, hi = int(self.index > 0), int(self.index < self.size - 1)
+            sends = {}
+            if lo:
+                sends[self.index - 1] = x.narrow(dim, 0, 1).contiguous()
+            if hi:
+                sends[self.index + 1] = x.narrow(dim, x.shape[dim] - 1,
+                                                 1).contiguous()
+            got = self._exchange(sends)
+            parts = ([got[self.index - 1]] if lo else []) + [x] + (
+                [got[self.index + 1]] if hi else [])
+            return torch.cat(parts, dim), (lo, hi)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of every member's ``t``, as a new tensor (``t`` is left
         as it is: the fused path keeps local sums for later folds)."""
         if self.size == 1:
             return t
-        self.calls["all_reduce_sum"] += 1
-        return self._reduce(t.contiguous(), "sum")
+        tracing.count("spatial.all_reduce_sum")
+        with tracing.span("ddpm.spatial.reduce"):
+            return self._reduce(t.contiguous(), "sum")
 
     def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise max of every member's ``t``, as a new tensor."""
         if self.size == 1:
             return t
-        self.calls["all_reduce_max"] += 1
-        return self._reduce(t.contiguous(), "max")
+        tracing.count("spatial.all_reduce_max")
+        with tracing.span("ddpm.spatial.reduce"):
+            return self._reduce(t.contiguous(), "max")
 
     def all_gather_h(self, x: torch.Tensor, dim: int = H_DIM) -> torch.Tensor:
         """The members' shards of ``x`` concatenated along ``dim`` in rank
         order: the whole tensor, on every member."""
         if self.size == 1:
             return x
-        self.calls["all_gather_h"] += 1
+        tracing.count("spatial.all_gather_h")
         return torch.cat(self._gather(x.contiguous()), dim)
 
 

@@ -131,8 +131,7 @@ def main(argv=None):
     log(f"saving to {out}")
     np.savez(out, arr, labels)
     if device.type == "cuda":
-        log("kernel launches: " + json.dumps(
-            {"launches": ops.launch_counts(), "routes": ops.route_counts()}))
+        log("kernel launches: " + json.dumps(ops.counter_report()))
     log("sampling complete")
     return out
 

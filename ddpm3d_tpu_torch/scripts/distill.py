@@ -108,8 +108,8 @@ def distill(args, rank: int, world_size: int) -> None:
         barrier()
         logger.log(f"saved {out} (sample with --timesteps_file {ts_path})")
     if device.type == "cuda":
-        logger.log("kernel launches on rank 0: " + json.dumps(
-            {"launches": ops.launch_counts(), "routes": ops.route_counts()}))
+        logger.log("kernel launches on rank 0: "
+                   + json.dumps(ops.counter_report()))
     logger.log("distillation complete")
 
 

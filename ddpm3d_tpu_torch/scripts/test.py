@@ -274,8 +274,7 @@ def serve(args, fused: bool, int8, rank: int, world_size: int) -> None:
                 f"{os.path.basename(vol_path)}: sampling "
                 f"{stats['sample_wall_s']:.1f}s wall")
     if device.type == "cuda":
-        log("kernel launches on rank 0: " + json.dumps(
-            {"launches": ops.launch_counts(), "routes": ops.route_counts()}))
+        log("kernel launches on rank 0: " + json.dumps(ops.counter_report()))
     log("Full image denoising complete")
 
 

@@ -4,7 +4,8 @@ Own copy of ``ddpm3d_tpu/utils/logger.py`` (the reference's
 OpenAI-baselines logger API and file formats): ``logkv`` (last wins),
 ``logkv_mean`` (running mean), ``dumpkvs``, ``log`` lines at levels
 (``debug`` ... ``error``, ``set_level``), ``profile_kv`` / ``profile``
-host wall-time scopes, and the boxed human table, ``progress.json``
+host wall-time scopes (also spans of :mod:`.tracing`), and the boxed human
+table, ``progress.json``
 lines, the growing ``progress.csv`` and TensorBoard scalars (``tb/``,
 through ``torch.utils.tensorboard``, which needs the ``tensorboard``
 package: the format raises without it). Formats come from
@@ -12,7 +13,8 @@ package: the format raises without it). Formats come from
 ``stdout,log,csv``). Under a process group only rank 0 writes: the CLIs
 configure the other ranks without formats, so there are no per-rank
 files. :func:`gather_weighted_means` combines host-local values over the
-ranks; :func:`start_trace` / :func:`stop_trace` wrap ``torch.profiler``.
+ranks; :func:`start_trace` / :func:`stop_trace` wrap ``torch.profiler``
+with the port's spans on (:mod:`.tracing`).
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import tempfile
 import time
 from collections import defaultdict
 from typing import Any, Dict, List, Optional
+
+from . import tracing
 
 DEBUG = 10
 INFO = 20
@@ -318,13 +322,15 @@ dump_tabular = dumpkvs
 @contextlib.contextmanager
 def profile_kv(scopename: str):
     """Add the host wall time of the block to ``wait_<scopename>`` (no
-    device sync: queued GPU work is not waited for)."""
+    device sync: queued GPU work is not waited for) and record it as the
+    span ``ddpm.wait.<scopename>`` (:mod:`.tracing`, on its clock)."""
     logkey = "wait_" + scopename
-    tstart = time.time()
-    try:
-        yield
-    finally:
-        _current().name2val[logkey] += time.time() - tstart
+    with tracing.span("ddpm.wait." + scopename):
+        tstart = time.perf_counter()
+        try:
+            yield
+        finally:
+            _current().name2val[logkey] += time.perf_counter() - tstart
 
 
 def profile(n: str):
@@ -367,6 +373,7 @@ def gather_weighted_means(local_kvs: Dict[str, float],
 
 
 _trace = None
+_trace_spans = False  # start_trace turned the spans on
 
 
 def start_trace(logdir: Optional[str] = None, device=None) -> str:
@@ -374,9 +381,10 @@ def start_trace(logdir: Optional[str] = None, device=None) -> str:
     CPU activity alone when the caller asks for ``device="cpu"`` (the
     card by default, as every entry point of the port; raises when there
     is none); :func:`stop_trace` writes it under ``logdir`` (default
-    ``get_dir()/trace``) as a Chrome/TensorBoard trace file. Returns the
-    directory."""
-    global _trace
+    ``get_dir()/trace``) as a Chrome/TensorBoard trace file. The port's
+    spans (:mod:`.tracing`) are on while it runs, so the trace holds their
+    ``ddpm.*`` ranges. Returns the directory."""
+    global _trace, _trace_spans
     import torch
 
     from .. import resolve_device
@@ -392,14 +400,24 @@ def start_trace(logdir: Optional[str] = None, device=None) -> str:
     _trace = torch.profiler.profile(
         activities=acts,
         on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir))
+    _trace_spans = not tracing.enabled()
+    if _trace_spans:
+        tracing.enable()
     _trace.start()
     return logdir
 
 
 def stop_trace() -> None:
-    """Stop the trace that :func:`start_trace` began and write it."""
-    global _trace
+    """Stop the trace that :func:`start_trace` began and write it. If
+    :func:`start_trace` turned the spans on, they go off and what they
+    recorded is dropped (the trace file holds their ranges); the counters
+    stay."""
+    global _trace, _trace_spans
     if _trace is None:
         raise RuntimeError("no trace is running")
     prof, _trace = _trace, None
     prof.stop()
+    if _trace_spans:
+        tracing.disable()
+        tracing.drain(counters_too=False)
+        _trace_spans = False

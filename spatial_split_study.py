@@ -84,6 +84,7 @@ def _forward_numbers(model, mesh, size: int, device) -> dict:
     CUDA-event ms, host issue ms, device busy ms and the NCCL kernels' ms
     (torch.profiler), and the group's collectives."""
     from ddpm3d_tpu_torch.parallel import spatial_rows
+    from ddpm3d_tpu_torch.utils import tracing
 
     g = torch.Generator().manual_seed(1)
     x = spatial_rows(mesh, torch.randn((1, size, size, size, 1),
@@ -97,9 +98,10 @@ def _forward_numbers(model, mesh, size: int, device) -> dict:
                 return model(x, t, low_res=x)
 
             fwd()
-            before = dict(group.calls)
+            before = tracing.counters("spatial.")
             fwd()
-            calls = {k: v - before.get(k, 0) for k, v in group.calls.items()}
+            calls = {k.split(".", 1)[1]: v - before.get(k, 0)
+                     for k, v in tracing.counters("spatial.").items()}
             if device.type != "cuda":
                 t0 = time.perf_counter()
                 fwd()

@@ -47,6 +47,7 @@ from ddpm3d_tpu_torch.parallel import (
     make_mesh,
     shard_batch,
 )
+from ddpm3d_tpu_torch.utils import tracing
 
 REPO = osp.abspath(osp.join(osp.dirname(__file__), ".."))
 TIMEOUT_S = 240
@@ -327,7 +328,7 @@ def _sharded_forward(model, group: SpatialGroup, mesh: Mesh, x, t, low,
              and isinstance(m, (Conv3x3x3, Conv1x1x1)) and m.int8_active()]
     quant.quantize_act = recording
     model.set_spatial(group)
-    before = dict(group.calls)
+    before = tracing.counters("spatial.")
     try:
         with torch.no_grad():
             got = model(shard_batch(mesh, x, 2), t,
@@ -337,8 +338,10 @@ def _sharded_forward(model, group: SpatialGroup, mesh: Mesh, x, t, low,
         model.set_spatial(None)
         for h in hooks:
             h.remove()
+    after = tracing.counters("spatial.")
     out = {f"calls_{name}": np.asarray([
-        group.calls[k] - before.get(k, 0) for k in CALLS]),
+        after.get(f"spatial.{k}", 0) - before.get(f"spatial.{k}", 0)
+        for k in CALLS]),
         f"fwd_{name}": _rel(group.all_gather_h(got), ref)}
     if record:
         out[f"sites_{name}"] = torch.stack(record).numpy()
@@ -847,12 +850,13 @@ def test_group_of_one_is_the_identity():
     collective (no process group exists here) and leaves the model
     unsharded."""
     group = SpatialGroup([0], 0)
+    before = tracing.counters("spatial.")
     x = torch.randn((1, 2, 4, 3, 2))
     assert group.halo(x) == (x, (0, 0))
     assert group.halo(x)[0] is x
     assert group.all_reduce_sum(x) is x and group.all_reduce_max(x) is x
     assert group.all_gather_h(x) is x
-    assert not group.calls
+    assert tracing.counters("spatial.") == before
     model, _ = _tiny()
     model.set_spatial(group)
     assert model.spatial is None
