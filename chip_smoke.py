@@ -22,7 +22,12 @@ Phases (each failure exits non-zero before the final line):
                (GN stats, one launch) also bit for bit twice and alone
                against in a batch of 2, timed beside ``torch.var_mean``
                and, with ``--parent-gn``, a previous
-               ``csrc/groupnorm.cu``;
+               ``csrc/groupnorm.cu`` (its sums equal to K1's); K1 with
+               its fold: the same sums, (g, b) and the moments within
+               2 ulp of the torch fold, timed beside K1 alone;
+               ``gn_fold_route`` (after the model phase): one bf16
+               forward with the fold in K1 against the torch fold between
+               K1 and K2, its device activities, host issue and ms;
   3. backward — at every distinct conv and GroupNorm shape of one bf16 96^3
                training step (read by hooks): the conv dx kernel, the
                library filter gradient and the GroupNorm Function's backward
@@ -237,6 +242,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
 import csv
 import functools
@@ -274,6 +280,11 @@ KERNELS = {
     "gn_apply": dict(
         route="cuda", source="ddpm3d_tpu_torch/csrc/groupnorm.cu",
         replaces="ddpm3d_tpu/ops/groupnorm.py:149"),
+    # the fold's own launch (fold_stats), on sums K1 did not make: no TPU
+    # kernel there (the JAX package folds in XLA)
+    "gn_fold": dict(
+        route="cuda", source="ddpm3d_tpu_torch/csrc/groupnorm.cu",
+        replaces="ddpm3d_tpu/models/nn.py:98"),
     "conv3d_fused": dict(
         route="cuda", source="ddpm3d_tpu_torch/csrc/conv3d_sm90.cu",
         replaces="ddpm3d_tpu/ops/conv3d_fused.py:230"),
@@ -371,17 +382,21 @@ DENOISE_INT8_TOL = 0.1
 # launches per forward of the production model on each serving path
 FORWARD_LAUNCHES = {
     "denoise": {"conv3d": 72, "conv3d_dx": 0, "conv3d_fused": 0,
-                "conv3d_s8": 0, "gn_stats": 71, "gn_apply": 71},
+                "conv3d_s8": 0, "gn_stats": 71, "gn_apply": 71,
+                "gn_fold": 0},
     # 27 fusable ResBlocks x 2; input conv, head conv, 8 up/down blocks x 2;
     # 16 + the head's GN applied; 17 unfused GNs + 14 fused blocks that
-    # enter without stats (5 in the encoder, 9 in the decoder)
+    # enter without stats (5 in the encoder, 9 in the decoder), each K1
+    # folding its own sums; the other 40 folds, of K4's stats, launched
     "denoise_fused": {"conv3d": 18, "conv3d_dx": 0, "conv3d_fused": 54,
-                      "conv3d_s8": 0, "gn_stats": 31, "gn_apply": 17},
+                      "conv3d_s8": 0, "gn_stats": 31, "gn_apply": 17,
+                      "gn_fold": 40},
     # the 90 conv sites of INT8_SCALES_PROD.json less in0_0 and head_conv:
     # 66 3x3x3 + the 4 up blocks' in_conv (one phase-route launch each) +
     # 18 1x1 skips; the two excluded convs stay K3
     "denoise_int8": {"conv3d": 2, "conv3d_dx": 0, "conv3d_fused": 0,
-                     "conv3d_s8": 88, "gn_stats": 71, "gn_apply": 71},
+                     "conv3d_s8": 88, "gn_stats": 71, "gn_apply": 71,
+                     "gn_fold": 0},
 }
 FORWARD_LAUNCHES["denoise_int8_static"] = FORWARD_LAUNCHES["denoise_int8"]
 # the production model with middle attention: the no-attention counts plus
@@ -391,10 +406,12 @@ FORWARD_LAUNCHES["denoise_int8_static"] = FORWARD_LAUNCHES["denoise_int8"]
 # the CPU)
 FORWARD_LAUNCHES["attention"] = {"conv3d": 72, "conv3d_dx": 0,
                                  "conv3d_fused": 0, "conv3d_s8": 0,
-                                 "gn_stats": 72, "gn_apply": 72}
+                                 "gn_stats": 72, "gn_apply": 72,
+                                 "gn_fold": 0}
 FORWARD_LAUNCHES["attention_fused"] = {"conv3d": 18, "conv3d_dx": 0,
                                        "conv3d_fused": 54, "conv3d_s8": 0,
-                                       "gn_stats": 33, "gn_apply": 18}
+                                       "gn_stats": 33, "gn_apply": 18,
+                                       "gn_fold": 39}
 FORWARD_LAUNCHES["attention_denoise"] = FORWARD_LAUNCHES["attention"]
 # one guided step of classifier_sample at the CLI defaults: the 2-D UNet's
 # 56 GroupNorms a forward (its convs, attention and denses are PyTorch
@@ -746,27 +763,47 @@ def _parent_ndhwc(lib, x, w, bias):
 
 
 def _parent_gn_stats(lib, x):
-    """K1 of a previous ``csrc/groupnorm.cu`` (two launches: row-split
-    partials of max(64, ceil(N / 1024)) rows, then a one-block-per-slice
-    finish; its entry point ``gn_stats_launch(x, part, stats, B, N, C,
-    rows, dtype, stream)``) on the same input."""
+    """K1 of a previous ``csrc/groupnorm.cu`` without the fold (entry point
+    ``gn_stats_launch(x, part, ticket, stats, B, N, C, rows, dtype,
+    stream)``, the split plan of ops/groupnorm.py:stats_plan) on the same
+    input, with scratch of its own."""
     import ctypes
 
     from ddpm3d_tpu_torch.ops import _build
+    from ddpm3d_tpu_torch.ops import groupnorm as gn
 
     B, N, C = x.shape
-    rows = max(64, -(-N // 1024))
-    S = -(-N // rows)
-    part = torch.empty((B * S * 2 * C,), dtype=torch.float32, device=x.device)
+    rows, S, CS = gn.stats_plan(N, C, x.dtype)
+    v = 8 if x.dtype == torch.bfloat16 else 4
+    key = (B, N, C, x.dtype)
+    if _PARENT_GN_SCRATCH.get("key") != key:
+        _PARENT_GN_SCRATCH.update(key=key, ticket=torch.zeros(
+            (B * CS,), dtype=torch.int32, device=x.device), part=torch.empty(
+            (B * CS * S * 2 * gn.STATS_LANES * v,), device=x.device))
+    ticket, part = _PARENT_GN_SCRATCH["ticket"], _PARENT_GN_SCRATCH["part"]
     stats = torch.empty((B, 2, C), dtype=torch.float32, device=x.device)
     fn = lib.gn_stats_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _build.check(fn(x.data_ptr(), part.data_ptr(), stats.data_ptr(), B, N, C,
-                    rows, 1 if x.dtype == torch.bfloat16 else 0,
+    _build.check(fn(x.data_ptr(), part.data_ptr(), ticket.data_ptr(),
+                    stats.data_ptr(), B, N, C, rows,
+                    1 if x.dtype == torch.bfloat16 else 0,
                     torch.cuda.current_stream().cuda_stream),
                  "gn_stats_launch (parent)")
     return stats
+
+
+_PARENT_GN_SCRATCH: dict = {}
+
+
+def _ulps(got, ref) -> float:
+    """The largest distance of got from ref in f32 units in the last place
+    of ref."""
+    ref = ref.float()
+    a = ref.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return ((got.float() - ref).abs() / ulp).max().item()
 
 
 def _conv_tile(cv, x, cout, route):
@@ -784,6 +821,52 @@ def _conv_tile(cv, x, cout, route):
     if route == "f32":
         return list(cv.pick_tile_f32(D, H, W))
     return None
+
+
+def _k1_fold_check(gn, x, st, scale, shift, fs, fh) -> dict:
+    """K1 with its fold on x [B, N, C] against K1's sums ``st``: its own
+    sums bit for bit, and (g, b, mean_c, rstd_c) in ulps of the torch fold
+    (fold_gn_affine, gn_moments) on those sums; both tickets back at 0 (a
+    second launch gives the same)."""
+    B, N, C = x.shape
+    got_st = torch.empty_like(st)
+    got = gn.stats_and_fold(x, scale, shift, film_scale=fs, film_shift=fh,
+                            moments=True, stats=got_st)
+    again = gn.stats_and_fold(x, scale, shift, film_scale=fs, film_shift=fh,
+                              moments=True)
+    ref = gn.fold_gn_affine(st, N, scale, shift, film_scale=fs,
+                            film_shift=fh) + gn.gn_moments(st, N)
+    ulps = {k: _ulps(a, r) for k, a, r in zip(("g", "b", "mean", "rstd"),
+                                                got, ref)}
+    return {"fold_sums_equal": bool(torch.equal(got_st, st)),
+            "fold_ulps": ulps, "fold_max_ulps": max(ulps.values()),
+            "fold_bit_equal": all(bool(torch.equal(a, r))
+                                  for a, r in zip(got, ref)),
+            "fold_repeats": all(bool(torch.equal(a, r))
+                                for a, r in zip(got, again))}
+
+
+def _k1_fold_times(gn, x, scale, shift, fs, fh, gn_parent) -> dict:
+    """K1 with its fold timed (CUDA events, and device ms with the host's
+    issue held out) and, with ``gn_parent``, the parent's K1 (device ms);
+    beside them K1 followed by the torch fold (CUDA events, the fold's
+    host issue included)."""
+    def fold():
+        return gn.stats_and_fold(x, scale, shift, film_scale=fs,
+                                 film_shift=fh)
+
+    def torch_fold():
+        st = gn.channel_stats(x)
+        return gn.fold_gn_affine(st, x.shape[1], scale, shift,
+                                 film_scale=fs, film_shift=fh)
+
+    out = {"fold_ms": time_ms(fold), "fold_device_ms": device_ms(fold),
+           "torch_fold_ms": time_ms(torch_fold),
+           "parent_device_ms": None}
+    if gn_parent is not None:
+        out["parent_device_ms"] = device_ms(
+            lambda: _parent_gn_stats(gn_parent, x))
+    return out
 
 
 def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes,
@@ -859,9 +942,9 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes,
         scale = 1 + 0.1 * torch.randn((C,), generator=gen, device=dev)
         shift = 0.1 * torch.randn((C,), generator=gen, device=dev)
         fs = fh = None
-        if film:
-            fs = 0.1 * torch.randn((B, C), generator=gen, device=dev)
-            fh = 0.1 * torch.randn((B, C), generator=gen, device=dev)
+        if film:  # a ResBlock's chunks of its [B, 2C] embedding output
+            fs, fh = (0.1 * torch.randn((B, 2 * C), generator=gen,
+                                        device=dev)).chunk(2, dim=-1)
         st = gn.channel_stats(x)
         st_ref = gn.channel_stats_plain(x)
         g, bb = gn.fold_gn_affine(st_ref, N, scale, shift,
@@ -905,9 +988,14 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes,
                     if gn_parent is not None:
                         p_st = _parent_gn_stats(gn_parent, x)
                         line["parent_rel_err"] = rel_err(p_st, st_ref)[1]
+                        line["parent_equal"] = bool(torch.equal(p_st, st))
                         line["parent_ms"] = time_ms(
                             lambda: _parent_gn_stats(gn_parent, x))
+                    line["device_ms"] = device_ms(kfn)
+                    line.update(_k1_fold_times(gn, x, scale, shift, fs, fh,
+                                               gn_parent))
             if name == "gn_stats":
+                line.update(_k1_fold_check(gn, x, st, scale, shift, fs, fh))
                 # one launch, fixed order: equal on a second run and for
                 # volume 1 of a batch of 2 (its own data) alone
                 x2 = torch.cat([x, (x.float() * 0.5 - 0.25).to(dt)])
@@ -923,6 +1011,12 @@ def phase_kernels(gen: torch.Generator, conv_shapes, gn_shapes,
                 check(line["deterministic"] and line["batch_invariant"],
                       f"gn_stats {line['shape']} is deterministic and "
                       f"batch-invariant")
+                check(line["fold_sums_equal"] and line["fold_max_ulps"] <= 2,
+                      f"K1 with its fold {line['shape']} film={film}: sums "
+                      f"equal {line['fold_sums_equal']}, "
+                      f"{line['fold_ulps']} ulps")
+                check(line.get("parent_equal", True),
+                      f"gn_stats {line['shape']}: sums equal the parent's")
             checked[name] += 1
             summary.setdefault(name, line)
         check(f_rel <= TOL[dt], f"group_norm end to end rel err {f_rel}")
@@ -1217,6 +1311,90 @@ def phase_fused_kernels(gen: torch.Generator, shapes) -> dict:
     return dict(summary, shapes_checked=checked)
 
 
+def phase_fold_launch(gen: torch.Generator, fused) -> dict:
+    """The fold's own launch (``fold_stats``: gn_fold_kernel) against the
+    torch fold (``fold_gn_affine``, ``gn_moments``) on the same sums, in
+    ulps (at most 2): at every (C, FiLM) it folds in one bf16 96^3 batch-1
+    forward of ``fused``, on K4's stats and the FiLM rows as the forward
+    hands them in, and on the sums of two halves of a batch of 2 added, as
+    a spatial group's all-reduce gives them, with FiLM rows a chunk of a
+    [2, 2C] embedding output (the row stride). Timed on the forward's
+    widest sums with FiLM: the launch (CUDA events, and device ms), the
+    torch fold, and the bound of the launch's bytes."""
+    import inspect
+
+    from ddpm3d_tpu_torch.ops import groupnorm as gn
+
+    dev = torch.device("cuda")
+    real, calls = gn.fold_stats, {}
+    sig = inspect.signature(real)
+
+    def capture(*args, **kw):
+        a = sig.bind(*args, **kw)
+        a.apply_defaults()
+        a = dict(a.arguments)
+        calls.setdefault((a["stats"].shape[-1],
+                          a["film_scale"] is not None), a)
+        return real(*args, **kw)
+
+    x = torch.randn((1, 96, 96, 96, 1), device=dev)
+    gn.fold_stats = capture
+    try:
+        with torch.inference_mode():
+            fused(x, torch.tensor([500], device=dev), low_res=x)
+    finally:
+        gn.fold_stats = real
+    check(len(calls) > 0, "the fused forward launches the fold")
+    worst, worst_err, checked = 0.0, 0.0, 0
+    with torch.inference_mode():
+        for (C, film), a in sorted(calls.items()):
+            h = (torch.randn((2, 2 * 4096, C), generator=gen, device=dev) * 2
+                 + 0.5).to(torch.bfloat16)
+            emb = 0.1 * torch.randn((2, 2 * C), generator=gen, device=dev)
+            fs, fh = emb.chunk(2, dim=-1) if film else (None, None)
+            cases = (
+                ("k4", a["stats"], a["n_spatial"], a["film_scale"],
+                 a["film_shift"]),
+                ("all_reduced",
+                 gn.channel_stats(h[:, :4096].contiguous())
+                 + gn.channel_stats(h[:, 4096:].contiguous()),
+                 2 * 4096, fs, fh))
+            for src, st, n, s, sh in cases:
+                kw = dict(num_groups=a["num_groups"], eps=a["eps"],
+                          film_scale=s, film_shift=sh)
+                got = gn.fold_stats(st, n, a["scale"], a["bias"],
+                                    moments=True, **kw)
+                ref = (gn.fold_gn_affine(st, n, a["scale"], a["bias"], **kw)
+                       + gn.gn_moments(st, n, a["num_groups"], a["eps"]))
+                ulps = {k: _ulps(v, r) for k, v, r in zip(
+                    ("g", "b", "mean", "rstd"), got, ref)}
+                err = max(rel_err(v, r)[0] for v, r in zip(got, ref))
+                emit(dict(kernel="gn_fold", sums=src, shape=list(st.shape),
+                          n=n, film=film, ulps=ulps, max_abs_err=err))
+                check(max(ulps.values()) <= 2,
+                      f"gn_fold {src} C={C} film={film}: {ulps} ulps")
+                worst = max(worst, max(ulps.values()))
+                worst_err = max(worst_err, err)
+                checked += 1
+        C, film = max(k for k in calls if k[1])
+        a = calls[(C, film)]
+        args = (a["stats"], a["n_spatial"], a["scale"], a["bias"],
+                a["num_groups"], a["eps"], a["film_scale"], a["film_shift"])
+        B = a["stats"].shape[0]
+        # reads: the sums, gamma and beta, the FiLM rows; writes: g and b
+        nbytes = (2 * B * C + 2 * C + 2 * B * C + 2 * B * C) * 4
+        bms, by = bound(10.0 * B * C, nbytes, torch.float32)
+        line = dict(kernel="gn_fold", shape=list(a["stats"].shape),
+                    film=film, kernel_ms=time_ms(lambda: gn.fold_stats(*args)),
+                    device_ms=device_ms(lambda: gn.fold_stats(*args)),
+                    plain_ms=time_ms(lambda: gn.fold_gn_affine(*args)),
+                    library_ms=None, bound_ms=bms, bound_by=by,
+                    max_abs_err=worst_err, fold_max_ulps=worst,
+                    shapes_checked=checked)
+    emit(dict(line, phase="fold_launch"))
+    return line
+
+
 def _model(use_fp16: bool, seed: int, fused: bool = False, int8=None):
     from ddpm3d_tpu_torch.models.factory import sr_create_model_and_diffusion
     from ddpm3d_tpu_torch.models.nn import init_params
@@ -1343,6 +1521,70 @@ def phase_model(seed: int) -> dict:
     return paths
 
 
+def phase_gn_fold_route(model) -> dict:
+    """One bf16 96^3 forward at batch 1 (``model``, unfused) with every
+    GroupNorm's fold in K1, the program's route (``k1``, measured first and
+    again last, ``k1_again``: the host's issue drifts once the profiler has
+    run), against the fold in torch ops between K1 and K2 (``torch``, the
+    route before the fold moved into K1, rebuilt here from K1 alone,
+    ``gn_moments`` and ``gn_affine``). Per route: the device activities a
+    forward launches (torch.profiler: kernels, copies and fills), the
+    hand-written ones among them, the host's issue ms, the forward's ms
+    and device ms, the folds by route; and the torch route's output
+    difference to ``k1`` (the fold is bit-equal to the torch fold, so 0)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddpm3d_tpu_torch import ops
+    from ddpm3d_tpu_torch.ops import groupnorm as gn
+
+    def torch_fold(x, scale, bias, num_groups, eps, film_scale, film_shift,
+                   moments=False):
+        st = gn.channel_stats(x)
+        mean_c, rstd_c = gn.gn_moments(st, x.shape[1], num_groups, eps)
+        return gn.gn_affine(mean_c, rstd_c, scale, bias, film_scale,
+                            film_shift) + (mean_c, rstd_c)
+
+    x = torch.randn((1, 96, 96, 96, 1), device="cuda")
+    t = torch.tensor([500], device="cuda")
+    hand = tuple(p for pats in FORWARD_FAMILIES.values() for p in pats)
+    real = gn.stats_and_fold
+    line, outs = {"phase": "gn_fold_route", "batch": 1}, {}
+    for route in ("k1", "torch", "k1_again"):
+        if route == "torch":
+            gn.stats_and_fold = torch_fold
+        try:
+            with torch.inference_mode():
+                outs[route] = model(x, t, low_res=x).float()
+                prof = time_and_profile(lambda: model(x, t, low_res=x),
+                                        FORWARD_FAMILIES, reps=5, warmup=2,
+                                        host_reps=7, top=4)
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                with profile(activities=[ProfilerActivity.CUDA]) as p:
+                    model(x, t, low_res=x)
+                    torch.cuda.synchronize()
+                folds = ops.fold_counts()
+        finally:
+            gn.stats_and_fold = real
+        acts = [(ev.key, ev.count) for ev in p.key_averages()
+                if getattr(ev, "device_time_total", 0)]
+        line[route] = dict(
+            prof, activities=sum(n for _, n in acts),
+            hand_written=sum(n for k, n in acts if any(h in k for h in hand)),
+            folds=folds)
+    line["max_abs_diff"], line["rel_err"] = rel_err(outs["torch"],
+                                                    outs["k1"])
+    line["bit_equal"] = bool(torch.equal(outs["torch"], outs["k1"]))
+    emit(line)
+    for route in ("k1", "k1_again"):
+        check(line[route]["folds"] == {"k1": 71, "launch": 0, "torch": 0},
+              f"gn_fold_route: folds of a forward {line[route]['folds']}")
+    check(line["rel_err"] <= TOL[torch.bfloat16],
+          f"gn_fold_route: K1's fold against the torch fold "
+          f"{line['rel_err']}")
+    return line
+
+
 def phase_model_f32_timed(seed: int) -> dict:
     """The full-width f32 model (phase_model's) at 96^3, batch 1, on the
     card: one forward (no grad) and one training loss with every parameter
@@ -1437,6 +1679,8 @@ def phase_denoise(model, sched, cfg, seed: int, phase: str = "denoise",
     forwards = steps * -(-n_patches // batch)
     per_forward = {k: v / forwards for k, v in counts.items()}
     routes_per_forward = {k: v / forwards for k, v in routes.items()}
+    folds_per_forward = {k: v / forwards
+                         for k, v in ops.fold_counts().items()}
     line = {
         "phase": phase, "volume_zhw": list(shape), "patches": n_patches,
         "patch": 96, "channels": 128, "dtype": "bfloat16", "steps": steps,
@@ -1450,6 +1694,7 @@ def phase_denoise(model, sched, cfg, seed: int, phase: str = "denoise",
         "launches": counts,
         "launches_per_forward": per_forward,
         "routes_per_forward": routes_per_forward,
+        "folds_per_forward": folds_per_forward,
         "finite": bool(np.isfinite(result).all()),
         "result_shape": list(result.shape),
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1462,6 +1707,10 @@ def phase_denoise(model, sched, cfg, seed: int, phase: str = "denoise",
           f"{phase} launches per forward {per_forward}")
     check(routes_per_forward == FORWARD_ROUTES[phase],
           f"{phase} conv routes per forward {routes_per_forward}")
+    want = FORWARD_LAUNCHES[phase]
+    check(folds_per_forward == {"k1": want["gn_stats"],
+                                "launch": want["gn_fold"], "torch": 0},
+          f"{phase} GroupNorm folds per forward {folds_per_forward}")
     counts["routes"] = routes
     return counts, result, first[0]
 
@@ -1669,13 +1918,17 @@ SPATIAL_SHARDS = 2
 # GroupNorm launches once, as unsharded (on its haloed rows); fused, every
 # GroupNorm takes K1's local sums (the fused conv's stats would count the
 # halo rows), 17 unfused + 54 folds
+# (every GroupNorm folds the group's all-reduced sums in the fold's own
+# launch)
 SPATIAL_LAUNCHES = {
-    "unfused": FORWARD_LAUNCHES["denoise"],
-    "fused": dict(FORWARD_LAUNCHES["denoise_fused"], gn_stats=71),
-    "int8_dynamic": FORWARD_LAUNCHES["denoise_int8"],
-    "int8_static": FORWARD_LAUNCHES["denoise_int8"],
-    "f32": FORWARD_LAUNCHES["denoise"],
-    "fused_f32": dict(FORWARD_LAUNCHES["denoise_fused"], gn_stats=71),
+    "unfused": dict(FORWARD_LAUNCHES["denoise"], gn_fold=71),
+    "fused": dict(FORWARD_LAUNCHES["denoise_fused"], gn_stats=71,
+                  gn_fold=71),
+    "int8_dynamic": dict(FORWARD_LAUNCHES["denoise_int8"], gn_fold=71),
+    "int8_static": dict(FORWARD_LAUNCHES["denoise_int8"], gn_fold=71),
+    "f32": dict(FORWARD_LAUNCHES["denoise"], gn_fold=71),
+    "fused_f32": dict(FORWARD_LAUNCHES["denoise_fused"], gn_stats=71,
+                      gn_fold=71),
 }
 SPATIAL_ROUTES = {
     "unfused": FORWARD_ROUTES["denoise"],
@@ -1942,6 +2195,30 @@ def _conv_row_overhead(model, x, t, low, n: int) -> float:
     return sum(b for _, b in work) / sum(a for a, _ in work) - 1.0
 
 
+@contextlib.contextmanager
+def _gn_sums_one_ulp_larger(gn_ops):
+    """Every GroupNorm's own sums one f32 ulp larger: K1's sums scaled,
+    then folded by the fold's own launch, where K1 would fold them
+    (``group_norm`` reaches K1 through ``stats_and_fold``)."""
+    real = gn_ops.channel_stats, gn_ops.stats_and_fold
+
+    def stats(v):
+        return real[0](v) * (1 + 2.0 ** -23)
+
+    def stats_and_fold(x, scale, bias, num_groups=gn_ops.NORM_GROUPS,
+                       eps=1e-5, film_scale=None, film_shift=None,
+                       moments=False):
+        return gn_ops.fold_stats(stats(x), x.shape[1], scale, bias,
+                                 num_groups, eps, film_scale, film_shift,
+                                 moments)
+
+    gn_ops.channel_stats, gn_ops.stats_and_fold = stats, stats_and_fold
+    try:
+        yield
+    finally:
+        gn_ops.channel_stats, gn_ops.stats_and_fold = real
+
+
 def _spatial_forward(model, name: str, x, low, t, n: int,
                      spec=None) -> dict:
     """One variant: the unsharded forward, the n-shard forward in threads
@@ -2018,14 +2295,9 @@ def _spatial_forward(model, name: str, x, low, t, n: int,
             "launches_per_shard": [{k: c.get(k, 0) for k in want_launches}
                                    for c in launches]}
     if model.dtype == torch.bfloat16:
-        real_stats = gn_ops.channel_stats
-        gn_ops.channel_stats = lambda v: real_stats(v) * (1 + 2.0 ** -23)
-        try:
-            with torch.inference_mode():
-                line["noise_rel_err"] = rel_err(model(x, t, low_res=low),
-                                                ref)[1]
-        finally:
-            gn_ops.channel_stats = real_stats
+        with torch.inference_mode(), _gn_sums_one_ulp_larger(gn_ops):
+            line["noise_rel_err"] = rel_err(model(x, t, low_res=low),
+                                            ref)[1]
         if spec["noise_factor"]:
             line["tol"] = max(line["tol"], spec["noise_factor"]
                               * line["noise_rel_err"])
@@ -2225,18 +2497,19 @@ def _seg_fusion(name: str) -> str:
 def _seg_spatial_spec(name: str, variant: str) -> dict:
     """_spatial_forward's spec of one Seg model and variant."""
     six = name in SEG_6C_MODELS
+    sharded = dict(SEG_LAUNCHES, gn_fold=99)  # the group's sums: launched
     if variant == "int8_dynamic":
-        launches = dict(SEG_LAUNCHES, conv3d=3,
+        launches = dict(sharded, conv3d=3,
                         conv3d_s8=SEG_INT8_S8[_seg_fusion(name)])
         routes = (SEG_6C_INT8_ROUTES if six
                   else SEG_INT8_ROUTES)[_seg_fusion(name)]
     elif variant == "f32":
-        launches = SEG_LAUNCHES
+        launches = sharded
         routes = dict(_routes(0, 0, 0), **{
             "conv3d.f32": 100 if six else 99,
             "conv3d.f32_narrow": 0 if six else 1, "conv3d.f32_head": 1})
     else:
-        launches, routes = SEG_LAUNCHES, SEG_6C_ROUTES if six else SEG_ROUTES
+        launches, routes = sharded, SEG_6C_ROUTES if six else SEG_ROUTES
     return dict(phase="spatial_seg_forward", label={"model": name},
                 launches=launches, routes=routes,
                 tol=INT8_FORWARD_TOL if variant == "int8_dynamic"
@@ -2407,6 +2680,7 @@ FORWARD_FAMILIES = {
     "conv3d_f32": ("conv3d_f32_kernel",),
     "gn_stats": ("gn_stats_kernel",),
     "gn_apply": ("gn_apply_kernel",),
+    "gn_fold": ("gn_fold_kernel",),
 }
 TRAIN_FAMILIES = dict(
     FORWARD_FAMILIES,
@@ -2812,7 +3086,8 @@ def phase_train(seed: int) -> dict:
     for name in TRAIN_KERNELS:
         check(counts[name] > 0, f"kernel {name} launched on the train path")
     check(per_step == {"conv3d": 72, "conv3d_dx": 71, "conv3d_fused": 0,
-                       "conv3d_s8": 0, "gn_stats": 71, "gn_apply": 71},
+                       "conv3d_s8": 0, "gn_stats": 71, "gn_apply": 71,
+                       "gn_fold": 0},
           f"launches per step {per_step}")
     check(routes_per_step == STEP_ROUTES,
           f"conv routes per step {routes_per_step}")
@@ -3339,7 +3614,8 @@ DISTILL_START, DISTILL_TARGET, DISTILL_STEPS = 8, 2, 3
 # a distill step: two teacher forwards and the student's forward (each the
 # train phase's 72/71/71) and the student's backward (71 dx)
 DISTILL_STEP_LAUNCHES = {"conv3d": 216, "conv3d_dx": 71, "conv3d_fused": 0,
-                         "conv3d_s8": 0, "gn_stats": 213, "gn_apply": 213}
+                         "conv3d_s8": 0, "gn_stats": 213, "gn_apply": 213,
+                         "gn_fold": 0}
 DISTILL_STEP_ROUTES = _routes(210, 3, 3, dx_sm90=70, dx_f32_narrow=1)
 DISTILL_TIMEOUT_S = 600
 FORWARD_LAUNCHES["distill_serve"] = FORWARD_LAUNCHES["denoise"]
@@ -3463,7 +3739,8 @@ def phase_train_ddp(seed: int) -> dict:
     check(params_equal and ema_equal,
           "DDP at world size 1: params and EMA bit-equal to the plain loop")
     check(per_step == {"conv3d": 72, "conv3d_dx": 71, "conv3d_fused": 0,
-                       "conv3d_s8": 0, "gn_stats": 71, "gn_apply": 71},
+                       "conv3d_s8": 0, "gn_stats": 71, "gn_apply": 71,
+                       "gn_fold": 0},
           f"train_ddp launches per step {per_step}")
     check(routes_per_step == STEP_ROUTES,
           f"train_ddp conv routes per step {routes_per_step}")
@@ -4015,7 +4292,7 @@ def phase_classifier_sample(seed: int, model, classifier) -> dict:
 # input convs and the head stay K3
 SEG_FUSIONS = ("add", "cat_conv", "midcat")
 SEG_LAUNCHES = {"conv3d": 101, "conv3d_dx": 0, "conv3d_fused": 0,
-                "conv3d_s8": 0, "gn_stats": 99, "gn_apply": 99}
+                "conv3d_s8": 0, "gn_stats": 99, "gn_apply": 99, "gn_fold": 0}
 SEG_ROUTES = dict(_routes(98, 1, 1), **{"conv3d.sm90_cin1": 1})
 SEG_INT8_S8 = {"add": 119, "cat_conv": 134, "midcat": 120}
 # by kernel: 98 on csrc/conv3d_s8.cu (the main branch's 70, the encoder's
@@ -5319,9 +5596,10 @@ def main() -> None:
                          "kernel's Cin = 1, Cin 3 to 7 and gather "
                          "instances on the same inputs")
     ap.add_argument("--parent-gn", metavar="FILE",
-                    help="a previous csrc/groupnorm.cu whose two-launch "
-                         "gn_stats_launch (x, part, stats, ...) is timed "
-                         "beside K1")
+                    help="a previous csrc/groupnorm.cu whose K1 without "
+                         "the fold, gn_stats_launch (x, part, ticket, "
+                         "stats, ...), is timed beside K1 and its sums "
+                         "held equal to K1's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5385,6 +5663,7 @@ def main() -> None:
                                    conv_parent=libs.get("conv_parent")))
     summary["conv3d_fused"] = phase_fused_kernels(
         gen, sorted(set(fused_shapes) | sp["fused"], key=str))
+    summary["gn_fold"] = phase_fold_launch(gen, fused)
     summary.update(phase_s8_kernels(
         gen, sorted(set(s8_shapes) | seg_s8 | sp["s8"] | sps["s8"]), libs))
     from ddpm3d_tpu_torch.models.factory import create_gaussian_diffusion
@@ -5393,6 +5672,7 @@ def main() -> None:
     bwd = phase_backward(gen, *training_shapes(model, train_sched, train_cfg))
     model_counts = phase_model(args.seed)
     model_counts["model_f32_timed"] = phase_model_f32_timed(args.seed)
+    phase_gn_fold_route(model)
     phase_model_int8(args.seed)
     denoise_counts, volume, eps = phase_denoise(model, sched, cfg, args.seed)
     phase_profile(model)
@@ -5448,7 +5728,7 @@ def main() -> None:
     kernels = []
     for name, meta in KERNELS.items():
         s = summary[name]
-        count = ((lambda c: c[name]) if name not in ROUTE_OF
+        count = ((lambda c: c.get(name, 0)) if name not in ROUTE_OF
                  else (lambda c: c["routes"].get(ROUTE_OF[name], 0)))
         by_path = {"denoise": count(denoise_counts),
                    "denoise_fused": count(fused_counts),
@@ -5472,7 +5752,8 @@ def main() -> None:
                      "conv3d_smallcin": "seg_6c",
                      "conv3d_f32": "model",
                      "conv3d_f32_dx": "model_grads",
-                     "conv3d_fused_f32": "model_fused"}.get(name, "train")
+                     "conv3d_fused_f32": "model_fused",
+                     "gn_fold": "denoise_fused"}.get(name, "train")
         check(by_path[main_path] > 0,
               f"{name} launched on its path {main_path}")
         extra = {}
@@ -5485,8 +5766,14 @@ def main() -> None:
                                 ("denoise_fused", fused_counts),
                                 ("denoise_int8", int8_counts),
                                 ("train", train["launches"]))}
-        if name == "gn_stats":  # the parent's two-launch K1 (or None)
+        if name == "gn_stats":  # the parent's K1 (or None), K1's fold
             extra["parent_ms"] = s["parent_ms"]
+            for k in ("device_ms", "fold_ms", "fold_device_ms",
+                      "torch_fold_ms", "parent_device_ms", "fold_ulps"):
+                extra[k] = s.get(k)
+        if name == "gn_fold":  # device ms alone, the worst ulps
+            extra["device_ms"] = s["device_ms"]
+            extra["fold_max_ulps"] = s["fold_max_ulps"]
         if name == "conv3d_s8":  # the bf16 conv it replaces at that site
             extra["k3_bf16_ms"] = s["k3_bf16_ms"]
             extra["parent_ms"] = s.get("parent_ms")

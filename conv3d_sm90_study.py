@@ -783,11 +783,11 @@ def study_gn(fns, old, gen) -> list:
             S = -(-N // rows)
             CS = -(-C // (gn.STATS_LANES * v))
             stats = torch.empty((1, 2, C), device="cuda")
-            ticket, part = gn._stats_scratch(x.device, stream, CS,
+            ticket, part = gn._stats_scratch(x.device, stream, CS + 1,
                                              CS * S * 2 * gn.STATS_LANES * v)
             _build.check(fn(x.data_ptr(), part.data_ptr(), ticket.data_ptr(),
-                            stats.data_ptr(), 1, N, C, rows, code, stream),
-                         "gn_stats_launch")
+                            stats.data_ptr(), 1, N, C, rows, code,
+                            *gn.NO_FOLD, stream), "gn_stats_launch")
             return stats
 
         def k1_old():

@@ -74,7 +74,10 @@ class GroupNorm32(nn.Module):
 
     Under ``spatial`` (forward only) the sums (x's, or the ``stats`` given:
     local sums) are all-reduced over the group before the fold with the
-    group's voxel count; K2 then normalizes the local rows."""
+    group's voxel count; K2 then normalizes the local rows. On the card x's
+    own sums are folded in K1 (:func:`..ops.groupnorm.stats_and_fold`),
+    sums handed in or all-reduced by the fold's own launch
+    (:func:`..ops.groupnorm.fold_stats`)."""
 
     spatial = None  # a SpatialGroup of several ranks (set_spatial)
 
@@ -102,8 +105,8 @@ class GroupNorm32(nn.Module):
                     film_scale=film_scale, film_shift=film_shift,
                     apply_silu=apply_silu)
             xr = x.reshape(x.shape[0], -1, x.shape[-1])
-            if stats is None:
-                stats = gn_ops.channel_stats(xr)
+            fold = (self.weight, self.bias, self.num_groups, self.eps,
+                    film_scale, film_shift)
             n = xr.shape[1]
             if self.spatial is not None:
                 if torch.is_grad_enabled():
@@ -111,11 +114,14 @@ class GroupNorm32(nn.Module):
                         "GroupNorm over a spatial group is forward-only (the "
                         "JAX package trains with the batch split alone); run "
                         "under torch.no_grad() or inference_mode()")
+                if stats is None:
+                    stats = gn_ops.channel_stats(xr)
                 stats = self.spatial.all_reduce_sum(stats)
                 n *= self.spatial.size
-            g, b = gn_ops.fold_gn_affine(
-                stats, n, self.weight, self.bias, self.num_groups, self.eps,
-                film_scale=film_scale, film_shift=film_shift)
+            if stats is None:  # x's own sums: K1 folds them
+                g, b = gn_ops.stats_and_fold(xr, *fold)[:2]
+            else:
+                g, b = gn_ops.fold_stats(stats, n, *fold)[:2]
             if fold_only:
                 return g, b
             return gn_ops.gn_apply(xr, g, b, apply_silu).reshape(x.shape)

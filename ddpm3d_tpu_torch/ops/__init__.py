@@ -11,8 +11,8 @@
   bias/skip epilogue, next-GN stats): bf16 on the fused instance of
   ``csrc/conv3d_sm90.cu`` (wgmma/TMA), f32 on that of
   ``csrc/conv3d_f32.cu``, by :func:`.conv3d_fused.conv3d_fused_route`;
-* :mod:`.groupnorm` — GroupNorm stats and fused normalize/FiLM/SiLU
-  (``csrc/groupnorm.cu``);
+* :mod:`.groupnorm` — GroupNorm stats with the fold into the affine, and
+  the fused normalize/FiLM/SiLU (``csrc/groupnorm.cu``);
 * :mod:`.conv3d_s8` — the int8 (s8 x s8 -> s32) conv with its dequantize
   epilogue (``csrc/conv3d_s8.cu`` for 3x3x3 kernels, ``csrc/conv1x1_s8.cu``
   for 1x1x1 ones; wgmma s8 fed by TMA), under :mod:`.quant`
@@ -27,7 +27,7 @@ from . import conv3d, conv3d_fused, conv3d_s8, groupnorm
 from .quant import quantize_act, quantize_kernel, static_scales
 
 KERNELS = ("conv3d", "conv3d_dx", "conv3d_fused", "conv3d_s8", "gn_stats",
-           "gn_apply")
+           "gn_apply", "gn_fold")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -52,6 +52,18 @@ def route_counts() -> Dict[str, int]:
     return {k: got.get(f"route.{k}", 0) for k in keys}
 
 
+def fold_counts() -> Dict[str, int]:
+    """The GroupNorm folds since the last :func:`reset_launch_counts` by
+    where they ran, each of :data:`.groupnorm.FOLD_ROUTES`: "k1" inside K1
+    (``route.gn_fold.k1``), "launch" in the fold's own launch (its launch
+    count, "gn_fold" of :func:`launch_counts`), "torch" in torch ops
+    (``route.gn_fold.torch``)."""
+    got = tracing.counters("route.gn_fold.")
+    return {"k1": got.get("route.gn_fold.k1", 0),
+            "launch": launch_counts()["gn_fold"],
+            "torch": got.get("route.gn_fold.torch", 0)}
+
+
 def reset_launch_counts() -> None:
     tracing.reset_counters("launch.")
     tracing.reset_counters("route.")
@@ -59,9 +71,11 @@ def reset_launch_counts() -> None:
 
 def counter_report() -> Dict[str, Dict[str, int]]:
     """The whole registry as the CLIs log it at the end of a run:
-    ``launches`` (:func:`launch_counts`), ``routes`` (:func:`route_counts`)
-    and ``counters``, every other counter (weight repacks, int8
-    requantizations, kernel builds, spatial collectives)."""
+    ``launches`` (:func:`launch_counts`), ``routes`` (:func:`route_counts`),
+    ``folds`` (:func:`fold_counts`) and ``counters``, every other counter
+    (weight repacks, int8 requantizations, kernel builds, spatial
+    collectives)."""
     return {"launches": launch_counts(), "routes": route_counts(),
+            "folds": fold_counts(),
             "counters": {k: v for k, v in tracing.counters().items()
                          if not k.startswith(("launch.", "route."))}}

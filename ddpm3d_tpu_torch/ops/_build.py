@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> (library, argtypes); every one returns cudaError_t
 _SIGNATURES = {
     "conv3d_f32_launch": (
@@ -59,7 +60,12 @@ _SIGNATURES = {
         "conv3d_s8", [_P] * 6 + [_I] * 12 + [_P]),
     "conv1x1_s8_launch": (
         "conv1x1_s8", [_P] * 6 + [_I] * 5 + [_P]),
-    "gn_stats_launch": ("groupnorm", [_P] * 4 + [_I] * 5 + [_P]),
+    "gn_stats_launch": (
+        "groupnorm", [_P] * 4 + [_I] * 5 + [_P] * 4 + [_I] * 2 + [_F] * 2
+        + [_P] * 5),
+    "gn_fold_launch": (
+        "groupnorm", [_P, _I, _I] + [_P] * 4 + [_I] * 2 + [_F] * 2
+        + [_P] * 5),
     "gn_apply_launch": ("groupnorm", [_P, _P, _P, _P] + [_I] * 5 + [_P]),
 }
 

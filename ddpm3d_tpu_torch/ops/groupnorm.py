@@ -7,20 +7,29 @@ statistics, variance ``max(E[x^2] - mean^2, 0)``, FiLM ``(1 + scale)`` gain
 and shift folded into one per-channel affine, result cast back to x's dtype.
 
 Two Hopper kernels in ``csrc/groupnorm.cu``, both bound by bytes:
-  * :func:`channel_stats` -> per-(batch, channel) (sum x, sum x^2) [B, 2, C],
-    one launch: row-split partials finished by the last block of each
-    column slice (a ticket on a counter), in a fixed order (:func:`stats_plan`);
-  * :func:`gn_apply` -> ``silu?(x * g + b)`` with [B, C] f32 (g, b).
-Between them, :func:`fold_gn_affine` turns the [B, C] sums into (g, b).
+  * K1 (:func:`channel_stats`) -> per-(batch, channel) (sum x, sum x^2)
+    [B, 2, C], one launch: row-split partials finished by the last block of
+    each column slice (a ticket on a counter), in a fixed order
+    (:func:`stats_plan`). Asked to (:func:`stats_and_fold`), the block that
+    finishes a batch row's last slice (a second ticket) also folds the
+    row's sums into the [B, C] f32 affine (g, b): the fold of
+    :func:`fold_gn_affine`, on the card, operation for operation;
+  * K2 (:func:`gn_apply`) -> ``silu?(x * g + b)`` with that (g, b).
+Sums K1 did not make (a spatial group's all-reduced sums, the fused conv's
+stats) are folded by the same device routine in a launch of its own
+(:func:`fold_stats`). Where the program's folds ran is counted, by
+:data:`FOLD_ROUTES`: ``route.gn_fold.k1`` (in K1), ``launch.gn_fold`` (the
+launch of its own) and ``route.gn_fold.torch`` (torch ops, on the CPU).
 
 Each public function takes its plain PyTorch version for a CPU tensor and
 launches the kernel for a CUDA tensor (or raises).
 
 :func:`group_norm` is differentiable (:class:`GroupNormFunction`): forward
-is K1 -> fold -> K2, and the backward is the closed form of
-``ddpm3d_tpu/models/nn.py:_make_gn_custom`` in torch tensor ops (the JAX
-package has no Pallas kernel for it). It saves x and the [B, C] mean and
-rstd, not the output, and recomputes the SiLU input elementwise.
+is K1 with its fold -> K2, two launches and no PyTorch op between them,
+and the backward is the closed form of ``ddpm3d_tpu/models/nn.py:
+_make_gn_custom`` in torch tensor ops (the JAX package has no Pallas kernel
+for it). It saves x and the [B, C] mean and rstd (K1 writes them beside
+the affine), not the output, and recomputes the SiLU input elementwise.
 """
 
 from __future__ import annotations
@@ -47,6 +56,9 @@ def _dtype_code(x: torch.Tensor) -> int:
 STATS_THREADS = 256   # threads per stats block (csrc/groupnorm.cu kThreads)
 STATS_LANES = 16      # 16-byte vectors per column slice (kLanes)
 STATS_SPLITS = 256    # row splits per volume at large N
+MAX_FOLD_GROUPS = 1024  # groups the fold takes (kMaxGroups)
+# where a fold of sums into the affine ran (ops.fold_counts)
+FOLD_ROUTES = ("k1", "launch", "torch")
 
 
 def rows_per_split(n: int) -> int:
@@ -72,9 +84,17 @@ def channel_stats_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 # the stats kernel's scratch per (device, stream): the ticket counters
-# (zeroed once; every launch leaves them 0, so a launch needs no memset)
-# and the partial sums; launches on one stream run in order
+# (zeroed once; every launch leaves them 0, so a launch needs no memset) and
+# the partial sums; launches on one stream run in order
 _scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(x: torch.Tensor) -> int:
+    """The current CUDA stream of x's device, as a pointer."""
+    if _raw_stream is not None:
+        return _raw_stream(x.get_device())
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _stats_scratch(device: torch.device, stream: int, n_tickets: int,
@@ -92,27 +112,85 @@ def _stats_scratch(device: torch.device, stream: int, n_tickets: int,
     return ticket, part
 
 
+def _f32_on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """t as contiguous f32 on ``device``: itself when it already is."""
+    if (t.dtype is torch.float32 and t.device == device
+            and t.is_contiguous()):
+        return t
+    return t.to(device=device, dtype=torch.float32).contiguous()
+
+
+def _film(film_scale: Optional[torch.Tensor],
+          film_shift: Optional[torch.Tensor], B: int, C: int,
+          device: torch.device):
+    """(film_scale, film_shift, row stride) as the fold reads them: f32
+    [B, C] rows of unit channel stride on ``device``. A chunk of the
+    embedding's [B, 2C] output is taken as it is; anything else is copied."""
+    given = [t for t in (film_scale, film_shift) if t is not None]
+    if not given:
+        return None, None, C
+    if not (all(t.dtype is torch.float32 and t.device == device
+                and t.shape == (B, C) and t.stride(1) == 1
+                and (B == 1 or t.stride(0) >= C) for t in given)
+            and len({t.stride(0) for t in given}) == 1):
+        film_scale, film_shift = (
+            None if t is None else
+            t.to(device=device, dtype=torch.float32).expand(B, C).contiguous()
+            for t in (film_scale, film_shift))
+        given = [t for t in (film_scale, film_shift) if t is not None]
+    return film_scale, film_shift, given[0].stride(0) if B > 1 else C
+
+
+def _fold_args(scale, bias, film_scale, film_shift, num_groups, eps, n,
+               B, C, device, out: Tuple[int, int, int, int]):
+    """The fold's arguments of gn_stats_launch / gn_fold_launch, and the
+    tensors they point into (kept alive over the launch); ``out`` the
+    addresses of g, b, mean, rstd (0 for none)."""
+    if num_groups > MAX_FOLD_GROUPS:
+        raise ValueError(f"the fold takes at most {MAX_FOLD_GROUPS} groups, "
+                         f"got {num_groups}")
+    gamma, beta = _f32_on(scale, device), _f32_on(bias, device)
+    fs, fh, stride = _film(film_scale, film_shift, B, C, device)
+    args = (gamma.data_ptr(), beta.data_ptr(),
+            None if fs is None else fs.data_ptr(),
+            None if fh is None else fh.data_ptr(), stride, num_groups,
+            float(n), float(eps)) + tuple(p or None for p in out)
+    return args, (gamma, beta, fs, fh)
+
+
+# the fold's arguments of gn_stats_launch for K1 alone (gamma null: no fold)
+NO_FOLD = (None,) * 4 + (0, 0, 0.0, 0.0) + (None,) * 4
+
+
+def _k1(x: torch.Tensor, stats_ptr: int, fold_args=None) -> None:
+    """One K1 launch over x [B, N, C] on the card: its sums to
+    ``stats_ptr`` and, with ``fold_args``, the fold."""
+    code = _dtype_code(x)
+    B, N, C = x.shape
+    rows, S, CS = stats_plan(N, C, x.dtype)
+    v = 8 if code == 1 else 4
+    stream = _stream(x)
+    ticket, part = _stats_scratch(x.device, stream, B * CS + B,
+                                  B * CS * S * 2 * STATS_LANES * v)
+    err = _build.fn("gn_stats_launch")(
+        x.data_ptr(), part.data_ptr(), ticket.data_ptr(), stats_ptr,
+        B, N, C, rows, code, *(fold_args or NO_FOLD), stream)
+    _build.check(err, "gn_stats_launch")
+    tracing.count("launch.gn_stats")
+    if fold_args:
+        tracing.count("route.gn_fold.k1")
+
+
 def channel_stats(x: torch.Tensor) -> torch.Tensor:
     """Per-(batch, channel) (sum x, sum x^2) of x [B, N, C] as [B, 2, C] f32."""
     if x.device.type == "cpu":
         return channel_stats_plain(x)
     if x.device.type != "cuda":
         raise RuntimeError(f"channel_stats: unsupported device {x.device}")
-    code = _dtype_code(x)
     x = x.contiguous()
     B, N, C = x.shape
-    rows, S, CS = stats_plan(N, C, x.dtype)
-    v = 8 if code == 1 else 4
     stats = torch.empty((B, 2, C), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    ticket, part = _stats_scratch(x.device, stream, B * CS,
-                                  B * CS * S * 2 * STATS_LANES * v)
-    err = _build.fn("gn_stats_launch")(
-        x.data_ptr(), part.data_ptr(), ticket.data_ptr(), stats.data_ptr(),
-        B, N, C, rows, code, stream,
-    )
-    _build.check(err, "gn_stats_launch")
-    tracing.count("launch.gn_stats")
+    _k1(x, stats.data_ptr())
     return stats
 
 
@@ -156,6 +234,21 @@ def gn_affine(
     return g, b
 
 
+# (g, b, mean_c, rstd_c) of a fold, [B, C] f32 each
+Folded = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
+               Optional[torch.Tensor]]
+
+
+def _fold_torch(stats, n_spatial, scale, bias, num_groups, eps, film_scale,
+                film_shift) -> Folded:
+    """The fold in torch ops (``gn_moments``, ``gn_affine``), on any
+    device: (g, b, mean_c, rstd_c)."""
+    with tracing.span("ddpm.gn.fold"):
+        mean_c, rstd_c = gn_moments(stats, n_spatial, num_groups, eps)
+        g, b = gn_affine(mean_c, rstd_c, scale, bias, film_scale, film_shift)
+    return g, b, mean_c, rstd_c
+
+
 def fold_gn_affine(
     stats: torch.Tensor,
     n_spatial: int,
@@ -168,10 +261,112 @@ def fold_gn_affine(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fold GroupNorm (+FiLM) into one per-channel affine (g, b), [B, C] f32,
     from per-channel sums [B, 2, C] (``ddpm3d_tpu/models/nn.py:
-    fold_gn_affine``): ``x * g + b`` equals the normalized, FiLM'd x."""
+    fold_gn_affine``): ``x * g + b`` equals the normalized, FiLM'd x. Torch
+    ops on any device: the CPU's fold, and the card's fold's reference."""
+    return _fold_torch(stats, n_spatial, scale, bias, num_groups, eps,
+                       film_scale, film_shift)[:2]
+
+
+def _no_grad_wanted(where: str, *ts: Optional[torch.Tensor]) -> None:
+    """The card's fold records no autograd graph: refuse inputs whose
+    gradient would be lost."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in ts):
+        raise RuntimeError(
+            f"{where} on the card has no backward: call it under "
+            "torch.no_grad() or torch.inference_mode(), or use group_norm")
+
+
+def _fold_out(B: int, C: int, moments: bool, sums: bool,
+              device: torch.device):
+    """One f32 allocation for a fold on the card: the [B, C] views (g, b,
+    mean_c, rstd_c) (mean_c and rstd_c None without ``moments``) and
+    their addresses (0 for none), then, with ``sums``, the address of
+    [B, 2, C] more for K1's sums."""
+    k = 4 if moments else 2
+    out = torch.empty(((k + 2 * sums) * B * C,), dtype=torch.float32,
+                      device=device)
+    ptr, step = out.data_ptr(), B * C * 4
+    views = out[:k * B * C].view(k, B, C).unbind(0) + (None,) * (4 - k)
+    return (views, tuple(ptr + i * step if i < k else 0 for i in range(4)),
+            ptr + k * step)
+
+
+def fold_stats(
+    stats: torch.Tensor,
+    n_spatial: int,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    num_groups: int = NORM_GROUPS,
+    eps: float = 1e-5,
+    film_scale: Optional[torch.Tensor] = None,
+    film_shift: Optional[torch.Tensor] = None,
+    moments: bool = False,
+) -> Folded:
+    """(g, b, mean_c, rstd_c) of sums [B, 2, C] made elsewhere (a spatial
+    group's all-reduced sums, the fused conv's stats), as
+    :func:`fold_gn_affine` computes them: on the card one launch of the fold
+    alone (mean_c and rstd_c None unless ``moments``; no autograd), on the
+    CPU torch ops."""
+    if stats.device.type == "cpu":
+        tracing.count("route.gn_fold.torch")
+        return _fold_torch(stats, n_spatial, scale, bias, num_groups, eps,
+                           film_scale, film_shift)
+    if stats.device.type != "cuda":
+        raise RuntimeError(f"fold_stats: unsupported device {stats.device}")
+    _no_grad_wanted("fold_stats", stats, scale, bias, film_scale, film_shift)
+    B, _, C = stats.shape
     with tracing.span("ddpm.gn.fold"):
-        mean_c, rstd_c = gn_moments(stats, n_spatial, num_groups, eps)
-        return gn_affine(mean_c, rstd_c, scale, bias, film_scale, film_shift)
+        stats = _f32_on(stats, stats.device)
+        views, out, _ = _fold_out(B, C, moments, False, stats.device)
+        args, _keep = _fold_args(
+            scale, bias, film_scale, film_shift, num_groups, eps,
+            n_spatial * (C // num_groups), B, C, stats.device, out)
+        err = _build.fn("gn_fold_launch")(
+            stats.data_ptr(), B, C, *args, _stream(stats))
+        _build.check(err, "gn_fold_launch")
+    tracing.count("launch.gn_fold")
+    return views
+
+
+def stats_and_fold(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    num_groups: int = NORM_GROUPS,
+    eps: float = 1e-5,
+    film_scale: Optional[torch.Tensor] = None,
+    film_shift: Optional[torch.Tensor] = None,
+    moments: bool = False,
+    stats: Optional[torch.Tensor] = None,
+) -> Folded:
+    """(g, b, mean_c, rstd_c) of GroupNorm(+FiLM) over x [B, N, C] from x's
+    own sums: on the card K1 with its fold, one launch (mean_c and rstd_c
+    None unless ``moments``; ``stats``, a contiguous [B, 2, C] f32 tensor,
+    receives the sums if given; no autograd); on the CPU
+    :func:`channel_stats` and torch ops."""
+    if x.device.type == "cpu":
+        st = channel_stats(x)
+        if stats is not None:
+            stats.copy_(st)
+        tracing.count("route.gn_fold.torch")
+        return _fold_torch(st, x.shape[1], scale, bias, num_groups, eps,
+                           film_scale, film_shift)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"stats_and_fold: unsupported device {x.device}")
+    _no_grad_wanted("stats_and_fold", x, scale, bias, film_scale, film_shift)
+    x = x.contiguous()
+    B, N, C = x.shape
+    if stats is not None and (
+            stats.shape != (B, 2, C) or stats.dtype != torch.float32
+            or not stats.is_contiguous() or stats.device != x.device):
+        raise ValueError(f"stats must be a contiguous [{B}, 2, {C}] f32 "
+                         f"tensor on {x.device}")
+    views, out, sums = _fold_out(B, C, moments, stats is None, x.device)
+    args, _keep = _fold_args(scale, bias, film_scale, film_shift, num_groups,
+                             eps, N * (C // num_groups), B, C, x.device, out)
+    _k1(x, sums if stats is None else stats.data_ptr(), args)
+    return views
 
 
 def gn_apply_plain(
@@ -188,7 +383,8 @@ def gn_apply(
     x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, apply_silu: bool
 ) -> torch.Tensor:
     """silu?(x * g + b) over x [B, N, C] with per-(batch, channel) f32
-    affine (g, b) [B, C]; the result has x's dtype."""
+    affine (g, b) [B, C] (a fold's output is taken as it is, anything else
+    copied to that layout); the result has x's dtype."""
     if x.device.type == "cpu":
         return gn_apply_plain(x, g, b, apply_silu)
     if x.device.type != "cuda":
@@ -196,15 +392,13 @@ def gn_apply(
     code = _dtype_code(x)
     x = x.contiguous()
     B, N, C = x.shape
-    g = g.to(device=x.device, dtype=torch.float32).contiguous()
-    b = b.to(device=x.device, dtype=torch.float32).contiguous()
     if g.shape != (B, C) or b.shape != (B, C):
         raise ValueError(f"affine must be [{B}, {C}], got {tuple(g.shape)}")
+    g, b = _f32_on(g, x.device), _f32_on(b, x.device)
     y = torch.empty_like(x)
     err = _build.fn("gn_apply_launch")(
         x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), B, N, C,
-        int(apply_silu), code, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+        int(apply_silu), code, _stream(x))
     _build.check(err, "gn_apply_launch")
     tracing.count("launch.gn_apply")
     return y
@@ -270,17 +464,15 @@ def group_norm_backward(
 
 
 class GroupNormFunction(torch.autograd.Function):
-    """GroupNorm(+FiLM)(+SiLU) of x [B, N, C]: forward K1 -> fold -> K2,
-    backward :func:`group_norm_backward`."""
+    """GroupNorm(+FiLM)(+SiLU) of x [B, N, C]: forward K1 with its fold ->
+    K2, backward :func:`group_norm_backward`."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, film_scale, film_shift, num_groups, eps,
                 apply_silu):
-        stats = channel_stats(x)
-        with tracing.span("ddpm.gn.fold"):
-            mean_c, rstd_c = gn_moments(stats, x.shape[1], num_groups, eps)
-            g, b = gn_affine(mean_c, rstd_c, scale, bias, film_scale,
-                             film_shift)
+        g, b, mean_c, rstd_c = stats_and_fold(
+            x, scale, bias, num_groups, eps, film_scale, film_shift,
+            moments=True)
         ctx.save_for_backward(x, scale, bias, film_scale, film_shift,
                               mean_c, rstd_c)
         ctx.num_groups = num_groups

@@ -464,6 +464,197 @@ def test_gn_stats_is_deterministic_and_batch_invariant(dev, dtype, N, C):
     assert _rel(st, gn.channel_stats_plain(x)) <= 1e-5
 
 
+def _ulps(got, ref):
+    """The largest distance of got from ref in f32 units in the last place
+    of ref."""
+    ref = ref.float()
+    a = ref.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return ((got.float() - ref).abs() / ulp).max().item()
+
+
+def _production_kw():
+    """test_DDPM_3d_tpu.sh's torso widths (SuperResModel and the Seg
+    models): 128 channels, (1,1,2,3,4), 2 res blocks, scale-shift norm,
+    resblock up/down, no attention."""
+    return dict(in_channels=1, model_channels=128, out_channels=2,
+                num_res_blocks=2, channel_mult=(1, 1, 2, 3, 4),
+                use_scale_shift_norm=True, resblock_updown=True)
+
+
+@pytest.fixture(scope="module")
+def gn_widths():
+    """Every (C, FiLM) of the GroupNorm calls of one forward of the
+    production SuperResModel and of each Seg fusion, read by hooks."""
+    from ddpm3d_tpu_torch.models import SegUNetModel
+    from ddpm3d_tpu_torch.models.nn import GroupNorm32
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
+    cases = set()
+
+    def hook(mod, args, kwargs):
+        cases.add((mod.weight.shape[0],
+                   kwargs.get("film_scale") is not None))
+
+    builds = [lambda: SuperResModel(middle_attention=False,
+                                    **_production_kw())]
+    builds += [lambda f=f: SegUNetModel(cond_channels=1, fusion=f,
+                                        **_production_kw())
+               for f in ("add", "cat_conv", "midcat")]
+    x = torch.zeros((1, 16, 16, 16, 1), device="cuda")
+    t = torch.tensor([500], device="cuda")
+    for build in builds:
+        model = build().eval().cuda()
+        for m in model.modules():
+            if isinstance(m, GroupNorm32):
+                m.register_forward_pre_hook(hook, with_kwargs=True)
+        with torch.no_grad():
+            model(x, t, low_res=x)
+        del model
+    torch.cuda.empty_cache()
+    return sorted(cases)
+
+
+def _gn_inputs(dev, seed, B, N, C, dtype, film):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((B, N, C), generator=g, device=dev) * 2 + 0.5).to(dtype)
+    scale = 1 + 0.1 * torch.randn((C,), generator=g, device=dev)
+    bias = 0.1 * torch.randn((C,), generator=g, device=dev)
+    fs = fh = None
+    if film:  # the embedding's [B, 2C] output in two chunks, as a ResBlock
+        fs, fh = (0.1 * torch.randn((B, 2 * C), generator=g, device=dev)
+                  ).chunk(2, dim=-1)
+    return x, scale, bias, fs, fh
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k1_fold_matches_the_torch_fold(dev, gn_widths, dtype, B):
+    """K1 with its fold at every (C, FiLM) of the production SuperResModel
+    and the Seg models: its sums equal K1's alone bit for bit; (g, b) within
+    2 ulp of fold_gn_affine on those sums, mean_c / rstd_c of gn_moments;
+    without the moments the same (g, b); one k1 fold counted a launch."""
+    assert {c for c, _ in gn_widths} >= {128, 256, 384, 512, 768, 1024}
+    for i, (C, film) in enumerate(gn_widths):
+        N = 1000 + 37 * i
+        x, scale, bias, fs, fh = _gn_inputs(dev, i, B, N, C, dtype, film)
+        st = torch.empty((B, 2, C), device=dev)
+        before = ops.fold_counts()["k1"]
+        g, b, mean_c, rstd_c = gn.stats_and_fold(
+            x, scale, bias, film_scale=fs, film_shift=fh, moments=True,
+            stats=st)
+        g2, b2, m2, r2 = gn.stats_and_fold(x, scale, bias, film_scale=fs,
+                                           film_shift=fh)
+        assert ops.fold_counts()["k1"] == before + 2
+        assert m2 is None and r2 is None
+        assert torch.equal(st, gn.channel_stats(x)), (C, film)
+        g_ref, b_ref = gn.fold_gn_affine(st, N, scale, bias, film_scale=fs,
+                                         film_shift=fh)
+        m_ref, r_ref = gn.gn_moments(st, N)
+        ulps = [_ulps(a, r) for a, r in ((g, g_ref), (b, b_ref),
+                                         (mean_c, m_ref), (rstd_c, r_ref))]
+        assert max(ulps) <= 2, (C, film, ulps)
+        assert torch.equal(g, g2) and torch.equal(b, b2)
+
+
+@pytest.mark.parametrize("C,dtype", [(1024, torch.bfloat16),
+                                     (384, torch.bfloat16),
+                                     (384, torch.float32),
+                                     (128, torch.bfloat16),
+                                     (2048, torch.bfloat16)])
+def test_k1_fold_leaves_both_tickets_at_zero(dev, C, dtype):
+    """Two launches in a row give the same sums and affine, and every
+    ticket of the stream's scratch is back at 0 after each (C = 384: groups
+    of 12 channels straddle the 128- and 64-channel slices; C = 2048, the
+    encoder's widest GroupNorm: the fold reads the sums from global memory,
+    too many to stage), the affine within 2 ulp of the torch fold."""
+    x, scale, bias, fs, fh = _gn_inputs(dev, 7, 2, 5000, C, dtype, True)
+    outs = []
+    for _ in range(2):
+        st = torch.empty((2, 2, C), device=dev)
+        outs.append((st,) + gn.stats_and_fold(
+            x, scale, bias, film_scale=fs, film_shift=fh, moments=True,
+            stats=st))
+        torch.cuda.synchronize()
+        ticket, _ = gn._scratch[(dev.index or 0, gn._stream(x))]
+        assert not ticket.any()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    st = outs[0][0]
+    ref = gn.fold_gn_affine(st, 5000, scale, bias, film_scale=fs,
+                            film_shift=fh) + gn.gn_moments(st, 5000)
+    assert max(_ulps(a, r) for a, r in zip(outs[0][1:], ref)) <= 2
+
+
+def test_fold_launch_on_handed_in_sums(dev):
+    """The fold's own launch on sums K1 did not make: sums of two halves
+    added (a spatial group's all-reduce) and K4's stats; within 2 ulp of
+    fold_gn_affine on the same sums, one gn_fold launch each."""
+    x, scale, bias, fs, fh = _gn_inputs(dev, 8, 2, 2 * 2197, 384,
+                                        torch.bfloat16, True)
+    halves = (gn.channel_stats(x[:, :2197].contiguous())
+              + gn.channel_stats(x[:, 2197:].contiguous()))
+    xf, w, b, pg, pb, skip = _fused_inputs(dev, 9, (2, 6, 8, 8, 64), 128,
+                                           torch.bfloat16)
+    _, k4 = fo.conv3d_fused(xf, w, b, prologue_g=pg, prologue_b=pb,
+                            want_stats=True)
+    s128, h128 = fs[:, :128], fh[:, :128]
+    for st, n, C, s, h in ((halves, 2 * 2197, 384, fs, fh),
+                           (k4, 6 * 8 * 8, 128, s128, h128),
+                           (k4, 6 * 8 * 8, 128, None, None)):
+        sc, bi = scale[:C], bias[:C]
+        before = ops.launch_counts()["gn_fold"]
+        got = gn.fold_stats(st, n, sc, bi, film_scale=s, film_shift=h,
+                            moments=True)
+        assert ops.launch_counts()["gn_fold"] == before + 1
+        ref = gn.fold_gn_affine(st, n, sc, bi, film_scale=s, film_shift=h)
+        ref += gn.gn_moments(st, n)
+        ulps = [_ulps(a, r) for a, r in zip(got, ref)]
+        assert max(ulps) <= 2, (C, ulps)
+
+
+def test_card_fold_refuses_a_graph_it_would_lose(dev):
+    """GroupNorm32's fold alone (the fused route) on the card, with its
+    parameters wanting gradients: refused under grad, since the fold
+    records no graph; under no_grad the same call gives the torch fold."""
+    from ddpm3d_tpu_torch.models.nn import GroupNorm32
+
+    m = GroupNorm32(128).to(dev)
+    x = torch.randn((1, 4, 4, 4, 128), device=dev)
+    st = gn.channel_stats(x.reshape(1, -1, 128))
+    for stats in (None, st):
+        with pytest.raises(RuntimeError, match="no backward"):
+            m(x, stats=stats, fold_only=True)
+        with torch.no_grad():
+            g, b = m(x, stats=stats, fold_only=True)
+            ref = gn.fold_gn_affine(st, 64, m.weight, m.bias)
+        assert max(_ulps(a, r) for a, r in zip((g, b), ref)) <= 2
+
+
+def test_production_forward_folds_in_k1(dev):
+    """A bf16 forward of the production SuperResModel folds every one of
+    its 71 GroupNorms in K1: 71 k1, no fold launched, none in torch; served
+    fused, the 31 K1 launches fold their own sums and the 40 fold_only
+    calls on K4's stats launch the fold."""
+    x = torch.randn((1, 16, 16, 16, 1), device=dev)
+    t = torch.tensor([500], device=dev)
+    for fused, want in ((False, {"k1": 71, "launch": 0, "torch": 0}),
+                        (True, {"k1": 31, "launch": 40, "torch": 0})):
+        model = SuperResModel(middle_attention=False, fused=fused,
+                              dtype=torch.bfloat16,
+                              **_production_kw()).eval().to(dev)
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            model(x, t, low_res=x)
+        assert ops.fold_counts() == want, fused
+        counts = ops.launch_counts()
+        assert counts["gn_stats"] == want["k1"]
+        assert counts["gn_fold"] == want["launch"]
+        del model
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_conv3d_fused_is_deterministic_and_batch_invariant(dev, dtype):
     """The stats are ordered by the volume's shape alone: two runs agree

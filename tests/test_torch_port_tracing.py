@@ -270,13 +270,14 @@ def test_launch_and_route_counts_read_the_registry():
     ops.reset_launch_counts()
     assert set(ops.launch_counts()) == {
         "conv3d", "conv3d_dx", "conv3d_fused", "conv3d_s8", "gn_stats",
-        "gn_apply"}
+        "gn_apply", "gn_fold"}
     routes = ops.route_counts()
     assert set(routes) == (
         {f"{w}.{r}" for w in ("conv3d", "conv3d_dx")
          for r in ops.conv3d.ROUTES}
         | {f"conv3d_fused.{r}" for r in ops.conv3d_fused.ROUTES}
         | {f"conv3d_s8.{r}" for r in ops.conv3d_s8.ROUTES})
+    assert ops.fold_counts() == {"k1": 0, "launch": 0, "torch": 0}
     assert not any(ops.launch_counts().values()) and not any(routes.values())
     tracing.count("launch.gn_stats", 2)
     tracing.count("route.conv3d_s8.conv1x1")
@@ -286,6 +287,7 @@ def test_launch_and_route_counts_read_the_registry():
     report = ops.counter_report()
     assert report["counters"] == {"spatial.halo": 1}
     assert report["launches"] == ops.launch_counts()
+    assert report["folds"] == ops.fold_counts()
     ops.reset_launch_counts()
     assert ops.launch_counts()["gn_stats"] == 0
     assert tracing.counters() == {"spatial.halo": 1}
